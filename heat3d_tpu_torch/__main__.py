@@ -1,0 +1,7 @@
+"""``python -m heat3d_tpu_torch ...`` — the solver command line."""
+
+import sys
+
+from heat3d_tpu_torch.cli import main
+
+sys.exit(main())
