@@ -11,15 +11,18 @@ non-zero without one. Phases, each printing its own lines:
    source, all started together) and print the compiler's resource report;
 3. hold each kernel against its plain PyTorch version on the card, bitwise,
    for 7pt/27pt x Dirichlet (bc 0 and 0.3)/periodic x fp32/bf16 storage at
-   ragged shapes and 256^3;
+   ragged shapes, 128^3 (the golden phase's grid) and 256^3;
 4. the main path against the fp64 golden oracle: the solver command line
    at 128^3, 20 steps, tb=1 and tb=2, 7pt and 27pt, ``--golden-check``;
 5. the main path at full width: ``bench_throughput`` at 1024^3 (fp32 7pt
    tb=2, the headline config; fp32 7pt tb=1; fp32 27pt tb=2; bf16 7pt tb=2)
    with Gcell-updates/s, ms per kernel launch and the bandwidth bound, and
    a periodic 1024^3 run held to conservation of sum(u);
-6. kernel and plain-version times at 256^3 and 1024^3 fp32 7pt, and the
-   library call's (F.pad + F.conv3d, no TF32) at 1024^3.
+6. kernel and plain-version times at 256^3 and 1024^3 fp32 7pt, each
+   kernel held bitwise to its plain version there (also with bc 0.3,
+   periodic, 27pt and bf16 storage: the full-width phase's shapes), and the
+   library call's time (F.pad + F.conv3d, no TF32) at 1024^3, held to the
+   tb=1 kernel within a stated rounding bound.
 
 The kernel launch counts are zeroed just before phase 4 and read just after
 phase 5; the script fails if either kernel was not launched there. The last
@@ -72,11 +75,12 @@ def bandwidth(name: str) -> float:
     raise RuntimeError(f"no bandwidth on record for {name!r}")
 
 
-def _taps(kind: str):
+def _taps(kind: str, n: int = 8):
+    """The solver's taps for stencil ``kind`` on an n^3 grid."""
     from heat3d_tpu_torch.core.config import GridConfig
     from heat3d_tpu_torch.core.stencils import STENCILS, stencil_taps
 
-    g = GridConfig.cube(8)
+    g = GridConfig.cube(n)
     return stencil_taps(STENCILS[kind], g.alpha, g.effective_dt(), g.spacing)
 
 
@@ -118,6 +122,26 @@ def phase_build() -> None:
         print(_build.build_log(name).strip(), flush=True)
 
 
+def _pairs():
+    from heat3d_tpu_torch.ops import stencil_direct as sd
+
+    return {
+        "apply_taps_direct": (sd.apply_taps_direct, sd.apply_taps_direct_ref),
+        "apply_taps_direct2": (sd.apply_taps_direct2, sd.apply_taps_direct2_ref),
+    }
+
+
+def _hold(worst: dict, name: str, got, want, what: str) -> None:
+    """Fail unless kernel output ``got`` equals plain output ``want``
+    bitwise; fold |got - want| into ``worst[name]``."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    worst[name] = max(worst[name], err)
+    _check(torch.equal(got, want), f"{name} != plain {what}: max err {err}")
+
+
 def phase_compare() -> dict:
     """Each kernel against its plain version on the card, bitwise. Returns
     the largest |kernel - plain| of each kernel (0.0 when bitwise)."""
@@ -126,30 +150,19 @@ def phase_compare() -> dict:
 
     from heat3d_tpu_torch.ops import stencil_direct as sd
 
-    pairs = {
-        "apply_taps_direct": (sd.apply_taps_direct, sd.apply_taps_direct_ref),
-        "apply_taps_direct2": (sd.apply_taps_direct2, sd.apply_taps_direct2_ref),
-    }
-    worst = {k: 0.0 for k in pairs}
+    worst = {k: 0.0 for k in _pairs()}
     n = 0
-    for shape in ((33, 17, 129), (64, 72, 200), (256, 256, 256)):
+    for shape in ((33, 17, 129), (64, 72, 200), (128, 128, 128), (256, 256, 256)):
         base = np.random.default_rng(7).standard_normal(shape).astype(np.float32)
         for dtype in (torch.float32, torch.bfloat16):
             u = torch.from_numpy(base).cuda().to(dtype)
             for kind in ("7pt", "27pt"):
                 taps = _taps(kind)
                 for periodic, bcv in ((False, 0.0), (False, 0.3), (True, 0.0)):
-                    for name, (kern, ref) in pairs.items():
-                        got = kern(u, taps, periodic, bcv)
-                        want = ref(u, taps, periodic, bcv)
-                        torch.cuda.synchronize()
-                        err = float((got.double() - want.double()).abs().max())
-                        worst[name] = max(worst[name], err)
-                        _check(
-                            torch.equal(got, want),
-                            f"{name} != plain at {shape} {dtype} {kind} "
-                            f"periodic={periodic} bc={bcv}: max err {err}",
-                        )
+                    for name, (kern, ref) in _pairs().items():
+                        _hold(worst, name, kern(u, taps, periodic, bcv),
+                              ref(u, taps, periodic, bcv),
+                              f"at {shape} {dtype} {kind} periodic={periodic} bc={bcv}")
                         n += 1
     _say("compare", cases=n, bitwise=True, max_abs_err=worst,
          launches=sd.launch_counts())
@@ -231,32 +244,47 @@ def _time_ms(fn, iters: int = 5) -> float:
     return min(time_fn(fn, warmup=1, iters=iters)) * 1e3
 
 
-def phase_kernel_times(bw: float) -> dict:
-    """Kernel and plain-version times at 256^3 and 1024^3 fp32 7pt, and the
-    library call's at 1024^3. Returns the 1024^3 numbers of each kernel."""
+def phase_kernel_times(bw: float, worst: dict) -> dict:
+    """Kernel and plain-version times at 256^3 and 1024^3 fp32 7pt, with
+    each kernel held bitwise to its plain version at those sizes (7pt fp32
+    with bc 0, 0.3 and periodic, 27pt fp32 and 7pt bf16: the shapes and
+    settings the full-width phase gives the kernels), folding the errors
+    into ``worst``; and the library call's time at 1024^3, held to the tb=1
+    kernel within a rounding bound. Returns the 1024^3 numbers of each
+    kernel."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
-    from heat3d_tpu_torch.ops import stencil_direct as sd
-
-    taps = _taps("7pt")
-    flops = flops_per_update(taps)
     times = {}
     for n in (256, 1024):
+        taps = _taps("7pt", n)
+        flops = flops_per_update(taps)
         u = torch.rand((n, n, n), device="cuda")
         out = torch.empty_like(u)
         times[n] = {}
-        for name, kern, ref, updates in (
-            ("apply_taps_direct", sd.apply_taps_direct, sd.apply_taps_direct_ref, 1),
-            ("apply_taps_direct2", sd.apply_taps_direct2, sd.apply_taps_direct2_ref, 2),
-        ):
+        cases = 0
+        for (name, (kern, ref)), updates in zip(_pairs().items(), (1, 2)):
             ms = _time_ms(lambda: kern(u, taps, False, 0.0, out=out), iters=10)
             plain_ms = _time_ms(lambda: ref(u, taps, False, 0.0), iters=3)
-            torch.cuda.empty_cache()
+            # ``out`` holds the last timed launch's result
+            _hold(worst, name, out, ref(u, taps, False, 0.0),
+                  f"at {n}^3 7pt float32 bc=0.0")
+            for kind, dtype, periodic, bcv in (
+                ("7pt", torch.float32, False, 0.3), ("7pt", torch.float32, True, 0.0),
+                ("27pt", torch.float32, False, 0.0), ("7pt", torch.bfloat16, False, 0.0),
+            ):
+                v = u.to(dtype)
+                t = _taps(kind, n)
+                _hold(worst, name, kern(v, t, periodic, bcv), ref(v, t, periodic, bcv),
+                      f"at {n}^3 {kind} {dtype} periodic={periodic} bc={bcv}")
+                del v
+                torch.cuda.empty_cache()
+            cases += 5
             b_ms, by = bound_ms(n**3, 4, updates, flops, bw)
             times[n][name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                               "bound_by": by, "library_ms": None}
+        extra = {}
         if n == 1024:
             # yardstick, never called by the port: one cuDNN convolution
             # (TF32 off) over the Dirichlet-padded field computes the same
@@ -268,12 +296,19 @@ def phase_kernel_times(bw: float) -> dict:
                 return F.conv3d(F.pad(u, (1, 1, 1, 1, 1, 1), value=0.0)[None, None], w)
 
             times[n]["apply_taps_direct"]["library_ms"] = _time_ms(library, iters=3)
-            lib_err = float((library()[0, 0] - sd.apply_taps_direct(u, taps)).abs().max())
+            kern = _pairs()["apply_taps_direct"][0]
+            lib_err = float((library()[0, 0] - kern(u, taps, out=out)).abs().max())
+            # both sides sum at most 27 fp32 products in their own order: each
+            # is within 28 * 2^-24 * sum|w| * max|u| of the exact sum
+            lib_tol = 2 * 28 * 2.0**-24 * float(np.abs(taps).sum()) * float(u.abs().max())
+            _check(lib_err <= lib_tol,
+                   f"library call disagrees with the tb=1 kernel: {lib_err} > {lib_tol}")
+            extra = {"library_vs_kernel_max_abs_err": lib_err,
+                     "library_vs_kernel_tol": lib_tol}
         del u, out
         torch.cuda.empty_cache()
         _say("kernel_times", grid=[n, n, n], stencil="7pt", dtype="float32",
-             times=times[n], **({"library_vs_kernel_max_abs_err": lib_err}
-                                if n == 1024 else {}))
+             times=times[n], bitwise_cases=cases, max_abs_err=worst, **extra)
     return times[1024]
 
 
@@ -300,7 +335,7 @@ def main() -> int:
         _check(count > 0, f"{name} was not launched on the main path")
     _say("main_path", kernel_launches=launches)
 
-    times = phase_kernel_times(bw)
+    times = phase_kernel_times(bw, worst)
     kernels = [
         {"name": name, "route": "cuda", "source": _SOURCE,
          "replaces": _REPLACES[name], "launches": launches[name],

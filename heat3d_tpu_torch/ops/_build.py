@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -60,44 +61,39 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _build(name: str) -> float:
+    """Compile ``csrc/<name>.cu`` unless it is built already; returns the
+    wall seconds of the build (0.0 when it was built). The compiler's output
+    (``-Xptxas -v``: registers, shared memory, spills) lands beside the
+    library as ``.log``."""
+    so = _target(name)
+    if so.exists():
+        return 0.0
+    # a pid-suffixed temp file, renamed into place: a concurrent process
+    # never loads a half-written library
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, check=False,
+    )
+    so.with_suffix(".log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {name}: nvcc exit "
+                           f"{proc.returncode}\n{proc.stdout}")
+    os.replace(tmp, so)
+    return time.perf_counter() - t0
+
+
 def build_all(names=None) -> Dict[str, float]:
-    """Compile the named sources (default: every ``csrc/*.cu``) that are not
-    built yet, one ``nvcc`` per source, all started together. Returns the
-    wall seconds of each build (0.0 for a library already built). The
-    compiler's output (``-Xptxas -v``: registers, shared memory, spills)
-    lands beside each library as ``.log``."""
+    """Compile the named sources (default: every ``csrc/*.cu``), one
+    ``nvcc`` per source, all started together. Returns the wall seconds of
+    each build (0.0 for a library already built)."""
     if names is None:
         names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
     BUILD_DIR.mkdir(exist_ok=True)
-    nvcc = None
-    running = {}
-    seconds = {}
-    for name in names:
-        so = _target(name)
-        if so.exists():
-            seconds[name] = 0.0
-            continue
-        nvcc = nvcc or nvcc_path()
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        log = open(so.with_suffix(".log"), "w")
-        proc = subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
-            stdout=log,
-            stderr=subprocess.STDOUT,
-        )
-        running[name] = (proc, tmp, so, log, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, so, log, t0) in running.items():
-        rc = proc.wait()
-        log.close()
-        seconds[name] = time.perf_counter() - t0
-        if rc != 0:
-            failed.append(f"{name}: nvcc exit {rc}\n{so.with_suffix('.log').read_text()}")
-            continue
-        os.replace(tmp, so)
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return seconds
+    with ThreadPoolExecutor(max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(_build, names)))
 
 
 def build_log(name: str) -> str:
