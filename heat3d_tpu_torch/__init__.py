@@ -9,8 +9,10 @@ kernel on a ported path is a CUDA kernel written for ``sm_90a``
 ``heat3d_tpu``.
 
 Ported so far: the single-device explicit-Euler solve (``HeatSolver3D`` on
-a (1,1,1) mesh, 7pt/27pt, fp32/bf16 storage, time blocking 1 or 2) through
-the direct-stencil kernels (``ops.stencil_direct``). Configs outside that
+a (1,1,1) mesh, 7pt/27pt, fp32/bf16 storage, any time blocking k >= 1,
+backend auto/pallas/jnp/conv) through the direct-stencil kernels
+(``ops.stencil_direct``) and, on the exchange path (``parallel.halo``), the
+stream and streamk kernels (``ops.stencil_stream``). Configs outside that
 scope raise "not ported yet" (``core.config.check_ported``).
 """
 

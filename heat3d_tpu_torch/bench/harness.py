@@ -4,7 +4,9 @@ Port of ``heat3d_tpu.bench.harness.bench_throughput``: Gcell-updates per
 second of ``HeatSolver3D.run``, best of ``repeats`` timed runs after a
 warmup, with the step count calibrated up until a run lasts long enough to
 average over many launches. Times come from CUDA events (utils.timing).
-Rows keep the JAX row's field names where the field exists.
+Rows keep the JAX row's field names where the field exists; the Gcell/s
+are effective updates (cells x steps / time), never the raw recompute of
+a superstep's ghost rings, which ``cost_redundant_flops_frac`` reports.
 """
 
 from __future__ import annotations
@@ -14,9 +16,14 @@ from typing import Dict
 
 import torch
 
+from heat3d_tpu_torch import ops
 from heat3d_tpu_torch.core.config import SolverConfig
-from heat3d_tpu_torch.models.heat3d import HeatSolver3D
-from heat3d_tpu_torch.ops import stencil_direct
+from heat3d_tpu_torch.models.heat3d import HeatSolver3D, resolved_backend_name
+from heat3d_tpu_torch.parallel.step import (
+    redundant_flops_frac,
+    step_route,
+    superstep_route,
+)
 from heat3d_tpu_torch.utils.timing import calibrate_trip_count, cuda_time
 
 # a timed run lasts at least this long
@@ -37,11 +44,13 @@ def bench_throughput(
 ) -> Dict:
     """Gcell-updates/s of the compiled-kernel time loop on the current CUDA
     device. ``steps`` is a floor, calibrated up; the best run is reported.
-    ``ms_per_launch`` is the best run's time over its kernel launches;
-    ``kernel_launches`` counts each kernel's launches in the benchmark."""
+    ``ms_per_launch`` is the best run's time over its supersteps and
+    remainder steps (on the exchange path each is an exchange plus a
+    kernel launch); ``kernel_launches`` counts each kernel's launches in
+    the benchmark."""
     if not torch.cuda.is_available():
         raise RuntimeError("bench_throughput measures a CUDA device; none found")
-    before = stencil_direct.launch_counts()
+    before = ops.launch_counts()
     solver = HeatSolver3D(cfg)
     u = solver.init_state("hot-cube")
     for _ in range(warmup):
@@ -58,7 +67,7 @@ def bench_throughput(
     steps_requested = steps
     steps, first = calibrate_trip_count(timed, _FLOOR_S, start=steps)
     times = [first] + [timed(steps) for _ in range(repeats - 1)]
-    after = stencil_direct.launch_counts()
+    after = ops.launch_counts()
     tb = cfg.time_blocking
     per_run = steps // tb + steps % tb
     best = min(times)
@@ -77,8 +86,10 @@ def bench_throughput(
         "mesh": list(cfg.mesh.shape),
         "dtype": cfg.precision.storage,
         "compute_dtype": cfg.precision.compute,
-        "backend": cfg.backend,
+        "backend": resolved_backend_name(cfg),
         "time_blocking": cfg.time_blocking,
+        "step_route": step_route(cfg),
+        "superstep_route": superstep_route(cfg) if tb > 1 else None,
         "steps": steps,
         "steps_requested": steps_requested,
         "batch_shape": [1],
@@ -90,6 +101,10 @@ def bench_throughput(
         "gcell_updates_per_sec": gcells,
         "launches_per_run": per_run,
         "ms_per_launch": best / per_run * 1e3,
+        # fraction of a superstep's executed stencil flops that are
+        # ghost-ring recompute: the discount between the effective Gcell/s
+        # above and what the card executed
+        "cost_redundant_flops_frac": redundant_flops_frac(cfg),
         # every launch of the whole benchmark (warmup and calibration too)
         "kernel_launches": {k: after[k] - before[k] for k in after},
     }

@@ -45,8 +45,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", choices=["fp32", "bf16"], default="fp32",
                    help="field storage dtype; compute and residual are fp32")
     p.add_argument("--time-blocking", type=int, default=1,
-                   help="updates per kernel sweep (2 = the fused two-update "
-                   "kernel)")
+                   help="updates per superstep, k >= 1 (2 = the fused "
+                   "two-update direct kernel; 3-4 = one width-k exchange and "
+                   "the fused streamk kernel; HEAT3D_NO_DIRECT=1 puts every "
+                   "route on the exchange path)")
+    p.add_argument("--backend", choices=["auto", "pallas", "jnp", "conv"],
+                   default="auto",
+                   help="padded-block compute of the exchange path: auto/pallas "
+                   "= the CUDA kernels, jnp = the plain PyTorch chain, conv = "
+                   "one F.conv3d (jnp and conv also take every update off the "
+                   "direct kernels)")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--init", default="hot-cube", help="hot-cube | gaussian | random")
     p.add_argument("--seed", type=int, default=0)
@@ -83,6 +91,7 @@ def config_from_args(args) -> SolverConfig:
             residual_every=args.residual_every,
         ),
         time_blocking=args.time_blocking,
+        backend=args.backend,
     )
 
 
@@ -100,8 +109,8 @@ def _sync(device: torch.device) -> None:
 
 
 def _main(argv: Optional[List[str]]) -> int:
-    from heat3d_tpu_torch.models.heat3d import HeatSolver3D
-    from heat3d_tpu_torch.ops.stencil_direct import launch_counts
+    from heat3d_tpu_torch.models.heat3d import HeatSolver3D, resolved_backend_name
+    from heat3d_tpu_torch.ops import launch_counts
 
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
@@ -150,7 +159,7 @@ def _main(argv: Optional[List[str]]) -> int:
         "integrator": cfg.integrator,
         "mesh": list(cfg.mesh.shape),
         "dtype": cfg.precision.storage,
-        "backend": cfg.backend,
+        "backend": resolved_backend_name(cfg),
         "time_blocking": cfg.time_blocking,
         "platform": "gpu" if on_gpu else "cpu",
         "device_name": torch.cuda.get_device_name(solver.device) if on_gpu else "cpu",

@@ -432,15 +432,18 @@ def _unported(what: str) -> ValueError:
     return ValueError(
         f"{what} is not ported yet: the PyTorch/CUDA port runs the "
         "single-device explicit-Euler solve (mesh (1,1,1), time_blocking "
-        "1 or 2, float32 compute) through its direct-stencil kernels"
+        "k >= 1, backend auto|pallas|jnp|conv, float32 compute) through its "
+        "direct and exchange-path (stream, streamk) kernels"
     )
 
 
 def check_ported(cfg: "SolverConfig") -> None:
     """Reject every config this port cannot run yet, naming the knob.
 
-    The JAX package resolves the ``auto`` knobs through its tuning cache;
-    the port has no tuning cache yet, so those are rejected too."""
+    The JAX package resolves the ``auto`` knobs (``time_blocking=0``,
+    ``halo='auto'``) through its tuning cache; the port has no tuning cache
+    yet, so those are rejected too. ``backend='auto'`` needs no cache: it
+    always takes the kernels."""
     if cfg.mesh.shape != (1, 1, 1):
         raise _unported(f"mesh {cfg.mesh.shape} (several devices)")
     if cfg.halo != "ppermute":
@@ -453,11 +456,11 @@ def check_ported(cfg: "SolverConfig") -> None:
         raise _unported(f"halo_plan={cfg.halo_plan!r}")
     if cfg.halo_order != "axis":
         raise _unported(f"halo_order={cfg.halo_order!r}")
-    if cfg.time_blocking not in (1, 2):
-        raise _unported(f"time_blocking={cfg.time_blocking}")
+    if cfg.time_blocking < 1:
+        raise _unported(f"time_blocking={cfg.time_blocking} (auto)")
     if cfg.integrator != DEFAULT_INTEGRATOR:
         raise _unported(f"integrator={cfg.integrator!r}")
-    if cfg.backend not in ("auto", "pallas"):
+    if cfg.backend not in ("auto", "pallas", "jnp", "conv"):
         raise _unported(f"backend={cfg.backend!r}")
     if cfg.precision.compute != "float32":
         raise _unported(f"compute dtype {cfg.precision.compute!r}")

@@ -3,10 +3,12 @@
 Port of ``heat3d_tpu.models.heat3d.HeatSolver3D`` for the single-device
 explicit-Euler solve: ``init_state`` -> ``run`` (fixed steps) or
 ``run_to_convergence``, plus ``step``, ``step_with_residual`` and
-``gather``. Every update goes through the direct-stencil kernels
-(``ops.stencil_direct``). The solver runs on ``cuda`` unless the caller
-passes ``device="cpu"``, where the kernels' plain versions run (tests); on a
-host without CUDA, asking for the default device raises.
+``gather``. Updates go through the routes of ``parallel.step``: the
+direct-stencil kernels (``ops.stencil_direct``), or the exchange path with
+the stream/streamk kernels (``ops.stencil_stream``) or the backend's
+plain/conv arm. The solver runs on ``cuda`` unless the caller passes
+``device="cpu"``, where the kernels' plain versions run (tests); on a host
+without CUDA, asking for the default device raises.
 
 Not ported yet: checkpoints, the supervised/elastic run, slice dumps.
 """
@@ -21,13 +23,52 @@ import torch
 
 from heat3d_tpu_torch.core import golden
 from heat3d_tpu_torch.core.config import SolverConfig
+from heat3d_tpu_torch.ops.stencil_eager import (
+    apply_taps_conv_padded,
+    apply_taps_padded,
+)
+from heat3d_tpu_torch.ops.stencil_stream import make_stream_compute
 from heat3d_tpu_torch.parallel.step import (
+    LocalCompute,
+    PadBuffers,
     PingPong,
     _solver_taps,
     make_converge_fn,
     make_multistep_fn,
     make_step_fn,
 )
+
+
+def resolved_backend_name(cfg: SolverConfig) -> str:
+    """The concrete backend name of this config's padded-block compute:
+    'auto' resolves to 'pallas', the port's kernels (on the card; their
+    plain versions on the CPU). Only an explicit request picks 'jnp' or
+    'conv'."""
+    return "pallas" if cfg.backend == "auto" else cfg.backend
+
+
+def _into(fn) -> LocalCompute:
+    def compute(up, taps, out=None):
+        res = fn(up, taps)
+        return res if out is None else out.copy_(res)
+
+    return compute
+
+
+def _select_backend(cfg: SolverConfig) -> LocalCompute:
+    """The padded-block compute ``(up, taps, out=None) -> interior`` of the
+    exchange path (port of the JAX ``_select_backend``):
+
+    'pallas' / 'auto' -- the stream kernel (``make_stream_compute``);
+    'jnp'  -- the plain PyTorch tap chain (``apply_taps_padded``);
+    'conv' -- one ``F.conv3d`` (``apply_taps_conv_padded``), the library
+              A/B arm."""
+    name = resolved_backend_name(cfg)
+    if name == "jnp":
+        return _into(apply_taps_padded)
+    if name == "conv":
+        return _into(apply_taps_conv_padded)
+    return make_stream_compute(cfg)
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -83,18 +124,22 @@ class HeatSolver3D:
             taps, dtype=np.float64
         )
         self._pp = PingPong()
-        self._step = make_step_fn(cfg, self.taps)
-        self._step_res = make_step_fn(cfg, self.taps, with_residual=True)
-        self._converge = make_converge_fn(cfg, self.taps, self._pp)
-        # built on first use, as in the JAX package: the tb=2 extent check
-        # belongs to the fixed-step loop
+        self._pads = PadBuffers()
+        self._compute = _select_backend(cfg)
+        self._step = make_step_fn(cfg, self.taps, False, self._compute, self._pads)
+        self._step_res = make_step_fn(cfg, self.taps, True, self._compute, self._pads)
+        self._converge = make_converge_fn(
+            cfg, self.taps, self._pp, self._compute, self._pads
+        )
+        # built on first use, as in the JAX package: the superstep's extent
+        # check belongs to the fixed-step loop
         self._multistep_cache = None
 
     @property
     def _multistep(self):
         if self._multistep_cache is None:
             self._multistep_cache = make_multistep_fn(
-                self.cfg, self.taps, self._pp
+                self.cfg, self.taps, self._pp, self._compute, self._pads
             )
         return self._multistep_cache
 
@@ -158,8 +203,8 @@ class HeatSolver3D:
         return self._step_res(u)
 
     def run(self, u: torch.Tensor, num_steps: int) -> torch.Tensor:
-        """``num_steps`` updates (tb=2: supersteps plus a trailing single
-        step for an odd count). Consumes ``u``."""
+        """``num_steps`` updates (time_blocking k > 1: ``num_steps // k``
+        supersteps, then the remainder as single steps). Consumes ``u``."""
         return self._multistep(u, int(num_steps))
 
     def run_to_convergence(

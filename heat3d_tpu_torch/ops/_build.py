@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds). Builds happen on first use, into ``_build/`` inside the
-package (listed in ``.gitignore``), named by a hash of the source and the
-flags, so an edited source rebuilds and concurrent processes never load a
-half-written file.
+package (listed in ``.gitignore``), named by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header rebuilds and concurrent processes never load a half-written file.
 """
 
 from __future__ import annotations
@@ -55,8 +55,12 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    # the source and every header beside it: an edited shared header must
+    # rebuild each library that includes it
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -99,7 +99,7 @@ def _program(taps_bytes: bytes, factor_7pt: str, factor_y: str) -> _Program:
     return prog
 
 
-def _check_route(taps: np.ndarray) -> np.ndarray:
+def check_route(taps: np.ndarray) -> np.ndarray:
     taps = np.ascontiguousarray(taps, dtype=np.float64)
     if taps.shape != (3, 3, 3):
         raise ValueError(f"taps must be (3,3,3), got {taps.shape}")
@@ -133,7 +133,12 @@ def apply_taps_direct2_ref(
     return apply_taps_direct_ref(mid, taps, periodic, bc_value)
 
 
-def _check_tensors(u: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
+def check_tensors(
+    u: torch.Tensor, out: Optional[torch.Tensor], out_shape=None
+) -> torch.Tensor:
+    """Check a kernel's input ``u`` and its optional preallocated ``out``
+    (shape ``out_shape``, default ``u``'s); return ``out`` or a new one."""
+    out_shape = tuple(u.shape) if out_shape is None else tuple(out_shape)
     if u.dim() != 3:
         raise ValueError(f"field must be 3-D, got shape {tuple(u.shape)}")
     if u.dtype not in _DTYPE_CODES:
@@ -143,11 +148,11 @@ def _check_tensors(u: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor
     if max(u.shape) >= 2**31:
         raise ValueError(f"extent too large: {tuple(u.shape)}")
     if out is None:
-        return torch.empty_like(u)
-    if out.shape != u.shape or out.dtype != u.dtype or out.device != u.device:
+        return torch.empty(out_shape, dtype=u.dtype, device=u.device)
+    if tuple(out.shape) != out_shape or out.dtype != u.dtype or out.device != u.device:
         raise ValueError(
-            f"out must match the field: got {tuple(out.shape)} {out.dtype} "
-            f"{out.device}, want {tuple(u.shape)} {u.dtype} {u.device}"
+            f"out must match the result: got {tuple(out.shape)} {out.dtype} "
+            f"{out.device}, want {out_shape} {u.dtype} {u.device}"
         )
     if not out.is_contiguous():
         raise ValueError("out must be contiguous")
@@ -160,10 +165,25 @@ def _check_tensors(u: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor
     return out
 
 
-def _xchunk(shape, lib) -> int:
+def chain_program(taps: np.ndarray) -> _Program:
+    """The kernels' emission program of ``taps`` under the current
+    factoring knobs (cached per taps and knobs)."""
+    return _program(
+        taps.tobytes(),
+        os.environ.get("HEAT3D_FACTOR_7PT", ""),
+        os.environ.get("HEAT3D_FACTOR_Y", "1"),
+    )
+
+
+def storage_bc(bc_value: float, dtype: torch.dtype) -> float:
+    """``bc_value`` rounded to the storage dtype, as the plain version's
+    constant pad (and the Pallas kernels' ``dtype.type(bc)``) rounds it."""
+    return float(torch.full((), bc_value, dtype=dtype).float())
+
+
+def _xchunk(shape, ty: int, tz: int) -> int:
+    """x-chunk length of a launch over (nx, ny, nz) with (ty, tz) tiles."""
     nx, ny, nz = shape
-    ty = lib.heat3d_direct_tile_y()
-    tz = lib.heat3d_direct_tile_z()
     tiles = -(-ny // ty) * -(-nz // tz)
     chunks = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-nx // _MIN_XCHUNK)))
     return -(-nx // chunks)
@@ -189,22 +209,18 @@ def _lib():
 def _launch(halo, u, taps, periodic, bc_value, out) -> torch.Tensor:
     if u.device.type != "cuda":
         raise ValueError(f"no kernel for device {u.device}")
-    out = _check_tensors(u, out)
+    out = check_tensors(u, out)
     lib = _lib()
-    prog = _program(
-        taps.tobytes(),
-        os.environ.get("HEAT3D_FACTOR_7PT", ""),
-        os.environ.get("HEAT3D_FACTOR_Y", "1"),
-    )
-    # bc_value rounded to the storage dtype first, as the plain version's
-    # constant pad (and the Pallas kernel's u_ref.dtype.type(bc)) rounds it
-    bc = float(torch.full((), bc_value, dtype=u.dtype).float())
+    prog = chain_program(taps)
+    bc = storage_bc(bc_value, u.dtype)
     nx, ny, nz = u.shape
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = lib.heat3d_direct_launch(
             halo, _DTYPE_CODES[u.dtype], u.data_ptr(), out.data_ptr(),
-            nx, ny, nz, _xchunk(u.shape, lib), int(bool(periodic)), bc,
+            nx, ny, nz,
+            _xchunk(u.shape, lib.heat3d_direct_tile_y(), lib.heat3d_direct_tile_z()),
+            int(bool(periodic)), bc,
             ctypes.byref(prog), stream,
         )
     if err != 0:
@@ -226,7 +242,7 @@ def apply_taps_direct(
     (nx, ny, nz) in, (nx, ny, nz) out in the same dtype (float32 or
     bfloat16 storage, float32 compute). ``out`` (optional, preallocated)
     must not overlap ``u``."""
-    taps = _check_route(taps)
+    taps = check_route(taps)
     if u.device.type == "cpu":
         res = apply_taps_direct_ref(u, taps, periodic, bc_value)
         return res if out is None else out.copy_(res)
@@ -246,7 +262,7 @@ def apply_taps_direct2(
     intermediate rounded to the storage dtype and its Dirichlet domain
     ghosts pinned to ``bc_value``: equal to two :func:`apply_taps_direct`
     calls."""
-    taps = _check_route(taps)
+    taps = check_route(taps)
     if u.device.type == "cpu":
         res = apply_taps_direct2_ref(u, taps, periodic, bc_value)
         return res if out is None else out.copy_(res)

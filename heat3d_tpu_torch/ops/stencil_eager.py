@@ -73,6 +73,40 @@ def _chain_accumulate(upc: torch.Tensor, flat, scalar) -> torch.Tensor:
     return accumulate_taps(flat, term, scalar)
 
 
+def apply_taps_conv_padded(up: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
+    """The ``backend='conv'`` arm, port of ``stencil_jnp.apply_taps_conv_padded``:
+    one ``F.conv3d`` (cross-correlation, as XLA's conv: no kernel flip,
+    matching ``out[c] = sum_d T[d] u[c+d-1]``) of the float32 taps over
+    the ghost-padded block, VALID, in float32 with TF32 off on the card.
+    The JAX package computes it outside any Pallas kernel too: a library
+    call is this arm's definition. Not bitwise to the tap chain (cuDNN and
+    oneDNN sum in their own order)."""
+    w = torch.from_numpy(np.asarray(taps, dtype=np.float32)).to(up.device)
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        y = F.conv3d(up.float()[None, None], w[None, None])
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+    return y[0, 0].to(up.dtype)
+
+
+def pin_outside(
+    arr: torch.Tensor, global_indices, extents, bc_value: float
+) -> torch.Tensor:
+    """``arr`` with every cell whose global index (``global_indices[a]``, a
+    1-D index tensor per axis) lies outside ``[0, extents[a])`` on any axis
+    set to ``bc_value`` rounded to ``arr``'s dtype."""
+    mask = None
+    for axis, (g, n) in enumerate(zip(global_indices, extents)):
+        shape = [1, 1, 1]
+        shape[axis] = -1
+        m = ((g >= 0) & (g < n)).reshape(shape)
+        mask = m if mask is None else mask & m
+    bc = torch.full((), bc_value, dtype=arr.dtype, device=arr.device)
+    return torch.where(mask, arr, bc)
+
+
 def residual_sumsq(
     u_new: torch.Tensor,
     u_old: torch.Tensor,

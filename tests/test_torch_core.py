@@ -90,9 +90,9 @@ def test_decomposition_equal():
         (dict(fused_rdma="on"), "fused_rdma='on'"),
         (dict(halo_plan="partitioned"), "halo_plan='partitioned'"),
         (dict(halo_order="pairwise"), "halo_order='pairwise'"),
-        (dict(time_blocking=3), "time_blocking=3"),
+        (dict(time_blocking=0), "time_blocking=0 (auto)"),
         (dict(integrator="implicit-cg"), "integrator='implicit-cg'"),
-        (dict(backend="conv"), "backend='conv'"),
+        (dict(integrator="leapfrog", equation="wave"), "integrator='leapfrog'"),
         (dict(precision=config.Precision(compute="bfloat16")), "compute dtype"),
     ],
 )
@@ -104,12 +104,14 @@ def test_config_rejects_unported(kw, needle):
 
 
 def test_config_accepts_slice_scope():
-    for tb in (1, 2):
+    for tb in (1, 2, 3, 4, 5):
         for storage in ("float32", "bfloat16"):
             for kind in ("7pt", "27pt"):
-                config.SolverConfig(
-                    grid=config.GridConfig.cube(8),
-                    stencil=config.StencilConfig(kind=kind),
-                    precision=config.Precision(storage=storage),
-                    time_blocking=tb,
-                )
+                for backend in ("auto", "pallas", "jnp", "conv"):
+                    config.SolverConfig(
+                        grid=config.GridConfig.cube(8),
+                        stencil=config.StencilConfig(kind=kind),
+                        precision=config.Precision(storage=storage),
+                        time_blocking=tb,
+                        backend=backend,
+                    )

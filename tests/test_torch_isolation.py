@@ -40,14 +40,17 @@ def test_no_jax_or_reference_import(path):
 
 def test_scan_sees_the_package():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
-    assert "heat3d_tpu_torch/ops/stencil_direct.py" in names
+    for module in ("ops/stencil_direct.py", "ops/stencil_stream.py",
+                   "parallel/halo.py", "parallel/step.py"):
+        assert f"heat3d_tpu_torch/{module}" in names
     assert not _forbidden("heat3d_tpu_torch.ops") and _forbidden("heat3d_tpu.ops")
 
 
 def test_import_leaves_jax_unloaded():
     code = (
         "import sys, heat3d_tpu_torch, heat3d_tpu_torch.cli, heat3d_tpu_torch.bench, "
-        "heat3d_tpu_torch.carry, heat3d_tpu_torch.ops.stencil_direct\n"
+        "heat3d_tpu_torch.carry, heat3d_tpu_torch.ops.stencil_direct, "
+        "heat3d_tpu_torch.ops.stencil_stream, heat3d_tpu_torch.parallel.halo\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'heat3d_tpu'))\n"
         "print(','.join(bad))\n"
@@ -71,11 +74,14 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 def test_wrappers_refuse_non_cuda_non_cpu_tensors():
     from heat3d_tpu_torch.ops import stencil_direct as sd
+    from heat3d_tpu_torch.ops import stencil_stream as ss
 
-    u = torch.zeros((4, 4, 4), device="meta")
+    u = torch.zeros((8, 8, 8), device="meta")
     taps = sd.np.zeros((3, 3, 3))
     taps[1, 1, 1] = 1.0
-    for kernel in (sd.apply_taps_direct, sd.apply_taps_direct2):
+    for kernel in (sd.apply_taps_direct, sd.apply_taps_direct2, ss.apply_taps_stream,
+                   lambda u, taps: ss.apply_taps_streamk(u, taps, 3),
+                   lambda u, taps: ss.apply_taps_stream2(u, taps)):
         with pytest.raises(ValueError, match="no kernel for device"):
             kernel(u, taps)
 

@@ -1,5 +1,6 @@
-"""Shared helpers of the port's direct-stencil tests
-(tests/test_torch_stencil*.py): the same inputs for both packages and the
+"""Shared helpers of the port's stencil tests (tests/test_torch_stencil*.py,
+tests/test_torch_stream.py, tests/test_torch_stepk.py): the same inputs for
+both packages, the JAX package's (1,1,1)-mesh config and shard_map, and the
 stated tolerance.
 
 Tolerance: not bitwise. XLA's CPU backend contracts some multiply-adds of
@@ -7,10 +8,11 @@ the chain into FMAs, eager PyTorch rounds each operation, so the two differ
 by an ulp or two of float32. Per update: float32 storage within
 ``rtol=1e-6, atol=1e-7`` (the tests/test_solver.py tier); bf16 storage
 within one bf16 ulp of the value (a float32 ulp can flip the final
-rounding) plus the float32 ``atol``. The tb=2 kernel applies two updates,
-so its budget is twice that, and under bf16 one bf16 ulp of the field's
-largest value more: an intermediate cell rounded the other way reaches its
-neighbours through taps whose weights sum to one.
+rounding) plus the float32 ``atol``. A kernel of k fused updates (direct2,
+streamk) gets k times that budget, and under bf16 k-1 bf16 ulps of the
+field's largest value more: an intermediate cell rounded the other way
+reaches its neighbours through taps whose weights sum to one. The byte
+movers (the halo exchange) are held byte-equal.
 """
 
 import jax.numpy as jnp
@@ -57,6 +59,33 @@ def assert_close_per_update(got: np.ndarray, want: np.ndarray, storage: str,
            + (updates - 1) * bf16_ulp(np.abs(want).max()))
     excess = np.abs(got - want) - tol
     assert excess.max() <= 0, f"{err_msg}: {excess.max()} beyond tolerance"
+
+
+def ref_config(shape, kind="7pt", periodic=False, bc_value=0.0, tb=1):
+    """A JAX-package SolverConfig of one (1,1,1)-mesh block."""
+    from heat3d_tpu.core import config as rc
+
+    bc = rc.BoundaryCondition.PERIODIC if periodic else rc.BoundaryCondition.DIRICHLET
+    return rc.SolverConfig(
+        grid=rc.GridConfig(shape=shape),
+        stencil=rc.StencilConfig(kind=kind, bc=bc, bc_value=bc_value),
+        mesh=rc.MeshConfig(shape=(1, 1, 1)),
+        backend="jnp",
+        time_blocking=tb,
+    )
+
+
+def on_mesh(fn, cfg, *args):
+    """``fn(*args)`` inside ``shard_map`` over the (1,1,1) mesh of ``cfg``:
+    the JAX exchange and the streamk kernels read the mesh axes."""
+    from jax.sharding import PartitionSpec as P
+
+    from heat3d_tpu.parallel.topology import build_mesh
+    from heat3d_tpu.utils.compat import shard_map
+
+    spec = P(*cfg.mesh.axis_names)
+    return shard_map(fn, mesh=build_mesh(cfg.mesh), in_specs=spec,
+                     out_specs=spec, check_vma=False)(*args)
 
 
 def _check_pair(kernel, ref_kernel, shape, kind, dtype, seed, updates):
