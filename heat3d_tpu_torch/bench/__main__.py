@@ -1,8 +1,8 @@
 """``python -m heat3d_tpu_torch.bench`` — one throughput row as JSON.
 
 Takes the solver command line's config flags (--grid, --stencil, --bc,
---dtype, --time-blocking, --steps, ...) plus --repeats, and prints one JSON
-row. Needs a CUDA device."""
+--dtype, --time-blocking, --mesh, --halo, --device, --steps, ...) plus
+--repeats, and prints one JSON row. Needs a CUDA device."""
 
 from __future__ import annotations
 
@@ -22,7 +22,8 @@ def main(argv=None) -> int:
     p.add_argument("--repeats", type=int, default=3)
     args = p.parse_args(argv)
     cfg = config_from_args(args)
-    print(json.dumps(bench_throughput(cfg, steps=args.steps, repeats=args.repeats)))
+    print(json.dumps(bench_throughput(cfg, steps=args.steps, repeats=args.repeats,
+                                      device=args.device)))
     return 0
 
 

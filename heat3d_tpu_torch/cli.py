@@ -1,11 +1,14 @@
 """Command line: ``python -m heat3d_tpu_torch --grid N --steps S ...``.
 
-Port of the single-device subset of ``heat3d_tpu.cli``: build the config,
-run the solver (fixed steps, or to a residual tolerance), and print one
-JSON summary line with the JAX CLI's key names (``gcell_updates_per_sec``,
-``residual_l2``, ``golden_pass``, ...) plus the kernel launch counts of the
-run. Runs on the GPU unless ``--device cpu`` is given. Human-readable
-errors go to stderr with exit code 2.
+Port of a subset of ``heat3d_tpu.cli``: build the config, run the solver
+(fixed steps, or to a residual tolerance), and print one JSON summary line
+with the JAX CLI's key names (``gcell_updates_per_sec``, ``residual_l2``,
+``golden_pass``, ...) plus the routes and the kernel launch counts of the
+run. ``--mesh Px Py Pz`` splits the field into shards, by default shard i
+on ``cuda:i``; ``--device D`` puts every shard on D (``cpu`` runs the
+kernels' plain versions; ``cuda:0`` runs a sharded solve on one card).
+Runs on the GPU unless ``--device cpu`` is given. Human-readable errors go
+to stderr with exit code 2.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from heat3d_tpu_torch.core.config import (
     BoundaryCondition,
     GridConfig,
+    MeshConfig,
     Precision,
     RunConfig,
     SolverConfig,
@@ -32,7 +36,7 @@ from heat3d_tpu_torch.core.config import (
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="heat3d_tpu_torch",
-        description="3D heat-equation solver on one CUDA GPU (the PyTorch "
+        description="3D heat-equation solver on CUDA GPUs (the PyTorch "
         "port of heat3d_tpu)",
     )
     p.add_argument(
@@ -42,6 +46,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stencil", choices=["7pt", "27pt"], default="7pt")
     p.add_argument("--bc", choices=["dirichlet", "periodic"], default="dirichlet")
     p.add_argument("--bc-value", type=float, default=0.0)
+    p.add_argument("--mesh", type=int, nargs="+", default=[1, 1, 1],
+                   help="mesh of shards Px Py Pz (one int = 1D slab; default "
+                   "1 1 1): shard i on cuda:i unless --device is given")
+    p.add_argument("--halo", choices=["ppermute", "dma"], default="ppermute",
+                   help="ghost-exchange transport between shards: slab copies "
+                   "(ppermute) or the DMA peer-write kernel")
     p.add_argument("--dtype", choices=["fp32", "bf16"], default="fp32",
                    help="field storage dtype; compute and residual are fp32")
     p.add_argument("--time-blocking", type=int, default=1,
@@ -66,7 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--golden-check", action="store_true",
                    help="compare against the fp64 NumPy golden model")
     p.add_argument("--device", default=None,
-                   help="torch device (default: the current CUDA device)")
+                   help="torch device of every shard (default: shard i on "
+                   "cuda:i; the current CUDA device for one shard)")
     return p
 
 
@@ -74,8 +85,13 @@ def config_from_args(args) -> SolverConfig:
     grid_shape = tuple(args.grid * 3 if len(args.grid) == 1 else args.grid)
     if len(grid_shape) != 3:
         raise ValueError("--grid takes 1 or 3 ints")
+    mesh = tuple(args.mesh + [1, 1] if len(args.mesh) == 1 else args.mesh)
+    if len(mesh) != 3:
+        raise ValueError("--mesh takes 1 or 3 ints")
     return SolverConfig(
         grid=GridConfig(shape=grid_shape),
+        mesh=MeshConfig(shape=mesh),
+        halo=args.halo,
         stencil=StencilConfig(
             kind=args.stencil,
             bc=BoundaryCondition(args.bc),
@@ -103,14 +119,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(solver) -> None:
+    for d in {s.device for s in solver.mesh.shards}:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def _main(argv: Optional[List[str]]) -> int:
     from heat3d_tpu_torch.models.heat3d import HeatSolver3D, resolved_backend_name
     from heat3d_tpu_torch.ops import launch_counts
+    from heat3d_tpu_torch.parallel.step import step_route, superstep_route
 
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
@@ -118,7 +136,7 @@ def _main(argv: Optional[List[str]]) -> int:
     u = solver.init_state(args.init)
     # warm up (kernel build and first launch) outside the timed window
     solver.step_with_residual(solver.zeros_state())
-    _sync(solver.device)
+    _sync(solver)
 
     before = launch_counts()
     residual = None
@@ -145,19 +163,24 @@ def _main(argv: Optional[List[str]]) -> int:
             if args.residual_every:
                 print(f"step {nxt} residual {residual:.6e}", file=sys.stderr)
             done = nxt
-    _sync(solver.device)
+    _sync(solver)
     elapsed = time.perf_counter() - t0
     after = launch_counts()
 
     # a rate from a CPU run is not a device metric: reported only on the GPU
     on_gpu = solver.device.type == "cuda"
     rate = cfg.grid.num_cells * max(done, 1) / elapsed / 1e9 if on_gpu else None
+    devices = {s.device for s in solver.mesh.shards}
     summary = {
         "grid": list(cfg.grid.shape),
         "stencil": cfg.stencil.kind,
         "equation": cfg.equation,
         "integrator": cfg.integrator,
         "mesh": list(cfg.mesh.shape),
+        "halo": cfg.halo,
+        "shards_per_device": len(solver.mesh) // len(devices),
+        "step_route": step_route(cfg),
+        "superstep_route": superstep_route(cfg) if cfg.time_blocking > 1 else None,
         "dtype": cfg.precision.storage,
         "backend": resolved_backend_name(cfg),
         "time_blocking": cfg.time_blocking,
@@ -167,7 +190,7 @@ def _main(argv: Optional[List[str]]) -> int:
         "seconds": elapsed,
         "residual_l2": residual,
         "gcell_updates_per_sec": rate,
-        "gcell_updates_per_sec_per_chip": rate,
+        "gcell_updates_per_sec_per_chip": None if rate is None else rate / len(devices),
         "kernel_launches": {k: after[k] - before[k] for k in after},
     }
     if args.golden_check:

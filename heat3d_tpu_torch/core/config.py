@@ -431,9 +431,10 @@ class SolverConfig:
 def _unported(what: str) -> ValueError:
     return ValueError(
         f"{what} is not ported yet: the PyTorch/CUDA port runs the "
-        "single-device explicit-Euler solve (mesh (1,1,1), time_blocking "
-        "k >= 1, backend auto|pallas|jnp|conv, float32 compute) through its "
-        "direct and exchange-path (stream, streamk) kernels"
+        "explicit-Euler solve over any mesh of shards (halo ppermute|dma, "
+        "time_blocking k >= 1, backend auto|pallas|jnp|conv, float32 "
+        "compute) through its direct, exchange-path (stream, streamk) and "
+        "DMA halo kernels"
     )
 
 
@@ -443,10 +444,10 @@ def check_ported(cfg: "SolverConfig") -> None:
     The JAX package resolves the ``auto`` knobs (``time_blocking=0``,
     ``halo='auto'``) through its tuning cache; the port has no tuning cache
     yet, so those are rejected too. ``backend='auto'`` needs no cache: it
-    always takes the kernels."""
-    if cfg.mesh.shape != (1, 1, 1):
-        raise _unported(f"mesh {cfg.mesh.shape} (several devices)")
-    if cfg.halo != "ppermute":
+    always takes the kernels. Any mesh is ported, with uneven (bc-padded)
+    Dirichlet grids; uneven periodic grids are rejected above, as in the
+    JAX package."""
+    if cfg.halo not in ("ppermute", "dma"):
         raise _unported(f"halo={cfg.halo!r}")
     if cfg.overlap:
         raise _unported("overlap=True")

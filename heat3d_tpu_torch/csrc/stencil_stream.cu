@@ -30,11 +30,16 @@
 //
 // Semantics: before a stage other than the last writes its plane, the
 // plane is rounded through the storage type and, under Dirichlet, every
-// cell whose GLOBAL index (padded index - K) lies outside [0, n) on any
-// axis is set to bc (already rounded to the storage type by the wrapper):
-// exactly what K separate exchange + update steps see. Under periodic
-// boundaries nothing is pinned: the exchange wrapped the ghosts, so the
-// ring cells are genuine wrapped values. The arithmetic is the emission
+// cell that lies beyond a DOMAIN face of the shard -- its block index
+// (padded index - K) outside [0, n) on an axis whose low or high face the
+// shard touches (the 6-bit `edges` mask: x_lo, x_hi, y_lo, y_hi, z_lo,
+// z_hi) -- is set to bc (already rounded to the storage type by the
+// wrapper): exactly what K separate exchange + update steps see. Ring
+// cells across a face shared with a neighbouring shard are genuine
+// neighbour values and stay (the JAX kernel pins at domain-edge shards
+// only, from axis_index). A whole-domain block has all six bits set. Under
+// periodic boundaries nothing is pinned: the exchange wrapped the ghosts,
+// so the ring cells are genuine wrapped values. The arithmetic is the emission
 // program of stencil_common.cuh, so both kernels equal ops.stencil_eager
 // (one apply_taps_padded per update) bitwise.
 //
@@ -118,7 +123,7 @@ template <class T, int K>
 __global__ void __launch_bounds__(NTHREADS)
     streamk_kernel(const T* __restrict__ up, T* __restrict__ out, int nx,
                    int ny, int nz, int xchunk, int periodic, float bc,
-                   Program prog) {
+                   int edges, Program prog) {
   extern __shared__ float smem[];
   __shared__ Program sp;
   copy_program(&sp, prog);
@@ -153,7 +158,7 @@ __global__ void __launch_bounds__(NTHREADS)
         const int cells = (TY + 2 * r) * fz;
         float* dst = smem + ring_offset(K, r) + (q % 3) * plane_floats(r);
         const int gx = xs + q - K;
-        const bool x_out = gx < 0 || gx >= nx;
+        const bool x_out = (gx < 0 && (edges & 1)) || (gx >= nx && (edges & 2));
         for (int idx = tid; idx < cells; idx += NTHREADS) {
           const int a = idx / fz;
           const int b = idx - a * fz;
@@ -161,7 +166,8 @@ __global__ void __launch_bounds__(NTHREADS)
           const int gz = z0 - r + b;
           float v;
           if (!periodic &&
-              (x_out || gy < 0 || gy >= ny || gz < 0 || gz >= nz)) {
+              (x_out || (gy < 0 && (edges & 4)) || (gy >= ny && (edges & 8)) ||
+               (gz < 0 && (edges & 16)) || (gz >= nz && (edges & 32)))) {
             v = bc;
           } else {
             v = to_f(from_f<T>(
@@ -189,7 +195,8 @@ __global__ void __launch_bounds__(NTHREADS)
 template <class T, int K>
 cudaError_t launch_k(dim3 grid, dim3 block, const void* up, void* out,
                      int nx, int ny, int nz, int xchunk, int periodic,
-                     float bc, const Program& prog, cudaStream_t stream) {
+                     float bc, int edges, const Program& prog,
+                     cudaStream_t stream) {
   constexpr int bytes = ring_offset(K, 0) * (int)sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
       streamk_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -197,14 +204,14 @@ cudaError_t launch_k(dim3 grid, dim3 block, const void* up, void* out,
   if (err != cudaSuccess) return err;
   streamk_kernel<T, K><<<grid, block, bytes, stream>>>(
       static_cast<const T*>(up), static_cast<T*>(out), nx, ny, nz, xchunk,
-      periodic, bc, prog);
+      periodic, bc, edges, prog);
   return cudaGetLastError();
 }
 
 template <class T>
 cudaError_t launch(int k, const void* up, void* out, int nx, int ny, int nz,
-                   int xchunk, int periodic, float bc, const Program& prog,
-                   cudaStream_t stream) {
+                   int xchunk, int periodic, float bc, int edges,
+                   const Program& prog, cudaStream_t stream) {
   const dim3 block(BZ, BY);
   const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY,
                   (nx + xchunk - 1) / xchunk);
@@ -216,13 +223,13 @@ cudaError_t launch(int k, const void* up, void* out, int nx, int ny, int nz,
       return cudaGetLastError();
     case 2:
       return launch_k<T, 2>(grid, block, up, out, nx, ny, nz, xchunk,
-                            periodic, bc, prog, stream);
+                            periodic, bc, edges, prog, stream);
     case 3:
       return launch_k<T, 3>(grid, block, up, out, nx, ny, nz, xchunk,
-                            periodic, bc, prog, stream);
+                            periodic, bc, edges, prog, stream);
     default:
       return launch_k<T, MAX_K>(grid, block, up, out, nx, ny, nz, xchunk,
-                                periodic, bc, prog, stream);
+                                periodic, bc, edges, prog, stream);
   }
 }
 
@@ -244,11 +251,12 @@ int heat3d_streamk_smem_bytes(int k) {
 
 // k: 1 (stream1_kernel) or 2..4 (streamk_kernel); dtype: 0 float, 1 bf16.
 // up is the (nx+2k, ny+2k, nz+2k) padded field, out the (nx, ny, nz)
-// interior; periodic and bc are read for k >= 2 only. Returns a
-// cudaError_t (0 on success); 1000 for bad arguments.
+// interior; periodic, bc and the domain-face mask edges (bit 0 x_lo ..
+// bit 5 z_hi; 63 for a whole-domain block) are read for k >= 2 only.
+// Returns a cudaError_t (0 on success); 1000 for bad arguments.
 int heat3d_stream_launch(int k, int dtype, const void* up, void* out, int nx,
                          int ny, int nz, int xchunk, int periodic, float bc,
-                         const Program* prog, void* stream) {
+                         int edges, const Program* prog, void* stream) {
   if (k < 1 || k > MAX_K || (dtype != 0 && dtype != 1) || nx < 1 ||
       ny < 1 || nz < 1 || xchunk < 1 || prog == nullptr || prog->n < 1 ||
       prog->n > MAX_TERMS) {
@@ -257,9 +265,9 @@ int heat3d_stream_launch(int k, int dtype, const void* up, void* out, int nx,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       dtype == 0 ? launch<float>(k, up, out, nx, ny, nz, xchunk, periodic,
-                                 bc, *prog, s)
+                                 bc, edges, *prog, s)
                  : launch<__nv_bfloat16>(k, up, out, nx, ny, nz, xchunk,
-                                         periodic, bc, *prog, s);
+                                         periodic, bc, edges, *prog, s);
   return static_cast<int>(err);
 }
 

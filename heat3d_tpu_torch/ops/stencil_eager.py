@@ -92,16 +92,25 @@ def apply_taps_conv_padded(up: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
 
 
 def pin_outside(
-    arr: torch.Tensor, global_indices, extents, bc_value: float
+    arr: torch.Tensor, global_indices, extents, bc_value: float, edges=None
 ) -> torch.Tensor:
     """``arr`` with every cell whose global index (``global_indices[a]``, a
     1-D index tensor per axis) lies outside ``[0, extents[a])`` on any axis
-    set to ``bc_value`` rounded to ``arr``'s dtype."""
+    set to ``bc_value`` rounded to ``arr``'s dtype. ``edges`` (x_lo, x_hi,
+    y_lo, y_hi, z_lo, z_hi; default all True) limits the pins to the sides
+    whose flag is set: a shard pins only beyond the domain faces it
+    touches."""
+    edges = (True,) * 6 if edges is None else edges
     mask = None
     for axis, (g, n) in enumerate(zip(global_indices, extents)):
         shape = [1, 1, 1]
         shape[axis] = -1
-        m = ((g >= 0) & (g < n)).reshape(shape)
+        m = torch.ones_like(g, dtype=torch.bool)
+        if edges[2 * axis]:
+            m = m & (g >= 0)
+        if edges[2 * axis + 1]:
+            m = m & (g < n)
+        m = m.reshape(shape)
         mask = m if mask is None else mask & m
     bc = torch.full((), bc_value, dtype=arr.dtype, device=arr.device)
     return torch.where(mask, arr, bc)

@@ -10,7 +10,10 @@ Port of ``heat3d_tpu.ops.stencil_pallas``:
 - :func:`apply_taps_streamk` is the counterpart of
   ``apply_taps_pallas_streamk``: width-k padded (nx+2k, ...) in, the
   interior after k updates out, each intermediate rounded to the storage
-  dtype and, under Dirichlet, pinned to ``bc_value`` outside the domain;
+  dtype and, under Dirichlet, pinned to ``bc_value`` beyond the domain
+  faces the block touches (``edges``; a shard inside the mesh keeps its
+  neighbours' ring values, as the JAX kernel pins at domain-edge shards
+  only);
   :func:`apply_taps_stream2` is its k=2 form (``apply_taps_pallas_stream2``).
 
 For a CUDA tensor each wrapper launches its hand-written kernel from
@@ -52,17 +55,27 @@ from heat3d_tpu_torch.ops.stencil_eager import apply_taps_padded, pin_outside
 
 _LIB = "stencil_stream"
 STREAMK_DEPTHS = (2, 3, 4)
+# a block that is the whole domain touches all six domain faces
+ALL_EDGES = (True,) * 6
+
+
+def edge_bits(edges) -> int:
+    """The kernel's 6-bit mask of (x_lo, x_hi, y_lo, y_hi, z_lo, z_hi)."""
+    if len(edges) != 6:
+        raise ValueError(f"edges must be 6 flags (x_lo .. z_hi), got {edges}")
+    return sum(1 << i for i, e in enumerate(edges) if e)
 
 
 def apply_taps_streamk_ref(
     upk: torch.Tensor, taps: np.ndarray, k: int, periodic: bool = False,
-    bc_value: float = 0.0,
+    bc_value: float = 0.0, edges=ALL_EDGES,
 ) -> torch.Tensor:
     """Plain version of :func:`apply_taps_streamk`: k ``apply_taps_padded``
     applications over the width-k padded block, each but the last rounded
     to the storage dtype (``apply_taps_padded`` returns it) and, under
-    Dirichlet, pinned to ``bc_value`` wherever its global index (padded
-    index - k) lies outside the (nx, ny, nz) domain."""
+    Dirichlet, pinned to ``bc_value`` wherever its block index (padded
+    index - k) lies outside [0, n) beyond a domain face the block touches
+    (``edges``)."""
     interior = [n - 2 * k for n in upk.shape]
     cur = upk
     for j in range(1, k + 1):
@@ -70,7 +83,7 @@ def apply_taps_streamk_ref(
         r = k - j  # ghost rings cur still carries
         if r > 0 and not periodic:
             idx = [torch.arange(-r, n + r, device=cur.device) for n in interior]
-            cur = pin_outside(cur, idx, interior, bc_value)
+            cur = pin_outside(cur, idx, interior, bc_value, edges)
     return cur
 
 
@@ -82,7 +95,7 @@ def _lib():
     lib.heat3d_stream_launch.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.POINTER(_Program), ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.POINTER(_Program), ctypes.c_void_p,
     ]
     lib.heat3d_stream_launch.restype = ctypes.c_int
     for fn in ("heat3d_stream_tile_y", "heat3d_stream_tile_z"):
@@ -110,7 +123,7 @@ def _interior(up: torch.Tensor, k: int):
     return shape
 
 
-def _launch(k, up, taps, periodic, bc_value, out) -> torch.Tensor:
+def _launch(k, up, taps, periodic, bc_value, out, edges=ALL_EDGES) -> torch.Tensor:
     if up.device.type != "cuda":
         raise ValueError(f"no kernel for device {up.device}")
     shape = _interior(up, k)
@@ -123,7 +136,8 @@ def _launch(k, up, taps, periodic, bc_value, out) -> torch.Tensor:
         stream = torch.cuda.current_stream(up.device).cuda_stream
         err = lib.heat3d_stream_launch(
             k, _DTYPE_CODES[up.dtype], up.data_ptr(), out.data_ptr(), *shape,
-            xchunk, int(bool(periodic)), bc, ctypes.byref(prog), stream,
+            xchunk, int(bool(periodic)), bc, edge_bits(edges), ctypes.byref(prog),
+            stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -157,20 +171,24 @@ def apply_taps_streamk(
     periodic: bool = False,
     bc_value: float = 0.0,
     out: Optional[torch.Tensor] = None,
+    edges=ALL_EDGES,
 ) -> torch.Tensor:
     """k = 2..4 fused updates from a width-k ghost-padded block:
     (nx+2k, ny+2k, nz+2k) in, the (nx, ny, nz) interior after k updates
     out, equal to :func:`apply_taps_streamk_ref`. The ghosts must come from
     the exchange (``parallel.halo``): under periodic boundaries they are
-    the wrap, which the kernel does not make."""
+    the wrap, which the kernel does not make. ``edges`` are the domain
+    faces the block touches (a shard's ``Shard.edges``; all six for a
+    whole-domain block)."""
     if k not in STREAMK_DEPTHS:
         raise ValueError(f"streamk kernel wants k in {STREAMK_DEPTHS}, got {k}")
     taps = check_route(taps)
+    edge_bits(edges)
     if upk.device.type == "cpu":
         _interior(upk, k)
-        res = apply_taps_streamk_ref(upk, taps, k, periodic, bc_value)
+        res = apply_taps_streamk_ref(upk, taps, k, periodic, bc_value, edges)
         return res if out is None else out.copy_(res)
-    out = _launch(k, upk, taps, periodic, bc_value, out)
+    out = _launch(k, upk, taps, periodic, bc_value, out, edges)
     apply_taps_streamk.launches += 1
     return out
 

@@ -84,8 +84,9 @@ def test_decomposition_equal():
 @pytest.mark.parametrize(
     "kw,needle",
     [
-        (dict(mesh=config.MeshConfig(shape=(2, 1, 1))), "mesh (2, 1, 1)"),
-        (dict(halo="dma"), "halo='dma'"),
+        (dict(halo="auto"), "halo='auto'"),
+        (dict(halo="dma", overlap=True, mesh=config.MeshConfig(shape=(2, 1, 1))),
+         "overlap=True"),
         (dict(overlap=True), "overlap=True"),
         (dict(fused_rdma="on"), "fused_rdma='on'"),
         (dict(halo_plan="partitioned"), "halo_plan='partitioned'"),
@@ -115,3 +116,18 @@ def test_config_accepts_slice_scope():
                         time_blocking=tb,
                         backend=backend,
                     )
+    # any mesh, both transports, and uneven Dirichlet grids (bc-padded)
+    for mesh in ((2, 1, 1), (1, 2, 1), (1, 1, 2), (2, 2, 1), (2, 2, 2), (3, 1, 4)):
+        for halo in ("ppermute", "dma"):
+            for shape in ((12, 12, 12), (13, 10, 9)):
+                cfg = config.SolverConfig(
+                    grid=config.GridConfig(shape=shape),
+                    mesh=config.MeshConfig(shape=mesh), halo=halo,
+                )
+                assert cfg.is_padded == any(g % p for g, p in zip(shape, mesh))
+    with pytest.raises(ValueError, match="not divisible"):
+        config.SolverConfig(
+            grid=config.GridConfig(shape=(13, 12, 12)),
+            stencil=config.StencilConfig(bc=config.BoundaryCondition.PERIODIC),
+            mesh=config.MeshConfig(shape=(2, 1, 1)),
+        )

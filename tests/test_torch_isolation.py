@@ -40,8 +40,9 @@ def test_no_jax_or_reference_import(path):
 
 def test_scan_sees_the_package():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
-    for module in ("ops/stencil_direct.py", "ops/stencil_stream.py",
-                   "parallel/halo.py", "parallel/step.py"):
+    for module in ("ops/stencil_direct.py", "ops/stencil_stream.py", "ops/halo_dma.py",
+                   "parallel/halo.py", "parallel/plan.py", "parallel/topology.py",
+                   "parallel/step.py"):
         assert f"heat3d_tpu_torch/{module}" in names
     assert not _forbidden("heat3d_tpu_torch.ops") and _forbidden("heat3d_tpu.ops")
 
@@ -50,7 +51,9 @@ def test_import_leaves_jax_unloaded():
     code = (
         "import sys, heat3d_tpu_torch, heat3d_tpu_torch.cli, heat3d_tpu_torch.bench, "
         "heat3d_tpu_torch.carry, heat3d_tpu_torch.ops.stencil_direct, "
-        "heat3d_tpu_torch.ops.stencil_stream, heat3d_tpu_torch.parallel.halo\n"
+        "heat3d_tpu_torch.ops.stencil_stream, heat3d_tpu_torch.ops.halo_dma, "
+        "heat3d_tpu_torch.parallel.halo, heat3d_tpu_torch.parallel.plan, "
+        "heat3d_tpu_torch.parallel.topology\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'heat3d_tpu'))\n"
         "print(','.join(bad))\n"

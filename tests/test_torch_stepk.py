@@ -26,6 +26,7 @@ from heat3d_tpu_torch.ops import launch_counts
 from heat3d_tpu_torch.ops import stencil_stream as ss
 from heat3d_tpu_torch.parallel import step
 from heat3d_tpu_torch.parallel.halo import exchange_halo
+from heat3d_tpu_torch.parallel.topology import build_shard_mesh
 from test_torch_solver import SHAPE, _configs, _golden, _pair
 from torch_port_checks import (
     BCS,
@@ -168,10 +169,10 @@ def test_stepk_k5_runs_the_stream_compute_k_times():
         return ss.apply_taps_stream(up, taps, out=out)
 
     solver = HeatSolver3D(cfg, device="cpu")
-    run = step.make_multistep_fn(cfg, solver.taps, compute_padded=counting)
+    run = step.make_multistep_fn(cfg, solver.mesh, solver.taps, compute_padded=counting)
     u = solver.init_state("random")
     ref = solver.run(u.clone(), 11)
-    got = run(u, 11)
+    got = run([u], 11)[0]
     assert calls == [(16, 17, 18), (14, 15, 16), (12, 13, 14), (10, 11, 12), (8, 9, 10)] * 2
     assert torch.equal(got, ref)
 
@@ -197,11 +198,11 @@ def test_redundant_flops_frac_matches_reference(shape, tb):
 def test_exchange_path_reuses_its_padded_buffer(monkeypatch):
     monkeypatch.setenv("HEAT3D_NO_DIRECT", "1")
     cfg = config.SolverConfig(grid=config.GridConfig.cube(8), time_blocking=3)
-    pads = step.PadBuffers()
-    run = step.make_multistep_fn(cfg, pads=pads)
-    u = torch.rand((8, 8, 8))
-    u = run(u, 7)  # two supersteps (width 3) and a single step (width 1)
-    first = {w: b.data_ptr() for w, b in pads._bufs.items()}
-    run(u, 7)
+    mesh = build_shard_mesh(cfg, "cpu")
+    ex = step.make_exchanges(cfg, mesh)
+    run = step.make_multistep_fn(cfg, mesh, exchanges=ex)
+    us = run([torch.rand((8, 8, 8))], 7)  # two supersteps (width 3), one step
+    first = {w: p.pads[0].data_ptr() for w, p in ex.plans.items()}
+    run(us, 7)
     assert set(first) == {1, 3}
-    assert {w: b.data_ptr() for w, b in pads._bufs.items()} == first
+    assert {w: p.pads[0].data_ptr() for w, p in ex.plans.items()} == first
