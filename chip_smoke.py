@@ -49,8 +49,20 @@ non-zero without one. Phases, each printing its own lines:
    (streamk K=4 under corner shards' domain-edge masks), held bitwise to
    its plain version and timed beside its 512^3 bound;
 8. across GPUs: the (2,1,1) DMA check with the shards on ``cuda:0`` and
-   ``cuda:1``, when two GPUs are visible (else one line says it did not
-   run, and why).
+   ``cuda:1``, and the four fused kernels on that mesh, when two GPUs are
+   visible (else one line says it did not run, and why);
+9. the fused exchange-and-sweep kernels (``csrc/stencil_fused.cu``: fused
+   DMA tb 1/2, fused RDMA tb 1/2), every shard on ``cuda:0`` in one launch:
+   phase 4 holds them bitwise to their plain versions on (4,1,1), (8,1,1)
+   and (2,2,2) at 128^3 (with the landed ghosts), 7pt/27pt x Dirichlet
+   0.3/periodic x fp32/bf16, the RDMA ones with the plan's sub-blocks at
+   the default floor and at floor 0, and at the full-width shard shapes of
+   1024^3 over (8,1,1) and (4,1,1); 50 launches in a row without a host
+   sync; a state built mid-run on busy streams (1024^3 on (8,1,1), tb=2, 11
+   steps, equal to the (1,1,1) solve); and every overlap route's 128^3
+   solve against the (1,1,1) solve. Phases 5 and 6 run the overlap routes
+   through the command line (golden) and ``bench_throughput`` (1024^3);
+   phase 7 times each fused kernel at 1024^3 over all shards of the card.
 
 The kernel launch counts are zeroed just before phase 5 and read just after
 phase 6; the script fails if any kernel was not launched there. The last
@@ -79,6 +91,10 @@ _SOURCES = {
     "apply_taps_stream": "heat3d_tpu_torch/csrc/stencil_stream.cu",
     "apply_taps_streamk": "heat3d_tpu_torch/csrc/stencil_stream.cu",
     "halo_dma": "heat3d_tpu_torch/csrc/halo_dma.cu",
+    "apply_step_fused_dma": "heat3d_tpu_torch/csrc/stencil_fused.cu",
+    "apply_superstep_fused_dma": "heat3d_tpu_torch/csrc/stencil_fused.cu",
+    "apply_step_fused_rdma": "heat3d_tpu_torch/csrc/stencil_fused.cu",
+    "apply_superstep_fused_rdma": "heat3d_tpu_torch/csrc/stencil_fused.cu",
 }
 _REPLACES = {
     "apply_taps_direct": "heat3d_tpu/ops/stencil_pallas_direct.py:422",
@@ -89,6 +105,17 @@ _REPLACES = {
                           "heat3d_tpu/ops/stencil_pallas.py:451",
     "halo_dma": "heat3d_tpu/ops/halo_pallas.py:153, "
                 "heat3d_tpu/ops/halo_pallas.py:274",
+    "apply_step_fused_dma": "heat3d_tpu/ops/stencil_dma_fused.py:515",
+    "apply_superstep_fused_dma": "heat3d_tpu/ops/stencil_dma_fused.py:894",
+    "apply_step_fused_rdma": "heat3d_tpu/ops/stencil_fused_rdma.py:193",
+    "apply_superstep_fused_rdma": "heat3d_tpu/ops/stencil_fused_rdma.py:299",
+}
+# the fused kernels: (updates, plain version's name in ops.stencil_dma_fused)
+_FUSED = {
+    "apply_step_fused_dma": (1, "reference_fused_step"),
+    "apply_superstep_fused_dma": (2, "reference_fused_superstep"),
+    "apply_step_fused_rdma": (1, "reference_fused_step"),
+    "apply_superstep_fused_rdma": (2, "reference_fused_superstep"),
 }
 KERNELS = tuple(_SOURCES)
 # the depth whose time stands in the kernels' line for streamk: the
@@ -205,7 +232,28 @@ _BOUND_PASSES = {
     "exchange": "per shard: read u, write the width-k padded block, read it, "
                 "write u_new (4 passes), plus each ghost cell read once from "
                 "its neighbour",
+    "fused": "per shard: read u, write u_new (2 field passes), plus each x-face "
+             "slab sent read once and written once into the neighbour's landing "
+             "buffer",
 }
+
+
+def x_sends(mesh, periodic: bool) -> int:
+    """The x-face sends of one fused launch over ``mesh``: one each way
+    between x neighbours (a Dirichlet x domain face sends nothing)."""
+    px, py, pz = mesh
+    return 2 * (px if periodic else px - 1) * py * pz
+
+
+def fused_bound(n: int, mesh, k: int, itemsize: int, flops: int, bw: float,
+                periodic: bool = False):
+    """Bound of one fused launch (the whole step or superstep of the x-slab
+    fused routes) over an n^3 grid on ``mesh``: (ms, "bytes"/"operations",
+    bytes); the operations are the k useful updates."""
+    m = [n // p for p in mesh]
+    moved = (2 * n**3 + 2 * x_sends(mesh, periodic) * k * m[1] * m[2]) * itemsize
+    t, by = bound_ms(moved, n**3 * k * flops, bw)
+    return t, by, moved
 
 
 def sharded_superstep_bound(route: str, n: int, mesh, k: int, itemsize: int,
@@ -213,13 +261,16 @@ def sharded_superstep_bound(route: str, n: int, mesh, k: int, itemsize: int,
     """Bound of one superstep (or step) of the sharded solve of an n^3 grid
     over ``mesh``: (ms, "bytes"/"operations", bytes) from the passes of
     ``_BOUND_PASSES``; the operations are the k useful updates (the
-    faces-direct routes) or each shard's raw trapezoid (the exchange
-    path, as ``superstep_bound``)."""
+    faces-direct and fused routes; the 3D fused route counts as
+    faces-direct, whose bytes it moves) or each shard's raw trapezoid (the
+    exchange path and the overlap split, as ``superstep_bound``)."""
+    if route in ("fused-dma", "fused-dma2", "fused-rdma", "fused-rdma2"):
+        return fused_bound(n, mesh, k, itemsize, flops, bw)
     m = [n // p for p in mesh]
     shards = mesh[0] * mesh[1] * mesh[2]
     cells = m[0] * m[1] * m[2]
     padded = (m[0] + 2 * k) * (m[1] + 2 * k) * (m[2] + 2 * k)
-    if route.startswith("faces"):
+    if route.startswith("faces") or route == "fused-dma-3d":
         faces = 2 * (k * m[1] * m[2] + (m[0] + 2 * k) * k * m[2]
                      + (m[0] + 2 * k) * (m[1] + 2 * k) * k)
         moved = shards * (2 * cells + 2 * faces) * itemsize
@@ -458,7 +509,7 @@ def _dma_burst(worst, mesh, base_us, periodic, bcv, width, n=50):
 
 
 def _solve_gathered(n, mesh, kind, storage, periodic, bcv, tb, steps, halo="ppermute",
-                    no_direct=False, device=None):
+                    no_direct=False, device=None, **knobs):
     """The host field after ``steps`` updates of a random initial field."""
     from heat3d_tpu_torch.core.config import (
         GridConfig, MeshConfig, Precision, SolverConfig, StencilConfig,
@@ -469,7 +520,7 @@ def _solve_gathered(n, mesh, kind, storage, periodic, bcv, tb, steps, halo="pper
         grid=GridConfig(shape=n if isinstance(n, tuple) else (n, n, n)),
         stencil=StencilConfig(kind=kind, bc=_bc(periodic), bc_value=bcv),
         mesh=MeshConfig(shape=mesh), halo=halo,
-        precision=Precision(storage=storage), time_blocking=tb,
+        precision=Precision(storage=storage), time_blocking=tb, **knobs,
     )
     with _no_direct(no_direct):
         solver = HeatSolver3D(cfg, device=device)
@@ -611,6 +662,36 @@ def _golden_cli(argv, want, **tags) -> None:
          kernel_launches=summary["kernel_launches"])
 
 
+# (mesh, extra flags, time_blocking, HEAT3D_NO_DIRECT, kernel it must launch)
+# of the golden phase's overlap-route runs on cuda:0; the partitioned runs
+# with HEAT3D_PLAN_PART_MIN_BYTES=0, so a 128^3 face ships as sub-blocks
+_GOLDEN_FUSED = (
+    ((8, 1, 1), ["--halo", "dma", "--overlap"], 1, False, "apply_step_fused_dma"),
+    ((8, 1, 1), ["--halo", "dma", "--overlap"], 2, False, "apply_superstep_fused_dma"),
+    ((2, 2, 2), ["--halo", "dma", "--overlap"], 1, False, "apply_step_fused_dma"),
+    ((4, 1, 1), ["--fused-rdma", "on", "--halo-plan", "partitioned"], 1, False,
+     "apply_step_fused_rdma"),
+    ((4, 1, 1), ["--fused-rdma", "on", "--halo-plan", "partitioned"], 2, False,
+     "apply_superstep_fused_rdma"),
+    ((2, 2, 2), ["--overlap"], 1, True, "apply_taps_stream"),
+)
+
+
+@contextlib.contextmanager
+def _env(**kw):
+    """Set environment variables for the block."""
+    old = {k: os.environ.get(k) for k in kw}
+    os.environ.update(kw)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def phase_golden() -> None:
     for kind in ("7pt", "27pt"):
         for tb, no_direct, want in _GOLDEN:
@@ -626,6 +707,14 @@ def phase_golden() -> None:
                          "--halo", halo, "--bc-value", str(bcv), "--device", "cuda:0"],
                         want, grid=n, stencil=kind, mesh=list(_MESH), halo=halo,
                         time_blocking=tb, bc_value=bcv)
+    for kind in ("7pt", "27pt"):
+        for mesh, flags, tb, no_direct, want in _GOLDEN_FUSED:
+            with _no_direct(no_direct), _env(HEAT3D_PLAN_PART_MIN_BYTES="0"):
+                _golden_cli(["--grid", "128", "--steps", "20", "--stencil", kind,
+                             "--time-blocking", str(tb), "--mesh", *map(str, mesh), *flags,
+                             "--device", "cuda:0"],
+                            want, grid=128, stencil=kind, mesh=list(mesh), flags=flags,
+                            time_blocking=tb, no_direct=no_direct)
 
 
 # (stencil, time_blocking, storage, HEAT3D_NO_DIRECT) of the full-width phase
@@ -639,6 +728,16 @@ _FULL_WIDTH = (
 # (halo, time_blocking) of the full-width phase's sharded rows: fp32 7pt on
 # a (2,2,2) mesh of 512^3 shards, every shard on cuda:0
 _SHARDED_FULL_WIDTH = (("dma", 1), ("dma", 4), ("ppermute", 1), ("ppermute", 2))
+# (mesh, knobs, time_blocking, HEAT3D_NO_DIRECT) of the full-width phase's
+# overlap-route rows: fp32 7pt, every shard on cuda:0
+_FUSED_FULL_WIDTH = (
+    ((8, 1, 1), {"halo": "dma", "overlap": True}, 1, False),
+    ((8, 1, 1), {"halo": "dma", "overlap": True}, 2, False),
+    ((2, 2, 2), {"halo": "dma", "overlap": True}, 1, False),
+    ((4, 1, 1), {"fused_rdma": "on", "halo_plan": "partitioned"}, 1, False),
+    ((4, 1, 1), {"fused_rdma": "on", "halo_plan": "partitioned"}, 2, False),
+    ((2, 2, 2), {"overlap": True}, 1, True),
+)
 
 
 def phase_full_width(bw: float) -> None:
@@ -697,12 +796,42 @@ def phase_full_width(bw: float) -> None:
         del row
         torch.cuda.empty_cache()
 
-    for mesh, halo, tb in (((1, 1, 1), "ppermute", 2), ((1, 1, 1), "ppermute", 4),
-                           (_MESH, "dma", 4)):
+    for mesh, knobs, tb, no_direct in _FUSED_FULL_WIDTH:
+        cfg = SolverConfig(grid=GridConfig.cube(n), mesh=MeshConfig(shape=mesh),
+                           time_blocking=tb, **knobs)
+        with _no_direct(no_direct):
+            row = bench_throughput(cfg, steps=tb * -(-20 // tb), warmup=1, repeats=3,
+                                   device="cuda:0")
+        route = row["superstep_route"] if tb > 1 else row["step_route"]
+        b_ms, by, b_bytes = sharded_superstep_bound(
+            route, n, mesh, tb, 4, flops_per_update(_taps("7pt")), bw)
+        _check(route in ("fused-dma", "fused-dma2", "fused-dma-3d", "fused-rdma",
+                         "fused-rdma2", "overlap"), f"not an overlap route: {row}")
+        ex_ms = _exchange_ms(cfg, route) if route == "overlap" else None
+        passes = ("fused" if route.startswith("fused") and route != "fused-dma-3d"
+                  else "faces" if route == "fused-dma-3d" else "exchange")
+        _say("full_width", grid=row["grid"], stencil="7pt", dtype="float32",
+             mesh=row["mesh"], halo=row["halo"], overlap=row["overlap"],
+             fused_rdma=row["fused_rdma"], halo_plan=row["halo_plan"],
+             messages_per_exchange=row["messages_per_exchange"], no_direct=no_direct,
+             shards_per_device=row["shards_per_device"], time_blocking=tb, route=route,
+             steps=row["steps"], gcell_updates_per_sec=row["gcell_updates_per_sec"],
+             ms_per_superstep=row["ms_per_launch"], exchange_ms=ex_ms,
+             bound_ms_per_superstep=b_ms, bound_by=by, bound_bytes=b_bytes,
+             bound_passes=_BOUND_PASSES[passes],
+             bound_gcell_updates_per_sec=n**3 * tb / (b_ms / 1e3) / 1e9,
+             kernel_launches=row["kernel_launches"], seconds_all=row["seconds_all"])
+        del row
+        torch.cuda.empty_cache()
+
+    for mesh, halo, tb, knobs in (((1, 1, 1), "ppermute", 2, {}),
+                                  ((1, 1, 1), "ppermute", 4, {}),
+                                  (_MESH, "dma", 4, {}),
+                                  ((8, 1, 1), "dma", 2, {"overlap": True})):
         cfg = SolverConfig(
             grid=GridConfig.cube(n),
             stencil=StencilConfig(kind="7pt", bc=_bc(True)),
-            mesh=MeshConfig(shape=mesh), halo=halo, time_blocking=tb,
+            mesh=MeshConfig(shape=mesh), halo=halo, time_blocking=tb, **knobs,
         )
         solver = HeatSolver3D(cfg, device=None if mesh == (1, 1, 1) else "cuda:0")
         u = solver.init_state("hot-cube")
@@ -713,7 +842,7 @@ def phase_full_width(bw: float) -> None:
         rel = abs(s1 - s0) / s0
         _check(finite and rel < 1e-5,
                f"periodic tb={tb} mesh {mesh} {halo} sum drifted: {s0} -> {s1} ({rel})")
-        _say("conservation", grid=[n, n, n], mesh=list(mesh), halo=halo,
+        _say("conservation", grid=[n, n, n], mesh=list(mesh), halo=halo, **knobs,
              time_blocking=tb, steps=11, sum_before=s0, sum_after=s1, rel_drift=rel,
              finite=finite)
         del u, solver
@@ -931,9 +1060,11 @@ def phase_shard_kernel_times(bw: float, worst: dict) -> None:
     (dma tb=4) on width-4 padded blocks, both made by the sharded DMA
     exchange, under the domain-edge masks of the corner shards (0,0,0) and
     (1,1,1) (three domain faces, three faces inside the mesh), Dirichlet
-    and periodic (which pins nothing). Each launch is held bitwise
-    to its plain version and timed beside its 512^3 bound; ``eight_ms`` is
-    eight launches, one superstep's kernel time on the card."""
+    and periodic (which pins nothing); and ``stream1`` as the overlap split
+    runs it, on the unpadded shard as its own padded input (512^3 ->
+    510^3). Each launch is held bitwise to its plain version and timed
+    beside its bound; ``eight_ms`` is eight launches, one superstep's
+    kernel time on the card."""
     import torch
 
     from heat3d_tpu_torch.parallel.plan import ExchangePlan
@@ -943,23 +1074,26 @@ def phase_shard_kernel_times(bw: float, worst: dict) -> None:
     taps = _taps("7pt", 2 * m)
     flops = flops_per_update(taps)
     us = [torch.rand((m, m, m), device=s.device) for s in mesh.shards]
-    out = torch.empty_like(us[0])
     lo, hi = mesh.shards[0], mesh.shards[-1]
     times = {}
 
-    def held(key, name, kk, x, periodic, edges=(True,) * 6):
+    def held(key, name, kk, x, periodic, edges=(True,) * 6, n_out=m):
         kern, plain = _kernel_pair(name, kk, edges)
+        want = plain(x, taps, periodic, 0.0)
+        out = torch.empty_like(want)
         ms = _time_ms(lambda: kern(x, taps, periodic, 0.0, out=out), iters=10)
         plain_ms = _time_ms(lambda: plain(x, taps, periodic, 0.0), iters=3)
-        _hold(worst, name, out, plain(x, taps, periodic, 0.0),
-              f"{key} on a {m}^3 shard, edges {edges}")
-        b_ms, by = kernel_bound(name, m, kk, 4, flops, bw)
+        _hold(worst, name, out, want, f"{key} on a {tuple(x.shape)} input, edges {edges}")
+        b_ms, by = kernel_bound(name, n_out, kk, 4, flops, bw)
         times[key] = {"ms": ms, "eight_ms": 8 * ms, "plain_ms": plain_ms,
-                      "bound_ms": b_ms, "bound_by": by,
+                      "bound_ms": b_ms, "bound_by": by, "out": list(out.shape),
                       "edges": list(edges) if name == "apply_taps_streamk" else None}
 
     held("apply_taps_direct", "apply_taps_direct", 1, us[0], False)
     held("apply_taps_direct2", "apply_taps_direct2", 2, us[0], False)
+    # the overlap split's interior: the shard as its own padded input
+    held("apply_taps_stream_overlap_interior", "apply_taps_stream", 1, us[0], False,
+         n_out=m - 2)
     for width, periodic, cases in (
         (1, False, (("apply_taps_stream", "apply_taps_stream", lo),)),
         (k, False, ((f"apply_taps_streamk_k{k}_shard000", "apply_taps_streamk", lo),
@@ -974,11 +1108,300 @@ def phase_shard_kernel_times(bw: float, worst: dict) -> None:
             held(key, name, width, pads[s.rank], periodic, s.edges)
         del plan, pads
         torch.cuda.empty_cache()
-    del us, out
+    del us
     torch.cuda.empty_cache()
     _say("shard_kernel_times", mesh=list(_MESH), shard=[m, m, m], stencil="7pt",
          dtype="float32", bc_value=0.0, times=times, bitwise=True,
          max_abs_err={n: worst[n] for n in KERNELS if n != "halo_dma"})
+
+
+def _fused_state(mesh, name, dtype, periodic, floor=None):
+    """The state of fused kernel ``name`` over ``mesh``: whole-face sends
+    for the DMA kernels; the RDMA ones take the x-face sub-blocks of a
+    partitioned plan schedule at the granularity ``floor`` (default: the
+    plan's own)."""
+    import torch
+
+    from heat3d_tpu_torch.ops import stencil_dma_fused as fd
+    from heat3d_tpu_torch.ops import stencil_fused_rdma as fr
+    from heat3d_tpu_torch.parallel.plan import DEFAULT_PART_MIN_BYTES, Schedule
+
+    k = _FUSED[name][0]
+    bounds = None
+    if name.endswith("rdma"):
+        sched = Schedule(mesh.shape, k, "partitioned",
+                         min_part_bytes=DEFAULT_PART_MIN_BYTES if floor is None else floor)
+        bounds = fr.plan_send_bounds(sched, mesh.local_shape,
+                                     torch.empty((), dtype=dtype).element_size())
+    return fd.FusedState(mesh, k, dtype, periodic, bounds)
+
+
+def _fused_pair(name):
+    """(kernel wrapper, plain version) of fused kernel ``name``, both
+    called ``f(us, taps, mesh, state, periodic, bc_value)``."""
+    from heat3d_tpu_torch.ops import stencil_dma_fused as fd
+    from heat3d_tpu_torch.ops import stencil_fused_rdma as fr
+
+    kern = getattr(fd, name, None) or getattr(fr, name)
+    ref = getattr(fd, _FUSED[name][1])
+    return kern, (lambda us, t, m, st, p, b: ref(us, t, m, p, b))
+
+
+def _fused_names(mesh_shape, nx):
+    """The fused kernels a mesh takes: all four on an x-slab (tb=2 needs
+    nx >= 4), the one-update DMA kernel on an x-sharded block mesh."""
+    if mesh_shape[1] == mesh_shape[2] == 1:
+        return [n for n in _FUSED if _FUSED[n][0] == 1 or nx >= 4]
+    return ["apply_step_fused_dma"]
+
+
+def _hold_fused(worst, name, got, want, what):
+    from heat3d_tpu_torch.ops import stencil_dma_fused as fd
+
+    import torch
+
+    torch.cuda.synchronize()
+    fd.raise_if_timed_out()
+    for g, w in zip(got, want):
+        _hold(worst, name, g, w, what)
+
+
+def _fused_burst(worst, mesh, name, base_us, periodic, bcv, n=50):
+    """``n`` launches of fused kernel ``name`` in a row on one state, each
+    shard's new input made and its output copied out on the shard's own
+    stream, with no host synchronisation between them; then each held to
+    the plain version."""
+    import torch
+
+    taps = _taps("7pt")
+    kern, plain = _fused_pair(name)
+    state = _fused_state(mesh, name, base_us[0].dtype, periodic, floor=0)
+    snaps = []
+    mesh.fork()
+    for i in range(n):
+        us = []
+        for s, b in zip(mesh.shards, base_us):
+            with mesh.on(s):
+                us.append(b + i)
+        outs = kern(us, taps, mesh, state, periodic, bcv)
+        snap = []
+        for s, o in zip(mesh.shards, outs):
+            with mesh.on(s):
+                snap.append(o.clone())
+        snaps.append(snap)
+    mesh.join()
+    for i, snap in enumerate(snaps):
+        want = plain([b + i for b in base_us], taps, mesh, None, periodic, bcv)
+        _hold_fused(worst, name, snap, want, f"launch {i + 1} of {n} on {mesh.shape}")
+    del snaps
+    torch.cuda.empty_cache()
+    return n
+
+
+# (mesh, knobs, HEAT3D_NO_DIRECT, stencil, storage, periodic) of the overlap
+# routes' 128^3 solves against the (1,1,1) solve
+_FUSED_SOLVES = (
+    ((8, 1, 1), {"halo": "dma", "overlap": True}, 1, False, "7pt", "float32", False),
+    ((8, 1, 1), {"halo": "dma", "overlap": True}, 2, False, "27pt", "bfloat16", True),
+    ((4, 1, 1), {"halo": "dma", "overlap": True}, 2, False, "7pt", "float32", False),
+    ((2, 2, 2), {"halo": "dma", "overlap": True}, 1, False, "27pt", "float32", False),
+    ((2, 2, 2), {"halo": "dma", "overlap": True}, 1, False, "7pt", "float32", True),
+    ((4, 1, 1), {"fused_rdma": "on", "halo_plan": "partitioned"}, 1, False, "7pt",
+     "float32", False),
+    ((4, 1, 1), {"fused_rdma": "on", "halo_plan": "partitioned"}, 2, False, "27pt",
+     "float32", True),
+    ((8, 1, 1), {"fused_rdma": "on"}, 2, False, "7pt", "bfloat16", False),
+    ((2, 2, 2), {"overlap": True}, 1, True, "27pt", "float32", False),
+    ((2, 2, 2), {"halo_plan": "partitioned"}, 2, False, "7pt", "float32", False),
+)
+
+
+def phase_compare_fused(worst: dict) -> None:
+    """The fused kernels against their plain versions, bitwise, every shard
+    on cuda:0 in one launch: 128^3 over (4,1,1), (8,1,1) and (2,2,2) (the
+    landed ghosts too), 7pt/27pt x Dirichlet 0.3/periodic x fp32/bf16, the
+    RDMA kernels at floor 0 and the default floor; the full-width shard
+    shapes (1024^3 over (8,1,1), (4,1,1) and (2,2,2), the landed ghosts
+    too); 50 launches in a row; the overlap routes' 128^3 solves against the
+    (1,1,1) solve; and at 1024^3 against the (1,1,1) solve: the (8,1,1)
+    tb=2 run whose tb=1 state is built mid-run on busy streams, the (2,2,2)
+    3D fused route and the (2,2,2) overlap split."""
+    import numpy as np
+    import torch
+
+    from heat3d_tpu_torch import ops
+    from heat3d_tpu_torch.core.config import (
+        GridConfig, MeshConfig, SolverConfig, StencilConfig,
+    )
+    from heat3d_tpu_torch.models.heat3d import HeatSolver3D
+    from heat3d_tpu_torch.ops import stencil_dma_fused as fd
+    from heat3d_tpu_torch.parallel.step import step_route, superstep_route
+
+    t0 = time.perf_counter()
+    cases = ghosts = 0
+    for n, mesh_shapes, settings in (
+        (128, ((4, 1, 1), (8, 1, 1), (2, 2, 2)),
+         [(k, d, p, b) for k in ("7pt", "27pt") for d in (torch.float32, torch.bfloat16)
+          for p, b in ((False, 0.3), (True, 0.0))]),
+        (1024, ((8, 1, 1), (4, 1, 1), (2, 2, 2)),
+         [("7pt", torch.float32, False, 0.3), ("7pt", torch.float32, True, 0.0),
+          ("27pt", torch.float32, False, 0.0), ("7pt", torch.bfloat16, False, 0.0)]),
+    ):
+        base = torch.from_numpy(
+            np.random.default_rng(12).standard_normal((n, n, n)).astype(np.float32)).cuda()
+        for mesh_shape in mesh_shapes:
+            mesh = _card_mesh(mesh_shape, tuple(n // p for p in mesh_shape))
+            for kind, dtype, periodic, bcv in settings:
+                taps = _taps(kind)
+                us = _split(base.to(dtype), mesh)
+                what = f"{n}^3 on {mesh_shape} {kind} {dtype} periodic={periodic} bc={bcv}"
+                for name in _fused_names(mesh_shape, mesh.local_shape[0]):
+                    kern, plain = _fused_pair(name)
+                    for floor in ((0, None) if name.endswith("rdma") else (None,)):
+                        state = _fused_state(mesh, name, dtype, periodic, floor)
+                        got = kern(us, taps, mesh, state, periodic, bcv)
+                        _hold_fused(worst, name, got,
+                                    plain(us, taps, mesh, None, periodic, bcv),
+                                    f"{what} ranges {state.bounds}")
+                        cases += 1
+                        del got, state
+                state = fd.FusedState(mesh, 1, dtype, periodic)
+                _, got = fd.apply_step_fused_dma(us, taps, mesh, state, periodic, bcv,
+                                                 return_ghosts=True)
+                _, want = fd.reference_fused_step(us, taps, mesh, periodic, bcv,
+                                                  return_ghosts=True)
+                for g, w in zip(got, want):
+                    _hold_fused(worst, "apply_step_fused_dma", g, w, f"ghosts {what}")
+                ghosts += 1
+                del us, got, want, state
+                torch.cuda.empty_cache()
+        del base
+        torch.cuda.empty_cache()
+
+    mesh = _card_mesh((8, 1, 1), (16, 128, 128))
+    base_us = _split(torch.from_numpy(
+        np.random.default_rng(13).standard_normal((128, 128, 128)).astype(np.float32)).cuda(),
+        mesh)
+    bursts = (_fused_burst(worst, mesh, "apply_step_fused_dma", base_us, False, 0.3)
+              + _fused_burst(worst, mesh, "apply_superstep_fused_rdma", base_us, True, 0.0))
+    del base_us
+
+    # 1024^3, 11 steps, against the (1,1,1) solve: (8,1,1) tb=2 builds the
+    # tb=1 state of the remainder step while the supersteps still run on the
+    # eight shard streams; (2,2,2) runs the 3D fused route and the overlap
+    # split on 512^3 shards, the full-width rows' shapes
+    def solve(mesh, **knobs):
+        cfg = SolverConfig(grid=GridConfig.cube(1024),
+                           stencil=StencilConfig(kind="7pt", bc_value=0.3),
+                           mesh=MeshConfig(shape=mesh), **knobs)
+        solver = HeatSolver3D(cfg, device="cuda:0")
+        return solver, solver.run(solver.init_state("hot-cube"), 11)
+
+    _, want = solve((1, 1, 1))
+    full_solves = []
+    for mesh_shape, knobs, no_direct, route in (
+        ((8, 1, 1), dict(halo="dma", overlap=True, time_blocking=2), False, "fused-dma2"),
+        ((2, 2, 2), dict(halo="dma", overlap=True), False, "fused-dma-3d"),
+        ((2, 2, 2), dict(overlap=True), True, "overlap"),
+    ):
+        with _no_direct(no_direct):
+            solver, got = solve(mesh_shape, **knobs)
+            took = (superstep_route(solver.cfg) if solver.cfg.time_blocking > 1
+                    else step_route(solver.cfg))
+        torch.cuda.synchronize()
+        fd.raise_if_timed_out()
+        _check(took == route, f"{mesh_shape} {knobs} took {took}, not {route}")
+        for s, shard in zip(solver.mesh.shards, got.shards):
+            region = tuple(slice(o, o + m) for o, m in zip(s.origin, solver.mesh.local_shape))
+            _check(torch.equal(shard, want[region]),
+                   f"1024^3 {route} on {mesh_shape} != (1,1,1) at shard {s.coords}")
+        full_solves.append([list(mesh_shape), route])
+        del got, solver
+        torch.cuda.empty_cache()
+    del want
+    torch.cuda.empty_cache()
+
+    solves = []
+    for mesh_shape, knobs, tb, no_direct, kind, storage, periodic in _FUSED_SOLVES:
+        bcv = 0.0 if periodic else 0.3
+        want = _solve_gathered(128, (1, 1, 1), kind, storage, periodic, bcv, 1, 21)
+        with _env(HEAT3D_PLAN_PART_MIN_BYTES="0"):
+            got = _solve_gathered(128, mesh_shape, kind, storage, periodic, bcv, tb, 21,
+                                  no_direct=no_direct, device="cuda:0", **knobs)
+        _check(got.tobytes() == want.tobytes(),
+               f"overlap-route solve != (1,1,1) solve: {mesh_shape} {knobs} tb={tb} "
+               f"{kind} {storage} periodic={periodic}: max err "
+               f"{float(np.abs(got - want).max())}")
+        solves.append([list(mesh_shape), knobs, tb, no_direct, kind, storage, periodic])
+    _say("compare_fused", cases=cases, ghost_cases=ghosts, launches_in_a_row=bursts,
+         mid_run_state=True, overlap_vs_single_solves=solves,
+         full_width_vs_single_solves=full_solves, bitwise=True,
+         max_abs_err={k: worst[k] for k in _FUSED}, launches=ops.launch_counts(),
+         seconds=time.perf_counter() - t0)
+
+
+def phase_fused_times(bw: float, worst: dict) -> dict:
+    """Each fused kernel's ms per launch at 1024^3 fp32 7pt Dirichlet bc 0,
+    one launch over all shards of the card (the DMA kernels on (8,1,1), the
+    RDMA kernels on (4,1,1) with the partitioned plan's default sub-blocks:
+    the full-width rows' meshes), its plain version's ms, and its bound:
+    the field read once and written once plus each x-face slab sent read
+    and written once. Each timed launch is held bitwise to its plain
+    version. The one-update kernels' result over all shards is one update
+    of the 1024^3 field: their library call is one cuDNN convolution (TF32
+    off, never called by the port) over the shards joined and padded with
+    bc, held to the kernel within the rounding bound; the shard split and
+    the padding are data layout, left out of the time as for row 1. No
+    single PyTorch call computes two updates, so the two-update kernels
+    have no library time."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from heat3d_tpu_torch.ops import stencil_dma_fused as fd
+
+    n = 1024
+    taps = _taps("7pt", n)
+    flops = flops_per_update(taps)
+    times = {}
+    for name, mesh_shape in (("apply_step_fused_dma", (8, 1, 1)),
+                             ("apply_superstep_fused_dma", (8, 1, 1)),
+                             ("apply_step_fused_rdma", (4, 1, 1)),
+                             ("apply_superstep_fused_rdma", (4, 1, 1))):
+        k = _FUSED[name][0]
+        mesh = _card_mesh(mesh_shape, tuple(n // p for p in mesh_shape))
+        us = [torch.rand(mesh.local_shape, device=s.device) for s in mesh.shards]
+        outs = [torch.empty_like(u) for u in us]
+        kern, plain = _fused_pair(name)
+        state = _fused_state(mesh, name, torch.float32, False)
+
+        def go():
+            mesh.fork()
+            kern(us, taps, mesh, state, False, 0.0, outs=outs)
+            mesh.join()
+
+        ms = _time_ms(go, iters=10)
+        plain_ms = _time_ms(lambda: plain(us, taps, mesh, None, False, 0.0), iters=3)
+        _hold_fused(worst, name, outs, plain(us, taps, mesh, None, False, 0.0),
+                    f"at {n}^3 on {mesh_shape}")
+        b_ms, by, moved = fused_bound(n, mesh_shape, k, 4, flops, bw)
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                       "library_ms": None, "bytes": moved, "mesh": list(mesh_shape),
+                       "send_ranges": [list(b) for b in state.bounds],
+                       "blocks_per_sm": fd.blocks_per_sm(k, torch.float32)}
+        if k == 1:
+            torch.backends.cudnn.allow_tf32 = False
+            w = torch.from_numpy(np.asarray(taps, dtype=np.float32)).cuda()[None, None]
+            up = F.pad(torch.cat(us), (1, 1, 1, 1, 1, 1), value=0.0)[None, None]
+            times[name]["library_ms"] = _time_ms(lambda: F.conv3d(up, w), iters=3)
+            times[name].update(_library_check(name, torch.cat(outs),
+                                              F.conv3d(up, w)[0, 0], taps, up))
+            del up
+        del us, outs, state
+        torch.cuda.empty_cache()
+    _say("fused_times", grid=[n, n, n], stencil="7pt", dtype="float32", bc_value=0.0,
+         times=times, bitwise=True, max_abs_err={k: worst[k] for k in _FUSED})
+    return times
 
 
 def phase_cross_gpu(worst: dict) -> None:
@@ -991,7 +1414,8 @@ def phase_cross_gpu(worst: dict) -> None:
     if count < 2:
         _say("cross_gpu", ran=False,
              reason=f"{count} CUDA device visible; the phase needs 2 (the peer "
-                    "writes between GPUs stay unchecked by this run)")
+                    "writes of the DMA and fused kernels between GPUs stay "
+                    "unchecked by this run)")
         return
     devices = [torch.device("cuda", 0), torch.device("cuda", 1)]
     mesh = _card_mesh((2, 1, 1), (64, 128, 128), devices)
@@ -1009,8 +1433,26 @@ def phase_cross_gpu(worst: dict) -> None:
                              f"across GPUs width {width} {dtype} periodic={periodic}")
                 cases += 1
     bursts = _dma_burst(worst, mesh, _split(base, mesh), True, 0.0, 4)
+    # the fused kernels: one launch per GPU, the pushes peer stores
+    fused = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        us = _split(base.to(dtype), mesh)
+        for periodic, bcv in ((False, 0.3), (True, 0.0)):
+            for name in _FUSED:
+                kern, plain = _fused_pair(name)
+                for floor in ((0, None) if name.endswith("rdma") else (None,)):
+                    state = _fused_state(mesh, name, dtype, periodic, floor)
+                    for _ in range(5):
+                        got = kern(us, _taps("27pt"), mesh, state, periodic, bcv)
+                        for d in devices:
+                            torch.cuda.synchronize(d)
+                        _hold_fused(worst, name, [g.cpu() for g in got],
+                                    [w.cpu() for w in plain(us, _taps("27pt"), mesh, None,
+                                                            periodic, bcv)],
+                                    f"across GPUs {dtype} periodic={periodic}")
+                        fused += 1
     _say("cross_gpu", ran=True, devices=[str(d) for d in devices], dma_cases=cases,
-         dma_exchanges_in_a_row=bursts, bitwise=True)
+         dma_exchanges_in_a_row=bursts, fused_cases=fused, bitwise=True)
 
 
 def main() -> int:
@@ -1028,6 +1470,7 @@ def main() -> int:
     phase_build()
     worst = phase_compare()
     phase_compare_mesh(worst)
+    phase_compare_fused(worst)
 
     ops.reset_launch_counts()
     phase_golden()
@@ -1039,12 +1482,15 @@ def main() -> int:
 
     times = phase_kernel_times(bw, worst)
     times["halo_dma"] = phase_dma_times(bw, worst)
+    times.update(phase_fused_times(bw, worst))
     phase_shard_kernel_times(bw, worst)
     phase_cross_gpu(worst)
     kernels = [
         {"name": name, "route": "cuda", "source": _SOURCES[name],
          "replaces": _REPLACES[name], "launches": launches[name],
-         "max_abs_err": worst[name], **times[name]}
+         "max_abs_err": worst[name],
+         **{key: times[name][key] for key in
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
         for name in KERNELS
     ]
     _say("done", seconds=time.perf_counter() - t0)

@@ -8,12 +8,15 @@ kernel on a ported path is a CUDA kernel written for ``sm_90a``
 (``csrc/``, built on first use). This package never imports JAX or
 ``heat3d_tpu``.
 
-Ported so far: the single-device explicit-Euler solve (``HeatSolver3D`` on
-a (1,1,1) mesh, 7pt/27pt, fp32/bf16 storage, any time blocking k >= 1,
-backend auto/pallas/jnp/conv) through the direct-stencil kernels
-(``ops.stencil_direct``) and, on the exchange path (``parallel.halo``), the
-stream and streamk kernels (``ops.stencil_stream``). Configs outside that
-scope raise "not ported yet" (``core.config.check_ported``).
+Ported so far: the explicit-Euler solve (``HeatSolver3D``, 7pt/27pt,
+fp32/bf16 storage, any time blocking k >= 1, backend auto/pallas/jnp/conv)
+on one device or over a mesh of shards (``parallel.topology``), through the
+direct-stencil kernels (``ops.stencil_direct``), on the exchange path
+(``parallel.halo``, ``parallel.plan``) the stream and streamk kernels
+(``ops.stencil_stream``) and the DMA halo kernels (``ops.halo_dma``), and on
+the overlap routes the fused exchange-and-sweep kernels
+(``ops.stencil_dma_fused``, ``ops.stencil_fused_rdma``). Configs outside
+that scope raise "not ported yet" (``core.config.check_ported``).
 """
 
 from heat3d_tpu_torch.core.config import (

@@ -23,8 +23,11 @@ import torch
 from heat3d_tpu_torch import ops
 from heat3d_tpu_torch.core.config import SolverConfig
 from heat3d_tpu_torch.models.heat3d import HeatSolver3D, resolved_backend_name
+from heat3d_tpu_torch.parallel.plan import effective_halo_plan
 from heat3d_tpu_torch.parallel.step import (
+    make_exchanges,
     redundant_flops_frac,
+    resolve_fused_rdma,
     step_route,
     superstep_route,
 )
@@ -89,6 +92,9 @@ def bench_throughput(
     after = ops.launch_counts()
     tb = cfg.time_blocking
     per_run = steps // tb + steps % tb
+    route = superstep_route(cfg) if tb > 1 else step_route(cfg)
+    schedule = make_exchanges(cfg, solver.mesh).schedule(tb)
+    itemsize = torch.empty((), dtype=getattr(torch, cfg.precision.storage)).element_size()
     best = min(times)
     updates = cfg.grid.num_cells * steps
     gcells = updates / best / 1e9
@@ -104,6 +110,19 @@ def bench_throughput(
         "integrator": cfg.integrator,
         "mesh": list(cfg.mesh.shape),
         "halo": cfg.halo,
+        "overlap": cfg.overlap,
+        # the plan mode that ran (HEAT3D_NO_PLAN runs monolithic) and the
+        # fused-RDMA knob after its environment override
+        "halo_plan": effective_halo_plan(cfg),
+        "fused_rdma": resolve_fused_rdma(cfg),
+        # whether the hot path resolved to a fused kernel; the port has no
+        # emulation tier, so the JAX row's *_emulated fields do not exist
+        "fused_dma_path": route.startswith("fused-dma"),
+        "fused_rdma_path": route.startswith("fused-rdma"),
+        # the plan schedule of one exchange: face copies (sub-blocks
+        # counted) and boundary bytes sent per shard
+        "messages_per_exchange": schedule.messages_per_exchange(),
+        "plan_traffic": schedule.traffic(cfg.local_shape, itemsize),
         "devices": len(devices),
         "shards_per_device": len(solver.mesh) // len(devices),
         "dtype": cfg.precision.storage,

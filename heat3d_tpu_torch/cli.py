@@ -52,6 +52,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--halo", choices=["ppermute", "dma"], default="ppermute",
                    help="ghost-exchange transport between shards: slab copies "
                    "(ppermute) or the DMA peer-write kernel")
+    p.add_argument("--overlap", action="store_true",
+                   help="overlap the halo exchange with the interior sweep: "
+                   "with --halo dma the fused DMA-overlap kernel (x-sharded "
+                   "meshes; tb 1, and tb 2 on x-slabs), with ppermute "
+                   "faces-direct (tb 1) or the interior/boundary split")
+    p.add_argument("--halo-plan", choices=["monolithic", "partitioned"],
+                   default="monolithic",
+                   help="exchange-plan mode: each face copied whole, or as "
+                   "sub-blocks (value-identical; pins the exchange path, "
+                   "except for --fused-rdma on, whose sends ride it)")
+    p.add_argument("--fused-rdma", choices=["off", "on"], default="off",
+                   help="fused in-kernel RDMA step: the x-face pushes inside "
+                   "the stencil kernel on the plan's sub-blocks (x-slab "
+                   "meshes, --time-blocking <= 2, --halo ppermute)")
     p.add_argument("--dtype", choices=["fp32", "bf16"], default="fp32",
                    help="field storage dtype; compute and residual are fp32")
     p.add_argument("--time-blocking", type=int, default=1,
@@ -92,6 +106,9 @@ def config_from_args(args) -> SolverConfig:
         grid=GridConfig(shape=grid_shape),
         mesh=MeshConfig(shape=mesh),
         halo=args.halo,
+        overlap=args.overlap,
+        halo_plan=args.halo_plan,
+        fused_rdma=args.fused_rdma,
         stencil=StencilConfig(
             kind=args.stencil,
             bc=BoundaryCondition(args.bc),
@@ -128,7 +145,12 @@ def _sync(solver) -> None:
 def _main(argv: Optional[List[str]]) -> int:
     from heat3d_tpu_torch.models.heat3d import HeatSolver3D, resolved_backend_name
     from heat3d_tpu_torch.ops import launch_counts
-    from heat3d_tpu_torch.parallel.step import step_route, superstep_route
+    from heat3d_tpu_torch.parallel.plan import effective_halo_plan
+    from heat3d_tpu_torch.parallel.step import (
+        resolve_fused_rdma,
+        step_route,
+        superstep_route,
+    )
 
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
@@ -178,6 +200,9 @@ def _main(argv: Optional[List[str]]) -> int:
         "integrator": cfg.integrator,
         "mesh": list(cfg.mesh.shape),
         "halo": cfg.halo,
+        "overlap": cfg.overlap,
+        "halo_plan": effective_halo_plan(cfg),
+        "fused_rdma": resolve_fused_rdma(cfg),
         "shards_per_device": len(solver.mesh) // len(devices),
         "step_route": step_route(cfg),
         "superstep_route": superstep_route(cfg) if cfg.time_blocking > 1 else None,

@@ -432,9 +432,10 @@ def _unported(what: str) -> ValueError:
     return ValueError(
         f"{what} is not ported yet: the PyTorch/CUDA port runs the "
         "explicit-Euler solve over any mesh of shards (halo ppermute|dma, "
+        "halo_plan monolithic|partitioned, fused_rdma off|on, overlap, "
         "time_blocking k >= 1, backend auto|pallas|jnp|conv, float32 "
-        "compute) through its direct, exchange-path (stream, streamk) and "
-        "DMA halo kernels"
+        "compute) through its direct, exchange-path (stream, streamk), DMA "
+        "halo and fused exchange-and-sweep kernels"
     )
 
 
@@ -442,18 +443,16 @@ def check_ported(cfg: "SolverConfig") -> None:
     """Reject every config this port cannot run yet, naming the knob.
 
     The JAX package resolves the ``auto`` knobs (``time_blocking=0``,
-    ``halo='auto'``) through its tuning cache; the port has no tuning cache
-    yet, so those are rejected too. ``backend='auto'`` needs no cache: it
-    always takes the kernels. Any mesh is ported, with uneven (bc-padded)
-    Dirichlet grids; uneven periodic grids are rejected above, as in the
-    JAX package."""
+    ``halo``, ``halo_plan`` and ``fused_rdma`` 'auto') through its tuning
+    cache; the port has no tuning cache yet, so those are rejected too.
+    ``backend='auto'`` needs no cache: it always takes the kernels. Any
+    mesh is ported, with uneven (bc-padded) Dirichlet grids; uneven
+    periodic grids are rejected above, as in the JAX package."""
     if cfg.halo not in ("ppermute", "dma"):
         raise _unported(f"halo={cfg.halo!r}")
-    if cfg.overlap:
-        raise _unported("overlap=True")
-    if cfg.fused_rdma != "off":
+    if cfg.fused_rdma not in ("off", "on"):
         raise _unported(f"fused_rdma={cfg.fused_rdma!r}")
-    if cfg.halo_plan != "monolithic":
+    if cfg.halo_plan not in ("monolithic", "partitioned"):
         raise _unported(f"halo_plan={cfg.halo_plan!r}")
     if cfg.halo_order != "axis":
         raise _unported(f"halo_order={cfg.halo_order!r}")

@@ -37,8 +37,7 @@
 // Launches go on the caller's stream, allocate nothing, and return
 // cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sync_flags.cuh"
 
 // One side of a push: the destination block and slab origin, the source
 // slab origin, and the receiver's flag word (null: nothing to signal).
@@ -65,31 +64,6 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAX_BLOCKS_PER_SIDE = 528;
-
-unsigned int* g_err_host = nullptr;
-unsigned int* g_err_dev = nullptr;
-
-__device__ __forceinline__ void store_release_sys(unsigned long long* p,
-                                                  unsigned long long v) {
-  asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned long long load_acquire_sys(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.sys.global.u64 %0, [%1];"
-               : "=l"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ unsigned long long globaltimer_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
 
 template <class W>
 __global__ void __launch_bounds__(THREADS) halo_push_kernel(HaloPush p) {
@@ -143,18 +117,8 @@ __global__ void halo_wait_kernel(const unsigned long long* f0,
                                  unsigned int* err) {
   if (threadIdx.x != 0) return;
   const unsigned long long t0 = globaltimer_ns();
-  const unsigned long long* flags[2] = {f0, f1};
-  for (int k = 0; k < 2; ++k) {
-    if (flags[k] == nullptr) continue;
-    while (load_acquire_sys(flags[k]) < epoch) {
-      if ((long long)(globaltimer_ns() - t0) > timeout_ns) {
-        *reinterpret_cast<volatile unsigned int*>(err) = code;
-        __threadfence_system();
-        __trap();
-      }
-      __nanosleep(128);
-    }
-  }
+  if (f0 != nullptr) spin_until(f0, epoch, t0, timeout_ns, code, err);
+  if (f1 != nullptr) spin_until(f1, epoch, t0, timeout_ns, code, err);
 }
 
 }  // namespace
@@ -163,32 +127,11 @@ extern "C" {
 
 // The error word the wait kernel writes on a timeout: mapped, portable host
 // memory, allocated once. Returns a cudaError_t (0 on success).
-int heat3d_halo_init() {
-  if (g_err_host != nullptr) return 0;
-  unsigned int* host = nullptr;
-  cudaError_t err = cudaHostAlloc(reinterpret_cast<void**>(&host),
-                                  sizeof(unsigned int),
-                                  cudaHostAllocMapped | cudaHostAllocPortable);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *host = 0u;
-  unsigned int* dev = nullptr;
-  err = cudaHostGetDevicePointer(reinterpret_cast<void**>(&dev), host, 0);
-  if (err != cudaSuccess) {
-    cudaFreeHost(host);
-    return static_cast<int>(err);
-  }
-  g_err_host = host;
-  g_err_dev = dev;
-  return 0;
-}
+int heat3d_halo_init() { return alloc_error_word(); }
 
 // 0, or the code of the first wait that timed out (1 + shard rank * 4 +
 // axis).
-unsigned int heat3d_halo_error() {
-  return g_err_host == nullptr
-             ? 0u
-             : *reinterpret_cast<volatile unsigned int*>(g_err_host);
-}
+unsigned int heat3d_halo_error() { return read_error_word(); }
 
 // Let device `from` store into device `to`'s memory. 0 on success (or when
 // already enabled), 1001 when the pair cannot access each other, else a

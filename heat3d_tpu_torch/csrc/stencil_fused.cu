@@ -1,0 +1,520 @@
+// Fused halo-exchange + stencil kernels for Hopper (sm_90a): one update
+// (halo 1) or two fused updates (halo 2) of every x-slab shard a device
+// holds, with the x-face pushes to the ring neighbours made inside the same
+// kernel and in flight while the interior planes are swept.
+//
+// Replaces heat3d_tpu/ops/stencil_dma_fused.py:
+//   * ::apply_step_fused_dma (_fused_kernel, protocol _rdma_halo) and
+//   * ::apply_superstep_fused_dma (_fused2_kernel),
+// and heat3d_tpu/ops/stencil_fused_rdma.py:
+//   * ::apply_step_fused_rdma / ::apply_superstep_fused_rdma (the same
+//     sweeps with the sends split per ExchangePlan sub-block, _planned_rdma)
+// -> fused_kernel<T, 1> and fused_kernel<T, 2>, each driven by a table of
+// send ranges (one y-range per face for the DMA rows, the plan's ranges for
+// the RDMA rows), with one flag word per (receiver, side, range).
+//
+// Bound: device-memory bytes, as the direct kernels: the field read once and
+// written once, plus each face slab read once and written once into the
+// neighbour's landing buffer. The tap program is interpreted per cell from
+// shared memory (stencil_common.cuh), so like the direct kernels this one is
+// bound by its instruction stream first; making it fast is later work.
+//
+// Design. One cooperative launch per device covers every shard the device
+// holds (all shards of a mesh on one card are one launch), with a grid of
+// resident blocks (occupancy x SMs), so no block can wait on work that has
+// no SM. Each block walks three lists of tiles in order, striding by the
+// grid:
+//   1. push tiles: chunks of the sends. A send copies the sender's x-face
+//      slab (planes nx-H..nx-1 to the high neighbour, 0..H-1 to the low one)
+//      over one y-range into the receiver's landing buffer (through a peer
+//      pointer when the receiver is on another GPU). Every block fences at
+//      system scope and arrives on the send's counter; the last one resets
+//      it, fences again and release-stores the epoch into the receiver's
+//      flag word for that range (the TPU kernel's send/recv semaphores).
+//   2. interior tiles: (shard, x-chunk, y tile, z tile) of the output planes
+//      H..nx-H-1, which read only the shard's own planes. They run while
+//      the faces fly.
+//   3. skin tiles: (shard, side, y tile, z tile) of output planes 0..H-1 and
+//      nx-H..nx-1. Thread 0 acquire-spins on the shard's flags of that side
+//      (bounded: ~2 s of globaltimer, then the error word and a trap, as in
+//      halo_dma.cu), then the block marches through the ghost planes, read
+//      from the landing buffer with L1-bypassing loads (the shard's own
+//      planes go through the read-only path).
+// Every block finishes its pushes before it waits, and every block is
+// resident, so on one card the waits always end. Across GPUs, a device's
+// launch waits (an event) until each receiver's device has entered the
+// same exchange, so a push never lands in a buffer a previous step still
+// reads, nor in flags not yet zeroed (ops/stencil_dma_fused.py).
+//
+// A tile marches planes along x through a 3-slot ring of ghost-framed
+// (y, z) tiles in shared memory, as the direct kernels do; the plane of
+// virtual index x in [-H, nx+H) is the shard's own plane, a landing-buffer
+// plane, or (at a Dirichlet x domain face) bc. The y/z frame is synthesized
+// as a domain boundary (wrap or bc). The halo-2 kernel keeps a second ring
+// of intermediate planes, rounded through the storage type, pinned to bc
+// in the y/z ring (Dirichlet) and at the x domain faces, exactly as two
+// plain steps see them.
+//
+// Arithmetic contract: the emission program of stencil_common.cuh, so each
+// kernel equals its plain version (ops.stencil_dma_fused.reference_fused_*)
+// bitwise.
+//
+// Launches go on the caller's stream, allocate nothing, and return
+// cudaGetLastError() (or the launch's own error).
+
+#include "stencil_common.cuh"
+#include "sync_flags.cuh"
+
+constexpr int MAX_LOCAL = 16;  // shards of one launch (one device)
+constexpr int MAX_PARTS = 8;   // send ranges per face
+
+// One shard of the launch: static for the life of its state.
+struct FusedShard {
+  void* glo;                  // landing buffer, low ghost slab (H, ny, nz)
+  void* ghi;                  // landing buffer of the high ghost slab
+  unsigned long long* flags;  // [2][MAX_PARTS]: side 0 low ghost, 1 high
+  int nparts;                 // ranges per face
+  int wait_lo;                // 1: the low ghost is pushed by a neighbour
+  int wait_hi;
+  int rank;                   // the shard's rank (error codes)
+};
+
+// One send: a y-range of one x-face slab into one receiver's landing buffer.
+struct FusedSend {
+  void* dst;                  // receiver's landing buffer (peer pointer)
+  unsigned long long* flag;   // receiver's flag word of this range
+  unsigned int* counter;      // arrival counter (sender's device)
+  int shard;                  // local index of the sender
+  int x0;                     // first source plane
+  int y0;                     // y-range [y0, y1)
+  int y1;
+  int tile0;                  // first push tile of this send
+  int ntiles;
+};
+
+struct FusedArgs {
+  const void* u[MAX_LOCAL];
+  void* out[MAX_LOCAL];
+  const FusedShard* shards;   // device memory, nlocal entries
+  const FusedSend* sends;     // device memory, nsends entries (tile0 ascending)
+  unsigned long long epoch;
+  long long timeout_ns;
+  int nlocal;
+  int nsends;
+  int push_tiles;
+  int nx;
+  int ny;
+  int nz;
+  int xchunk;                 // interior x-chunk length
+  int periodic;
+  float bc;                   // bc rounded to the storage type
+  Program prog;
+};
+
+namespace {
+
+constexpr int PUSH_CHUNK = NTHREADS * 8;  // elements of one push tile
+
+template <class T>
+struct Bits;
+template <>
+struct Bits<float> {
+  typedef uint32_t type;
+};
+template <>
+struct Bits<__nv_bfloat16> {
+  typedef uint16_t type;
+};
+
+// Loads of one plane element: the shard's own planes are read-only for the
+// launch (the read-only path); a landing-buffer plane was written during it
+// by another block or another GPU, so it is read bypassing L1.
+__device__ __forceinline__ float load_own(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_own(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ float load_landed(const float* p) {
+  return __ldcg(p);
+}
+__device__ __forceinline__ float load_landed(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+__device__ __forceinline__ int wrapi(int i, int n) {
+  int r = i % n;
+  return r < 0 ? r + n : r;
+}
+
+template <class T, int F, bool LANDED>
+__device__ __forceinline__ void fill_plane(float* dst, const T* src, int y0,
+                                           int z0, int ny, int nz,
+                                           bool periodic, float bc) {
+  constexpr int FY = TY + 2 * F;
+  constexpr int FZ = TZ + 2 * F;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int idx = tid; idx < FY * FZ; idx += NTHREADS) {
+    const int a = idx / FZ;
+    const int b = idx - a * FZ;
+    int gy = y0 - F + a;
+    int gz = z0 - F + b;
+    float v = bc;
+    if (periodic) {
+      gy = wrapi(gy, ny);
+      gz = wrapi(gz, nz);
+    }
+    if (gy >= 0 && gy < ny && gz >= 0 && gz < nz) {
+      const T* p = src + (int64_t)gy * nz + gz;
+      v = LANDED ? load_landed(p) : load_own(p);
+    }
+    dst[idx] = v;
+  }
+}
+
+// Load plane `src` (a (ny, nz) plane, or null: all bc) into a (TY+2F,
+// TZ+2F) slot, the y/z frame a domain boundary (wrap or bc).
+template <class T, int F>
+__device__ __forceinline__ void load_src_plane(float* dst, const T* src,
+                                               bool landing, int y0, int z0,
+                                               int ny, int nz, bool periodic,
+                                               float bc) {
+  if (src == nullptr) {
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    for (int idx = tid; idx < (TY + 2 * F) * (TZ + 2 * F); idx += NTHREADS) {
+      dst[idx] = bc;
+    }
+  } else if (landing) {
+    fill_plane<T, F, true>(dst, src, y0, z0, ny, nz, periodic, bc);
+  } else {
+    fill_plane<T, F, false>(dst, src, y0, z0, ny, nz, periodic, bc);
+  }
+}
+
+// The plane of virtual x index gx of local shard `li`: its own plane, a
+// landing plane, or null (bc at a Dirichlet x domain face).
+template <class T, int H>
+__device__ __forceinline__ const T* plane_of(const FusedArgs& a,
+                                             const FusedShard& sh, int li,
+                                             int gx, bool* landing) {
+  const int64_t plane = (int64_t)a.ny * a.nz;
+  *landing = false;
+  if (gx >= 0 && gx < a.nx) {
+    return static_cast<const T*>(a.u[li]) + gx * plane;
+  }
+  if (gx < 0) {
+    if (!sh.wait_lo) return nullptr;
+    *landing = true;
+    return static_cast<const T*>(sh.glo) + (gx + H) * plane;
+  }
+  if (!sh.wait_hi) return nullptr;
+  *landing = true;
+  return static_cast<const T*>(sh.ghi) + (gx - a.nx) * plane;
+}
+
+// Output planes [xs, xe) of tile (y0, z0) of shard li: one update.
+template <class T>
+__device__ __forceinline__ void march1(const FusedArgs& a,
+                                       const FusedShard& sh, int li,
+                                       const Program& sp, float* ring,
+                                       int y0, int z0, int xs, int xe) {
+  constexpr int FZ = TZ + 2;
+  constexpr int PS = (TY + 2) * FZ;
+  const bool periodic = a.periodic != 0;
+  T* __restrict__ out = static_cast<T*>(a.out[li]);
+  for (int i = 0; i < xe - xs + 2; ++i) {
+    bool landing;
+    const T* src = plane_of<T, 1>(a, sh, li, xs - 1 + i, &landing);
+    load_src_plane<T, 1>(ring + (i % 3) * PS, src, landing, y0, z0, a.ny,
+                         a.nz, periodic, a.bc);
+    __syncthreads();
+    if (i >= 2) {
+      const float* pm = ring + ((i - 2) % 3) * PS;
+      const float* p0 = ring + ((i - 1) % 3) * PS;
+      const float* pp = ring + (i % 3) * PS;
+      const int64_t ox = xs + i - 2;
+      for (int ty = threadIdx.y; ty < TY; ty += BY) {
+        const int gy = y0 + ty;
+        const int gz = z0 + threadIdx.x;
+        if (gy < a.ny && gz < a.nz) {
+          const float r =
+              apply_program(sp, pm, p0, pp, ty + 1, threadIdx.x + 1, FZ);
+          out[(ox * a.ny + gy) * a.nz + gz] = from_f<T>(r);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Output planes [xs, xe) of tile (y0, z0) of shard li: two fused updates.
+template <class T>
+__device__ __forceinline__ void march2(const FusedArgs& a,
+                                       const FusedShard& sh, int li,
+                                       const Program& sp, float* ring_a,
+                                       float* ring_b, int y0, int z0, int xs,
+                                       int xe) {
+  constexpr int FAZ = TZ + 4;
+  constexpr int PA = (TY + 4) * FAZ;
+  constexpr int FBZ = TZ + 2;
+  constexpr int PB = (TY + 2) * FBZ;
+  const bool periodic = a.periodic != 0;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  T* __restrict__ out = static_cast<T*>(a.out[li]);
+  // slot i%3 of ring_a holds input plane xs-2+i; from i >= 2 the mid plane
+  // xs-3+i goes to slot (i-2)%3 of ring_b; from i >= 4 output plane xs+i-4
+  for (int i = 0; i < xe - xs + 4; ++i) {
+    bool landing;
+    const T* src = plane_of<T, 2>(a, sh, li, xs - 2 + i, &landing);
+    load_src_plane<T, 2>(ring_a + (i % 3) * PA, src, landing, y0, z0, a.ny,
+                         a.nz, periodic, a.bc);
+    __syncthreads();
+    if (i >= 2) {
+      const float* pm = ring_a + ((i - 2) % 3) * PA;
+      const float* p0 = ring_a + ((i - 1) % 3) * PA;
+      const float* pp = ring_a + (i % 3) * PA;
+      float* dst = ring_b + ((i - 2) % 3) * PB;
+      const int gm = xs - 3 + i;
+      // the intermediate's x ghost plane at a Dirichlet domain face
+      const bool x_ghost =
+          (gm < 0 && !sh.wait_lo) || (gm >= a.nx && !sh.wait_hi);
+      for (int idx = tid; idx < PB; idx += NTHREADS) {
+        const int r = idx / FBZ;
+        const int c = idx - r * FBZ;
+        const int gy = y0 - 1 + r;
+        const int gz = z0 - 1 + c;
+        float v;
+        if (!periodic &&
+            (x_ghost || gy < 0 || gy >= a.ny || gz < 0 || gz >= a.nz)) {
+          v = a.bc;
+        } else {
+          v = to_f(from_f<T>(
+              apply_program(sp, pm, p0, pp, r + 1, c + 1, FAZ)));
+        }
+        dst[idx] = v;
+      }
+    }
+    __syncthreads();
+    if (i >= 4) {
+      const float* pm = ring_b + ((i - 4) % 3) * PB;
+      const float* p0 = ring_b + ((i - 3) % 3) * PB;
+      const float* pp = ring_b + ((i - 2) % 3) * PB;
+      const int64_t ox = xs + i - 4;
+      for (int ty = threadIdx.y; ty < TY; ty += BY) {
+        const int gy = y0 + ty;
+        const int gz = z0 + threadIdx.x;
+        if (gy < a.ny && gz < a.nz) {
+          const float r =
+              apply_program(sp, pm, p0, pp, ty + 1, threadIdx.x + 1, FBZ);
+          out[(ox * a.ny + gy) * a.nz + gz] = from_f<T>(r);
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Push tile t: its chunk of one send, then the arrival; the last arrival of
+// the send publishes the epoch into the receiver's flag word.
+template <class T, int H>
+__device__ void push_tile(const FusedArgs& a, int t) {
+  typedef typename Bits<T>::type B;
+  int s = 0;
+  while (s + 1 < a.nsends && a.sends[s + 1].tile0 <= t) ++s;
+  const FusedSend snd = a.sends[s];
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int ry = snd.y1 - snd.y0;
+  const int64_t n = (int64_t)H * ry * a.nz;
+  const int64_t plane = (int64_t)a.ny * a.nz;
+  const int64_t lo = (int64_t)(t - snd.tile0) * PUSH_CHUNK;
+  const int64_t hi = lo + PUSH_CHUNK < n ? lo + PUSH_CHUNK : n;
+  B* dst = static_cast<B*>(snd.dst);
+  const B* src = static_cast<const B*>(a.u[snd.shard]);
+  for (int64_t i = lo + tid; i < hi; i += NTHREADS) {
+    const int c = (int)(i % a.nz);
+    const int64_t r = i / a.nz;
+    const int yy = snd.y0 + (int)(r % ry);
+    const int q = (int)(r / ry);
+    const int64_t row = (int64_t)yy * a.nz + c;
+    dst[q * plane + row] = src[(snd.x0 + q) * plane + row];
+  }
+  // arrival: this block's stores are visible system-wide before it counts
+  __threadfence_system();
+  __syncthreads();
+  if (tid == 0) {
+    if (atomicAdd(snd.counter, 1u) == (unsigned int)snd.ntiles - 1u) {
+      atomicExch(snd.counter, 0u);  // the next launch starts at 0
+      __threadfence_system();
+      store_release_sys(snd.flag, a.epoch);
+    }
+  }
+  __syncthreads();
+}
+
+template <class T, int H>
+__global__ void __launch_bounds__(NTHREADS)
+    fused_kernel(FusedArgs a, unsigned int* err) {
+  constexpr int RING = H == 1 ? 3 * (TY + 2) * (TZ + 2)
+                              : 3 * (TY + 4) * (TZ + 4);
+  constexpr int RING_B = H == 1 ? 1 : 3 * (TY + 2) * (TZ + 2);
+  __shared__ float ring[RING];
+  __shared__ float ring_b[RING_B];
+  __shared__ Program sp;
+  copy_program(&sp, a.prog);
+  __syncthreads();
+  const int G = gridDim.x;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+
+  // 1. pushes
+  for (int t = blockIdx.x; t < a.push_tiles; t += G) push_tile<T, H>(a, t);
+
+  const int nyt = (a.ny + TY - 1) / TY;
+  const int nzt = (a.nz + TZ - 1) / TZ;
+  const int yz = nyt * nzt;
+
+  // 2. interior: output planes [H, nx-H), local data only
+  const int inner = a.nx - 2 * H;
+  const int nchunks = inner > 0 ? (inner + a.xchunk - 1) / a.xchunk : 0;
+  const int interior_tiles = a.nlocal * nchunks * yz;
+  for (int t = blockIdx.x; t < interior_tiles; t += G) {
+    const int li = t / (nchunks * yz);
+    const int rest = t - li * nchunks * yz;
+    const int ch = rest / yz;
+    const int tyz = rest - ch * yz;
+    const int y0 = (tyz / nzt) * TY;
+    const int z0 = (tyz % nzt) * TZ;
+    const int xs = H + ch * a.xchunk;
+    const int xe = min(a.nx - H, xs + a.xchunk);
+    const FusedShard sh = a.shards[li];
+    if constexpr (H == 1) {
+      march1<T>(a, sh, li, sp, ring, y0, z0, xs, xe);
+    } else {
+      march2<T>(a, sh, li, sp, ring, ring_b, y0, z0, xs, xe);
+    }
+  }
+
+  // 3. skin: output planes [0, H) and [nx-H, nx), after the waits
+  const int skin_tiles = a.nlocal * 2 * yz;
+  for (int t = blockIdx.x; t < skin_tiles; t += G) {
+    const int li = t / (2 * yz);
+    const int rest = t - li * 2 * yz;
+    const int side = rest / yz;
+    const int tyz = rest - side * yz;
+    const int y0 = (tyz / nzt) * TY;
+    const int z0 = (tyz % nzt) * TZ;
+    const FusedShard sh = a.shards[li];
+    if (tid == 0 && (side == 0 ? sh.wait_lo : sh.wait_hi)) {
+      const unsigned long long t0 = globaltimer_ns();
+      const unsigned int code = 1u + 2u * (unsigned int)sh.rank + side;
+      for (int p = 0; p < sh.nparts; ++p) {
+        spin_until(sh.flags + side * MAX_PARTS + p, a.epoch, t0,
+                   a.timeout_ns, code, err);
+      }
+      __threadfence();
+    }
+    __syncthreads();
+    const int xs = side == 0 ? 0 : a.nx - H;
+    if constexpr (H == 1) {
+      march1<T>(a, sh, li, sp, ring, y0, z0, xs, xs + 1);
+    } else {
+      march2<T>(a, sh, li, sp, ring, ring_b, y0, z0, xs, xs + 2);
+    }
+  }
+}
+
+template <class T, int H>
+int launch(const FusedArgs& a, cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int coop = 0, sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop) return 1002;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fused_kernel<T, H>, NTHREADS, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return 1003;
+  const int nyt = (a.ny + TY - 1) / TY;
+  const int nzt = (a.nz + TZ - 1) / TZ;
+  const int inner = a.nx - 2 * H;
+  const int nchunks = inner > 0 ? (inner + a.xchunk - 1) / a.xchunk : 0;
+  long long want = a.push_tiles;
+  const long long interior = (long long)a.nlocal * nchunks * nyt * nzt;
+  const long long skin = (long long)a.nlocal * 2 * nyt * nzt;
+  if (interior > want) want = interior;
+  if (skin > want) want = skin;
+  const long long cap = (long long)per_sm * sms;
+  const int grid = (int)(want < cap ? (want > 0 ? want : 1) : cap);
+  FusedArgs args = a;
+  unsigned int* e = g_err_dev;
+  void* params[] = {&args, &e};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(fused_kernel<T, H>), dim3(grid),
+      dim3(BZ, BY), params, 0, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+int heat3d_fused_init() { return alloc_error_word(); }
+
+// 0, or the code of the first wait that timed out (1 + 2 * shard rank +
+// side).
+unsigned int heat3d_fused_error() { return read_error_word(); }
+
+// Resident blocks per SM of the kernel (the cooperative grid is this times
+// the SM count), or -1 on an error.
+int heat3d_fused_blocks_per_sm(int halo, int dtype) {
+  int per_sm = 0;
+  cudaError_t err;
+  if (dtype == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, halo == 1 ? fused_kernel<float, 1> : fused_kernel<float, 2>,
+        NTHREADS, 0);
+  } else {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm,
+        halo == 1 ? fused_kernel<__nv_bfloat16, 1>
+                  : fused_kernel<__nv_bfloat16, 2>,
+        NTHREADS, 0);
+  }
+  return err == cudaSuccess ? per_sm : -1;
+}
+
+// Constants the wrapper lays its tables out by.
+int heat3d_fused_max_local() { return MAX_LOCAL; }
+int heat3d_fused_max_parts() { return MAX_PARTS; }
+int heat3d_fused_push_chunk() { return PUSH_CHUNK; }
+int heat3d_fused_tile_y() { return TY; }
+int heat3d_fused_tile_z() { return TZ; }
+int heat3d_fused_args_bytes() { return (int)sizeof(FusedArgs); }
+int heat3d_fused_shard_bytes() { return (int)sizeof(FusedShard); }
+int heat3d_fused_send_bytes() { return (int)sizeof(FusedSend); }
+
+// halo: 1 or 2 updates; dtype: 0 float, 1 bf16. Returns a cudaError_t (0
+// on success); 1000 for bad arguments, 1002 when the device cannot launch
+// cooperatively, 1003 when no block fits an SM.
+int heat3d_fused_launch(int halo, int dtype, const FusedArgs* a,
+                        void* stream) {
+  if (g_err_dev == nullptr || a == nullptr || (halo != 1 && halo != 2) ||
+      (dtype != 0 && dtype != 1) || a->nlocal < 1 ||
+      a->nlocal > MAX_LOCAL || a->nx < 2 * halo || a->ny < 1 || a->nz < 1 ||
+      a->xchunk < 1 || a->nsends < 0 || a->push_tiles < 0 ||
+      a->shards == nullptr || a->prog.n < 1 || a->prog.n > MAX_TERMS) {
+    return 1000;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return halo == 1 ? launch<float, 1>(*a, s) : launch<float, 2>(*a, s);
+  }
+  return halo == 1 ? launch<__nv_bfloat16, 1>(*a, s)
+                   : launch<__nv_bfloat16, 2>(*a, s);
+}
+
+}  // extern "C"

@@ -15,10 +15,13 @@ on uneven decompositions the cells beyond ``cfg.grid.shape`` are padding
 pinned at ``bc_value``, and ``gather`` crops them.
 
 Updates go through the routes of ``parallel.step``: the direct-stencil
-kernels (``ops.stencil_direct``, faces-direct on a sharded mesh), or the
-exchange path (``parallel.plan``, ppermute or DMA transport) with the
-stream/streamk kernels (``ops.stencil_stream``) or the backend's
-plain/conv arm.
+kernels (``ops.stencil_direct``, faces-direct on a sharded mesh), the
+exchange path (``parallel.plan``, ppermute or DMA transport, monolithic or
+partitioned plan) with the stream/streamk kernels (``ops.stencil_stream``)
+or the backend's plain/conv arm, or the overlap routes (``overlap``,
+``fused_rdma``): the fused exchange-and-sweep kernels
+(``ops.stencil_dma_fused``, ``ops.stencil_fused_rdma``) and the
+interior/boundary split.
 
 Not ported yet: checkpoints, the supervised/elastic run, slice dumps, a
 mesh across processes.

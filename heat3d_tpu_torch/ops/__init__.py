@@ -1,13 +1,21 @@
 """Device compute: the plain PyTorch stencil contract (``stencil_eager``)
 and the CUDA kernels with their wrappers (``stencil_direct``: the BC-fused
 direct kernels; ``stencil_stream``: the exchange-path stream and streamk
-kernels; ``halo_dma``: the DMA halo exchange; built by ``_build``)."""
+kernels; ``halo_dma``: the DMA halo exchange; ``stencil_dma_fused`` and
+``stencil_fused_rdma``: the fused exchange-and-sweep kernels; built by
+``_build``)."""
 
 
 def _modules():
-    from heat3d_tpu_torch.ops import halo_dma, stencil_direct, stencil_stream
+    from heat3d_tpu_torch.ops import (
+        halo_dma,
+        stencil_direct,
+        stencil_dma_fused,
+        stencil_fused_rdma,
+        stencil_stream,
+    )
 
-    return stencil_direct, stencil_stream, halo_dma
+    return stencil_direct, stencil_stream, halo_dma, stencil_dma_fused, stencil_fused_rdma
 
 
 def launch_counts() -> dict:

@@ -21,6 +21,12 @@ self-wrap).
   faces-direct step): the six ghost faces of each shard without its padded
   block, y faces x-extended and z faces x+y-extended, corners included.
 
+Under a partitioned schedule (``parallel.plan.Schedule``) each slab copy
+of :func:`push_axis_slabs` between shards is made as sub-block copies along
+the face's partition dim (the JAX plan's early-bird sub-block ppermutes);
+the bytes are the same. The faces exchange is always monolithic, as the
+JAX ``exchange_halo_faces``.
+
 It is data movement: the result is byte-equal to the JAX package's
 ``exchange``/``exchange_halo_faces`` under ``shard_map``.
 """
@@ -107,15 +113,34 @@ def _self_axis(pad, local_shape, axis, w, periodic, bc_value) -> None:
         pad[hi_ghost] = bc_value
 
 
+def part_dim(axis: int) -> int:
+    """The dim a face of ``axis`` is partitioned along: the first
+    non-exchange dim (x faces split along y, y/z faces along x)."""
+    return min(d for d in range(3) if d != axis)
+
+
+def _copy_face(dst: torch.Tensor, src: torch.Tensor, axis: int, schedule) -> None:
+    """Copy a face slab whole, or as the schedule's sub-blocks."""
+    bounds = (None if schedule is None
+              else schedule.face_bounds(axis, tuple(dst.shape), dst.element_size()))
+    if bounds is None or len(bounds) == 1:
+        dst.copy_(src)
+        return
+    pd = part_dim(axis)
+    for a, b in bounds:
+        dst.narrow(pd, a, b - a).copy_(src.narrow(pd, a, b - a))
+
+
 def push_axis_slabs(pads: Sequence[torch.Tensor], mesh, shard, axis: int,
-                    width: int, periodic: bool, bc_value: float) -> None:
+                    width: int, periodic: bool, bc_value: float, schedule=None) -> None:
     """Shard ``shard``'s part of axis ``axis`` of the sharded exchange into
     the padded blocks ``pads`` (rank order), on the current stream: its low
     face slab into its low neighbour's high ghost slab and its high face
     slab into its high neighbour's low ghost slab; at a Dirichlet domain
     face its own ghost slab is filled with ``bc_value``; on an axis of mesh
     size 1, the self-wrap. The face slabs carry the ghosts of earlier axes,
-    so those must have landed."""
+    so those must have landed. ``schedule`` (a ``parallel.plan.Schedule``,
+    default monolithic) splits each copy between shards into sub-blocks."""
     local, w = mesh.local_shape, width
     pad = pads[shard.rank]
     if mesh.shape[axis] == 1:
@@ -131,9 +156,8 @@ def push_axis_slabs(pads: Sequence[torch.Tensor], mesh, shard, axis: int,
             own = (0, w) if direction < 0 else (n + w, n + 2 * w)
             pad[axis_slab(axis, *own, local, w)] = bc_value
         else:
-            pads[nb.rank][axis_slab(axis, *ghost, local, w)].copy_(
-                pad[axis_slab(axis, *face, local, w)]
-            )
+            _copy_face(pads[nb.rank][axis_slab(axis, *ghost, local, w)],
+                       pad[axis_slab(axis, *face, local, w)], axis, schedule)
 
 
 def exchange_axis_slabs(pads, mesh, axis, width, periodic, bc_value) -> None:

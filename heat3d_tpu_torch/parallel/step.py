@@ -22,9 +22,22 @@ on a (1,1,1) mesh. Routes, in the JAX dispatch order:
   ``stepk`` (``_local_stepk``: one width-k exchange and k padded-block
   computes with the out-of-domain ring cells pinned between them).
 
-The direct routes need ``halo='ppermute'``, no ``HEAT3D_NO_DIRECT``, the
-kernel backend and an even decomposition (the JAX ``_direct_kernel_fn``
-and ``_kernel_env_gate``); ``halo='dma'`` always takes the exchange path.
+The overlap routes, ahead of those in the JAX order: ``fused-rdma`` /
+``fused-rdma2`` (``fused_rdma='on'``, x-slab mesh, tb <= 2: the fused
+exchange-and-sweep kernels with the sends on the plan's sub-blocks, first
+in both dispatches); under ``overlap=True``, ``fused-dma`` (``halo='dma'``,
+x-slab), ``fused-dma-3d`` (``halo='dma'``, x-sharded block mesh: the same
+kernel, its landed x ghosts seeding the faces exchange, the y/z shells
+patched) and ``overlap`` (the interior from the shard alone and six
+1-thick faces from the exchanged block) for one update, ``fused-dma2``
+(``halo='dma'``, x-slab) for a tb=2 superstep; ``overlap`` with
+``halo='ppermute'`` at tb=1 is satisfied by faces-direct, as in the JAX
+package.
+
+The kernel routes need the kernel backend, an even decomposition, axis
+ordering and no partitioned plan (the JAX ``_kernel_env_gate``; the fused
+RDMA route alone consumes a partitioned plan); the direct routes also need
+``halo='ppermute'`` and no ``HEAT3D_NO_DIRECT``.
 
 The JAX package's ``fori_loop``/``while_loop`` become Python loops that
 launch one kernel per update (or superstep) on each shard; its ping-pong
@@ -59,8 +72,10 @@ from heat3d_tpu_torch.ops.stencil_eager import (
     pin_outside,
     residual_sumsq,
 )
+from heat3d_tpu_torch.ops import stencil_dma_fused as fused_dma
+from heat3d_tpu_torch.ops import stencil_fused_rdma as fused_rdma
 from heat3d_tpu_torch.ops.stencil_stream import STREAMK_DEPTHS, apply_taps_streamk
-from heat3d_tpu_torch.parallel.plan import Exchanges
+from heat3d_tpu_torch.parallel.plan import Exchanges, effective_halo_plan
 
 Fields = List[torch.Tensor]
 # (us, outs=None) -> the shards after the update(s); outs, when given, are
@@ -101,8 +116,9 @@ def _single(cfg: SolverConfig) -> bool:
 
 
 def make_exchanges(cfg: SolverConfig, mesh) -> Exchanges:
-    """The exchange plans of one solver (transport ``cfg.halo``)."""
-    return Exchanges(mesh, cfg.stencil.bc, cfg.halo)
+    """The exchange plans of one solver (transport ``cfg.halo``, the
+    effective plan mode)."""
+    return Exchanges(mesh, cfg.stencil.bc, cfg.halo, effective_halo_plan(cfg))
 
 
 def _per_shard(mesh, fn, *lists) -> list:
@@ -254,14 +270,14 @@ def _planes(axis: int, start: int, stop: int):
     return tuple(idx)
 
 
-def _patch_boundary_shells(out, u, faces, taps, cfg: SolverConfig):
-    """Recompute the 1-deep shard-boundary shells of the sharded axes (where
-    the direct kernel's local ghost synthesis is wrong) from virtual padded
+def _patch_boundary_shells(out, u, faces, taps, cfg: SolverConfig, axes=(0, 1, 2)):
+    """Recompute the 1-deep shard-boundary shells of the sharded ``axes``
+    (where the kernel's local ghost synthesis is wrong) from virtual padded
     slabs over the exchanged ``faces``, and patch them into ``out``. Axes
     of mesh size 1 are skipped: the kernel's local BC/wrap is exact there.
     The shells use the plain chain: the JAX package computes them outside
     any kernel too, and on the card it equals the kernel bitwise."""
-    for axis in range(3):
+    for axis in axes:
         if cfg.mesh.shape[axis] == 1:
             continue
         n = u.shape[axis]
@@ -313,6 +329,44 @@ def _local_superstep_direct_faces(u, faces, taps, cfg: SolverConfig, shard, out=
     return out
 
 
+def _local_step_overlap(u, up, taps, cfg: SolverConfig, compute_padded: LocalCompute,
+                        shard, out=None):
+    """The interior/shell split of one shard (the reference's interior
+    kernel beside the face exchange, then the boundary update): the
+    interior cells (local 1..n-2 per axis) from the backend's padded
+    compute over the shard as its own padded input, which reads no ghost;
+    the six 1-thick faces from the exchanged width-1 block ``up`` by the
+    plain chain. Edge and corner cells are written by two or three faces
+    with the same value. Equal to the unsplit step."""
+    if out is None:
+        out = torch.empty_like(u)
+    out[1:-1, 1:-1, 1:-1] = compute_padded(u, taps)
+    for axis, n in enumerate(u.shape):
+        for start in (0, n - 1):
+            out[_planes(axis, start, start + 1)] = apply_taps_padded(
+                up.narrow(axis, start, 3), taps)
+    return _pin_padding(out, cfg, shard)
+
+
+def _local_step_fused_dma_3d(us, outs, taps, cfg: SolverConfig, mesh, ex: Exchanges):
+    """The fused DMA-overlap step on an x-sharded block mesh: the x-slab
+    kernel sweeps every shard with its x faces in flight (y/z frames
+    synthesized as domain boundaries, wrong only in the shells of sharded
+    y/z axes) and returns the landed x ghost planes; those seed the faces
+    exchange (``FacesPlan.apply(x_ghosts=...)``: no second x transfer, the
+    y/z copies carry the x-ghost corners), and the y/z shells are
+    recomputed from the faces and patched, as on faces-direct."""
+    dtype = _storage_dtype(cfg)
+    periodic, bc_value = _periodic(cfg), cfg.stencil.bc_value
+    new, ghosts = fused_dma.apply_step_fused_dma(
+        us, taps, mesh, ex.fused(1, dtype), periodic, bc_value, outs, return_ghosts=True)
+    faces = ex.faces(1, dtype).apply(us, bc_value, x_ghosts=ghosts)
+    return _per_shard(
+        mesh, lambda s, out, u, f: _pin_padding(
+            _patch_boundary_shells(out, u, f, taps, cfg, axes=(1, 2)), cfg, s),
+        new, us, faces)
+
+
 # ---- routes ----------------------------------------------------------------
 
 
@@ -320,37 +374,128 @@ def _kernel_backend(cfg: SolverConfig) -> bool:
     return cfg.backend in ("auto", "pallas")
 
 
-def _direct_ok(cfg: SolverConfig) -> bool:
-    """The JAX ``_direct_kernel_fn`` gate: the kernel backend, no
-    ``HEAT3D_NO_DIRECT``, the ppermute transport, an even decomposition."""
+def _kernel_gate(cfg: SolverConfig, allow_partitioned_plan: bool = False) -> bool:
+    """The JAX ``_kernel_env_gate`` (the port has no platform to check):
+    the kernel backend, an even decomposition, axis ordering, and no
+    partitioned plan (an exchange-path structure the kernels would ignore)
+    unless the route consumes it (``allow_partitioned_plan``: fused RDMA)."""
     return (
         _kernel_backend(cfg)
-        and not os.environ.get("HEAT3D_NO_DIRECT")
-        and cfg.halo == "ppermute"
         and not cfg.is_padded
+        and cfg.halo_order == "axis"
+        and (allow_partitioned_plan or cfg.halo_plan != "partitioned")
     )
 
 
+def _direct_ok(cfg: SolverConfig, halo: int = 1) -> bool:
+    """The JAX ``_direct_kernel_fn`` gate: the kernel gate, no
+    ``HEAT3D_NO_DIRECT``, the ppermute transport; under ``overlap`` only
+    the one-update kernel (faces-direct already overlaps the face copies
+    with the sweep)."""
+    return (
+        _kernel_gate(cfg)
+        and not os.environ.get("HEAT3D_NO_DIRECT")
+        and cfg.halo == "ppermute"
+        and not (cfg.overlap and halo != 1)
+    )
+
+
+def resolve_fused_rdma(cfg: SolverConfig) -> str:
+    """The fused-RDMA knob in the current environment: ``HEAT3D_FUSED_RDMA``
+    overrides the config ('1'/'on'/'true'/'yes' asks for the route,
+    anything else stands it down)."""
+    env = os.environ.get("HEAT3D_FUSED_RDMA")
+    if env is not None:
+        return "on" if env.strip().lower() in ("1", "on", "true", "yes") else "off"
+    return cfg.fused_rdma
+
+
+def _fused_rdma_ok(cfg: SolverConfig, tb: int) -> bool:
+    """The JAX ``_fused_rdma_route`` gates: the knob on, neither overlap nor
+    the dma transport (those select the fused DMA family), the kernel gate
+    with the partitioned plan allowed, and the kernel's shape scope."""
+    if resolve_fused_rdma(cfg) != "on" or cfg.overlap or cfg.halo == "dma":
+        return False
+    if not _kernel_gate(cfg, allow_partitioned_plan=True):
+        return False
+    supported = (fused_rdma.fused_rdma_supported if tb == 1
+                 else fused_rdma.fused_rdma2_supported)
+    return supported(cfg.local_shape, cfg.mesh.shape)
+
+
+def _fused_dma_ok(cfg: SolverConfig, tb: int) -> bool:
+    """The JAX ``_fused_dma_fn`` / ``_fused_dma2_fn`` gates: overlap with
+    the dma transport, the kernel gate, the slab kernel's scope. Unlike the
+    direct routes, ``HEAT3D_NO_DIRECT`` does not stand it down."""
+    if not (cfg.overlap and cfg.halo == "dma" and _kernel_gate(cfg)):
+        return False
+    supported = (fused_dma.fused_dma_supported if tb == 1
+                 else fused_dma.fused_dma2_supported)
+    return supported(cfg.local_shape, cfg.mesh.shape)
+
+
+def _fused_dma_3d_ok(cfg: SolverConfig) -> bool:
+    """The JAX ``_fused_dma_3d_fn`` gate: as :func:`_fused_dma_ok` on an
+    x-sharded block mesh."""
+    return (cfg.overlap and cfg.halo == "dma" and _kernel_gate(cfg)
+            and fused_dma.fused_dma_3d_supported(cfg.local_shape, cfg.mesh.shape))
+
+
 def step_route(cfg: SolverConfig) -> str:
-    """The route of one update: ``direct`` (the direct kernel, (1,1,1)
-    mesh), ``faces-direct`` (the same on a larger mesh, with faces and
-    shells) under the direct gate; else ``exchange``."""
+    """The route of one update, in the JAX dispatch order: ``fused-rdma``;
+    ``direct`` / ``faces-direct`` under the direct gate; under overlap
+    ``fused-dma``, ``fused-dma-3d`` or the ``overlap`` split (raising the
+    JAX errors out of scope); else ``exchange``."""
+    if _fused_rdma_ok(cfg, 1):
+        return "fused-rdma"
     if _direct_ok(cfg):
         return "direct" if _single(cfg) else "faces-direct"
+    if cfg.overlap:
+        if _fused_dma_ok(cfg, 1):
+            return "fused-dma"
+        if _fused_dma_3d_ok(cfg):
+            return "fused-dma-3d"
+        if min(cfg.local_shape) < 3:
+            raise ValueError(
+                f"overlap=True needs local blocks >= 3 per axis to have "
+                f"an interior, got {cfg.local_shape}"
+            )
+        if cfg.halo == "dma":
+            raise ValueError(
+                "overlap=True with halo='dma' needs the fused DMA-overlap "
+                "kernel (a mesh with >= 2 shards along x — slab or x-sharded "
+                "block — unpadded shards, the kernel backend); outside that "
+                "scope the DMA exchange kernels cannot overlap with compute — "
+                "use halo='ppermute'"
+            )
+        return "overlap"
     return "exchange"
 
 
 def superstep_route(cfg: SolverConfig) -> str:
-    """The route of one k-update superstep (k = time_blocking >= 2):
-    ``direct2``/``faces-direct2`` at k=2 under the direct gate; else
-    ``streamk`` at k in {2, 3, 4} with the kernel backend on an even
-    decomposition (JAX ``_fused_streamk_fn``); else ``stepk``
-    (``_local_stepk`` with the backend's padded compute, so k >= 5 runs the
-    stream kernel k times with pins between)."""
+    """The route of one k-update superstep (k = time_blocking >= 2), in the
+    JAX dispatch order: under overlap ``fused-dma2`` or the JAX error;
+    ``fused-rdma2`` at k=2; ``direct2``/``faces-direct2`` at k=2 under the
+    direct gate; else ``streamk`` at k in {2, 3, 4} under the kernel gate
+    (JAX ``_fused_streamk_fn``); else ``stepk`` (``_local_stepk`` with the
+    backend's padded compute, so k >= 5 runs the stream kernel k times
+    with pins between)."""
     k = cfg.time_blocking
-    if k == 2 and _direct_ok(cfg):
+    if cfg.overlap:
+        if k == 2 and _fused_dma_ok(cfg, 2):
+            return "fused-dma2"
+        raise ValueError(
+            f"time_blocking={k} and overlap=True are mutually exclusive — the "
+            "superstep already restructures the exchange/compute schedule. "
+            "The one supported combination is the fused DMA-overlap "
+            "superstep: halo='dma' + tb=2 on an x-slab mesh with >= 2 "
+            "shards, local nx >= 4, unpadded shards"
+        )
+    if k == 2 and _fused_rdma_ok(cfg, 2):
+        return "fused-rdma2"
+    if k == 2 and _direct_ok(cfg, 2):
         return "direct2" if _single(cfg) else "faces-direct2"
-    if k in STREAMK_DEPTHS and _kernel_backend(cfg) and not cfg.is_padded:
+    if k in STREAMK_DEPTHS and _kernel_gate(cfg):
         return "streamk"
     return "stepk"
 
@@ -427,6 +572,14 @@ def _with_residual(cfg, mesh, step: StepFn) -> StepFn:
     return step_r
 
 
+def _rdma_bounds(ex: Exchanges, cfg: SolverConfig, width: int, dtype: torch.dtype):
+    """The fused RDMA kernels' send ranges: the x-face sub-blocks of the
+    config's plan schedule (as the JAX route's ``plan_for``, the requested
+    mode even under ``HEAT3D_NO_PLAN``)."""
+    return fused_rdma.plan_send_bounds(ex.schedule(width, cfg.halo_plan), cfg.local_shape,
+                                       torch.empty((), dtype=dtype).element_size())
+
+
 def make_step_fn(
     cfg: SolverConfig,
     mesh,
@@ -446,7 +599,18 @@ def make_step_fn(
     ex = exchanges or make_exchanges(cfg, mesh)
     route = step_route(cfg)
 
-    if route == "direct":
+    if route == "fused-rdma":
+        bounds = _rdma_bounds(ex, cfg, 1, dtype)
+        _log_step_path_once(
+            f"step path: fused in-kernel RDMA kernel ({len(bounds)} send range(s) "
+            f"per face, plan-scheduled remote face copies under the sweep)"
+        )
+
+        def step(us: Fields, outs: Optional[Fields] = None):
+            return fused_rdma.apply_step_fused_rdma(
+                us, taps, mesh, ex.fused(1, dtype, bounds), periodic, bc_value, outs)
+
+    elif route == "direct":
         _log_step_path_once("step path: single-shard direct kernel (no padded copy)")
 
         def step(us: Fields, outs: Optional[Fields] = None):
@@ -465,6 +629,35 @@ def make_step_fn(
             return _per_shard(
                 mesh, lambda s, u, f, out: _local_step_direct_faces(u, f, taps, cfg, s, out),
                 us, faces, _outs(mesh, outs))
+
+    elif route == "fused-dma":
+        _log_step_path_once("step path: fused DMA-overlap kernel (remote face copies "
+                            "under the sweep)")
+
+        def step(us: Fields, outs: Optional[Fields] = None):
+            return fused_dma.apply_step_fused_dma(
+                us, taps, mesh, ex.fused(1, dtype), periodic, bc_value, outs)
+
+    elif route == "fused-dma-3d":
+        _log_step_path_once("step path: fused DMA-overlap kernel + y/z shell patches "
+                            f"(x-sharded block mesh {cfg.mesh.shape})")
+
+        def step(us: Fields, outs: Optional[Fields] = None):
+            return _local_step_fused_dma_3d(us, outs, taps, cfg, mesh, ex)
+
+    elif route == "overlap":
+        compute = _compute_for(cfg, compute_padded)
+        _log_step_path_once(
+            f"step path: interior/boundary split: {_backend_label(cfg)} over the "
+            f"interior beside a {_exchange_label(cfg, 1)}, six faces after it"
+        )
+
+        def step(us: Fields, outs: Optional[Fields] = None):
+            pads = ex.plan(1, dtype).apply(us, bc_value)
+            return _per_shard(
+                mesh, lambda s, u, up, out: _local_step_overlap(u, up, taps, cfg, compute, s,
+                                                                out),
+                us, pads, _outs(mesh, outs))
 
     else:
         compute = _compute_for(cfg, compute_padded)
@@ -494,10 +687,12 @@ def make_superstep_fn(
     k = cfg.time_blocking
     if k < 2:
         raise ValueError(f"a superstep needs time_blocking >= 2, got {k}")
+    # the overlap rule comes first, as in the JAX package
+    route = superstep_route(cfg)
     # the same floor as the JAX package: k ghost layers must fit the block
     # and the shrinking-ring intermediates need a genuine interior
     min_extent = max(3, k)
-    if min(cfg.local_shape) < min_extent:
+    if route != "fused-dma2" and min(cfg.local_shape) < min_extent:
         raise ValueError(
             f"time_blocking={k} needs local extents >= "
             f"{min_extent} (k ghost layers plus the shrinking recompute "
@@ -508,9 +703,27 @@ def make_superstep_fn(
     bc_value = cfg.stencil.bc_value
     dtype = _storage_dtype(cfg)
     ex = exchanges or make_exchanges(cfg, mesh)
-    route = superstep_route(cfg)
 
-    if route == "direct2":
+    if route == "fused-dma2":
+        _log_step_path_once("superstep path: fused DMA-overlap two-update kernel "
+                            "(width-2 face copies under the sweep)")
+
+        def superstep(us: Fields, outs: Optional[Fields] = None):
+            return fused_dma.apply_superstep_fused_dma(
+                us, taps, mesh, ex.fused(2, dtype), periodic, bc_value, outs)
+
+    elif route == "fused-rdma2":
+        bounds = _rdma_bounds(ex, cfg, 2, dtype)
+        _log_step_path_once(
+            f"superstep path: fused in-kernel RDMA two-update kernel ({len(bounds)} "
+            "send range(s) per face, plan-scheduled width-2 copies under the sweep)"
+        )
+
+        def superstep(us: Fields, outs: Optional[Fields] = None):
+            return fused_rdma.apply_superstep_fused_rdma(
+                us, taps, mesh, ex.fused(2, dtype, bounds), periodic, bc_value, outs)
+
+    elif route == "direct2":
         _log_step_path_once("superstep path: single-shard fused direct2 kernel")
 
         def superstep(us: Fields, outs: Optional[Fields] = None):

@@ -67,6 +67,13 @@ class ShardMesh:
         n = self.shape[0] * self.shape[1] * self.shape[2]
         if len(devices) != n:
             raise ValueError(f"mesh {self.shape} needs {n} devices, got {len(devices)}")
+        # "cuda" names the current CUDA device: give it its index, so a
+        # shard's device compares equal to its tensors' devices
+        devices = [
+            torch.device("cuda", torch.cuda.current_device())
+            if d.type == "cuda" and d.index is None else d
+            for d in map(torch.device, devices)
+        ]
         streams = n > 1
         self.shards: List[Shard] = []
         for rank, dev in enumerate(devices):

@@ -85,11 +85,11 @@ def test_decomposition_equal():
     "kw,needle",
     [
         (dict(halo="auto"), "halo='auto'"),
-        (dict(halo="dma", overlap=True, mesh=config.MeshConfig(shape=(2, 1, 1))),
-         "overlap=True"),
-        (dict(overlap=True), "overlap=True"),
-        (dict(fused_rdma="on"), "fused_rdma='on'"),
-        (dict(halo_plan="partitioned"), "halo_plan='partitioned'"),
+        (dict(halo="dma", overlap=True, mesh=config.MeshConfig(shape=(2, 1, 1)),
+              time_blocking=0), "time_blocking=0 (auto)"),
+        (dict(overlap=True, halo_order="pairwise"), "halo_order='pairwise'"),
+        (dict(fused_rdma="auto"), "fused_rdma='auto'"),
+        (dict(halo_plan="auto"), "halo_plan='auto'"),
         (dict(halo_order="pairwise"), "halo_order='pairwise'"),
         (dict(time_blocking=0), "time_blocking=0 (auto)"),
         (dict(integrator="implicit-cg"), "integrator='implicit-cg'"),
@@ -125,6 +125,12 @@ def test_config_accepts_slice_scope():
                     mesh=config.MeshConfig(shape=mesh), halo=halo,
                 )
                 assert cfg.is_padded == any(g % p for g, p in zip(shape, mesh))
+    # the overlap routes' knobs
+    for kw in (dict(overlap=True), dict(overlap=True, halo="dma"),
+               dict(fused_rdma="on"), dict(fused_rdma="on", halo_plan="partitioned"),
+               dict(halo_plan="partitioned")):
+        config.SolverConfig(grid=config.GridConfig.cube(8),
+                            mesh=config.MeshConfig(shape=(2, 1, 1)), **kw)
     with pytest.raises(ValueError, match="not divisible"):
         config.SolverConfig(
             grid=config.GridConfig(shape=(13, 12, 12)),

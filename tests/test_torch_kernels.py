@@ -242,3 +242,133 @@ def test_dma_plan_built_mid_run_on_busy_streams(cuda, tb, periodic):
     for s, shard in zip(solver.mesh.shards, got.shards):
         region = tuple(slice(o, o + n) for o, n in zip(s.origin, solver.mesh.local_shape))
         assert torch.equal(shard, want[region]), s.coords
+
+
+def _split(u, mesh):
+    return [u[tuple(slice(o, o + n) for o, n in zip(s.origin, mesh.local_shape))].contiguous()
+            for s in mesh.shards]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("mesh_shape,shape", [
+    ((4, 1, 1), (16, 20, 70)), ((2, 1, 1), (8, 33, 65)), ((3, 1, 1), (18, 17, 40)),
+    ((2, 2, 2), (12, 20, 70)), ((2, 1, 3), (8, 9, 66))])
+def test_fused_kernels_equal_plain_versions(cuda, mesh_shape, shape, dtype):
+    """The four fused kernels (fused DMA tb 1/2, fused RDMA tb 1/2 with the
+    plan's ranges), every shard on one card in one launch, against their
+    plain versions, five launches in a row per state; the landed ghosts of
+    ``return_ghosts`` too. The tb=2 kernel only on x-slab meshes."""
+    from heat3d_tpu_torch.ops import stencil_dma_fused as fd
+    from heat3d_tpu_torch.ops import stencil_fused_rdma as fr
+    from heat3d_tpu_torch.parallel.plan import partition_bounds
+
+    local = tuple(g // p for g, p in zip(shape, mesh_shape))
+    mesh = _card_mesh(cuda, mesh_shape, local)
+    rng = np.random.default_rng(11)
+    slab = mesh_shape[1] == mesh_shape[2] == 1
+    fd.reset_launch_counts()
+    fr.reset_launch_counts()
+    for kind in ("7pt", "27pt"):
+        taps = _taps(kind)
+        for periodic, bcv in ((False, 0.3), (True, 0.0)):
+            for tb in ((1, 2) if slab and local[0] >= 4 else (1,)):
+                for bounds, fns in (
+                    (None, (fd.apply_step_fused_dma, fd.apply_superstep_fused_dma)),
+                    (partition_bounds(local[1], 3),
+                     (fr.apply_step_fused_rdma, fr.apply_superstep_fused_rdma)),
+                ):
+                    state = fd.FusedState(mesh, tb, dtype, periodic, bounds)
+                    for _ in range(5):
+                        u = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                        us = _split(u.to(cuda).to(dtype), mesh)
+                        if tb == 2:
+                            got = fns[1](us, taps, mesh, state, periodic, bcv)
+                            want = fd.reference_fused_superstep(us, taps, mesh, periodic, bcv)
+                            gh = wgh = []
+                        elif bounds is None:
+                            got, gh = fns[0](us, taps, mesh, state, periodic, bcv,
+                                             return_ghosts=True)
+                            want, wgh = fd.reference_fused_step(us, taps, mesh, periodic, bcv,
+                                                                return_ghosts=True)
+                            gh = [tuple(x.clone() for x in g) for g in gh]
+                        else:
+                            got = fns[0](us, taps, mesh, state, periodic, bcv)
+                            want = fd.reference_fused_step(us, taps, mesh, periodic, bcv)
+                            gh = wgh = []
+                        torch.cuda.synchronize()
+                        fd.raise_if_timed_out()
+                        for g, w in zip(got, want):
+                            assert torch.equal(g, w), (kind, periodic, tb, bounds)
+                        for g, w in zip(gh, wgh):
+                            assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+    assert fd.launch_counts()["apply_step_fused_dma"] > 0
+    assert fr.launch_counts()["apply_step_fused_rdma"] > 0
+
+
+def test_fused_launch_checks(cuda):
+    from heat3d_tpu_torch.ops import stencil_dma_fused as fd
+
+    mesh = _card_mesh(cuda, (2, 1, 1), (4, 8, 8))
+    state = fd.FusedState(mesh, 1, torch.float32, False)
+    us = [torch.rand((4, 8, 8), device=cuda) for _ in range(2)]
+    taps = _taps("7pt")
+    with pytest.raises(ValueError, match="overlaps"):
+        fd.apply_step_fused_dma(us, taps, mesh, state, outs=[us[1], torch.empty_like(us[0])])
+    with pytest.raises(ValueError, match="want"):
+        fd.apply_step_fused_dma([u.double() for u in us], taps, mesh, state)
+    with pytest.raises(ValueError, match="width"):
+        fd.apply_superstep_fused_dma(us, taps, mesh, state)
+    with pytest.raises(ValueError, match="FusedState"):
+        fd.apply_step_fused_dma(us, taps, mesh)
+
+
+@pytest.mark.parametrize("mesh_shape,kw", [
+    ((4, 1, 1), dict(overlap=True, halo="dma")),
+    ((4, 1, 1), dict(overlap=True, halo="dma", time_blocking=2)),
+    ((2, 2, 2), dict(overlap=True, halo="dma")),
+    ((4, 1, 1), dict(fused_rdma="on", halo_plan="partitioned")),
+    ((4, 1, 1), dict(fused_rdma="on", halo_plan="partitioned", time_blocking=2)),
+    ((2, 2, 2), dict(overlap=True, backend="pallas"))])
+def test_overlap_routes_equal_single_shard_on_card(cuda, monkeypatch, mesh_shape, kw):
+    from heat3d_tpu_torch.core.config import MeshConfig
+
+    monkeypatch.setenv("HEAT3D_PLAN_PART_MIN_BYTES", "0")
+
+    def solve(mesh, **knobs):
+        cfg = SolverConfig(grid=GridConfig(shape=(24, 20, 70)),
+                           stencil=StencilConfig(kind="27pt", bc_value=0.3),
+                           mesh=MeshConfig(shape=mesh), **knobs)
+        solver = HeatSolver3D(cfg, device=cuda)
+        return solver.gather(solver.run(solver.init_state("random"), 9))
+
+    want = solve((1, 1, 1))
+    if mesh_shape == (2, 2, 2) and "halo" not in kw:
+        monkeypatch.setenv("HEAT3D_NO_DIRECT", "1")  # the overlap split
+    assert solve(mesh_shape, **kw).tobytes() == want.tobytes()
+
+
+def test_fused_state_built_mid_run_on_busy_streams(cuda):
+    """1024^3 on (8,1,1), every shard on one card, ``dma`` + ``overlap``,
+    tb=2, 11 steps: the tb=1 kernel's state of the remainder step is built
+    while the supersteps still run. It is zeroed on the stream its kernel
+    runs on, so no signal is lost; the result equals the (1,1,1) solve
+    bitwise."""
+    from heat3d_tpu_torch.core.config import MeshConfig
+    from heat3d_tpu_torch.ops import stencil_dma_fused as fd
+
+    def solve(mesh, **knobs):
+        cfg = SolverConfig(grid=GridConfig.cube(1024),
+                           stencil=StencilConfig(kind="7pt", bc_value=0.3),
+                           mesh=MeshConfig(shape=mesh), **knobs)
+        solver = HeatSolver3D(cfg, device=cuda)
+        return solver, solver.run(solver.init_state("hot-cube"), 11)
+
+    _, want = solve((1, 1, 1))
+    fd.reset_launch_counts()
+    solver, got = solve((8, 1, 1), halo="dma", overlap=True, time_blocking=2)
+    torch.cuda.synchronize()
+    fd.raise_if_timed_out()
+    assert fd.launch_counts() == {"apply_step_fused_dma": 1, "apply_superstep_fused_dma": 5}
+    for s, shard in zip(solver.mesh.shards, got.shards):
+        region = tuple(slice(o, o + n) for o, n in zip(s.origin, solver.mesh.local_shape))
+        assert torch.equal(shard, want[region]), s.coords
