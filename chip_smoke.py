@@ -9,14 +9,19 @@ non-zero without one. Phases, each printing its own lines:
 1. identify the card (nvidia-smi name and power limit, torch and CUDA);
 2. build the CUDA kernels from ``heat3d_tpu_torch/csrc`` (one nvcc per
    source, all started together) and print the compiler's resource report
-   and the streamk kernels' dynamic shared memory;
+   and each stream kernel instance's dynamic shared memory and resident
+   blocks per SM (k = 1..4 x the 7pt, 27pt and generic instances x
+   fp32/bf16);
 3. hold each kernel against its plain PyTorch version on the card, bitwise,
    for 7pt/27pt x Dirichlet (bc 0 and 0.3)/periodic x fp32/bf16 storage at
    ragged shapes, 128^3 (the golden phase's grid) and 256^3: the direct
    kernels (tb 1 and 2), the stream kernel and streamk at k = 2, 3, 4 over
-   the halo exchange; also the streamk plain version against k direct
-   kernel launches, and the exchange-path solve of k steps against the
-   direct-path solve, both bitwise;
+   the halo exchange; the stream kernels' generic instance at 128^3 under
+   the factoring knobs (``HEAT3D_FACTOR_7PT=1``, ``HEAT3D_FACTOR_Y=0``,
+   both), each launch on the instance ``stream_instance`` names; also the
+   streamk plain version against k direct kernel launches, and the
+   exchange-path solve of k steps against the direct-path solve, both
+   bitwise;
 4. the sharded solve, every shard on ``cuda:0`` on a stream of its own,
    bitwise: the DMA halo kernels against their plain version (meshes
    (2,1,1) .. (2,2,2), widths 1-4, three boundary settings, fp32/bf16, at
@@ -43,7 +48,10 @@ non-zero without one. Phases, each printing its own lines:
    periodic, 27pt and bf16 storage: the full-width phase's settings), the
    halo exchange's time at each width, and the library call's time
    (F.conv3d, no TF32) over the same input as the tb=1 and the stream
-   kernel, held to them within a stated rounding bound; the DMA push+wait
+   kernel, held to them within a stated rounding bound; the stream kernel
+   and streamk K=4 in their 27pt fp32 and 7pt bf16 instances at 1024^3
+   (bitwise, timed beside their bounds), and the ratios stream1 / direct1,
+   streamk K=2 / direct2 and K=4 / direct2 of the same call; the DMA push+wait
    pairs per axis on 512^3 shards of a (2,2,2) mesh at widths 1 and 4;
    and each stencil kernel the (2,2,2) rows launch, on those 512^3 shards
    (streamk K=4 under corner shards' domain-edge masks), held bitwise to
@@ -65,7 +73,10 @@ non-zero without one. Phases, each printing its own lines:
    phase 7 times each fused kernel at 1024^3 over all shards of the card.
 
 The kernel launch counts are zeroed just before phase 5 and read just after
-phase 6; the script fails if any kernel was not launched there. The last
+phase 6; the script fails if any kernel was not launched there, or if a
+stream kernel launch there took the generic instance. The ``main_path``
+line also gives each wrapper's output cells as launches of the size the
+kernels line times (1024^3-equivalent launches). The last
 three lines are the kernels' JSON object (``{"kernels": [...]}``), the
 nvidia-smi line, and the status object ``{"ok": true, "device": {...}}``.
 """
@@ -294,7 +305,18 @@ def phase_identify() -> str:
     return smi
 
 
-def phase_build() -> None:
+def _instance_name(code: int) -> str:
+    from heat3d_tpu_torch.ops import stencil_stream as ss
+
+    return ss.CHAINS[code][0] if code in ss.CHAINS else "generic"
+
+
+def phase_build() -> dict:
+    """Build every source; print the compiler's report and each stream
+    instance's dynamic shared memory and resident blocks per SM. Returns
+    those, keyed ``k<k>_<instance>_<dtype>``."""
+    import torch
+
     from heat3d_tpu_torch.ops import _build
     from heat3d_tpu_torch.ops import stencil_stream as ss
 
@@ -302,8 +324,15 @@ def phase_build() -> None:
     _say("build", seconds=seconds)
     for name in seconds:
         print(_build.build_log(name).strip(), flush=True)
-    _say("build", streamk_dynamic_smem_bytes={
-        k: ss.streamk_smem_bytes(k) for k in ss.STREAMK_DEPTHS})
+    resources = {
+        f"k{k}_{_instance_name(code)}_{str(dtype)[6:]}": ss.instance_resources(k, code, dtype)
+        for k in (1, *ss.STREAMK_DEPTHS) for code in (ss.GENERIC, *ss.CHAINS)
+        for dtype in (torch.float32, torch.bfloat16)
+    }
+    for key, r in resources.items():
+        _check(r["blocks_per_sm"] > 0, f"stream instance {key} fits no SM: {r}")
+    _say("build", stream_instances=resources)
+    return resources
 
 
 def _one_shard_plan(u, periodic, k):
@@ -413,6 +442,7 @@ def phase_compare() -> dict:
                         chained += 1
             del u
         torch.cuda.empty_cache()
+    generic = _compare_generic(worst)
     solves = 0
     for k in (1, 2, 3, 4):
         for kind in ("7pt", "27pt"):
@@ -427,8 +457,49 @@ def phase_compare() -> dict:
                     solves += 1
     _say("compare", cases=n, bitwise=True, max_abs_err=worst,
          streamk_plain_vs_direct_launches=chained, exchange_vs_direct_solves=solves,
-         launches=ops.launch_counts())
+         generic_instance=generic, launches=ops.launch_counts())
     return worst
+
+
+# the factoring knobs of the compare phase's generic-instance cases
+_KNOBS = ({"HEAT3D_FACTOR_7PT": "1"}, {"HEAT3D_FACTOR_Y": "0"},
+          {"HEAT3D_FACTOR_7PT": "1", "HEAT3D_FACTOR_Y": "0"})
+
+
+def _compare_generic(worst: dict) -> dict:
+    """The stream kernel and streamk at k = 2..4 at 128^3 under the
+    factoring knobs, 7pt/27pt x fp32/bf16 x three boundary settings,
+    bitwise against their plain versions; each launch must take the
+    instance ``stream_instance`` names (the generic one exactly where the
+    emission program is not a ``CHAINS`` entry), counted by the wrappers."""
+    import numpy as np
+    import torch
+
+    from heat3d_tpu_torch.ops import stencil_stream as ss
+
+    base = np.random.default_rng(9).standard_normal((128, 128, 128)).astype(np.float32)
+    cases = {}
+    for knobs in _KNOBS:
+        with _env(**knobs):
+            for dtype in (torch.float32, torch.bfloat16):
+                u = torch.from_numpy(base).cuda().to(dtype)
+                for kind in ("7pt", "27pt"):
+                    taps = _taps(kind)
+                    code = ss.stream_instance(taps)
+                    tag = f"{'+'.join(f'{k}={v}' for k, v in knobs.items())} {kind}"
+                    cases[tag] = _instance_name(code)
+                    for periodic, bcv in _BCS:
+                        for name, k in _cases()[2:]:
+                            before = ss.generic_launch_counts()[name]
+                            got, want = _run_kernel(name, u, taps, periodic, bcv, k)
+                            _hold(worst, name, got, want,
+                                  f"k={k} at 128^3 {dtype} {tag} periodic={periodic} bc={bcv}")
+                            took = ss.generic_launch_counts()[name] - before
+                            _check(took == (code == ss.GENERIC),
+                                   f"{name} k={k} {tag}: generic launches {took}, "
+                                   f"instance {_instance_name(code)}")
+                del u
+    return cases
 
 
 def _card_mesh(shape, local, devices=None):
@@ -903,7 +974,7 @@ def _library_check(name: str, got, lib_out, taps, u) -> dict:
     return {f"library_vs_{name}_max_abs_err": err, f"library_vs_{name}_tol": tol}
 
 
-def phase_kernel_times(bw: float, worst: dict) -> dict:
+def phase_kernel_times(bw: float, worst: dict, resources: dict) -> dict:
     """Kernel and plain-version times at 256^3 and 1024^3 fp32 7pt, with
     each kernel held bitwise to its plain version at those sizes (7pt fp32
     with bc 0, 0.3 and periodic, 27pt fp32 and 7pt bf16: the settings the
@@ -959,6 +1030,8 @@ def phase_kernel_times(bw: float, worst: dict) -> dict:
             b_ms, by = kernel_bound(name, n, k, 4, flops, bw)
             times[n][key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                              "bound_by": by, "library_ms": None}
+            if name.startswith("apply_taps_stream"):
+                times[n][key]["blocks_per_sm"] = resources[f"k{k}_7pt_float32"]["blocks_per_sm"]
         extra = {}
         if n == 1024:
             # yardstick, never called by the port: one cuDNN convolution
@@ -984,8 +1057,52 @@ def phase_kernel_times(bw: float, worst: dict) -> dict:
              times=times[n], exchange_ms_by_width=exchange_ms, bitwise_cases=cases,
              max_abs_err=worst, **extra)
     t = times[1024]
+    variants = _stream_variant_times(bw, worst, resources)
+    d1, d2 = t["apply_taps_direct"]["ms"], t["apply_taps_direct2"]["ms"]
+    ratios = {
+        "stream1_over_direct1": t["apply_taps_stream"]["ms"] / d1,
+        "streamk_k2_over_direct2": t["apply_taps_streamk_k2"]["ms"] / d2,
+        "streamk_k4_over_direct2": t["apply_taps_streamk_k4"]["ms"] / d2,
+    }
+    _say("stream_times", grid=[1024] * 3, variants=variants, ratios_7pt_float32=ratios,
+         direct_ms={"apply_taps_direct": d1, "apply_taps_direct2": d2},
+         max_abs_err={n: worst[n] for n in ("apply_taps_stream", "apply_taps_streamk")})
     t["apply_taps_streamk"] = t[f"apply_taps_streamk_k{_STREAMK_HEADLINE}"]
     return t
+
+
+def _stream_variant_times(bw: float, worst: dict, resources: dict) -> dict:
+    """The stream kernel and streamk K=4 at 1024^3, Dirichlet bc 0, in the
+    27pt fp32 and 7pt bf16 instances (the 7pt fp32 ones are
+    ``kernel_times``'): ms per launch, bound, blocks per SM and shared
+    memory, each launch held bitwise to its plain version."""
+    import torch
+
+    from heat3d_tpu_torch.ops import stencil_stream as ss
+
+    n = 1024
+    out_times = {}
+    for kind, dtype in (("27pt", torch.float32), ("7pt", torch.bfloat16)):
+        taps = _taps(kind, n)
+        u = torch.rand((n, n, n), device="cuda").to(dtype)
+        for name, k in (("apply_taps_stream", 1), ("apply_taps_streamk", _STREAMK_HEADLINE)):
+            kern, plain = _kernel_pair(name, k)
+            x = _padded(u, False, 0.0, k)
+            out = torch.empty_like(u)
+            ms = _time_ms(lambda: kern(x, taps, False, 0.0, out=out), iters=10)
+            _hold(worst, name, out, plain(x, taps, False, 0.0),
+                  f"k={k} at {n}^3 {kind} {dtype} bc=0.0")
+            b_ms, by = kernel_bound(name, n, k, u.element_size(), flops_per_update(taps), bw)
+            code = ss.stream_instance(taps)
+            out_times[f"k{k}_{kind}_{str(dtype)[6:]}"] = {
+                "ms": ms, "bound_ms": b_ms, "bound_by": by,
+                "instance": _instance_name(code),
+                **resources[f"k{k}_{_instance_name(code)}_{str(dtype)[6:]}"]}
+            del x, out
+            torch.cuda.empty_cache()
+        del u
+        torch.cuda.empty_cache()
+    return out_times
 
 
 def _dma_axis_bytes(mesh, axis: int, width: int, itemsize: int, periodic: bool) -> int:
@@ -1001,6 +1118,19 @@ def _dma_axis_bytes(mesh, axis: int, width: int, itemsize: int, periodic: bool) 
         for d in (-1, +1):
             total += slab * (1 if mesh.neighbor(s, axis, d, periodic) is None else 2)
     return total * itemsize
+
+
+def _unit_cells(name: str) -> int:
+    """Output cells of the launch the kernels line times: a 1024^3 field for
+    the stencil and fused kernels; for the DMA pairs the ghost cells of one
+    whole width-1 exchange over the (2,2,2) mesh of 512^3 shards (two slabs
+    a shard and axis, as ``halo_dma.cell_counts`` counts them)."""
+    if name != "halo_dma":
+        return 1024**3
+    m, w = 512, 1
+    padded = m + 2 * w
+    per_shard = 2 * (w * m * m + padded * w * m + padded * padded * w)
+    return 8 * per_shard
 
 
 def phase_dma_times(bw: float, worst: dict) -> dict:
@@ -1463,11 +1593,12 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from heat3d_tpu_torch import ops
+    from heat3d_tpu_torch.ops import stencil_stream
 
     t0 = time.perf_counter()
     smi = phase_identify()
     bw = bandwidth(torch.cuda.get_device_name(0))
-    phase_build()
+    resources = phase_build()
     worst = phase_compare()
     phase_compare_mesh(worst)
     phase_compare_fused(worst)
@@ -1476,11 +1607,18 @@ def main() -> int:
     phase_golden()
     phase_full_width(bw)
     launches = ops.launch_counts()
+    generic = stencil_stream.generic_launch_counts()
+    cells = ops.cell_counts()
     for name in KERNELS:
         _check(launches[name] > 0, f"{name} was not launched on the main path")
-    _say("main_path", kernel_launches=launches)
+    _check(not any(generic.values()),
+           f"the main path's 7pt/27pt stream launches took the generic instance: {generic}")
+    equiv = {name: cells[name] / _unit_cells(name) for name in KERNELS}
+    _say("main_path", kernel_launches=launches, generic_instance_launches=generic,
+         output_cells=cells, launches_1024_equivalent=equiv,
+         launches_1024_equivalent_unit={name: _unit_cells(name) for name in KERNELS})
 
-    times = phase_kernel_times(bw, worst)
+    times = phase_kernel_times(bw, worst, resources)
     times["halo_dma"] = phase_dma_times(bw, worst)
     times.update(phase_fused_times(bw, worst))
     phase_shard_kernel_times(bw, worst)

@@ -1,34 +1,76 @@
 // Exchange-path stencil kernels for Hopper (sm_90a): a ghost-padded field
 // in (the halo exchange wrote the ghosts), its interior after one update
-// (stream1_kernel) or after K = 2..4 fused updates (streamk_kernel) out.
+// (K = 1) or after K = 2..4 fused updates out.
 //
 // Replaces heat3d_tpu/ops/stencil_pallas.py:
 //   * ::apply_taps_pallas_stream (_stream_kernel) and its dispatcher
-//     ::apply_taps_pallas -> stream1_kernel. The dispatcher's windowed
+//     ::apply_taps_pallas -> K = 1. The dispatcher's windowed
 //     _stencil_kernel exists because a TPU plane ring can overflow VMEM; a
 //     (y, z)-tiled kernel has no such limit, so one kernel covers both;
 //   * ::apply_taps_pallas_streamk (_streamk_kernel) and its two-stage form
-//     ::apply_taps_pallas_stream2 (_stream2_kernel) -> streamk_kernel<T, K>.
+//     ::apply_taps_pallas_stream2 (_stream2_kernel) -> K = 2..4.
+//
+// Two families of instances:
+//   * stream_kernel<T, K, S>: the tap chain S fixed at compile time. S is
+//     one of the two emission programs the solver's stencils give under
+//     the default factoring knobs: the plain lexicographic 7pt chain (7
+//     terms) and the x- and y-factored 27pt chain (12 terms). Their
+//     (src, row, dk) sequences come from the wrapper's table
+//     (ops/stencil_stream.py CHAINS), which the build passes to nvcc as
+//     HEAT3D_CHAIN_7PT / HEAT3D_CHAIN_27PT; the weights are a kernel
+//     argument. The wrapper picks S by comparing emission_program(taps)
+//     with that table.
+//   * stream1_generic / streamk_generic<T, K>: any other chain (other taps,
+//     HEAT3D_FACTOR_7PT=1, HEAT3D_FACTOR_Y=0), interpreted per cell from
+//     the Program in shared memory (stencil_common.cuh), over 3-slot float
+//     rings of framed planes.
 //
 // Bound: device-memory bytes. A launch reads the width-K padded field once
-// and writes the interior once; the K updates cost 13 (7pt) to ~33 (27pt,
+// and writes the interior once; the K updates cost 13 (7pt) to 33 (27pt,
 // factored) flops per cell each, plus the recompute of the shrinking ghost
-// rings -- still below Hopper's fp32 balance point of ~20 flop/B. Design:
-//   * as in stencil_direct.cu, each block owns a (TY, TZ) tile of (y, z)
-//     and marches one x-chunk, with a 3-slot ring of framed planes in
-//     shared memory, so each padded plane is read from device memory once;
-//   * streamk keeps K rings: the input ring framed by K cells and, for each
-//     stage j < K, a ring of its planes framed by r = K - j cells. Stage
-//     j's plane at padded x p is computed from stage j-1's planes p-1, p,
-//     p+1 (the slot scheme of _streamk_kernel: plane p in slot p % 3, stage
-//     j emitting plane i - j at the step that loads input plane i), so the
-//     K updates cost one read and one write of the field. Each block
-//     recomputes its own trapezoid of ghost rings: arithmetic, not traffic.
-//   * The rings need ~30.6 KB (K=2), ~49 KB (K=3) and ~70 KB (K=4) of
-//     float shared memory, so streamk uses dynamic shared memory with the
-//     limit raised by cudaFuncSetAttribute.
+// rings: at 1024^3 the bytes take 2.57-2.59 ms on an H100 SXM, the raw
+// trapezoid's flops 0.2-0.8 ms. The generic instances are bound by their
+// instruction stream (per cell and term: a Term read from shared memory,
+// two branches, index arithmetic). Design of stream_kernel against that:
+//   * the chain is unrolled at compile time: a term is one or two shared
+//     loads at immediate offsets, __fmul_rn and __fadd_rn. Each x-plane
+//     sum (pm + pp) is computed once per cell position and each y-row sum
+//     once per term, from the same operands in the same order as the
+//     cached sums of the plain version (ops.stencil_eager);
+//   * a block of 32 x 8 threads owns a (TY, TZ) tile and marches one
+//     x-chunk. Thread (tx, ty) owns the frame positions (ty + 8 l,
+//     tx + 32 m): rows of the frame are warps, columns are lanes, so every
+//     shared access of a warp is 32 consecutive elements. Its x-neighbours
+//     (the previous plane of each level, and the fresh plane of the stage
+//     below) live in registers, so of each level only the plane whose y/z
+//     neighbours are read sits in shared memory: one slot per stage level
+//     (in the storage type: the intermediates are rounded through it), plus
+//     for 27pt one float slot of the x-plane sum;
+//   * input planes land by cp.async (4 B; bf16 as aligned element pairs,
+//     each row shifted by the parity of its first element), two planes
+//     ahead into a 4-slot ring (one ahead, 3 slots, where a fourth slot
+//     would cost the fourth block of an SM: fp32 K=4 27pt), so the loads
+//     of planes i+1 and i+2 are in flight while the stages run on plane
+//     i. Each warp loads whole rows; out-of-range cells are zero-filled by
+//     the copy itself;
+//   * the frame is 64 columns by 32 rows (40 for K = 1) and the tile is
+//     the frame less 2K on each axis: for K = 4 a read amplification of
+//     1.52 and a trapezoid of 1.19x the updates (16 x 64 tiles: 1.69 and
+//     1.25), in 48 KB (7pt) or 56 KB (27pt) of fp32 shared memory, about
+//     half in bf16; launch bounds hold the registers to 64, so four blocks
+//     of 256 threads fit an SM;
+//   * Dirichlet pins are tested per row and per column once per block.
 //
-// Semantics: before a stage other than the last writes its plane, the
+// Measured (chip_smoke.py on "NVIDIA H100 80GB HBM3, 700.00 W"; PERF.md
+// section 6), ms per launch at 1024^3 fp32 7pt against the bytes bound:
+// K = 1 5.07 / 2.57, K = 2 4.80 / 2.58, K = 3 7.10 / 2.59, K = 4 11.15 /
+// 2.59 (27pt K = 4 22.26; 7pt bf16 K = 4 14.37 / 1.30). The previous
+// design, now the generic instance, took 9.87, 21.06, 35.46 and 58.42.
+// Still above the bound by 2x (K = 1) to 4.3x (K = 4): a deeper prefetch
+// moved little, so barriers and instruction throughput, not load latency,
+// are the suspects.
+//
+// Semantics: before a stage other than the last passes its plane on, the
 // plane is rounded through the storage type and, under Dirichlet, every
 // cell that lies beyond a DOMAIN face of the shard -- its block index
 // (padded index - K) outside [0, n) on an axis whose low or high face the
@@ -39,18 +81,510 @@
 // neighbour values and stay (the JAX kernel pins at domain-edge shards
 // only, from axis_index). A whole-domain block has all six bits set. Under
 // periodic boundaries nothing is pinned: the exchange wrapped the ghosts,
-// so the ring cells are genuine wrapped values. The arithmetic is the emission
-// program of stencil_common.cuh, so both kernels equal ops.stencil_eager
-// (one apply_taps_padded per update) bitwise.
+// so the ring cells are genuine wrapped values. Every instance equals
+// ops.stencil_eager (one apply_taps_padded per update) bitwise.
 //
 // Launches go on the caller's stream, allocate nothing, and return
 // cudaGetLastError().
 
+#include <atomic>
+#include <utility>
+
 #include "stencil_common.cuh"
+
+#if !defined(HEAT3D_CHAIN_7PT) || !defined(HEAT3D_CHAIN_27PT)
+#error "build with the chain table of ops/stencil_stream.py (ops/_build.py passes it)"
+#endif
 
 namespace {
 
 constexpr int MAX_K = 4;
+
+// ---------------------------------------------------------------------------
+// Compile-time tap chains: three digits a term in emission order, src, row
+// and dk + 1.
+
+constexpr int kLen7 = (sizeof(HEAT3D_CHAIN_7PT) - 1) / 3;
+constexpr int kLen27 = (sizeof(HEAT3D_CHAIN_27PT) - 1) / 3;
+
+constexpr int SPEC_GENERIC = 0;
+constexpr int SPEC_7PT = 1;
+constexpr int SPEC_27PT = 2;
+
+template <int S>
+__host__ __device__ constexpr int chain_len() {
+  return S == SPEC_7PT ? kLen7 : kLen27;
+}
+
+// Field f (0 src, 1 row, 2 dk) of term i of chain S.
+template <int S>
+__host__ __device__ constexpr int tap(int i, int f) {
+  return (S == SPEC_7PT ? HEAT3D_CHAIN_7PT[3 * i + f]
+                        : HEAT3D_CHAIN_27PT[3 * i + f]) -
+         '0' - (f == 2 ? 1 : 0);
+}
+
+template <int S>
+__host__ __device__ constexpr bool uses_xsum() {
+  for (int i = 0; i < chain_len<S>(); ++i) {
+    if (tap<S>(i, 0) == 3) return true;
+  }
+  return false;
+}
+
+// The planes x-1 and x+1 are read at the cell itself only: the design
+// keeps them in registers.
+template <int S>
+__host__ __device__ constexpr bool centre_x_only() {
+  for (int i = 0; i < chain_len<S>(); ++i) {
+    const int s = tap<S>(i, 0);
+    if ((s == 0 || s == 2) && (tap<S>(i, 1) != 1 || tap<S>(i, 2) != 0)) {
+      return false;
+    }
+  }
+  return chain_len<S>() >= 1 && chain_len<S>() <= MAX_TERMS;
+}
+
+struct Weights {
+  float w[MAX_TERMS];
+};
+
+// ---------------------------------------------------------------------------
+// Geometry of the specialised instances.
+
+constexpr int SBZ = 32;  // blockDim.x: lanes along z
+constexpr int SBY = 8;   // blockDim.y: warps along y
+constexpr int SNT = SBZ * SBY;
+constexpr int MIN_BLOCKS = 4;  // launch bounds: <= 64 registers a thread
+
+template <int K>
+struct Geom {
+  static constexpr int LA = K == 1 ? 5 : 4;  // frame rows a thread owns
+  static constexpr int MB = 2;               // frame columns a thread owns
+  static constexpr int P = LA * MB;
+  static constexpr int FH = SBY * LA;  // frame rows (y)
+  static constexpr int FW = SBZ * MB;  // frame columns (z, contiguous)
+  static constexpr int TY = FH - 2 * K;
+  static constexpr int TZ = FW - 2 * K;
+};
+
+// Row stride of an input slot: bf16 rows hold one element more in front
+// (the parity shift of the aligned pair copies) and stay an even length.
+template <class T, int K>
+__host__ __device__ constexpr int in_stride() {
+  return Geom<K>::FW + (sizeof(T) == 2 ? 2 : 0);
+}
+
+// Shared memory of an instance with `slots` input slots.
+template <class T, int K, int S>
+__host__ __device__ constexpr int smem_with(int slots) {
+  using G = Geom<K>;
+  return slots * G::FH * in_stride<T, K>() * (int)sizeof(T) +
+         (K - 1) * G::FH * G::FW * (int)sizeof(T) +
+         (uses_xsum<S>() ? G::FH * G::FW * (int)sizeof(float) : 0);
+}
+
+// Input slots: planes i-1 and i under use and planes i+1 (and i+2) in
+// flight. The second plane ahead is taken where four blocks still fit an
+// SM (56 KB each); fp32 K=4 27pt keeps one.
+template <class T, int K, int S>
+__host__ __device__ constexpr int in_slots() {
+  return smem_with<T, K, S>(4) <= 56 * 1024 ? 4 : 3;
+}
+
+template <class T, int K, int S>
+__host__ __device__ constexpr int smem_bytes() {
+  return smem_with<T, K, S>(in_slots<T, K, S>());
+}
+
+// ---------------------------------------------------------------------------
+// Asynchronous copies (cp.async, sm_80+).
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+#endif
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+
+// Wait until at most N of this thread's copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+#endif
+}
+
+// Copy padded plane (element offset plane_off) rows y0.., columns z0.. into
+// input slot `slot` ((FH, in_stride) elements of T). Warp ty copies rows
+// ty + 8 l. Cells past the padded extent (ragged edge tiles) are
+// zero-filled: they feed no cell that is written out. A bf16 row is copied
+// as 4-byte element pairs from the pair holding its first element, so
+// frame column c sits at row index c + (parity of the row's first element).
+template <class T, int K>
+__device__ __forceinline__ void load_plane(T* slot, const T* __restrict__ up,
+                                           int64_t plane_off, int y0, int z0,
+                                           int py, int pz) {
+  using G = Geom<K>;
+  constexpr int SW = in_stride<T, K>();
+  const int tx = threadIdx.x;
+  const int nz_valid = min(G::FW, pz - z0);
+#pragma unroll
+  for (int l = 0; l < G::LA; ++l) {
+    const int a = threadIdx.y + SBY * l;
+    const bool row_ok = y0 + a < py;
+    const int64_t g0 = plane_off + (int64_t)(y0 + a) * pz + z0;
+    T* dst = slot + a * SW;
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int m = 0; m < G::MB; ++m) {
+        const int c = tx + SBZ * m;
+        const bool ok = row_ok && c < nz_valid;
+        cp_async4(dst + c, ok ? up + g0 + c : up, ok ? 4 : 0);
+      }
+    } else {
+      const int s = (int)(g0 & 1);
+      const T* src = up + (g0 - s);
+#pragma unroll
+      for (int m = 0; m < G::MB / 2 + 1; ++m) {
+        const int w = tx + SBZ * m;
+        const int c = 2 * w - s;  // frame column of the pair's first element
+        if (w <= G::FW / 2) {
+          const int bytes =
+              !row_ok ? 0 : c + 1 < nz_valid ? 4 : c < nz_valid ? 2 : 0;
+          cp_async4(dst + 2 * w, bytes ? src + 2 * w : up, bytes);
+        }
+      }
+    }
+  }
+}
+
+// A plane of a slot as this thread reads it: element (ty + 8 l + da,
+// tx + 32 m + db) of the frame. SHIFT: a bf16 input slot, whose rows next
+// to the thread's rows sit `nb` elements further on.
+template <class T, int SW, bool SHIFT>
+struct View {
+  const T* c;
+  int nb;
+  __device__ __forceinline__ float at(int l, int m, int da, int db) const {
+    int o = (SBY * l + da) * SW + SBZ * m + db;
+    if constexpr (SHIFT) {
+      if (da != 0) o += nb;
+    }
+    return to_f(c[o]);
+  }
+};
+
+// One cell of a stage: the x-neighbours pm and pp (registers), the planes
+// p0 and xs (shared) around position (l, m).
+template <class V0, class VX>
+struct Cell {
+  float pm, pp;
+  V0 p0;
+  VX xs;
+  int l, m;
+  template <int SRC>
+  __device__ __forceinline__ float get(int da, int db) const {
+    if constexpr (SRC == 1) {
+      return p0.at(l, m, da, db);
+    } else {
+      return xs.at(l, m, da, db);
+    }
+  }
+};
+
+template <int S, int I, class C>
+__device__ __forceinline__ void emit(float& acc, const Weights& w,
+                                     const C& c) {
+  constexpr int src = tap<S>(I, 0);
+  constexpr int row = tap<S>(I, 1);
+  constexpr int dk = tap<S>(I, 2);
+  float v;
+  if constexpr (src == 0) {
+    v = c.pm;
+  } else if constexpr (src == 2) {
+    v = c.pp;
+  } else if constexpr (row == 3) {
+    v = __fadd_rn(c.template get<src>(-1, dk), c.template get<src>(1, dk));
+  } else {
+    v = c.template get<src>(row - 1, dk);
+  }
+  const float t = __fmul_rn(w.w[I], v);
+  if constexpr (I == 0) {
+    acc = t;
+  } else {
+    acc = __fadd_rn(acc, t);
+  }
+}
+
+template <int S, class C, int... I>
+__device__ __forceinline__ float chain_impl(const Weights& w, const C& c,
+                                            std::integer_sequence<int, I...>) {
+  float acc = 0.0f;
+  (emit<S, I>(acc, w, c), ...);
+  return acc;
+}
+
+template <int S, class C>
+__device__ __forceinline__ float chain(const Weights& w, const C& c) {
+  return chain_impl<S>(w, c, std::make_integer_sequence<int, chain_len<S>()>{});
+}
+
+// The state of one block of stream_kernel<T, K, S>.
+template <class T, int K, int S>
+struct Stream {
+  using G = Geom<K>;
+  static constexpr int LA = G::LA, MB = G::MB, P = G::P;
+  static constexpr int FH = G::FH, FW = G::FW, SWI = in_stride<T, K>();
+  static constexpr bool XS = uses_xsum<S>();
+  static constexpr bool SHIFT = sizeof(T) == 2;
+  static constexpr int NS = in_slots<T, K, S>();  // input slots
+  static constexpr int D = NS - 2;                // planes loaded ahead
+  using InView = View<T, SWI, SHIFT>;
+  using LvView = View<T, FW, false>;
+  using XsView = View<float, FW, false>;
+
+  const T* __restrict__ up;
+  T* __restrict__ out;
+  T* in_slot;   // NS input slots
+  T* lvl;       // K-1 level slots, level L at (L-1) * FH * FW
+  float* xsp;   // the x-sum slot (27pt)
+  int nx, ny, nz, xs0, y0, z0, py, pz;
+  int64_t plane;
+  int periodic, edges;
+  float bc;
+  int rowpin, colpin;  // Dirichlet pins of the thread's rows / columns
+  int rowout, colout;  // the thread's rows / columns inside the interior
+  float g[K][P];       // level L's plane before the one in its slot
+  float v[2][P];       // a stage's fresh plane until it reaches its slot
+
+  __device__ __forceinline__ int tid_base(int sw) const {
+    return threadIdx.y * sw + threadIdx.x;
+  }
+
+  // Input slot of chunk-relative plane q as this thread reads it.
+  __device__ __forceinline__ InView in_view(int q) const {
+    const T* base = in_slot + (q % NS) * FH * SWI + tid_base(SWI);
+    if constexpr (SHIFT) {
+      // parity of the first element of frame row a of plane xs0 + q
+      const int podd = py & pz & 1;
+      const int bp = ((xs0 + q) & podd) ^ (y0 & pz & 1) ^ (z0 & 1);
+      const int s_mid = bp ^ (threadIdx.y & pz & 1);
+      const int s_nb = bp ^ ((threadIdx.y + 1) & pz & 1);
+      return InView{base + s_mid, s_nb - s_mid};
+    } else {
+      return InView{base, 0};
+    }
+  }
+
+  __device__ __forceinline__ LvView lv_view(int L) const {
+    return LvView{lvl + (L - 1) * FH * FW + tid_base(FW), 0};
+  }
+
+  __device__ __forceinline__ XsView xs_view() const {
+    return XsView{xsp + tid_base(FW), 0};
+  }
+
+  // Frame membership of the thread's row l / column m at stage J: the
+  // stage-J planes span frame rows [J, FH - J) and columns [J, FW - J).
+  __device__ __forceinline__ bool row_in(int l, int J) const {
+    const int a = threadIdx.y + SBY * l;
+    return a >= J && a < FH - J;
+  }
+  __device__ __forceinline__ bool col_in(int m, int J) const {
+    const int b = threadIdx.x + SBZ * m;
+    return b >= J && b < FW - J;
+  }
+
+  __device__ __forceinline__ void init_masks() {
+    rowpin = colpin = rowout = colout = 0;
+#pragma unroll
+    for (int l = 0; l < LA; ++l) {
+      const int gy = y0 + threadIdx.y + SBY * l - K;  // block index
+      if (!periodic && ((gy < 0 && (edges & 4)) || (gy >= ny && (edges & 8)))) {
+        rowpin |= 1 << l;
+      }
+      if (row_in(l, K) && gy < ny) rowout |= 1 << l;
+    }
+#pragma unroll
+    for (int m = 0; m < MB; ++m) {
+      const int gz = z0 + threadIdx.x + SBZ * m - K;
+      if (!periodic &&
+          ((gz < 0 && (edges & 16)) || (gz >= nz && (edges & 32)))) {
+        colpin |= 1 << m;
+      }
+      if (col_in(m, K) && gz < nz) colout |= 1 << m;
+    }
+  }
+
+  // Stage J at step i: level L = J-1's plane q = i - J (the slot, or the
+  // input slot for L = 0) with its neighbours q-1 (g[L]) and q+1 (v, or
+  // the input slot), once the stage has work (i >= 2J). Then level L's
+  // fresh plane of this step (if any) replaces its slot's.
+  template <int J>
+  __device__ __forceinline__ void stage(int i, const Weights& w) {
+    constexpr int L = J - 1;
+    const bool active = i >= 2 * J;  // uniform across the block
+    if (active) {
+      if constexpr (XS) {
+        if constexpr (J == 2) __syncthreads();  // stage 1 has read xsp
+        // x-plane sum of level L over its frame
+        const InView cur = in_view(i);
+#pragma unroll
+        for (int l = 0; l < LA; ++l) {
+          if (!row_in(l, L)) continue;
+#pragma unroll
+          for (int m = 0; m < MB; ++m) {
+            if (!col_in(m, L)) continue;
+            const int p = l * MB + m;
+            const float pp = L == 0 ? cur.at(l, m, 0, 0) : v[L & 1][p];
+            xsp[tid_base(FW) + SBY * l * FW + SBZ * m] =
+                __fadd_rn(g[L][p], pp);
+          }
+        }
+        __syncthreads();
+      }
+      const int q = i - J;
+      if constexpr (L == 0) {
+        compute<J>(q, in_view(i - 1), in_view(i), w);
+      } else {
+        compute<J>(q, lv_view(L), in_view(i), w);
+      }
+    }
+    if constexpr (L == 0) {
+      if (i >= 1) {
+        const InView prev = in_view(i - 1);
+#pragma unroll
+        for (int l = 0; l < LA; ++l) {
+#pragma unroll
+          for (int m = 0; m < MB; ++m) g[0][l * MB + m] = prev.at(l, m, 0, 0);
+        }
+      }
+    } else {
+      if (i >= 2 * L) {
+        __syncthreads();  // stage J has read level L's slot (and xsp)
+        T* s = lvl + (L - 1) * FH * FW + tid_base(FW);
+#pragma unroll
+        for (int l = 0; l < LA; ++l) {
+          if (!row_in(l, L)) continue;
+#pragma unroll
+          for (int m = 0; m < MB; ++m) {
+            if (!col_in(m, L)) continue;
+            const int p = l * MB + m;
+            const int o = SBY * l * FW + SBZ * m;
+            g[L][p] = to_f(s[o]);
+            s[o] = from_f<T>(v[L & 1][p]);
+          }
+        }
+      }
+    }
+  }
+
+  template <int J, class V0>
+  __device__ __forceinline__ void compute(int q, const V0& p0,
+                                          const InView& cur,
+                                          const Weights& w) {
+    constexpr int L = J - 1;
+    const XsView xs = xs_view();
+    const int gx = xs0 + q - K;  // block index of the plane
+    const bool x_out = !periodic && ((gx < 0 && (edges & 1)) ||
+                                     (gx >= nx && (edges & 2)));
+    // index of output cell (ty, tx) of the frame (last stage only)
+    const int64_t o0 = ((int64_t)gx * ny + y0 + (int)threadIdx.y - K) * nz +
+                       z0 + (int)threadIdx.x - K;
+#pragma unroll
+    for (int l = 0; l < LA; ++l) {
+      if (J < K ? !row_in(l, J) : !((rowout >> l) & 1)) continue;
+#pragma unroll
+      for (int m = 0; m < MB; ++m) {
+        if (J < K ? !col_in(m, J) : !((colout >> m) & 1)) continue;
+        const int p = l * MB + m;
+        const float pp = L == 0 ? cur.at(l, m, 0, 0) : v[L & 1][p];
+        const Cell<V0, XsView> c{g[L][p], pp, p0, xs, l, m};
+        const float r = chain<S>(w, c);
+        if constexpr (J < K) {
+          const bool pin =
+              x_out || ((rowpin >> l) & 1) || ((colpin >> m) & 1);
+          v[J & 1][p] = pin ? bc : to_f(from_f<T>(r));
+        } else {
+          out[o0 + (SBY * l * nz + SBZ * m)] = from_f<T>(r);
+        }
+      }
+    }
+  }
+
+  template <int... J>
+  __device__ __forceinline__ void stages(int i, const Weights& w,
+                                         std::integer_sequence<int, J...>) {
+    (stage<J + 1>(i, w), ...);
+  }
+
+  __device__ __forceinline__ void run(int xchunk, const Weights& w) {
+    const int nc = min(nx, xs0 + xchunk) - xs0;
+    const int n_in = nc + 2 * K;
+    init_masks();
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      if (d < n_in) {
+        load_plane<T, K>(in_slot + d * FH * SWI, up,
+                         (int64_t)(xs0 + d) * plane, y0, z0, py, pz);
+      }
+      cp_async_commit();
+    }
+    for (int i = 0; i < n_in; ++i) {
+      cp_async_wait<D - 1>();
+      __syncthreads();  // plane i landed; the slot of plane i+D is free
+      if (i + D < n_in) {
+        load_plane<T, K>(in_slot + ((i + D) % NS) * FH * SWI, up,
+                         (int64_t)(xs0 + i + D) * plane, y0, z0, py, pz);
+      }
+      cp_async_commit();  // one group a step, empty at the end
+      stages(i, w, std::make_integer_sequence<int, K>{});
+    }
+  }
+};
+
+template <class T, int K, int S>
+__global__ void __launch_bounds__(SNT, MIN_BLOCKS)
+    stream_kernel(const T* __restrict__ up, T* __restrict__ out, int nx,
+                  int ny, int nz, int xchunk, int periodic, float bc,
+                  int edges, Weights w) {
+  static_assert(centre_x_only<S>(),
+                "chain reads x-1/x+1 planes off the cell: generic instance");
+  using G = Geom<K>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Stream<T, K, S> st;
+  st.up = up;
+  st.out = out;
+  st.in_slot = reinterpret_cast<T*>(smem_raw);
+  st.lvl = st.in_slot + in_slots<T, K, S>() * G::FH * in_stride<T, K>();
+  st.xsp = reinterpret_cast<float*>(st.lvl + (K - 1) * G::FH * G::FW);
+  st.nx = nx;
+  st.ny = ny;
+  st.nz = nz;
+  st.xs0 = blockIdx.z * xchunk;
+  st.y0 = blockIdx.y * G::TY;
+  st.z0 = blockIdx.x * G::TZ;
+  st.py = ny + 2 * K;
+  st.pz = nz + 2 * K;
+  st.plane = (int64_t)st.py * st.pz;
+  st.periodic = periodic;
+  st.edges = edges;
+  st.bc = bc;
+  st.run(xchunk, w);
+}
+
+// ---------------------------------------------------------------------------
+// Generic instances: the interpreted emission program (stencil_common.cuh)
+// over 3-slot float rings, (TY, TZ) tiles of stencil_common.cuh.
 
 // Floats of one plane framed by r cells.
 __host__ __device__ constexpr int plane_floats(int r) {
@@ -83,8 +617,8 @@ __device__ void load_padded(float* dst, const T* __restrict__ up, int p,
 
 template <class T>
 __global__ void __launch_bounds__(NTHREADS)
-    stream1_kernel(const T* __restrict__ up, T* __restrict__ out, int nx,
-                   int ny, int nz, int xchunk, Program prog) {
+    stream1_generic(const T* __restrict__ up, T* __restrict__ out, int nx,
+                    int ny, int nz, int xchunk, Program prog) {
   constexpr int FZ = TZ + 2;
   constexpr int PS = (TY + 2) * FZ;
   __shared__ float ring[3 * PS];
@@ -121,9 +655,9 @@ __global__ void __launch_bounds__(NTHREADS)
 
 template <class T, int K>
 __global__ void __launch_bounds__(NTHREADS)
-    streamk_kernel(const T* __restrict__ up, T* __restrict__ out, int nx,
-                   int ny, int nz, int xchunk, int periodic, float bc,
-                   int edges, Program prog) {
+    streamk_generic(const T* __restrict__ up, T* __restrict__ out, int nx,
+                    int ny, int nz, int xchunk, int periodic, float bc,
+                    int edges, Program prog) {
   extern __shared__ float smem[];
   __shared__ Program sp;
   copy_program(&sp, prog);
@@ -192,83 +726,229 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <class T, int K>
-cudaError_t launch_k(dim3 grid, dim3 block, const void* up, void* out,
-                     int nx, int ny, int nz, int xchunk, int periodic,
-                     float bc, int edges, const Program& prog,
-                     cudaStream_t stream) {
-  constexpr int bytes = ring_offset(K, 0) * (int)sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      streamk_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+// ---------------------------------------------------------------------------
+// Host side.
+
+constexpr int MAX_DEVICES = 64;
+
+// Raise an instance's dynamic shared memory limit once per device.
+template <class F>
+cudaError_t set_smem_once(std::atomic<unsigned long long>& done, F* kernel,
+                          int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  streamk_kernel<T, K><<<grid, block, bytes, stream>>>(
-      static_cast<const T*>(up), static_cast<T*>(out), nx, ny, nz, xchunk,
-      periodic, bc, edges, prog);
-  return cudaGetLastError();
+  const unsigned long long bit = 1ull << (dev % MAX_DEVICES);
+  if (done.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
 }
 
-template <class T>
-cudaError_t launch(int k, const void* up, void* out, int nx, int ny, int nz,
-                   int xchunk, int periodic, float bc, int edges,
-                   const Program& prog, cudaStream_t stream) {
-  const dim3 block(BZ, BY);
-  const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY,
-                  (nx + xchunk - 1) / xchunk);
-  switch (k) {
-    case 1:
-      stream1_kernel<T><<<grid, block, 0, stream>>>(
+// One instance: its kernel, dynamic shared memory, tile and launch.
+template <class T, int K, int S>
+struct Spec {
+  static constexpr int bytes = smem_bytes<T, K, S>();
+  static constexpr int ty = Geom<K>::TY;
+  static constexpr int tz = Geom<K>::TZ;
+  static dim3 block() { return dim3(SBZ, SBY); }
+  static void* fn() { return (void*)stream_kernel<T, K, S>; }
+  static cudaError_t prepare() {
+    static std::atomic<unsigned long long> done{0};
+    return set_smem_once(done, stream_kernel<T, K, S>, bytes);
+  }
+  static cudaError_t launch(dim3 grid, const void* up, void* out, int nx,
+                            int ny, int nz, int xchunk, int periodic,
+                            float bc, int edges, const Program& prog,
+                            cudaStream_t stream) {
+    Weights w;
+    for (int i = 0; i < MAX_TERMS; ++i) w.w[i] = i < prog.n ? prog.t[i].w : 0.f;
+    stream_kernel<T, K, S><<<grid, block(), bytes, stream>>>(
+        static_cast<const T*>(up), static_cast<T*>(out), nx, ny, nz, xchunk,
+        periodic, bc, edges, w);
+    return cudaGetLastError();
+  }
+};
+
+template <class T, int K>
+struct Generic {
+  static constexpr int bytes = K == 1 ? 0 : ring_offset(K, 0) * (int)sizeof(float);
+  static constexpr int ty = TY;
+  static constexpr int tz = TZ;
+  static dim3 block() { return dim3(BZ, BY); }
+  static void* fn() {
+    if constexpr (K == 1) {
+      return (void*)stream1_generic<T>;
+    } else {
+      return (void*)streamk_generic<T, K>;
+    }
+  }
+  static cudaError_t prepare() {
+    if constexpr (K == 1) {
+      return cudaSuccess;
+    } else {
+      static std::atomic<unsigned long long> done{0};
+      return set_smem_once(done, streamk_generic<T, K>, bytes);
+    }
+  }
+  static cudaError_t launch(dim3 grid, const void* up, void* out, int nx,
+                            int ny, int nz, int xchunk, int periodic,
+                            float bc, int edges, const Program& prog,
+                            cudaStream_t stream) {
+    if constexpr (K == 1) {
+      stream1_generic<T><<<grid, block(), 0, stream>>>(
           static_cast<const T*>(up), static_cast<T*>(out), nx, ny, nz,
           xchunk, prog);
-      return cudaGetLastError();
-    case 2:
-      return launch_k<T, 2>(grid, block, up, out, nx, ny, nz, xchunk,
-                            periodic, bc, edges, prog, stream);
-    case 3:
-      return launch_k<T, 3>(grid, block, up, out, nx, ny, nz, xchunk,
-                            periodic, bc, edges, prog, stream);
+    } else {
+      streamk_generic<T, K><<<grid, block(), bytes, stream>>>(
+          static_cast<const T*>(up), static_cast<T*>(out), nx, ny, nz,
+          xchunk, periodic, bc, edges, prog);
+    }
+    return cudaGetLastError();
+  }
+};
+
+// The program's (src, row, dk) sequence is chain S's.
+template <int S>
+bool matches(const Program& prog) {
+  if (prog.n != chain_len<S>()) return false;
+  for (int i = 0; i < prog.n; ++i) {
+    if (prog.t[i].src != tap<S>(i, 0) || prog.t[i].row != tap<S>(i, 1) ||
+        prog.t[i].dk != tap<S>(i, 2)) {
+      return false;
+    }
+  }
+  return true;
+}
+
+// f.template run<Instance>() for instance (k, spec, dtype); `bad` for
+// arguments no instance takes.
+template <class T, int K, class F>
+int by_spec(int spec, const F& f) {
+  switch (spec) {
+    case SPEC_7PT:
+      return f.template run<Spec<T, K, SPEC_7PT>>();
+    case SPEC_27PT:
+      return f.template run<Spec<T, K, SPEC_27PT>>();
     default:
-      return launch_k<T, MAX_K>(grid, block, up, out, nx, ny, nz, xchunk,
-                                periodic, bc, edges, prog, stream);
+      return f.template run<Generic<T, K>>();
   }
 }
+
+template <class T, class F>
+int by_k(int k, int spec, const F& f) {
+  switch (k) {
+    case 1:
+      return by_spec<T, 1>(spec, f);
+    case 2:
+      return by_spec<T, 2>(spec, f);
+    case 3:
+      return by_spec<T, 3>(spec, f);
+    default:
+      return by_spec<T, 4>(spec, f);
+  }
+}
+
+template <class F>
+int with_instance(int k, int spec, int dtype, int bad, const F& f) {
+  if ((dtype != 0 && dtype != 1) || spec < SPEC_GENERIC || spec > SPEC_27PT ||
+      k < 1 || k > MAX_K) {
+    return bad;
+  }
+  return dtype == 0 ? by_k<float>(k, spec, f) : by_k<__nv_bfloat16>(k, spec, f);
+}
+
+struct TileY {
+  template <class I>
+  int run() const { return I::ty; }
+};
+struct TileZ {
+  template <class I>
+  int run() const { return I::tz; }
+};
+struct SmemBytes {
+  template <class I>
+  int run() const { return I::bytes; }
+};
+struct BlocksPerSm {
+  template <class I>
+  int run() const {
+    if (I::prepare() != cudaSuccess) return -1;
+    const dim3 b = I::block();
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, I::fn(), (int)(b.x * b.y), I::bytes) != cudaSuccess) {
+      return -1;
+    }
+    return n;
+  }
+};
+struct Launch {
+  const void* up;
+  void* out;
+  int nx, ny, nz, xchunk, periodic;
+  float bc;
+  int edges;
+  const Program* prog;
+  cudaStream_t stream;
+  template <class I>
+  int run() const {
+    const cudaError_t err = I::prepare();
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((nz + I::tz - 1) / I::tz, (ny + I::ty - 1) / I::ty,
+                    (nx + xchunk - 1) / xchunk);
+    return (int)I::launch(grid, up, out, nx, ny, nz, xchunk, periodic, bc,
+                          edges, *prog, stream);
+  }
+};
 
 }  // namespace
 
 extern "C" {
 
-// Tile extents, so the wrapper sizes its x-chunks from the same numbers.
-int heat3d_stream_tile_y() { return TY; }
-int heat3d_stream_tile_z() { return TZ; }
-
-// Dynamic shared memory of one streamk block (bytes), for k = 2..4.
-int heat3d_streamk_smem_bytes(int k) {
-  return k == 2   ? ring_offset(2, 0) * (int)sizeof(float)
-         : k == 3 ? ring_offset(3, 0) * (int)sizeof(float)
-         : k == 4 ? ring_offset(4, 0) * (int)sizeof(float)
-                  : 0;
+// Tile extents of instance (k, spec) (spec 0 generic, 1 the 7pt chain, 2
+// the 27pt chain), so the wrapper sizes its x-chunks from the same
+// numbers; -1 if there is no such instance.
+int heat3d_stream_tile_y(int k, int spec) {
+  return with_instance(k, spec, 0, -1, TileY{});
+}
+int heat3d_stream_tile_z(int k, int spec) {
+  return with_instance(k, spec, 0, -1, TileZ{});
 }
 
-// k: 1 (stream1_kernel) or 2..4 (streamk_kernel); dtype: 0 float, 1 bf16.
-// up is the (nx+2k, ny+2k, nz+2k) padded field, out the (nx, ny, nz)
-// interior; periodic, bc and the domain-face mask edges (bit 0 x_lo ..
-// bit 5 z_hi; 63 for a whole-domain block) are read for k >= 2 only.
-// Returns a cudaError_t (0 on success); 1000 for bad arguments.
-int heat3d_stream_launch(int k, int dtype, const void* up, void* out, int nx,
-                         int ny, int nz, int xchunk, int periodic, float bc,
-                         int edges, const Program* prog, void* stream) {
-  if (k < 1 || k > MAX_K || (dtype != 0 && dtype != 1) || nx < 1 ||
-      ny < 1 || nz < 1 || xchunk < 1 || prog == nullptr || prog->n < 1 ||
-      prog->n > MAX_TERMS) {
+// Dynamic shared memory of one block of instance (k, spec, dtype), bytes.
+int heat3d_stream_smem_bytes(int k, int spec, int dtype) {
+  return with_instance(k, spec, dtype, -1, SmemBytes{});
+}
+
+// Resident blocks per SM of instance (k, spec, dtype) on the current
+// device (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1 on error.
+int heat3d_stream_blocks_per_sm(int k, int spec, int dtype) {
+  return with_instance(k, spec, dtype, -1, BlocksPerSm{});
+}
+
+// k: 1 (one update) or 2..4 (fused updates); spec: 0 generic, 1 the 7pt
+// chain, 2 the 27pt chain (prog's (src, row, dk) must be that chain's);
+// dtype: 0 float, 1 bf16. up is the (nx+2k, ny+2k, nz+2k) padded field,
+// out the (nx, ny, nz) interior; periodic, bc and the domain-face mask
+// edges (bit 0 x_lo .. bit 5 z_hi; 63 for a whole-domain block) are read
+// for k >= 2 only. Returns a cudaError_t (0 on success); 1000 for bad
+// arguments.
+int heat3d_stream_launch(int k, int spec, int dtype, const void* up,
+                         void* out, int nx, int ny, int nz, int xchunk,
+                         int periodic, float bc, int edges,
+                         const Program* prog, void* stream) {
+  if (nx < 1 || ny < 1 || nz < 1 || xchunk < 1 || prog == nullptr ||
+      prog->n < 1 || prog->n > MAX_TERMS ||
+      (spec == SPEC_7PT && !matches<SPEC_7PT>(*prog)) ||
+      (spec == SPEC_27PT && !matches<SPEC_27PT>(*prog))) {
     return 1000;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == 0 ? launch<float>(k, up, out, nx, ny, nz, xchunk, periodic,
-                                 bc, edges, *prog, s)
-                 : launch<__nv_bfloat16>(k, up, out, nx, ny, nz, xchunk,
-                                         periodic, bc, edges, *prog, s);
-  return static_cast<int>(err);
+  const Launch f{up, out, nx, ny, nz, xchunk, periodic, bc, edges, prog,
+                 static_cast<cudaStream_t>(stream)};
+  return with_instance(k, spec, dtype, 1000, f);
 }
 
 }  // extern "C"

@@ -26,6 +26,15 @@ def launch_counts() -> dict:
     return counts
 
 
+def cell_counts() -> dict:
+    """Output cells of every kernel wrapper's launches (the DMA pairs: the
+    ghost cells they wrote)."""
+    counts = {}
+    for m in _modules():
+        counts.update(m.cell_counts())
+    return counts
+
+
 def reset_launch_counts() -> None:
     for m in _modules():
         m.reset_launch_counts()

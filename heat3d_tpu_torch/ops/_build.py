@@ -6,6 +6,8 @@ takes seconds). Builds happen on first use, into ``_build/`` inside the
 package (listed in ``.gitignore``), named by a hash of the source, the
 shared headers (``csrc/*.cuh``) and the flags, so an edited source or
 header rebuilds and concurrent processes never load a half-written file.
+A source may take flags of its own from its wrapper (``source_flags``: the
+stream kernels' chain table).
 """
 
 from __future__ import annotations
@@ -54,6 +56,16 @@ def nvcc_path() -> str:
     )
 
 
+def source_flags(name: str) -> tuple:
+    """Flags of ``csrc/<name>.cu`` beyond ``NVCC_FLAGS``: the stream
+    kernels take their compile-time tap chains from the wrapper's table."""
+    if name == "stencil_stream":
+        from heat3d_tpu_torch.ops.stencil_stream import nvcc_defines
+
+        return nvcc_defines()
+    return ()
+
+
 def _target(name: str) -> Path:
     # the source and every header beside it: an edited shared header must
     # rebuild each library that includes it
@@ -61,7 +73,7 @@ def _target(name: str) -> Path:
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.name.encode())
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + source_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -78,7 +90,8 @@ def _build(name: str) -> float:
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+        [nvcc_path(), *NVCC_FLAGS, *source_flags(name), "-o", str(tmp),
+         str(CSRC_DIR / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, check=False,
     )
     so.with_suffix(".log").write_text(proc.stdout)

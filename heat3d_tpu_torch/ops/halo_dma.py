@@ -19,7 +19,9 @@ Shards on different GPUs need peer access, which :class:`DmaState` enables
 or raises; there is no staged fallback.
 
 ``exchange_axis_dma.launches`` counts push launches (one push + wait pair
-per shard and axis); ``launch_counts`` reports it as ``halo_dma``.
+per shard and axis) and ``exchange_axis_dma.cells`` the ghost cells they
+write (two slabs a push); ``launch_counts`` and ``cell_counts`` report them
+as ``halo_dma``.
 """
 
 from __future__ import annotations
@@ -241,9 +243,11 @@ def exchange_axis_dma(pads, mesh, axis: int, width: int, periodic: bool,
     lib = _lib()
     raise_if_timed_out()
     pushes, waits = launch_args(pads, mesh, axis, width, periodic, bc_value, state, sync)
+    ghost = _ghost_slab_cells(pads[0].shape, axis, width)
     for shard, push in pushes:
         _launch(lib.heat3d_halo_push, shard, ctypes.byref(push))
         exchange_axis_dma.launches += 1
+        exchange_axis_dma.cells += 2 * ghost
     for shard, f0, f1, code in waits:
         _launch(lib.heat3d_halo_wait, shard, f0, f1, state.epoch, TIMEOUT_NS, code)
 
@@ -260,12 +264,26 @@ def _launch(fn, shard, *args) -> None:
         )
 
 
-exchange_axis_dma.launches = 0
+def _ghost_slab_cells(padded_shape, axis: int, width: int) -> int:
+    """Cells of one width-``width`` ghost slab of ``axis``: the full padded
+    extent on earlier axes, the interior on later ones."""
+    n = 1
+    for a, m in enumerate(padded_shape):
+        n *= width if a == axis else (m if a < axis else m - 2 * width)
+    return n
 
 
 def launch_counts() -> dict:
     return {"halo_dma": exchange_axis_dma.launches}
 
 
+def cell_counts() -> dict:
+    """Ghost cells the DMA pairs wrote (two slabs per push)."""
+    return {"halo_dma": exchange_axis_dma.cells}
+
+
 def reset_launch_counts() -> None:
-    exchange_axis_dma.launches = 0
+    exchange_axis_dma.launches = exchange_axis_dma.cells = 0
+
+
+reset_launch_counts()

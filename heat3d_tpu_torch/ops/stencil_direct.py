@@ -11,8 +11,8 @@ through the storage dtype between the two updates. On the same device the
 kernels equal their plain versions bitwise.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, so a run
-can show that it went through the kernel; ``reset_launch_counts`` zeroes
-them.
+can show that it went through the kernel, and their output cells in
+``<wrapper>.cells``; ``reset_launch_counts`` zeroes them.
 
 Not ported yet: the Mehrstellen q-ring route (``HEAT3D_MEHRSTELLEN``), which
 raises here, and bf16 compute dtype (the port computes in float32).
@@ -248,6 +248,7 @@ def apply_taps_direct(
         return res if out is None else out.copy_(res)
     out = _launch(1, u, taps, periodic, bc_value, out)
     apply_taps_direct.launches += 1
+    apply_taps_direct.cells += out.numel()
     return out
 
 
@@ -268,11 +269,9 @@ def apply_taps_direct2(
         return res if out is None else out.copy_(res)
     out = _launch(2, u, taps, periodic, bc_value, out)
     apply_taps_direct2.launches += 1
+    apply_taps_direct2.cells += out.numel()
     return out
 
-
-apply_taps_direct.launches = 0
-apply_taps_direct2.launches = 0
 
 KERNELS = (apply_taps_direct, apply_taps_direct2)
 
@@ -281,6 +280,13 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
+def cell_counts() -> dict:
+    return {k.__name__: k.cells for k in KERNELS}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.launches = k.cells = 0
+
+
+reset_launch_counts()

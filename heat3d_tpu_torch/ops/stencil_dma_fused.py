@@ -31,7 +31,8 @@ The landing buffers, flag words, arrival counters, device tables and epoch
 live in a :class:`FusedState`, one per (mesh, width, send ranges, storage
 dtype, boundary), built and zeroed on the stream its kernels run on.
 
-``<wrapper>.launches`` counts launches (one per device and call);
+``<wrapper>.launches`` counts launches (one per device and call),
+``<wrapper>.cells`` their output cells;
 ``launch_counts`` reports them.
 """
 
@@ -434,7 +435,8 @@ def _xchunk(inner: int, tiles_yz: int) -> int:
 def launch(halo: int, us, taps, mesh, state: FusedState, periodic: bool,
            bc_value: float, outs, wrapper) -> List[torch.Tensor]:
     """One fused launch per device of ``state``: ``halo`` updates of every
-    shard; counts each launch on ``wrapper.launches``."""
+    shard; counts each launch on ``wrapper.launches`` and its output cells
+    on ``wrapper.cells``."""
     if state.width != halo or state.periodic != bool(periodic):
         raise ValueError(
             f"state is width {state.width}, periodic={state.periodic}; the launch "
@@ -492,6 +494,7 @@ def launch(halo: int, us, taps, mesh, state: FusedState, periodic: bool,
                 f"fused kernel (halo {halo}) launch failed on {g.device}: error {err}"
                 + (f" ({_ERRORS[err]})" if err in _ERRORS else ""))
         wrapper.launches += 1
+        wrapper.cells += len(g.shards) * nx * ny * nz
     _join(state)
     return outs
 
@@ -584,9 +587,6 @@ def _superstep(wrapper, us, taps, mesh, state, periodic, bc_value, outs):
     return launch(2, us, taps, mesh, state, periodic, bc_value, outs, wrapper)
 
 
-apply_step_fused_dma.launches = 0
-apply_superstep_fused_dma.launches = 0
-
 KERNELS = (apply_step_fused_dma, apply_superstep_fused_dma)
 
 
@@ -594,6 +594,13 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
+def cell_counts() -> dict:
+    return {k.__name__: k.cells for k in KERNELS}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.launches = k.cells = 0
+
+
+reset_launch_counts()

@@ -71,9 +71,6 @@ def apply_superstep_fused_rdma(us: Sequence[torch.Tensor], taps: np.ndarray, mes
                          bc_value, outs)
 
 
-apply_step_fused_rdma.launches = 0
-apply_superstep_fused_rdma.launches = 0
-
 KERNELS = (apply_step_fused_rdma, apply_superstep_fused_rdma)
 
 
@@ -81,6 +78,13 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
+def cell_counts() -> dict:
+    return {k.__name__: k.cells for k in KERNELS}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.launches = k.cells = 0
+
+
+reset_launch_counts()

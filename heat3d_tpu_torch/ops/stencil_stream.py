@@ -25,9 +25,17 @@ the pins between, ``parallel.step._local_stepk``'s arithmetic on the padded
 block) for streamk. On the same device the kernels equal their plain
 versions bitwise. The tap chain is ``stencil_direct``'s emission program.
 
+The kernel source has an instance with the chain fixed at compile time for
+each entry of :data:`CHAINS` (the build passes the table to ``nvcc``), and
+a generic instance that interprets any other program;
+:func:`stream_instance` picks one by comparing the emission program's
+``(src, row, dk)`` sequence with the table.
+
 Each wrapper counts its kernel launches in ``<wrapper>.launches``
 (``apply_taps_stream2`` counts as ``apply_taps_streamk``, whose kernel it
-launches); ``reset_launch_counts`` zeroes them.
+launches), the launches that took the generic instance in
+``<wrapper>.generic_launches`` and the output cells it computed in
+``<wrapper>.cells``; ``reset_launch_counts`` zeroes them.
 
 Not ported yet: the Mehrstellen route (``HEAT3D_MEHRSTELLEN``), which
 raises here, and bf16 compute dtype (the port computes in float32).
@@ -37,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Optional
 
 import numpy as np
@@ -49,12 +58,30 @@ from heat3d_tpu_torch.ops.stencil_direct import (
     chain_program,
     check_route,
     check_tensors,
+    emission_program,
     storage_bc,
 )
 from heat3d_tpu_torch.ops.stencil_eager import apply_taps_padded, pin_outside
 
 _LIB = "stencil_stream"
 STREAMK_DEPTHS = (2, 3, 4)
+# The emission programs with an instance of their own in the kernel source,
+# as (src, row, dk) in emission order (``emission_program``'s fields; src
+# 0/1/2 plane x-1/x/x+1, 3 their sum; row 0/1/2 y-1/y/y+1, 3 the sum of
+# y-1 and y+1), keyed by the instance's code in the kernel's interface.
+# The build passes each to nvcc (``nvcc_defines``); code 0 is the generic
+# instance, which interprets any program.
+CHAINS = {
+    # the 7pt stencil's plain lexicographic chain
+    1: ("7pt", ((0, 1, 0), (1, 0, 0), (1, 1, -1), (1, 1, 0), (1, 1, 1),
+                (1, 2, 0), (2, 1, 0))),
+    # the 27pt stencil's x- and y-factored chain: the x-sum plane's y-sum
+    # row and middle row, then the middle plane's
+    2: ("27pt", tuple((s, r, dk) for s, r in ((3, 3), (3, 1), (1, 3), (1, 1))
+                      for dk in (-1, 0, 1))),
+}
+GENERIC = 0
+_MACROS = {1: "HEAT3D_CHAIN_7PT", 2: "HEAT3D_CHAIN_27PT"}
 # a block that is the whole domain touches all six domain faces
 ALL_EDGES = (True,) * 6
 
@@ -87,29 +114,74 @@ def apply_taps_streamk_ref(
     return cur
 
 
+def nvcc_defines() -> tuple:
+    """The ``-D`` flags that give the kernel source :data:`CHAINS`: each
+    chain as one string literal of three digits a term, ``src``, ``row``
+    and ``dk + 1`` (nvcc splits a ``-D`` value at commas)."""
+    return tuple(
+        f'-D{_MACROS[code]}="' + "".join(f"{s}{r}{dk + 1}" for s, r, dk in chain) + '"'
+        for code, (_, chain) in sorted(CHAINS.items())
+    )
+
+
+def chain_sequence(taps: np.ndarray) -> tuple:
+    """``emission_program(taps)``'s ``(src, row, dk)`` sequence under the
+    current factoring knobs."""
+    return tuple((s, r, dk) for s, r, dk, _ in emission_program(taps))
+
+
+@functools.lru_cache(maxsize=64)
+def _instance(taps_bytes: bytes, factor_7pt: str, factor_y: str) -> int:
+    # the knobs are part of the key, as for stencil_direct.chain_program
+    taps = np.frombuffer(taps_bytes, dtype=np.float64).reshape(3, 3, 3)
+    seq = chain_sequence(taps)
+    for code, (_, chain) in CHAINS.items():
+        if seq == chain:
+            return code
+    return GENERIC
+
+
+def stream_instance(taps: np.ndarray) -> int:
+    """The kernel instance that runs ``taps`` under the current factoring
+    knobs: the code of the :data:`CHAINS` entry whose sequence equals the
+    emission program's, else :data:`GENERIC`."""
+    taps = check_route(taps)
+    return _instance(
+        taps.tobytes(),
+        os.environ.get("HEAT3D_FACTOR_7PT", ""),
+        os.environ.get("HEAT3D_FACTOR_Y", "1"),
+    )
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     from heat3d_tpu_torch.ops import _build
 
     lib = _build.load(_LIB)
     lib.heat3d_stream_launch.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.POINTER(_Program), ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.POINTER(_Program),
+        ctypes.c_void_p,
     ]
     lib.heat3d_stream_launch.restype = ctypes.c_int
     for fn in ("heat3d_stream_tile_y", "heat3d_stream_tile_z"):
-        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).argtypes = [ctypes.c_int, ctypes.c_int]
         getattr(lib, fn).restype = ctypes.c_int
-    lib.heat3d_streamk_smem_bytes.argtypes = [ctypes.c_int]
-    lib.heat3d_streamk_smem_bytes.restype = ctypes.c_int
+    for fn in ("heat3d_stream_smem_bytes", "heat3d_stream_blocks_per_sm"):
+        getattr(lib, fn).argtypes = [ctypes.c_int] * 3
+        getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
-def streamk_smem_bytes(k: int) -> int:
-    """Dynamic shared memory of one streamk block at depth k (builds and
-    loads the library; CUDA hosts only)."""
-    return _lib().heat3d_streamk_smem_bytes(k)
+def instance_resources(k: int, instance: int, dtype: torch.dtype) -> dict:
+    """Dynamic shared memory (bytes) and resident blocks per SM of one
+    kernel instance on the current CUDA device (builds and loads the
+    library; CUDA hosts only)."""
+    lib = _lib()
+    code = _DTYPE_CODES[dtype]
+    return {"smem_bytes": lib.heat3d_stream_smem_bytes(k, instance, code),
+            "blocks_per_sm": lib.heat3d_stream_blocks_per_sm(k, instance, code)}
 
 
 def _interior(up: torch.Tensor, k: int):
@@ -123,27 +195,38 @@ def _interior(up: torch.Tensor, k: int):
     return shape
 
 
-def _launch(k, up, taps, periodic, bc_value, out, edges=ALL_EDGES) -> torch.Tensor:
+def _launch(wrapper, k, up, taps, periodic, bc_value, out,
+            edges=ALL_EDGES) -> torch.Tensor:
+    """Launch instance ``stream_instance(taps)`` at depth k and count it on
+    ``wrapper``."""
     if up.device.type != "cuda":
         raise ValueError(f"no kernel for device {up.device}")
     shape = _interior(up, k)
     out = check_tensors(up, out, shape)
+    if up.data_ptr() % 4:
+        # bf16 rows are copied as aligned element pairs
+        raise ValueError("padded field must start on a 4-byte boundary")
     lib = _lib()
     prog = chain_program(taps)
+    inst = stream_instance(taps)
     bc = storage_bc(bc_value, up.dtype)
-    xchunk = _xchunk(shape, lib.heat3d_stream_tile_y(), lib.heat3d_stream_tile_z())
+    xchunk = _xchunk(shape, lib.heat3d_stream_tile_y(k, inst),
+                     lib.heat3d_stream_tile_z(k, inst))
     with torch.cuda.device(up.device):
         stream = torch.cuda.current_stream(up.device).cuda_stream
         err = lib.heat3d_stream_launch(
-            k, _DTYPE_CODES[up.dtype], up.data_ptr(), out.data_ptr(), *shape,
-            xchunk, int(bool(periodic)), bc, edge_bits(edges), ctypes.byref(prog),
-            stream,
+            k, inst, _DTYPE_CODES[up.dtype], up.data_ptr(), out.data_ptr(),
+            *shape, xchunk, int(bool(periodic)), bc, edge_bits(edges),
+            ctypes.byref(prog), stream,
         )
     if err != 0:
         raise RuntimeError(
             f"stream kernel (k={k}) launch failed: error {err}"
             + (" (bad arguments)" if err == 1000 else "")
         )
+    wrapper.launches += 1
+    wrapper.generic_launches += inst == GENERIC
+    wrapper.cells += out.numel()
     return out
 
 
@@ -159,9 +242,7 @@ def apply_taps_stream(
         _interior(up, 1)
         res = apply_taps_padded(up, taps)
         return res if out is None else out.copy_(res)
-    out = _launch(1, up, taps, False, 0.0, out)
-    apply_taps_stream.launches += 1
-    return out
+    return _launch(apply_taps_stream, 1, up, taps, False, 0.0, out)
 
 
 def apply_taps_streamk(
@@ -188,9 +269,7 @@ def apply_taps_streamk(
         _interior(upk, k)
         res = apply_taps_streamk_ref(upk, taps, k, periodic, bc_value, edges)
         return res if out is None else out.copy_(res)
-    out = _launch(k, upk, taps, periodic, bc_value, out, edges)
-    apply_taps_streamk.launches += 1
-    return out
+    return _launch(apply_taps_streamk, k, upk, taps, periodic, bc_value, out, edges)
 
 
 def apply_taps_stream2(
@@ -205,9 +284,6 @@ def apply_taps_stream2(
     return apply_taps_streamk(up2, taps, 2, periodic, bc_value, out=out)
 
 
-apply_taps_stream.launches = 0
-apply_taps_streamk.launches = 0
-
 KERNELS = (apply_taps_stream, apply_taps_streamk)
 
 
@@ -215,9 +291,20 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
+def generic_launch_counts() -> dict:
+    return {k.__name__: k.generic_launches for k in KERNELS}
+
+
+def cell_counts() -> dict:
+    return {k.__name__: k.cells for k in KERNELS}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.launches = k.generic_launches = k.cells = 0
+
+
+reset_launch_counts()
 
 
 def make_stream_compute(cfg):

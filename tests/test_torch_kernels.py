@@ -74,23 +74,47 @@ def test_launch_counts_and_out_checks(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("kind", ["7pt", "27pt"])
-@pytest.mark.parametrize("shape", [(3, 9, 67), (4, 4, 4), (33, 17, 129), (40, 70, 65)])
-def test_stream_kernels_equal_plain_versions(cuda, shape, kind, dtype):
+@pytest.mark.parametrize("shape", [(3, 9, 67), (4, 4, 4), (33, 17, 129), (40, 70, 65),
+                                   (1, 1, 1), (2, 1, 3), (5, 61, 131), (70, 39, 63)])
+def test_stream_kernels_equal_plain_versions(cuda, monkeypatch, shape, kind, dtype):
     """Includes extents of exactly max(3, k) and x-chunks cut inside the
-    ghost rings (33 and 40 planes run as two chunks)."""
+    ghost rings (33 and 40 planes run as two chunks); extents that are no
+    multiple of the specialised instances' tiles in y (24-38 rows) or z
+    (56-62 columns), or of the x-chunk (70 planes: 24 + 24 + 22); and
+    extents down to 1, where streamk runs on a random padded block (the
+    exchange needs extents >= k). Each case runs the instance the default
+    knobs pick (specialised for both stencils) and the generic instance
+    (``HEAT3D_FACTOR_7PT=1`` and ``HEAT3D_FACTOR_Y=0``)."""
     base = np.random.default_rng(5).standard_normal(shape).astype(np.float32)
     u = torch.from_numpy(base).to(cuda).to(dtype)
-    taps = _taps(kind)
-    for periodic, bcv in ((False, 0.0), (False, 0.3), (True, 0.0)):
-        bc = BoundaryCondition.PERIODIC if periodic else BoundaryCondition.DIRICHLET
-        up = exchange_halo(u, bc, bcv, 1)
-        assert torch.equal(ss.apply_taps_stream(up, taps), apply_taps_padded(up, taps))
-        for k in (k for k in ss.STREAMK_DEPTHS if k <= min(shape)):
-            upk = exchange_halo(u, bc, bcv, k)
-            got = ss.apply_taps_streamk(upk, taps, k, periodic, bcv)
-            want = ss.apply_taps_streamk_ref(upk, taps, k, periodic, bcv)
+    rng = np.random.default_rng(6)
+    for generic in (False, True):
+        if generic:
+            monkeypatch.setenv("HEAT3D_FACTOR_7PT", "1")
+            monkeypatch.setenv("HEAT3D_FACTOR_Y", "0")
+        taps = _taps(kind)
+        assert (ss.stream_instance(taps) == ss.GENERIC) == generic
+        ss.reset_launch_counts()
+        for periodic, bcv in ((False, 0.0), (False, 0.3), (True, 0.0)):
+            bc = BoundaryCondition.PERIODIC if periodic else BoundaryCondition.DIRICHLET
+            up = exchange_halo(u, bc, bcv, 1)
+            got = ss.apply_taps_stream(up, taps)
             torch.cuda.synchronize()
-            assert torch.equal(got, want), (k, periodic, bcv)
+            assert torch.equal(got, apply_taps_padded(up, taps)), (periodic, bcv, generic)
+            for k in ss.STREAMK_DEPTHS:
+                if k <= min(shape):
+                    upk = exchange_halo(u, bc, bcv, k)
+                else:
+                    upk = torch.from_numpy(rng.standard_normal(
+                        tuple(n + 2 * k for n in shape)).astype(np.float32)).to(cuda).to(dtype)
+                got = ss.apply_taps_streamk(upk, taps, k, periodic, bcv)
+                want = ss.apply_taps_streamk_ref(upk, taps, k, periodic, bcv)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (k, periodic, bcv, generic)
+        launches = ss.launch_counts()
+        assert ss.generic_launch_counts() == (launches if generic else
+                                              {n: 0 for n in launches})
+        assert ss.cell_counts()["apply_taps_stream"] == 3 * u.numel()
 
 
 @pytest.mark.parametrize("tb", [1, 2, 3, 4])
@@ -127,6 +151,22 @@ def test_stream_launch_counts_and_out_checks(cuda):
         ss.apply_taps_stream(up, taps, out=torch.empty_like(up))
     with pytest.raises(ValueError, match="overlaps"):
         ss.apply_taps_stream(up, taps, out=up.view(-1)[: 8**3].view(8, 8, 8))
+
+
+def test_stream_instances_fit_and_check_alignment(cuda):
+    """Every instance fits an SM; the specialised streamk K=4 instances keep
+    four blocks of 256 threads on one (the design's register and shared
+    memory budget). A bf16 padded field must start on a 4-byte boundary
+    (its rows are copied as element pairs)."""
+    for k in (1, *ss.STREAMK_DEPTHS):
+        for code in (ss.GENERIC, *ss.CHAINS):
+            for dtype in (torch.float32, torch.bfloat16):
+                r = ss.instance_resources(k, code, dtype)
+                assert r["blocks_per_sm"] >= (4 if code != ss.GENERIC and k == 4 else 1), \
+                    (k, code, dtype, r)
+    flat = torch.zeros(10**3 + 1, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="4-byte boundary"):
+        ss.apply_taps_stream(flat[1:].view(10, 10, 10), _taps("7pt"))
 
 
 def _card_mesh(cuda, shape, local):
