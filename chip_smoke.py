@@ -8,20 +8,23 @@ non-zero without one. Phases, each printing its own lines:
 
 1. identify the card (nvidia-smi name and power limit, torch and CUDA);
 2. build the CUDA kernels from ``heat3d_tpu_torch/csrc`` (one nvcc per
-   source, all started together) and print the compiler's resource report
-   and each stream kernel instance's dynamic shared memory and resident
-   blocks per SM (k = 1..4 x the 7pt, 27pt and generic instances x
-   fp32/bf16);
+   source, all started together) and print the compiler's resource report,
+   each stream kernel instance's dynamic shared memory and resident blocks
+   per SM (k = 1..4 x the 7pt, 27pt and generic instances x fp32/bf16) and
+   each direct instance's shared memory, registers, spills and resident
+   blocks per SM (halo 1 and 2 x the same instances);
 3. hold each kernel against its plain PyTorch version on the card, bitwise,
    for 7pt/27pt x Dirichlet (bc 0 and 0.3)/periodic x fp32/bf16 storage at
    ragged shapes, 128^3 (the golden phase's grid) and 256^3: the direct
    kernels (tb 1 and 2), the stream kernel and streamk at k = 2, 3, 4 over
-   the halo exchange; the stream kernels' generic instance at 128^3 under
-   the factoring knobs (``HEAT3D_FACTOR_7PT=1``, ``HEAT3D_FACTOR_Y=0``,
-   both), each launch on the instance ``stream_instance`` names; also the
-   streamk plain version against k direct kernel launches, and the
-   exchange-path solve of k steps against the direct-path solve, both
-   bitwise;
+   the halo exchange; the direct kernels also at shapes with nx below 2H+1,
+   odd nz, y and z no multiple of their tiles, nx = 1024 cut into x-chunks
+   and a forced 3-plane x-chunk; every stencil kernel's generic instance at
+   128^3 under the factoring knobs (``HEAT3D_FACTOR_7PT=1``,
+   ``HEAT3D_FACTOR_Y=0``, both), each launch on the instance
+   ``stream_instance`` names; also the streamk plain version against k
+   direct kernel launches, and the exchange-path solve of k steps against
+   the direct-path solve, both bitwise;
 4. the sharded solve, every shard on ``cuda:0`` on a stream of its own,
    bitwise: the DMA halo kernels against their plain version (meshes
    (2,1,1) .. (2,2,2), widths 1-4, three boundary settings, fp32/bf16, at
@@ -48,7 +51,10 @@ non-zero without one. Phases, each printing its own lines:
    periodic, 27pt and bf16 storage: the full-width phase's settings), the
    halo exchange's time at each width, and the library call's time
    (F.conv3d, no TF32) over the same input as the tb=1 and the stream
-   kernel, held to them within a stated rounding bound; the stream kernel
+   kernel, held to them within a stated rounding bound; the direct kernels'
+   generic instance forced on the 7pt chain beside them (the first
+   design), and direct1/direct2 in their 27pt fp32 and 7pt bf16 instances
+   at 1024^3 with registers, spills and blocks per SM; the stream kernel
    and streamk K=4 in their 27pt fp32 and 7pt bf16 instances at 1024^3
    (bitwise, timed beside their bounds), and the ratios stream1 / direct1,
    streamk K=2 / direct2 and K=4 / direct2 of the same call; the DMA push+wait
@@ -74,7 +80,7 @@ non-zero without one. Phases, each printing its own lines:
 
 The kernel launch counts are zeroed just before phase 5 and read just after
 phase 6; the script fails if any kernel was not launched there, or if a
-stream kernel launch there took the generic instance. The ``main_path``
+direct or stream kernel launch there took the generic instance. The ``main_path``
 line also gives each wrapper's output cells as launches of the size the
 kernels line times (1024^3-equivalent launches). The last
 three lines are the kernels' JSON object (``{"kernels": [...]}``), the
@@ -192,13 +198,11 @@ def _bc(periodic: bool):
 
 def flops_per_update(taps) -> int:
     """fp32 operations per cell and update of the tap chain, with the plane
-    and row sums counted once (as the plain version caches them)."""
-    from heat3d_tpu_torch.ops.stencil_direct import emission_program
+    and row sums counted once (as the plain version caches them): the
+    package's ``chain_ops``, which the bench rows carry too."""
+    from heat3d_tpu_torch.ops.stencil_direct import chain_ops
 
-    prog = emission_program(taps)
-    sums = {("x",)} if any(s == 3 for s, _, _, _ in prog) else set()
-    sums |= {("y", s) for s, r, _, _ in prog if r == 3}
-    return 2 * len(prog) - 1 + len(sums)
+    return chain_ops(taps)
 
 
 def trapezoid_cells(n: int, k: int) -> int:
@@ -311,13 +315,32 @@ def _instance_name(code: int) -> str:
     return ss.CHAINS[code][0] if code in ss.CHAINS else "generic"
 
 
+def _direct_ptxas() -> dict:
+    """Registers and spills (bytes) of each compile-time direct instance,
+    from the compiler's report, keyed ``h<halo>_<chain>_<dtype>``."""
+    import re
+
+    from heat3d_tpu_torch.ops import _build
+
+    names = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
+    out = {}
+    for entry, r in _build.ptxas_report("stencil_direct").items():
+        m = re.search(r"direct_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)E", entry)
+        if m:
+            out[f"h{m.group(2)}_{_instance_name(int(m.group(3)))}_{names[m.group(1)]}"] = r
+    return out
+
+
 def phase_build() -> dict:
-    """Build every source; print the compiler's report and each stream
-    instance's dynamic shared memory and resident blocks per SM. Returns
-    those, keyed ``k<k>_<instance>_<dtype>``."""
+    """Build every source; print the compiler's report, each stream
+    instance's dynamic shared memory and resident blocks per SM, and each
+    direct instance's shared memory, registers, spills and resident blocks
+    per SM. Returns those, keyed ``k<k>_<instance>_<dtype>`` (stream) and
+    ``h<halo>_<instance>_<dtype>`` (direct)."""
     import torch
 
     from heat3d_tpu_torch.ops import _build
+    from heat3d_tpu_torch.ops import stencil_direct as sd
     from heat3d_tpu_torch.ops import stencil_stream as ss
 
     seconds = _build.build_all()
@@ -332,6 +355,20 @@ def phase_build() -> dict:
     for key, r in resources.items():
         _check(r["blocks_per_sm"] > 0, f"stream instance {key} fits no SM: {r}")
     _say("build", stream_instances=resources)
+    ptxas = _direct_ptxas()
+    direct = {}
+    for h in (1, 2):
+        for code in (ss.GENERIC, *ss.CHAINS):
+            for dtype in (torch.float32, torch.bfloat16):
+                key = f"h{h}_{_instance_name(code)}_{str(dtype)[6:]}"
+                direct[key] = {**sd.instance_resources(h, code, dtype),
+                               **{f: ptxas.get(key, {}).get(f)
+                                  for f in ("spill_stores", "spill_loads")}}
+                _check(direct[key]["blocks_per_sm"] > 0,
+                       f"direct instance {key} fits no SM: {direct[key]}")
+    _check(len(ptxas) == 8, f"compiler report of the direct instances: {sorted(ptxas)}")
+    _say("build", direct_instances=direct)
+    resources.update(direct)
     return resources
 
 
@@ -442,6 +479,7 @@ def phase_compare() -> dict:
                         chained += 1
             del u
         torch.cuda.empty_cache()
+    direct = _compare_direct(worst)
     generic = _compare_generic(worst)
     solves = 0
     for k in (1, 2, 3, 4):
@@ -457,8 +495,73 @@ def phase_compare() -> dict:
                     solves += 1
     _say("compare", cases=n, bitwise=True, max_abs_err=worst,
          streamk_plain_vs_direct_launches=chained, exchange_vs_direct_solves=solves,
-         generic_instance=generic, launches=ops.launch_counts())
+         direct_instances=direct, generic_instance=generic, launches=ops.launch_counts())
     return worst
+
+
+# the direct kernels' ragged shapes: nx below 2H+1, odd nz, y and z no
+# multiple of the compile-time tiles (38 x 62 at halo 1, 28 x 60 at halo 2),
+# several tiles each way, and nx = 1024 (x cut into chunks); with the
+# x-chunk forced to 3 planes on (40, 70, 65)
+_DIRECT_SHAPES = ((1, 1, 1), (2, 3, 5), (4, 45, 130), (5, 77, 125), (6, 39, 127),
+                  (1024, 257, 131))
+_DIRECT_FORCED_CHUNK = ((40, 70, 65), 3)
+
+
+def _generic_counts() -> dict:
+    """Launches that took the generic instance, per kernel wrapper."""
+    from heat3d_tpu_torch.ops import stencil_direct as sd
+    from heat3d_tpu_torch.ops import stencil_stream as ss
+
+    return {**sd.generic_launch_counts(), **ss.generic_launch_counts()}
+
+
+def _hold_instance(worst, name, u, taps, periodic, bcv, k, what, chunk=None) -> None:
+    """``name`` on ``u`` bitwise against its plain version, on the instance
+    ``stream_instance`` names (the wrapper's generic count says which ran);
+    ``chunk`` forces the direct kernels' x-chunk to that many planes."""
+    from heat3d_tpu_torch.ops import stencil_direct as sd
+    from heat3d_tpu_torch.ops import stencil_stream as ss
+
+    code = ss.stream_instance(taps)
+    before = _generic_counts()[name]
+    if chunk is None:
+        got, want = _run_kernel(name, u, taps, periodic, bcv, k)
+    else:
+        got = sd.launch_instance(k, sd.direct_instance(taps), u, taps, periodic, bcv,
+                                 xchunk=chunk)
+        want = _kernel_pair(name, k)[1](u, taps, periodic, bcv)
+    _hold(worst, name, got, want, what)
+    took = _generic_counts()[name] - before
+    _check(took == (code == ss.GENERIC),
+           f"{name} {what}: generic launches {took}, instance {_instance_name(code)}")
+
+
+def _compare_direct(worst: dict) -> int:
+    """The direct kernels (halo 1 and 2) at ``_DIRECT_SHAPES`` and a forced
+    multi-chunk case, 7pt/27pt x fp32/bf16 x Dirichlet bc 0 and 0.3 and
+    periodic, bitwise against their plain versions on the instance
+    ``stream_instance`` names. Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    cases = 0
+    shapes = [(shape, None) for shape in _DIRECT_SHAPES] + [_DIRECT_FORCED_CHUNK]
+    for shape, chunk in shapes:
+        base = np.random.default_rng(8).standard_normal(shape).astype(np.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            u = torch.from_numpy(base).cuda().to(dtype)
+            for kind in ("7pt", "27pt"):
+                taps = _taps(kind)
+                for periodic, bcv in _BCS:
+                    for name, k in _cases()[:2]:
+                        _hold_instance(worst, name, u, taps, periodic, bcv, k,
+                                       f"at {shape} chunk {chunk} {dtype} {kind} "
+                                       f"periodic={periodic} bc={bcv}", chunk)
+                        cases += 1
+            del u
+        torch.cuda.empty_cache()
+    return cases
 
 
 # the factoring knobs of the compare phase's generic-instance cases
@@ -467,11 +570,12 @@ _KNOBS = ({"HEAT3D_FACTOR_7PT": "1"}, {"HEAT3D_FACTOR_Y": "0"},
 
 
 def _compare_generic(worst: dict) -> dict:
-    """The stream kernel and streamk at k = 2..4 at 128^3 under the
-    factoring knobs, 7pt/27pt x fp32/bf16 x three boundary settings,
-    bitwise against their plain versions; each launch must take the
-    instance ``stream_instance`` names (the generic one exactly where the
-    emission program is not a ``CHAINS`` entry), counted by the wrappers."""
+    """Every stencil kernel (direct1, direct2, the stream kernel and streamk
+    at k = 2..4) at 128^3 under the factoring knobs, 7pt/27pt x fp32/bf16 x
+    three boundary settings, bitwise against its plain version; each launch
+    must take the instance ``stream_instance`` names (the generic one
+    exactly where the emission program is not a ``CHAINS`` entry), counted
+    by the wrappers."""
     import numpy as np
     import torch
 
@@ -489,15 +593,10 @@ def _compare_generic(worst: dict) -> dict:
                     tag = f"{'+'.join(f'{k}={v}' for k, v in knobs.items())} {kind}"
                     cases[tag] = _instance_name(code)
                     for periodic, bcv in _BCS:
-                        for name, k in _cases()[2:]:
-                            before = ss.generic_launch_counts()[name]
-                            got, want = _run_kernel(name, u, taps, periodic, bcv, k)
-                            _hold(worst, name, got, want,
-                                  f"k={k} at 128^3 {dtype} {tag} periodic={periodic} bc={bcv}")
-                            took = ss.generic_launch_counts()[name] - before
-                            _check(took == (code == ss.GENERIC),
-                                   f"{name} k={k} {tag}: generic launches {took}, "
-                                   f"instance {_instance_name(code)}")
+                        for name, k in _cases():
+                            _hold_instance(worst, name, u, taps, periodic, bcv, k,
+                                           f"k={k} at 128^3 {dtype} {tag} "
+                                           f"periodic={periodic} bc={bcv}")
                 del u
     return cases
 
@@ -1032,6 +1131,9 @@ def phase_kernel_times(bw: float, worst: dict, resources: dict) -> dict:
                              "bound_by": by, "library_ms": None}
             if name.startswith("apply_taps_stream"):
                 times[n][key]["blocks_per_sm"] = resources[f"k{k}_7pt_float32"]["blocks_per_sm"]
+            else:
+                times[n][key].update(_direct_generic_ms(worst, name, k, u, taps, out))
+                times[n][key].update(resources[f"h{k}_7pt_float32"])
         extra = {}
         if n == 1024:
             # yardstick, never called by the port: one cuDNN convolution
@@ -1057,6 +1159,11 @@ def phase_kernel_times(bw: float, worst: dict, resources: dict) -> dict:
              times=times[n], exchange_ms_by_width=exchange_ms, bitwise_cases=cases,
              max_abs_err=worst, **extra)
     t = times[1024]
+    _say("direct_times", grid=[1024] * 3,
+         variants=_direct_variant_times(bw, worst, resources),
+         generic_over_compiled={name: t[name]["generic_ms"] / t[name]["ms"]
+                                for name in ("apply_taps_direct", "apply_taps_direct2")},
+         max_abs_err={n: worst[n] for n in ("apply_taps_direct", "apply_taps_direct2")})
     variants = _stream_variant_times(bw, worst, resources)
     d1, d2 = t["apply_taps_direct"]["ms"], t["apply_taps_direct2"]["ms"]
     ratios = {
@@ -1069,6 +1176,49 @@ def phase_kernel_times(bw: float, worst: dict, resources: dict) -> dict:
          max_abs_err={n: worst[n] for n in ("apply_taps_stream", "apply_taps_streamk")})
     t["apply_taps_streamk"] = t[f"apply_taps_streamk_k{_STREAMK_HEADLINE}"]
     return t
+
+
+def _direct_generic_ms(worst: dict, name: str, halo: int, u, taps, out) -> dict:
+    """The generic (interpreted) direct instance forced on ``taps``' chain:
+    its ms per launch on ``u``, the last launch held bitwise to the plain
+    version. ``out`` is overwritten."""
+    from heat3d_tpu_torch.ops import stencil_direct as sd
+
+    ms = _time_ms(lambda: sd.launch_instance(halo, 0, u, taps, out=out), iters=10)
+    _, plain = _kernel_pair(name, halo)
+    _hold(worst, name, out, plain(u, taps, False, 0.0),
+          f"generic instance at {tuple(u.shape)} {u.dtype}")
+    return {"generic_ms": ms}
+
+
+def _direct_variant_times(bw: float, worst: dict, resources: dict) -> dict:
+    """direct1 and direct2 at 1024^3, Dirichlet bc 0, in the 27pt fp32 and
+    7pt bf16 instances (the 7pt fp32 ones are ``kernel_times``'): ms per
+    launch, bound, registers, spills, blocks per SM and shared memory, each
+    launch held bitwise to its plain version."""
+    import torch
+
+    from heat3d_tpu_torch.ops import stencil_stream as ss
+
+    n = 1024
+    out_times = {}
+    for kind, dtype in (("27pt", torch.float32), ("7pt", torch.bfloat16)):
+        taps = _taps(kind, n)
+        u = torch.rand((n, n, n), device="cuda").to(dtype)
+        out = torch.empty_like(u)
+        for name, halo in _cases()[:2]:
+            kern, plain = _kernel_pair(name, halo)
+            ms = _time_ms(lambda: kern(u, taps, False, 0.0, out=out), iters=10)
+            _hold(worst, name, out, plain(u, taps, False, 0.0),
+                  f"at {n}^3 {kind} {dtype} bc=0.0")
+            b_ms, by = kernel_bound(name, n, halo, u.element_size(), flops_per_update(taps), bw)
+            code = ss.stream_instance(taps)
+            out_times[f"h{halo}_{kind}_{str(dtype)[6:]}"] = {
+                "ms": ms, "bound_ms": b_ms, "bound_by": by, "instance": _instance_name(code),
+                **resources[f"h{halo}_{_instance_name(code)}_{str(dtype)[6:]}"]}
+        del u, out
+        torch.cuda.empty_cache()
+    return out_times
 
 
 def _stream_variant_times(bw: float, worst: dict, resources: dict) -> dict:
@@ -1593,7 +1743,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from heat3d_tpu_torch import ops
-    from heat3d_tpu_torch.ops import stencil_stream
 
     t0 = time.perf_counter()
     smi = phase_identify()
@@ -1607,12 +1756,13 @@ def main() -> int:
     phase_golden()
     phase_full_width(bw)
     launches = ops.launch_counts()
-    generic = stencil_stream.generic_launch_counts()
+    generic = _generic_counts()
     cells = ops.cell_counts()
     for name in KERNELS:
         _check(launches[name] > 0, f"{name} was not launched on the main path")
     _check(not any(generic.values()),
-           f"the main path's 7pt/27pt stream launches took the generic instance: {generic}")
+           f"the main path's 7pt/27pt direct or stream launches took the generic "
+           f"instance: {generic}")
     equiv = {name: cells[name] / _unit_cells(name) for name in KERNELS}
     _say("main_path", kernel_launches=launches, generic_instance_launches=generic,
          output_cells=cells, launches_1024_equivalent=equiv,

@@ -9,7 +9,9 @@ device when the shards span several. Rows keep the JAX row's field names
 where the field exists, plus the mesh, the halo transport, the shards per
 device and the routes; the Gcell/s are effective updates of the GLOBAL
 grid (cells x steps / time), never the raw recompute of a superstep's
-ghost rings, which ``cost_redundant_flops_frac`` reports.
+ghost rings, which ``cost_redundant_flops_frac`` reports. ``throughput_row``
+builds the row from the timings, so the JAX package's provenance lint
+(``analysis.provenance.check_row``) can judge a row built without a card.
 """
 
 from __future__ import annotations
@@ -20,18 +22,18 @@ from typing import Dict
 
 import torch
 
-from heat3d_tpu_torch import ops
+from heat3d_tpu_torch import eqn, ops
 from heat3d_tpu_torch.core.config import SolverConfig
 from heat3d_tpu_torch.models.heat3d import HeatSolver3D, resolved_backend_name
-from heat3d_tpu_torch.parallel.plan import effective_halo_plan
+from heat3d_tpu_torch.ops.stencil_direct import chain_ops
+from heat3d_tpu_torch.parallel.plan import effective_halo_plan, make_schedule
 from heat3d_tpu_torch.parallel.step import (
-    make_exchanges,
     redundant_flops_frac,
     resolve_fused_rdma,
     step_route,
     superstep_route,
 )
-from heat3d_tpu_torch.utils.timing import calibrate_trip_count, cuda_time
+from heat3d_tpu_torch.utils.timing import calibrate_trip_count, cuda_time, sync_rtt
 
 # a timed run lasts at least this long
 _FLOOR_S = 0.2
@@ -90,19 +92,41 @@ def bench_throughput(
     steps, first = calibrate_trip_count(timed, _FLOOR_S, start=steps)
     times = [first] + [timed(steps) for _ in range(repeats - 1)]
     after = ops.launch_counts()
+    return throughput_row(
+        cfg, steps=steps, steps_requested=steps_requested, times=times,
+        devices=devices, shards=len(solver.mesh), sync_rtt_s=sync_rtt(devices[0]),
+        kernel_launches={k: after[k] - before[k] for k in after},
+    )
+
+
+def throughput_row(
+    cfg: SolverConfig,
+    steps: int,
+    steps_requested: int,
+    times,
+    devices,
+    shards: int,
+    sync_rtt_s: float,
+    kernel_launches: Dict[str, int],
+) -> Dict:
+    """The throughput row of ``steps``-step runs of ``cfg`` that took
+    ``times`` seconds on ``devices`` (``shards`` shards over them): the
+    timing numbers as given, the routes and provenance fields from ``cfg``
+    under the current environment. Measures nothing itself."""
     tb = cfg.time_blocking
     per_run = steps // tb + steps % tb
     route = superstep_route(cfg) if tb > 1 else step_route(cfg)
-    schedule = make_exchanges(cfg, solver.mesh).schedule(tb)
+    schedule = make_schedule(cfg.mesh.shape, tb, effective_halo_plan(cfg))
     itemsize = torch.empty((), dtype=getattr(torch, cfg.precision.storage)).element_size()
     best = min(times)
     updates = cfg.grid.num_cells * steps
     gcells = updates / best / 1e9
+    on_card = devices[0].type == "cuda"
     return {
         "bench": "throughput",
         "ts": _utc_now(),
-        "platform": "gpu",
-        "device_name": torch.cuda.get_device_name(devices[0]),
+        "platform": "gpu" if on_card else devices[0].type,
+        "device_name": torch.cuda.get_device_name(devices[0]) if on_card else str(devices[0]),
         "grid": list(cfg.grid.shape),
         "stencil": cfg.stencil.kind,
         "bc": cfg.stencil.bc.value,
@@ -115,16 +139,29 @@ def bench_throughput(
         # fused-RDMA knob after its environment override
         "halo_plan": effective_halo_plan(cfg),
         "fused_rdma": resolve_fused_rdma(cfg),
-        # whether the hot path resolved to a fused kernel; the port has no
-        # emulation tier, so the JAX row's *_emulated fields do not exist
+        # the route provenance of the JAX row: which kernel the hot path
+        # resolved to (the superstep's at tb > 1, else the step's)
+        "direct_path": route in ("direct", "direct2"),
+        "streamk_path": route == "streamk",
         "fused_dma_path": route.startswith("fused-dma"),
         "fused_rdma_path": route.startswith("fused-rdma"),
+        # the Mehrstellen route raises in the port, so it never ran
+        "mehrstellen_route": False,
+        # the JAX row marks a route resolved to its XLA reference contract
+        # off the TPU; the port has no such tier (a CUDA tensor launches
+        # its kernel or raises), so on the card these are honestly False
+        "fused_dma_emulated": False,
+        "streamk_emulated": False,
+        "fused_rdma_emulated": False,
+        # ops per cell and update of the emitted tap chain under the
+        # factoring knobs at measurement time; one conv call has no chain
+        "chain_ops": None if cfg.backend == "conv" else chain_ops(eqn.solver_taps(cfg)),
         # the plan schedule of one exchange: face copies (sub-blocks
         # counted) and boundary bytes sent per shard
         "messages_per_exchange": schedule.messages_per_exchange(),
         "plan_traffic": schedule.traffic(cfg.local_shape, itemsize),
         "devices": len(devices),
-        "shards_per_device": len(solver.mesh) // len(devices),
+        "shards_per_device": shards // len(devices),
         "dtype": cfg.precision.storage,
         "compute_dtype": cfg.precision.compute,
         "backend": resolved_backend_name(cfg),
@@ -136,7 +173,10 @@ def bench_throughput(
         "batch_shape": [1],
         "members_per_step": 1,
         "seconds_best": best,
-        "seconds_all": times,
+        "seconds_all": list(times),
+        # one synchronize after an empty launch, the JAX row's sync RTT; the
+        # times above come from CUDA events, so it is not subtracted
+        "sync_rtt_s": sync_rtt_s,
         "gcell_per_sec": gcells,
         "gcell_per_sec_per_chip": gcells / len(devices),
         "gcell_updates_per_sec": gcells,
@@ -147,5 +187,5 @@ def bench_throughput(
         # above and what the card executed
         "cost_redundant_flops_frac": redundant_flops_frac(cfg),
         # every launch of the whole benchmark (warmup and calibration too)
-        "kernel_launches": {k: after[k] - before[k] for k in after},
+        "kernel_launches": kernel_launches,
     }

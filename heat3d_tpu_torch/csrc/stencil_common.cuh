@@ -1,6 +1,9 @@
-// Shared pieces of the port's stencil kernels (stencil_direct.cu,
-// stencil_stream.cu): the tap-chain emission program, its evaluator, the
-// storage <-> float conversions and the (y, z) tile geometry.
+// Shared pieces of the port's stencil kernels: the tap-chain emission
+// program, its evaluator, the storage <-> float conversions and the (y, z)
+// tile geometry of the interpreted kernels. The program evaluator runs in
+// the generic instances of stencil_direct.cu and stencil_stream.cu (chains
+// outside the CHAINS table) and in stencil_fused.cu; the compile-time
+// instances unroll the chain instead (stencil_chain.cuh).
 //
 // Arithmetic contract: the update is evaluated from an emission program
 // (the wrapper records core.stencils.accumulate_taps into at most 27

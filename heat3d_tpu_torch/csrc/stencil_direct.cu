@@ -1,46 +1,434 @@
 // BC-fused direct-stencil kernels for Hopper (sm_90a): one explicit-Euler
-// update (halo 1) or two fused updates (halo 2) of the UNPADDED field, with
-// Dirichlet/periodic ghosts synthesized at load time.
+// update (halo H = 1) or two fused updates (H = 2) of the UNPADDED field,
+// with the Dirichlet/periodic ghosts built by the loader.
 //
 // Replaces heat3d_tpu/ops/stencil_pallas_direct.py::apply_taps_direct
-// (_direct_kernel) and ::apply_taps_direct2 (_direct2_kernel).
+// (_direct_kernel, H = 1) and ::apply_taps_direct2 (_direct2_kernel,
+// H = 2).
+//
+// Two families of instances, as in stencil_stream.cu:
+//   * direct_kernel<T, H, S>: the tap chain S fixed at compile time (the 7pt
+//     and the factored 27pt chain of the wrapper's table, ops/stencil_stream.py
+//     CHAINS, passed to nvcc as HEAT3D_CHAIN_7PT / HEAT3D_CHAIN_27PT; the
+//     weights are a kernel argument). The wrapper picks S by comparing
+//     emission_program(taps) with that table;
+//   * direct1_generic / direct2_generic<T>: any other chain (other taps,
+//     HEAT3D_FACTOR_7PT=1, HEAT3D_FACTOR_Y=0), interpreted per cell from the
+//     Program in shared memory (stencil_common.cuh) over 3-slot float rings
+//     of ghost-framed planes loaded synchronously: the first design.
 //
 // Bound: device-memory bytes. One sweep reads the field once and writes it
-// once (8 B/cell in fp32, 4 B/cell in bf16) for 13 (7pt) to ~33 (27pt,
-// factored) flops per cell and update -- far below Hopper's ~20 flop/B
-// fp32 balance point. Design against that bound:
-//   * each thread block owns a (TY, TZ) tile of the (y, z) plane and marches
-//     along x (one x-chunk per block), keeping a 3-slot ring of ghost-framed
-//     planes in shared memory, so each input plane is read from device
-//     memory once per sweep (the frame's halo comes from L2);
-//   * z is the contiguous axis, so consecutive threads load consecutive z;
-//   * the halo-2 kernel keeps a second ring of the one-ring-wide
-//     intermediate planes, so two updates cost one read and one write of
-//     the field: half the sweeps of two halo-1 launches. Neighbouring tiles
-//     recompute their shared intermediate border (arithmetic, not traffic).
+// once (8 B/cell in fp32, 4 B/cell in bf16) for 13 (7pt) to 26 (27pt,
+// factored) flops per cell and update: at 1024^3 fp32 the bytes take 2.56
+// ms on an H100 SXM, the flops of two updates 0.4-0.8 ms. Design of
+// direct_kernel against that, the sweep of stream_kernel (stencil_chain.cuh)
+// with a loader that builds the ghosts:
+//   * the chain is unrolled at compile time: a term is one or two shared
+//     loads at immediate offsets, __fmul_rn and __fadd_rn; each x-plane sum
+//     is formed once per position and each y-row sum per term, from the
+//     same operands in the same order as the cached sums of the plain
+//     version (ops.stencil_eager);
+//   * 32 x 8 threads own the positions (ty + 8 l, tx + 32 m) of a frame of
+//     64 columns (z) by 40 (H = 1) or 32 (H = 2) rows (y), which starts at
+//     (y0 - H, z0 - H); the output tile is the frame less 2H on each axis.
+//     x-neighbours live in registers, so of each level one shared slot
+//     (storage type; plus a float x-sum slot for 27pt) holds the plane whose
+//     y/z neighbours are read. Launch bounds hold 64 registers, so four
+//     blocks of 256 threads fit an SM;
+//   * input planes land by cp.async (4 B; bf16 as the aligned element pairs
+//     that hold each row, read with a per-row shift), two planes ahead into
+//     a 4-slot ring where four blocks still fit an SM, else one ahead;
+//   * the loader builds the ghosts. Which of the thread's rows and columns
+//     lie inside the domain is decided once per block. A Dirichlet cell
+//     outside the domain on any axis takes bc (a whole x-ghost plane needs
+//     no copy); the threads store it, since cp.async's zero fill gives 0,
+//     before the barrier that publishes the plane. Under periodic
+//     boundaries the source plane and row wrap; in an edge tile the columns
+//     across z = 0 or z = nz wrap per element, and a row whose wrapped
+//     source starts on the other parity than the frame's layout (odd ny*nz)
+//     is stored per element. Interior tiles copy whole rows;
+//   * H = 2 computes the intermediate over the frame less one ring, rounds
+//     it through T and, under Dirichlet, pins it to bc wherever its global
+//     index lies outside the domain on any axis (stream_kernel's pin with
+//     all six domain faces); under periodic nothing is pinned.
 //
-// Arithmetic contract: the emission program of stencil_common.cuh, so the
-// kernel equals ops.stencil_eager bitwise. The halo-2 intermediate is
-// rounded through the storage type and, under Dirichlet, pinned to bc
-// wherever its global index lies outside the domain.
+// Every instance equals apply_taps_direct_ref / apply_taps_direct2_ref
+// (ops/stencil_direct.py) bitwise.
+//
+// Measured (chip_smoke.py on "NVIDIA H100 80GB HBM3, 700.00 W"; PERF.md
+// section 6), ms per launch at 1024^3 fp32 7pt against the bytes bound of
+// 2.56: direct1 5.21 (5 blocks per SM, 47 registers), direct2 5.43 (4
+// blocks, 64 registers), no spills; 27pt 5.04 / 8.97, 7pt bf16 4.14 / 6.93
+// (bound 1.28). The first design, now the generic instance, took 10.57 /
+// 20.72. direct2 still trails streamk K=2 (4.75), the same sweep on a
+// padded block: the loader's ghost logic and 64 registers are suspects,
+// not measured.
 //
 // Launches go on the caller's stream, allocate nothing, and return
 // cudaGetLastError().
 
-#include "stencil_common.cuh"
+#include "stencil_chain.cuh"
 
 namespace {
 
-__device__ __forceinline__ int wrap(int i, int n) {
-  int r = i % n;
+constexpr int MAX_H = 2;
+
+__host__ __device__ __forceinline__ int wrap(int i, int n) {
+  const int r = i % n;
   return r < 0 ? r + n : r;
 }
 
+// ---------------------------------------------------------------------------
+// Specialised instances.
+
+// The state of one block of direct_kernel<T, H, S>.
+template <class T, int H, int S>
+struct Direct {
+  using G = Geom<H>;
+  static constexpr int LA = G::LA, MB = G::MB, P = G::P;
+  static constexpr int FH = G::FH, FW = G::FW, SWI = in_stride<T, H>();
+  static constexpr bool XS = uses_xsum<S>();
+  static constexpr bool SHIFT = sizeof(T) == 2;
+  static constexpr int NS = in_slots<T, H, S>();  // input slots
+  static constexpr int D = NS - 2;                // planes loaded ahead
+  static constexpr int NP = MB / 2 + 1;           // bf16 pairs a thread copies
+  using InView = View<T, SWI, SHIFT>;
+  using LvView = View<T, FW, false>;
+  using XsView = View<float, FW, false>;
+
+  const T* __restrict__ u;
+  T* __restrict__ out;
+  T* in_slot;   // NS input slots
+  T* lvl;       // the level-1 slot (H = 2)
+  float* xsp;   // the x-sum slot (27pt)
+  int nx, ny, nz, xs0, y0, z0;
+  int periodic;
+  float bc;
+  int rowin, colin;    // the thread's frame rows / columns inside the domain
+  int pairin;          // bf16: pair j of shift s inside the domain, bit j+NP*s
+  int zfull;           // every column the block copies lies inside [0, nz)
+  int rowout, colout;  // the thread's rows / columns of the output tile
+  float g[H][P];       // level L's plane before the one in its slot
+  float v[2][P];       // a stage's fresh plane until it reaches its slot
+
+  __device__ __forceinline__ int tid_base(int sw) const {
+    return threadIdx.y * sw + threadIdx.x;
+  }
+
+  // The global x of chunk-relative input plane q and the plane it is read
+  // from (wrapped under periodic boundaries).
+  __device__ __forceinline__ int plane_x(int q) const { return xs0 + q - H; }
+  __device__ __forceinline__ int src_x(int q) const {
+    return periodic ? wrap(plane_x(q), nx) : plane_x(q);
+  }
+
+  // bf16: the parity of frame row 0's first element in source plane x, as
+  // if the frame's rows were the plane's rows y0 - H ..: row a sits shifted
+  // by parity0(x) ^ (a & nz & 1) in its slot row.
+  __device__ __forceinline__ int parity0(int x) const {
+    return (x & ny & nz & 1) ^ ((y0 - H) & nz & 1) ^ ((z0 - H) & 1);
+  }
+
+  __device__ __forceinline__ InView in_view(int q) const {
+    const T* base = in_slot + (q % NS) * FH * SWI + tid_base(SWI);
+    if constexpr (SHIFT) {
+      const int bp = parity0(src_x(q));
+      const int s_mid = bp ^ (threadIdx.y & nz & 1);
+      const int s_nb = bp ^ ((threadIdx.y + 1) & nz & 1);
+      return InView{base + s_mid, s_nb - s_mid};
+    } else {
+      return InView{base, 0};
+    }
+  }
+
+  __device__ __forceinline__ LvView lv_view() const {
+    return LvView{lvl + tid_base(FW), 0};
+  }
+
+  __device__ __forceinline__ XsView xs_view() const {
+    return XsView{xsp + tid_base(FW), 0};
+  }
+
+  // Frame membership of the thread's row l / column m at stage J: the
+  // stage-J planes span frame rows [J, FH - J) and columns [J, FW - J).
+  __device__ __forceinline__ bool row_in(int l, int J) const {
+    const int a = threadIdx.y + SBY * l;
+    return a >= J && a < FH - J;
+  }
+  __device__ __forceinline__ bool col_in(int m, int J) const {
+    const int b = threadIdx.x + SBZ * m;
+    return b >= J && b < FW - J;
+  }
+
+  __device__ __forceinline__ void init_masks() {
+    rowin = colin = pairin = rowout = colout = 0;
+#pragma unroll
+    for (int l = 0; l < LA; ++l) {
+      const int gy = y0 + threadIdx.y + SBY * l - H;
+      if (gy >= 0 && gy < ny) rowin |= 1 << l;
+      if (row_in(l, H) && gy < ny) rowout |= 1 << l;
+    }
+    const int zb = z0 - H;  // global z of frame column 0
+#pragma unroll
+    for (int m = 0; m < MB; ++m) {
+      const int gz = zb + threadIdx.x + SBZ * m;
+      if (gz >= 0 && gz < nz) colin |= 1 << m;
+      if (col_in(m, H) && gz < nz) colout |= 1 << m;
+    }
+    if constexpr (SHIFT) {
+      // pair j holds frame columns 2 w - s and 2 w - s + 1
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+#pragma unroll
+        for (int j = 0; j < NP; ++j) {
+          const int gz = zb + 2 * (threadIdx.x + SBZ * j) - s;
+          if (gz >= 0 && gz + 1 < nz) pairin |= 1 << (j + NP * s);
+        }
+      }
+      zfull = zb >= 1 && zb + FW + 1 <= nz;
+    } else {
+      zfull = zb >= 0 && zb + FW <= nz;
+    }
+  }
+
+  // The thread's part of slot row `dst` set to bc (every slot column).
+  __device__ __forceinline__ void fill_row(T* dst, T b) const {
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int m = 0; m < MB; ++m) dst[threadIdx.x + SBZ * m] = b;
+    } else {
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        const int w = threadIdx.x + SBZ * j;
+        if (w <= FW / 2) {
+          dst[2 * w] = b;
+          dst[2 * w + 1] = b;
+        }
+      }
+    }
+  }
+
+  // Source value of global column gz of the source row at `row`: the field,
+  // the wrap, or bc.
+  __device__ __forceinline__ T ghost_z(const T* row, int gz, T b) const {
+    if (gz >= 0 && gz < nz) return row[gz];
+    return periodic ? row[wrap(gz, nz)] : b;
+  }
+
+  // Start the copies of input plane q into its slot; the ghost cells are
+  // stored by the threads themselves.
+  __device__ __forceinline__ void load_plane(int q) {
+    T* slot = in_slot + (q % NS) * FH * SWI;
+    const T b = from_f<T>(bc);
+    const int gx = plane_x(q);
+    if (!periodic && (gx < 0 || gx >= nx)) {  // uniform across the block
+#pragma unroll
+      for (int l = 0; l < LA; ++l) {
+        fill_row(slot + (threadIdx.y + SBY * l) * SWI, b);
+      }
+      return;
+    }
+    const int x = src_x(q);
+    const int zb = z0 - H;
+    const int bp = SHIFT ? parity0(x) : 0;
+#pragma unroll
+    for (int l = 0; l < LA; ++l) {
+      const int a = threadIdx.y + SBY * l;
+      T* dst = slot + a * SWI;
+      const bool in = (rowin >> l) & 1;
+      if (!in && !periodic) {
+        fill_row(dst, b);
+        continue;
+      }
+      const int gy = y0 - H + a;
+      const int64_t rbase = ((int64_t)x * ny + (in ? gy : wrap(gy, ny))) * nz;
+      const T* row = u + rbase;
+      if constexpr (sizeof(T) == 4) {
+#pragma unroll
+        for (int m = 0; m < MB; ++m) {
+          const int c = threadIdx.x + SBZ * m;
+          if (zfull || ((colin >> m) & 1)) {
+            cp_async4(dst + c, row + zb + c, 4);
+          } else {
+            dst[c] = ghost_z(row, zb + c, b);
+          }
+        }
+      } else {
+        // frame column c at slot column c + s; a pair copies as one word
+        // when its source pair is aligned the same way
+        const int s = bp ^ (a & nz & 1);
+        const bool aligned = ((rbase + zb - s) & 1) == 0;
+#pragma unroll
+        for (int j = 0; j < NP; ++j) {
+          const int w = threadIdx.x + SBZ * j;
+          if (w > FW / 2) continue;
+          const int gz = zb + 2 * w - s;
+          if (aligned && (zfull || ((pairin >> (j + NP * s)) & 1))) {
+            cp_async4(dst + 2 * w, row + gz, 4);
+          } else {
+            dst[2 * w] = ghost_z(row, gz, b);
+            dst[2 * w + 1] = ghost_z(row, gz + 1, b);
+          }
+        }
+      }
+    }
+  }
+
+  // Stage J at step i: level L = J-1's plane q = i - J (its slot, or the
+  // input slot for L = 0) with its neighbours q-1 (g[L]) and q+1 (v, or
+  // the input slot), once the stage has work (i >= 2J). Then level L's
+  // fresh plane of this step (if any) replaces its slot's.
+  template <int J>
+  __device__ __forceinline__ void stage(int i, const Weights& w) {
+    constexpr int L = J - 1;
+    const bool active = i >= 2 * J;  // uniform across the block
+    if (active) {
+      if constexpr (XS) {
+        if constexpr (J == 2) __syncthreads();  // stage 1 has read xsp
+        // x-plane sum of level L over its frame
+        const InView cur = in_view(i);
+#pragma unroll
+        for (int l = 0; l < LA; ++l) {
+          if (!row_in(l, L)) continue;
+#pragma unroll
+          for (int m = 0; m < MB; ++m) {
+            if (!col_in(m, L)) continue;
+            const int p = l * MB + m;
+            const float pp = L == 0 ? cur.at(l, m, 0, 0) : v[L & 1][p];
+            xsp[tid_base(FW) + SBY * l * FW + SBZ * m] =
+                __fadd_rn(g[L][p], pp);
+          }
+        }
+        __syncthreads();
+      }
+      const int q = i - J;
+      if constexpr (L == 0) {
+        compute<J>(q, in_view(i - 1), in_view(i), w);
+      } else {
+        compute<J>(q, lv_view(), in_view(i), w);
+      }
+    }
+    if constexpr (L == 0) {
+      if (i >= 1) {
+        const InView prev = in_view(i - 1);
+#pragma unroll
+        for (int l = 0; l < LA; ++l) {
+#pragma unroll
+          for (int m = 0; m < MB; ++m) g[0][l * MB + m] = prev.at(l, m, 0, 0);
+        }
+      }
+    } else {
+      if (i >= 2 * L) {
+        __syncthreads();  // stage J has read level L's slot (and xsp)
+        T* s = lvl + tid_base(FW);
+#pragma unroll
+        for (int l = 0; l < LA; ++l) {
+          if (!row_in(l, L)) continue;
+#pragma unroll
+          for (int m = 0; m < MB; ++m) {
+            if (!col_in(m, L)) continue;
+            const int p = l * MB + m;
+            const int o = SBY * l * FW + SBZ * m;
+            g[L][p] = to_f(s[o]);
+            s[o] = from_f<T>(v[L & 1][p]);
+          }
+        }
+      }
+    }
+  }
+
+  template <int J, class V0>
+  __device__ __forceinline__ void compute(int q, const V0& p0,
+                                          const InView& cur,
+                                          const Weights& w) {
+    constexpr int L = J - 1;
+    const XsView xs = xs_view();
+    const int gx = plane_x(q);  // global x of the plane the stage emits
+    const bool x_out = gx < 0 || gx >= nx;
+    // index of output cell (ty, tx) of the frame (last stage only)
+    const int64_t o0 = ((int64_t)gx * ny + y0 + (int)threadIdx.y - H) * nz +
+                       z0 + (int)threadIdx.x - H;
+#pragma unroll
+    for (int l = 0; l < LA; ++l) {
+      if (J < H ? !row_in(l, J) : !((rowout >> l) & 1)) continue;
+#pragma unroll
+      for (int m = 0; m < MB; ++m) {
+        if (J < H ? !col_in(m, J) : !((colout >> m) & 1)) continue;
+        const int p = l * MB + m;
+        const float pp = L == 0 ? cur.at(l, m, 0, 0) : v[L & 1][p];
+        const Cell<V0, XsView> c{g[L][p], pp, p0, xs, l, m};
+        const float r = chain<S>(w, c);
+        if constexpr (J < H) {
+          const bool pin = !periodic && (x_out || !((rowin >> l) & 1) ||
+                                         !((colin >> m) & 1));
+          v[J & 1][p] = pin ? bc : to_f(from_f<T>(r));
+        } else {
+          out[o0 + (SBY * l * nz + SBZ * m)] = from_f<T>(r);
+        }
+      }
+    }
+  }
+
+  template <int... J>
+  __device__ __forceinline__ void stages(int i, const Weights& w,
+                                         std::integer_sequence<int, J...>) {
+    (stage<J + 1>(i, w), ...);
+  }
+
+  __device__ __forceinline__ void run(int xchunk, const Weights& w) {
+    const int nc = min(nx, xs0 + xchunk) - xs0;
+    const int n_in = nc + 2 * H;
+    init_masks();
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      if (d < n_in) load_plane(d);
+      cp_async_commit();
+    }
+    for (int i = 0; i < n_in; ++i) {
+      cp_async_wait<D - 1>();
+      __syncthreads();  // plane i landed; the slot of plane i+D is free
+      if (i + D < n_in) load_plane(i + D);
+      cp_async_commit();  // one group a step, empty at the end
+      stages(i, w, std::make_integer_sequence<int, H>{});
+    }
+  }
+};
+
+template <class T, int H, int S>
+__global__ void __launch_bounds__(SNT, MIN_BLOCKS)
+    direct_kernel(const T* __restrict__ u, T* __restrict__ out, int nx,
+                  int ny, int nz, int xchunk, int periodic, float bc,
+                  Weights w) {
+  static_assert(centre_x_only<S>(),
+                "chain reads x-1/x+1 planes off the cell: generic instance");
+  using G = Geom<H>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Direct<T, H, S> st;
+  st.u = u;
+  st.out = out;
+  st.in_slot = reinterpret_cast<T*>(smem_raw);
+  st.lvl = st.in_slot + in_slots<T, H, S>() * G::FH * in_stride<T, H>();
+  st.xsp = reinterpret_cast<float*>(st.lvl + (H - 1) * G::FH * G::FW);
+  st.nx = nx;
+  st.ny = ny;
+  st.nz = nz;
+  st.xs0 = blockIdx.z * xchunk;
+  st.y0 = blockIdx.y * G::TY;
+  st.z0 = blockIdx.x * G::TZ;
+  st.periodic = periodic;
+  st.bc = bc;
+  st.run(xchunk, w);
+}
+
+// ---------------------------------------------------------------------------
+// Generic instances: the interpreted emission program (stencil_common.cuh)
+// over 3-slot float rings, (TY, TZ) tiles of stencil_common.cuh.
+
 // Load global plane gx into a ghost-framed (TY+2H, TZ+2H) float slot.
 template <class T, int H>
-__device__ void load_plane(float* dst, const T* __restrict__ u, int gx,
-                           int y0, int z0, int nx, int ny, int nz,
-                           bool periodic, float bc) {
+__device__ void load_framed(float* dst, const T* __restrict__ u, int gx,
+                            int y0, int z0, int nx, int ny, int nz,
+                            bool periodic, float bc) {
   constexpr int FY = TY + 2 * H;
   constexpr int FZ = TZ + 2 * H;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -65,9 +453,9 @@ __device__ void load_plane(float* dst, const T* __restrict__ u, int gx,
 
 template <class T>
 __global__ void __launch_bounds__(NTHREADS)
-    direct1_kernel(const T* __restrict__ u, T* __restrict__ out, int nx,
-                   int ny, int nz, int xchunk, int periodic, float bc,
-                   Program prog) {
+    direct1_generic(const T* __restrict__ u, T* __restrict__ out, int nx,
+                    int ny, int nz, int xchunk, int periodic, float bc,
+                    Program prog) {
   constexpr int FZ = TZ + 2;
   constexpr int PS = (TY + 2) * FZ;
   __shared__ float ring[3 * PS];
@@ -79,8 +467,8 @@ __global__ void __launch_bounds__(NTHREADS)
   const int xe = min(nx, xs + xchunk);
   // planes xs-1 .. xe: slot i%3 holds plane xs-1+i; output plane xs+i-2
   for (int i = 0; i < xe - xs + 2; ++i) {
-    load_plane<T, 1>(ring + (i % 3) * PS, u, xs - 1 + i, y0, z0, nx, ny,
-                     nz, periodic, bc);
+    load_framed<T, 1>(ring + (i % 3) * PS, u, xs - 1 + i, y0, z0, nx, ny,
+                      nz, periodic, bc);
     __syncthreads();
     if (i >= 2) {
       const float* pm = ring + ((i - 2) % 3) * PS;
@@ -103,9 +491,9 @@ __global__ void __launch_bounds__(NTHREADS)
 
 template <class T>
 __global__ void __launch_bounds__(NTHREADS)
-    direct2_kernel(const T* __restrict__ u, T* __restrict__ out, int nx,
-                   int ny, int nz, int xchunk, int periodic, float bc,
-                   Program prog) {
+    direct2_generic(const T* __restrict__ u, T* __restrict__ out, int nx,
+                    int ny, int nz, int xchunk, int periodic, float bc,
+                    Program prog) {
   constexpr int FAZ = TZ + 4;
   constexpr int PA = (TY + 4) * FAZ;
   constexpr int FBZ = TZ + 2;
@@ -123,8 +511,8 @@ __global__ void __launch_bounds__(NTHREADS)
   // plane j = i-2 (global xs-1+j) goes to slot j%3 of ring_b; from i >= 4
   // output plane xs+i-4 is emitted from intermediates i-4 .. i-2.
   for (int i = 0; i < xe - xs + 4; ++i) {
-    load_plane<T, 2>(ring_a + (i % 3) * PA, u, xs - 2 + i, y0, z0, nx, ny,
-                     nz, periodic, bc);
+    load_framed<T, 2>(ring_a + (i % 3) * PA, u, xs - 2 + i, y0, z0, nx, ny,
+                      nz, periodic, bc);
     __syncthreads();
     if (i >= 2) {
       const float* pm = ring_a + ((i - 2) % 3) * PA;
@@ -168,50 +556,191 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <class T>
-void launch(int halo, const void* u, void* out, int nx, int ny, int nz,
-            int xchunk, int periodic, float bc, const Program& prog,
-            cudaStream_t stream) {
-  const dim3 block(BZ, BY);
-  const dim3 grid((nz + TZ - 1) / TZ, (ny + TY - 1) / TY,
-                  (nx + xchunk - 1) / xchunk);
-  if (halo == 1) {
-    direct1_kernel<T><<<grid, block, 0, stream>>>(
+// ---------------------------------------------------------------------------
+// Host side.
+
+// One instance: its kernel, dynamic shared memory, tile and launch.
+template <class T, int H, int S>
+struct Spec {
+  static constexpr int bytes = smem_bytes<T, H, S>();
+  static constexpr int ty = Geom<H>::TY;
+  static constexpr int tz = Geom<H>::TZ;
+  static dim3 block() { return dim3(SBZ, SBY); }
+  static void* fn() { return (void*)direct_kernel<T, H, S>; }
+  static cudaError_t prepare() {
+    static std::atomic<unsigned long long> done{0};
+    return set_smem_once(done, direct_kernel<T, H, S>, bytes);
+  }
+  static cudaError_t launch(dim3 grid, const void* u, void* out, int nx,
+                            int ny, int nz, int xchunk, int periodic,
+                            float bc, const Program& prog,
+                            cudaStream_t stream) {
+    Weights w;
+    for (int i = 0; i < MAX_TERMS; ++i) w.w[i] = i < prog.n ? prog.t[i].w : 0.f;
+    direct_kernel<T, H, S><<<grid, block(), bytes, stream>>>(
         static_cast<const T*>(u), static_cast<T*>(out), nx, ny, nz, xchunk,
-        periodic, bc, prog);
-  } else {
-    direct2_kernel<T><<<grid, block, 0, stream>>>(
-        static_cast<const T*>(u), static_cast<T*>(out), nx, ny, nz, xchunk,
-        periodic, bc, prog);
+        periodic, bc, w);
+    return cudaGetLastError();
+  }
+};
+
+template <class T, int H>
+struct Generic {
+  static constexpr int bytes = 0;
+  static constexpr int ty = TY;
+  static constexpr int tz = TZ;
+  static dim3 block() { return dim3(BZ, BY); }
+  static void* fn() {
+    if constexpr (H == 1) {
+      return (void*)direct1_generic<T>;
+    } else {
+      return (void*)direct2_generic<T>;
+    }
+  }
+  static cudaError_t prepare() { return cudaSuccess; }
+  static cudaError_t launch(dim3 grid, const void* u, void* out, int nx,
+                            int ny, int nz, int xchunk, int periodic,
+                            float bc, const Program& prog,
+                            cudaStream_t stream) {
+    if constexpr (H == 1) {
+      direct1_generic<T><<<grid, block(), 0, stream>>>(
+          static_cast<const T*>(u), static_cast<T*>(out), nx, ny, nz, xchunk,
+          periodic, bc, prog);
+    } else {
+      direct2_generic<T><<<grid, block(), 0, stream>>>(
+          static_cast<const T*>(u), static_cast<T*>(out), nx, ny, nz, xchunk,
+          periodic, bc, prog);
+    }
+    return cudaGetLastError();
+  }
+};
+
+// f.template run<Instance>() for instance (halo, spec, dtype); `bad` for
+// arguments no instance takes.
+template <class T, int H, class F>
+int by_spec(int spec, const F& f) {
+  switch (spec) {
+    case SPEC_7PT:
+      return f.template run<Spec<T, H, SPEC_7PT>>();
+    case SPEC_27PT:
+      return f.template run<Spec<T, H, SPEC_27PT>>();
+    default:
+      return f.template run<Generic<T, H>>();
   }
 }
+
+template <class F>
+int with_instance(int halo, int spec, int dtype, int bad, const F& f) {
+  if ((dtype != 0 && dtype != 1) || spec < SPEC_GENERIC || spec > SPEC_27PT ||
+      halo < 1 || halo > MAX_H) {
+    return bad;
+  }
+  if (dtype == 0) {
+    return halo == 1 ? by_spec<float, 1>(spec, f) : by_spec<float, 2>(spec, f);
+  }
+  return halo == 1 ? by_spec<__nv_bfloat16, 1>(spec, f)
+                   : by_spec<__nv_bfloat16, 2>(spec, f);
+}
+
+struct TileY {
+  template <class I>
+  int run() const { return I::ty; }
+};
+struct TileZ {
+  template <class I>
+  int run() const { return I::tz; }
+};
+struct SmemBytes {
+  template <class I>
+  int run() const { return I::bytes; }
+};
+struct BlocksPerSm {
+  template <class I>
+  int run() const {
+    if (I::prepare() != cudaSuccess) return -1;
+    const dim3 b = I::block();
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, I::fn(), (int)(b.x * b.y), I::bytes) != cudaSuccess) {
+      return -1;
+    }
+    return n;
+  }
+};
+struct Registers {
+  template <class I>
+  int run() const {
+    cudaFuncAttributes a;
+    return cudaFuncGetAttributes(&a, I::fn()) == cudaSuccess ? a.numRegs : -1;
+  }
+};
+struct Launch {
+  const void* u;
+  void* out;
+  int nx, ny, nz, xchunk, periodic;
+  float bc;
+  const Program* prog;
+  cudaStream_t stream;
+  template <class I>
+  int run() const {
+    const cudaError_t err = I::prepare();
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((nz + I::tz - 1) / I::tz, (ny + I::ty - 1) / I::ty,
+                    (nx + xchunk - 1) / xchunk);
+    return (int)I::launch(grid, u, out, nx, ny, nz, xchunk, periodic, bc,
+                          *prog, stream);
+  }
+};
 
 }  // namespace
 
 extern "C" {
 
-// Tile extents, so the wrapper sizes its x-chunks from the same numbers.
-int heat3d_direct_tile_y() { return TY; }
-int heat3d_direct_tile_z() { return TZ; }
+// Tile extents of instance (halo, spec) (spec 0 generic, 1 the 7pt chain,
+// 2 the 27pt chain), so the wrapper sizes its x-chunks from the same
+// numbers; -1 if there is no such instance.
+int heat3d_direct_tile_y(int halo, int spec) {
+  return with_instance(halo, spec, 0, -1, TileY{});
+}
+int heat3d_direct_tile_z(int halo, int spec) {
+  return with_instance(halo, spec, 0, -1, TileZ{});
+}
 
-// halo: 1 (one update) or 2 (two fused updates); dtype: 0 float, 1 bf16.
-// Returns a cudaError_t (0 on success); 1000 for bad arguments.
-int heat3d_direct_launch(int halo, int dtype, const void* u, void* out,
-                         int nx, int ny, int nz, int xchunk, int periodic,
-                         float bc, const Program* prog, void* stream) {
-  if ((halo != 1 && halo != 2) || (dtype != 0 && dtype != 1) || nx < 1 ||
-      ny < 1 || nz < 1 || xchunk < 1 || prog == nullptr || prog->n < 1 ||
-      prog->n > MAX_TERMS) {
+// Dynamic shared memory of one block of instance (halo, spec, dtype), bytes.
+int heat3d_direct_smem_bytes(int halo, int spec, int dtype) {
+  return with_instance(halo, spec, dtype, -1, SmemBytes{});
+}
+
+// Resident blocks per SM of instance (halo, spec, dtype) on the current
+// device (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1 on error.
+int heat3d_direct_blocks_per_sm(int halo, int spec, int dtype) {
+  return with_instance(halo, spec, dtype, -1, BlocksPerSm{});
+}
+
+// Registers a thread of instance (halo, spec, dtype) uses
+// (cudaFuncGetAttributes); -1 on error.
+int heat3d_direct_registers(int halo, int spec, int dtype) {
+  return with_instance(halo, spec, dtype, -1, Registers{});
+}
+
+// halo: 1 (one update) or 2 (two fused updates); spec: 0 generic, 1 the 7pt
+// chain, 2 the 27pt chain (prog's (src, row, dk) must be that chain's);
+// dtype: 0 float, 1 bf16. u and out are (nx, ny, nz); bc is the Dirichlet
+// value already rounded to the storage type. Returns a cudaError_t (0 on
+// success); 1000 for bad arguments.
+int heat3d_direct_launch(int halo, int spec, int dtype, const void* u,
+                         void* out, int nx, int ny, int nz, int xchunk,
+                         int periodic, float bc, const Program* prog,
+                         void* stream) {
+  if (nx < 1 || ny < 1 || nz < 1 || xchunk < 1 || prog == nullptr ||
+      prog->n < 1 || prog->n > MAX_TERMS ||
+      (spec == SPEC_7PT && !matches<SPEC_7PT>(*prog)) ||
+      (spec == SPEC_27PT && !matches<SPEC_27PT>(*prog))) {
     return 1000;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    launch<float>(halo, u, out, nx, ny, nz, xchunk, periodic, bc, *prog, s);
-  } else {
-    launch<__nv_bfloat16>(halo, u, out, nx, ny, nz, xchunk, periodic, bc,
-                          *prog, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const Launch f{u, out, nx, ny, nz, xchunk, periodic, bc, prog,
+                 static_cast<cudaStream_t>(stream)};
+  return with_instance(halo, spec, dtype, 1000, f);
 }
 
 }  // extern "C"

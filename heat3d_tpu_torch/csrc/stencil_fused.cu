@@ -16,8 +16,9 @@
 // Bound: device-memory bytes, as the direct kernels: the field read once and
 // written once, plus each face slab read once and written once into the
 // neighbour's landing buffer. The tap program is interpreted per cell from
-// shared memory (stencil_common.cuh), so like the direct kernels this one is
-// bound by its instruction stream first; making it fast is later work.
+// shared memory (stencil_common.cuh), so like the generic instances of the
+// direct and stream kernels this one is bound by its instruction stream
+// first; making it fast is later work.
 //
 // Design. One cooperative launch per device covers every shard the device
 // holds (all shards of a mesh on one card are one launch), with a grid of

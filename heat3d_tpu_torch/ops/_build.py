@@ -7,7 +7,7 @@ package (listed in ``.gitignore``), named by a hash of the source, the
 shared headers (``csrc/*.cuh``) and the flags, so an edited source or
 header rebuilds and concurrent processes never load a half-written file.
 A source may take flags of its own from its wrapper (``source_flags``: the
-stream kernels' chain table).
+stream and direct kernels' chain table).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -57,9 +58,10 @@ def nvcc_path() -> str:
 
 
 def source_flags(name: str) -> tuple:
-    """Flags of ``csrc/<name>.cu`` beyond ``NVCC_FLAGS``: the stream
-    kernels take their compile-time tap chains from the wrapper's table."""
-    if name == "stencil_stream":
+    """Flags of ``csrc/<name>.cu`` beyond ``NVCC_FLAGS``: the stream and
+    direct kernels take their compile-time tap chains from the stream
+    wrapper's table."""
+    if name in ("stencil_stream", "stencil_direct"):
         from heat3d_tpu_torch.ops.stencil_stream import nvcc_defines
 
         return nvcc_defines()
@@ -117,6 +119,27 @@ def build_log(name: str) -> str:
     """The compiler output of the last build of ``name`` (may be empty)."""
     log = _target(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel (mangled name) of the last build of ``name``: registers,
+    spill stores and spill loads (bytes), from the compiler's ``-Xptxas -v``
+    lines."""
+    report, entry = {}, None
+    for line in build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = report.setdefault(m.group(1), {})
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entry["spill_stores"], entry["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+    return report
 
 
 @functools.lru_cache(maxsize=None)

@@ -10,9 +10,17 @@ pad plus the tap chain of ``ops.stencil_eager``, once or twice, rounding
 through the storage dtype between the two updates. On the same device the
 kernels equal their plain versions bitwise.
 
+The kernel source has an instance with the chain fixed at compile time for
+each entry of the stream kernels' table (``stencil_stream.CHAINS``, which
+the build passes to ``nvcc`` for both sources) and a generic instance that
+interprets any other program; :func:`direct_instance` picks one, as
+``stencil_stream.stream_instance`` does. A launch error raises: no launch
+falls back to another instance.
+
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, so a run
-can show that it went through the kernel, and their output cells in
-``<wrapper>.cells``; ``reset_launch_counts`` zeroes them.
+can show that it went through the kernel, the launches that took the
+generic instance in ``<wrapper>.generic_launches``, and their output cells
+in ``<wrapper>.cells``; ``reset_launch_counts`` zeroes them.
 
 Not ported yet: the Mehrstellen q-ring route (``HEAT3D_MEHRSTELLEN``), which
 raises here, and bf16 compute dtype (the port computes in float32).
@@ -40,10 +48,13 @@ from heat3d_tpu_torch.ops.stencil_eager import apply_taps_padded, pad_local
 
 _LIB = "stencil_direct"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# Blocks a launch aims for: with the tile count below this, x is cut into
-# chunks (each costs 2*halo extra plane reads) so the card has several
-# waves of blocks to schedule.
+# Blocks a launch of the generic instance aims for: with the tile count
+# below this, x is cut into chunks (each costs 2*halo extra plane reads) so
+# the card has several waves of blocks to schedule. The compile-time
+# instances aim for _WAVES waves of the blocks the card holds at once
+# (``wave_xchunk``).
 _TARGET_BLOCKS = 4096
+_WAVES = 16
 _MIN_XCHUNK = 32
 
 
@@ -82,6 +93,17 @@ def emission_program(taps: np.ndarray):
 
     accumulate_taps(flat_taps(taps), term, scalar)
     return tuple((s, r, dk, w) for (s, r, dk), w in zip(entries, weights))
+
+
+def chain_ops(taps: np.ndarray) -> int:
+    """fp32 operations per cell and update of ``taps``' emission program
+    under the current factoring knobs, with each plane and row sum counted
+    once (as the plain version caches them): the bench rows' ``chain_ops``
+    and the flops of a kernel's bound."""
+    prog = emission_program(taps)
+    sums = {("x",)} if any(s == 3 for s, _, _, _ in prog) else set()
+    sums |= {("y", s) for s, r, _, _ in prog if r == 3}
+    return 2 * len(prog) - 1 + len(sums)
 
 
 @functools.lru_cache(maxsize=64)
@@ -189,45 +211,110 @@ def _xchunk(shape, ty: int, tz: int) -> int:
     return -(-nx // chunks)
 
 
+def wave_xchunk(shape, ty: int, tz: int, resident: int) -> int:
+    """x-chunk length of a compile-time direct launch over (nx, ny, nz)
+    with (ty, tz) tiles: x is cut into chunks (each costs 2*halo extra
+    plane reads) until the launch holds ``_WAVES`` waves of ``resident``
+    blocks (the blocks the card holds at once), with chunks no shorter than
+    ``_MIN_XCHUNK`` planes. Many short blocks keep every SM busy to the
+    end of the launch; a few long ones leave a last wave on few SMs
+    (``scripts/torch_direct_probe.py`` sweeps the chunk count)."""
+    nx, ny, nz = shape
+    tiles = -(-ny // ty) * -(-nz // tz)
+    chunks = max(1, min(-(-_WAVES * resident // tiles), -(-nx // _MIN_XCHUNK)))
+    return -(-nx // chunks)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     from heat3d_tpu_torch.ops import _build
 
     lib = _build.load(_LIB)
     lib.heat3d_direct_launch.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.POINTER(_Program), ctypes.c_void_p,
     ]
     lib.heat3d_direct_launch.restype = ctypes.c_int
     for fn in ("heat3d_direct_tile_y", "heat3d_direct_tile_z"):
-        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).argtypes = [ctypes.c_int, ctypes.c_int]
+        getattr(lib, fn).restype = ctypes.c_int
+    for fn in ("heat3d_direct_smem_bytes", "heat3d_direct_blocks_per_sm",
+               "heat3d_direct_registers"):
+        getattr(lib, fn).argtypes = [ctypes.c_int] * 3
         getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
-def _launch(halo, u, taps, periodic, bc_value, out) -> torch.Tensor:
+def direct_instance(taps: np.ndarray) -> int:
+    """The kernel instance that runs ``taps`` under the current factoring
+    knobs: the stream kernels' choice (``stencil_stream.stream_instance``,
+    one table, :data:`stencil_stream.CHAINS`), 0 for the generic one."""
+    from heat3d_tpu_torch.ops.stencil_stream import stream_instance
+
+    return stream_instance(taps)
+
+
+def instance_resources(halo: int, instance: int, dtype: torch.dtype) -> dict:
+    """Dynamic shared memory (bytes), registers a thread and resident blocks
+    per SM of one kernel instance on the current CUDA device (builds and
+    loads the library; CUDA hosts only)."""
+    lib = _lib()
+    code = _DTYPE_CODES[dtype]
+    return {"smem_bytes": lib.heat3d_direct_smem_bytes(halo, instance, code),
+            "registers": lib.heat3d_direct_registers(halo, instance, code),
+            "blocks_per_sm": lib.heat3d_direct_blocks_per_sm(halo, instance, code)}
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_xchunk(shape, halo: int, inst: int, device: int, dtype: torch.dtype) -> int:
+    """The x-chunk of a launch over ``shape``: :func:`wave_xchunk` for a
+    compile-time instance, from its resident blocks on ``device``; the
+    generic instance keeps the first design's rule (``_xchunk``)."""
+    lib = _lib()
+    ty, tz = lib.heat3d_direct_tile_y(halo, inst), lib.heat3d_direct_tile_z(halo, inst)
+    if inst == 0:
+        return _xchunk(shape, ty, tz)
+    with torch.cuda.device(device):
+        per_sm = lib.heat3d_direct_blocks_per_sm(halo, inst, _DTYPE_CODES[dtype])
+    if per_sm < 1:
+        raise RuntimeError(f"direct instance (halo {halo}, {inst}, {dtype}) fits no SM")
+    resident = per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+    return wave_xchunk(shape, ty, tz, resident)
+
+
+def _launch(wrapper, halo, u, taps, periodic, bc_value, out,
+            instance=None, xchunk=None) -> torch.Tensor:
+    """Launch ``instance`` (default ``direct_instance(taps)``) at ``halo``
+    with x-chunks of ``xchunk`` planes (default ``_launch_xchunk``) and
+    count it on ``wrapper``."""
     if u.device.type != "cuda":
         raise ValueError(f"no kernel for device {u.device}")
     out = check_tensors(u, out)
+    if u.data_ptr() % 4:
+        # bf16 rows are copied as aligned element pairs
+        raise ValueError("field must start on a 4-byte boundary")
     lib = _lib()
     prog = chain_program(taps)
+    inst = direct_instance(taps) if instance is None else instance
     bc = storage_bc(bc_value, u.dtype)
     nx, ny, nz = u.shape
+    if xchunk is None:
+        xchunk = _launch_xchunk(tuple(u.shape), halo, inst, u.device.index, u.dtype)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = lib.heat3d_direct_launch(
-            halo, _DTYPE_CODES[u.dtype], u.data_ptr(), out.data_ptr(),
-            nx, ny, nz,
-            _xchunk(u.shape, lib.heat3d_direct_tile_y(), lib.heat3d_direct_tile_z()),
-            int(bool(periodic)), bc,
-            ctypes.byref(prog), stream,
+            halo, inst, _DTYPE_CODES[u.dtype], u.data_ptr(), out.data_ptr(),
+            nx, ny, nz, xchunk, int(bool(periodic)), bc, ctypes.byref(prog), stream,
         )
     if err != 0:
         raise RuntimeError(
             f"direct-stencil kernel (halo {halo}) launch failed: error {err}"
             + (" (bad arguments)" if err == 1000 else "")
         )
+    wrapper.launches += 1
+    wrapper.generic_launches += inst == 0
+    wrapper.cells += out.numel()
     return out
 
 
@@ -246,10 +333,7 @@ def apply_taps_direct(
     if u.device.type == "cpu":
         res = apply_taps_direct_ref(u, taps, periodic, bc_value)
         return res if out is None else out.copy_(res)
-    out = _launch(1, u, taps, periodic, bc_value, out)
-    apply_taps_direct.launches += 1
-    apply_taps_direct.cells += out.numel()
-    return out
+    return _launch(apply_taps_direct, 1, u, taps, periodic, bc_value, out)
 
 
 def apply_taps_direct2(
@@ -267,10 +351,27 @@ def apply_taps_direct2(
     if u.device.type == "cpu":
         res = apply_taps_direct2_ref(u, taps, periodic, bc_value)
         return res if out is None else out.copy_(res)
-    out = _launch(2, u, taps, periodic, bc_value, out)
-    apply_taps_direct2.launches += 1
-    apply_taps_direct2.cells += out.numel()
-    return out
+    return _launch(apply_taps_direct2, 2, u, taps, periodic, bc_value, out)
+
+
+def launch_instance(
+    halo: int,
+    instance: int,
+    u: torch.Tensor,
+    taps: np.ndarray,
+    periodic: bool = False,
+    bc_value: float = 0.0,
+    out: Optional[torch.Tensor] = None,
+    xchunk: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`apply_taps_direct` (halo 1) or :func:`apply_taps_direct2`
+    (halo 2) on a named kernel instance, for measurements: the generic
+    instance (0) takes any chain, a compile-time one only its own (else the
+    launch raises); ``xchunk`` forces the x-chunk length. CUDA tensors
+    only; counted on the wrapper as usual."""
+    taps = check_route(taps)
+    wrapper = apply_taps_direct if halo == 1 else apply_taps_direct2
+    return _launch(wrapper, halo, u, taps, periodic, bc_value, out, instance, xchunk)
 
 
 KERNELS = (apply_taps_direct, apply_taps_direct2)
@@ -280,13 +381,17 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
+def generic_launch_counts() -> dict:
+    return {k.__name__: k.generic_launches for k in KERNELS}
+
+
 def cell_counts() -> dict:
     return {k.__name__: k.cells for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = k.cells = 0
+        k.launches = k.generic_launches = k.cells = 0
 
 
 reset_launch_counts()

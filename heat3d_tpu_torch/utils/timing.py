@@ -9,6 +9,7 @@ raises: a CPU time is never reported as a device time.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, List
 
 import torch
@@ -26,6 +27,23 @@ def cuda_time(fn: Callable[[], object], device=None) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / 1e3
+
+
+def sync_rtt(device=None, samples: int = 5) -> float:
+    """Host seconds of one round trip to the device: a one-element launch
+    and ``torch.cuda.synchronize()``, the least of ``samples`` (the JAX
+    package's ``sync_overhead``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("sync_rtt needs a CUDA device")
+    x = torch.zeros(1, device=device)
+    torch.cuda.synchronize(device)
+    times = []
+    for _ in range(samples):
+        t0 = time.perf_counter()
+        x.add_(1)
+        torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - t0)
+    return min(times)
 
 
 def time_fn(

@@ -43,17 +43,88 @@ def _taps(kind):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("kind", ["7pt", "27pt"])
-@pytest.mark.parametrize("shape", [(3, 3, 3), (33, 17, 129), (40, 70, 65)])
+@pytest.mark.parametrize("shape", [(3, 3, 3), (33, 17, 129), (40, 70, 65), (1, 1, 1),
+                                   (2, 3, 5), (4, 45, 130), (5, 77, 125), (6, 39, 127)])
 def test_kernel_equals_plain_version(cuda, shape, kind, dtype):
+    """The direct kernels on the instance the default knobs pick (the
+    compile-time one for both stencils), Dirichlet bc 0 and 0.3 and
+    periodic: extents below 2H+1, odd nz (periodic rows whose wrapped
+    source starts on the other parity), y and z no multiple of the tiles,
+    several tiles each way; each also with the x-chunk forced to 3
+    planes."""
     base = np.random.default_rng(3).standard_normal(shape).astype(np.float32)
     u = torch.from_numpy(base).to(cuda).to(dtype)
     taps = _taps(kind)
+    assert sd.direct_instance(taps) != ss.GENERIC
     for periodic, bcv in ((False, 0.0), (False, 0.3), (True, 0.0)):
-        for kernel, plain in PAIRS:
-            got = kernel(u, taps, periodic, bcv)
+        for halo, (kernel, plain) in enumerate(PAIRS, start=1):
             want = plain(u, taps, periodic, bcv)
+            got = kernel(u, taps, periodic, bcv)
+            chunked = sd.launch_instance(halo, sd.direct_instance(taps), u, taps, periodic,
+                                         bcv, xchunk=3)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (kernel.__name__, periodic, bcv)
+            assert torch.equal(chunked, want), (kernel.__name__, periodic, bcv, "xchunk 3")
+
+
+@pytest.mark.parametrize("knobs", [{"HEAT3D_FACTOR_7PT": "1"}, {"HEAT3D_FACTOR_Y": "0"},
+                                   {"HEAT3D_FACTOR_7PT": "1", "HEAT3D_FACTOR_Y": "0"}],
+                         ids=["f7", "fy0", "both"])
+def test_direct_generic_instance_equals_plain_version(cuda, monkeypatch, knobs):
+    """Under the factoring knobs the direct kernels take the generic
+    (interpreted) instance exactly where the emission program is no
+    ``CHAINS`` entry, counted apart, and stay bitwise; the generic instance
+    forced on the default 7pt chain is bitwise too."""
+    for key, value in knobs.items():
+        monkeypatch.setenv(key, value)
+    shape = (9, 45, 131)
+    base = np.random.default_rng(4).standard_normal(shape).astype(np.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        u = torch.from_numpy(base).to(cuda).to(dtype)
+        for kind in ("7pt", "27pt"):
+            taps = _taps(kind)
+            generic = sd.direct_instance(taps) == ss.GENERIC
+            sd.reset_launch_counts()
+            for periodic, bcv in ((False, 0.0), (False, 0.3), (True, 0.0)):
+                for kernel, plain in PAIRS:
+                    got = kernel(u, taps, periodic, bcv)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, plain(u, taps, periodic, bcv)), \
+                        (kernel.__name__, kind, periodic, bcv)
+            launches = sd.launch_counts()
+            assert sd.generic_launch_counts() == (launches if generic else
+                                                  {n: 0 for n in launches})
+    monkeypatch.delenv("HEAT3D_FACTOR_7PT", raising=False)
+    monkeypatch.delenv("HEAT3D_FACTOR_Y", raising=False)
+    taps = _taps("7pt")
+    u = torch.from_numpy(base).to(cuda)
+    for halo, (_, plain) in enumerate(PAIRS, start=1):
+        got = sd.launch_instance(halo, ss.GENERIC, u, taps, False, 0.3)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain(u, taps, False, 0.3))
+
+
+def test_direct_instances_fit_and_raise_without_fallback(cuda):
+    """Every direct instance fits an SM, the compile-time ones four blocks
+    of 256 threads; a compile-time instance given another chain refuses
+    the launch and the wrapper raises (no fallback to another instance);
+    a bf16 field must start on a 4-byte boundary."""
+    for halo in (1, 2):
+        for code in (ss.GENERIC, *ss.CHAINS):
+            for dtype in (torch.float32, torch.bfloat16):
+                r = sd.instance_resources(halo, code, dtype)
+                assert r["blocks_per_sm"] >= (4 if code != ss.GENERIC else 1), \
+                    (halo, code, dtype, r)
+    u = torch.rand((8, 8, 8), device=cuda)
+    sd.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="bad arguments"):
+        sd.launch_instance(1, 2, u, _taps("7pt"))
+    with pytest.raises(RuntimeError, match="bad arguments"):
+        sd.launch_instance(2, 1, u, _taps("27pt"))
+    assert sd.launch_counts() == {"apply_taps_direct": 0, "apply_taps_direct2": 0}
+    flat = torch.zeros(10**3 + 1, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="4-byte boundary"):
+        sd.apply_taps_direct(flat[1:].view(10, 10, 10), _taps("7pt"))
 
 
 def test_launch_counts_and_out_checks(cuda):
@@ -198,9 +269,9 @@ def test_dma_exchange_equals_plain_version(cuda, mesh_shape, dtype):
                 us = [torch.from_numpy(rng.standard_normal(local).astype(np.float32))
                       .to(cuda).to(dtype) for _ in mesh.shards]
                 mesh.fork()
-                got = [p.clone() for p in dma.apply(us, bcv)]
+                got = dma.apply(us, bcv)
                 want = ref.apply(us, bcv)
-                mesh.join()
+                mesh.join()  # the blocks are written on the shard streams
                 torch.cuda.synchronize()
                 halo_dma.raise_if_timed_out()
                 for g, w in zip(got, want):

@@ -101,9 +101,10 @@ def test_other_taps_choose_by_sequence(taps_case):
 def test_nvcc_defines_carry_the_table():
     """The build's flags for the stream kernels are the table, three digits
     a term (src, row, dk + 1), with no comma (nvcc splits -D values at
-    commas); the library's name hashes them."""
+    commas); the direct kernels take the same table; the library's name
+    hashes them."""
     flags = _build.source_flags("stencil_stream")
-    assert _build.source_flags("stencil_direct") == ()
+    assert _build.source_flags("stencil_direct") == flags
     decoded = {}
     for f in flags:
         assert "," not in f
