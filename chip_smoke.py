@@ -2,6 +2,7 @@
 """On-card smoke test of heat3d_tpu_torch, the PyTorch/CUDA port.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only dma_times,fused_times   # a short check
 
 Needs one CUDA GPU (an H100: the kernels are built for sm_90a) and exits
 non-zero without one. Phases, each printing its own lines:
@@ -12,7 +13,9 @@ non-zero without one. Phases, each printing its own lines:
    each stream kernel instance's dynamic shared memory and resident blocks
    per SM (k = 1..4 x the 7pt, 27pt and generic instances x fp32/bf16) and
    each direct instance's shared memory, registers, spills and resident
-   blocks per SM (halo 1 and 2 x the same instances);
+   blocks per SM (halo 1 and 2 x the same instances), and the same for
+   each fused instance (the one-update kernel's 7pt, 27pt and generic
+   instances, the two-update kernel; fp32/bf16);
 3. hold each kernel against its plain PyTorch version on the card, bitwise,
    for 7pt/27pt x Dirichlet (bc 0 and 0.3)/periodic x fp32/bf16 storage at
    ragged shapes, 128^3 (the golden phase's grid) and 256^3: the direct
@@ -21,8 +24,9 @@ non-zero without one. Phases, each printing its own lines:
    odd nz, y and z no multiple of their tiles, nx = 1024 cut into x-chunks
    and a forced 3-plane x-chunk; every stencil kernel's generic instance at
    128^3 under the factoring knobs (``HEAT3D_FACTOR_7PT=1``,
-   ``HEAT3D_FACTOR_Y=0``, both), each launch on the instance
-   ``stream_instance`` names; also the streamk plain version against k
+   ``HEAT3D_FACTOR_Y=0``, both; the one-update fused kernel too, over
+   (4,1,1)), each launch on the instance ``stream_instance`` names; also
+   the streamk plain version against k
    direct kernel launches, and the exchange-path solve of k steps against
    the direct-path solve, both bitwise;
 4. the sharded solve, every shard on ``cuda:0`` on a stream of its own,
@@ -57,8 +61,11 @@ non-zero without one. Phases, each printing its own lines:
    at 1024^3 with registers, spills and blocks per SM; the stream kernel
    and streamk K=4 in their 27pt fp32 and 7pt bf16 instances at 1024^3
    (bitwise, timed beside their bounds), and the ratios stream1 / direct1,
-   streamk K=2 / direct2 and K=4 / direct2 of the same call; the DMA push+wait
-   pairs per axis on 512^3 shards of a (2,2,2) mesh at widths 1 and 4;
+   streamk K=2 / direct2 and K=4 / direct2 of the same call; the DMA
+   exchange per axis on 512^3 shards of a (2,2,2) mesh at widths 1 and 4
+   (ms of a single call and of 20 calls in a row, beside the plain slab
+   copies timed both ways, the byte bound, the sector floor and the
+   launches a call makes);
    and each stencil kernel the (2,2,2) rows launch, on those 512^3 shards
    (streamk K=4 under corner shards' domain-edge masks), held bitwise to
    its plain version and timed beside its 512^3 bound;
@@ -76,11 +83,16 @@ non-zero without one. Phases, each printing its own lines:
    steps, equal to the (1,1,1) solve); and every overlap route's 128^3
    solve against the (1,1,1) solve. Phases 5 and 6 run the overlap routes
    through the command line (golden) and ``bench_throughput`` (1024^3);
-   phase 7 times each fused kernel at 1024^3 over all shards of the card.
+   phase 7 times each fused kernel at 1024^3 over all shards of the card
+   (the one-update kernels on their compile-time instance and on the
+   generic instance forced, in the same call).
 
-The kernel launch counts are zeroed just before phase 5 and read just after
+``--only`` runs phases 1 and 2 and the named ones of ``PHASES`` (the
+check after a kernel change, before the whole run) and prints no kernels
+line. The kernel launch counts are zeroed just before phase 5 and read just after
 phase 6; the script fails if any kernel was not launched there, or if a
-direct or stream kernel launch there took the generic instance. The ``main_path``
+direct, stream or one-update fused kernel launch there took the generic
+instance. The ``main_path``
 line also gives each wrapper's output cells as launches of the size the
 kernels line times (1024^3-equivalent launches). The last
 three lines are the kernels' JSON object (``{"kernels": [...]}``), the
@@ -331,16 +343,39 @@ def _direct_ptxas() -> dict:
     return out
 
 
+def _fused_ptxas() -> dict:
+    """Registers and spills (bytes) of each fused kernel instance, from the
+    compiler's report, keyed ``h<halo>_<instance>_<dtype>`` (the
+    compile-time one-update instances by chain, the interpreted kernels as
+    ``generic``)."""
+    import re
+
+    from heat3d_tpu_torch.ops import _build
+
+    names = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
+    out = {}
+    for entry, r in _build.ptxas_report("stencil_fused").items():
+        m = re.search(r"fused_chain_kernelI(f|13__nv_bfloat16)Li(\d)E", entry)
+        if m:
+            out[f"h1_{_instance_name(int(m.group(2)))}_{names[m.group(1)]}"] = r
+        m = re.search(r"fused_kernelI(f|13__nv_bfloat16)Li(\d)E", entry)
+        if m:
+            out[f"h{m.group(2)}_generic_{names[m.group(1)]}"] = r
+    return out
+
+
 def phase_build() -> dict:
     """Build every source; print the compiler's report, each stream
     instance's dynamic shared memory and resident blocks per SM, and each
-    direct instance's shared memory, registers, spills and resident blocks
-    per SM. Returns those, keyed ``k<k>_<instance>_<dtype>`` (stream) and
-    ``h<halo>_<instance>_<dtype>`` (direct)."""
+    direct and fused instance's shared memory, registers, spills and
+    resident blocks per SM. Returns those, keyed ``k<k>_<instance>_<dtype>``
+    (stream), ``h<halo>_<instance>_<dtype>`` (direct) and
+    ``fused_h<halo>_<instance>_<dtype>``."""
     import torch
 
     from heat3d_tpu_torch.ops import _build
     from heat3d_tpu_torch.ops import stencil_direct as sd
+    from heat3d_tpu_torch.ops import stencil_dma_fused as fd
     from heat3d_tpu_torch.ops import stencil_stream as ss
 
     seconds = _build.build_all()
@@ -369,6 +404,20 @@ def phase_build() -> dict:
     _check(len(ptxas) == 8, f"compiler report of the direct instances: {sorted(ptxas)}")
     _say("build", direct_instances=direct)
     resources.update(direct)
+    ptxas = _fused_ptxas()
+    fused = {}
+    for h, codes in ((1, (ss.GENERIC, *ss.CHAINS)), (2, (ss.GENERIC,))):
+        for code in codes:
+            for dtype in (torch.float32, torch.bfloat16):
+                key = f"h{h}_{_instance_name(code)}_{str(dtype)[6:]}"
+                fused[key] = {**fd.instance_resources(h, code, dtype),
+                              **{f: ptxas.get(key, {}).get(f)
+                                 for f in ("spill_stores", "spill_loads")}}
+                _check(fused[key]["blocks_per_sm"] > 0,
+                       f"fused instance {key} fits no SM: {fused[key]}")
+    _check(len(ptxas) == 8, f"compiler report of the fused instances: {sorted(ptxas)}")
+    _say("build", fused_instances=fused)
+    resources.update({f"fused_{k}": v for k, v in fused.items()})
     return resources
 
 
@@ -441,11 +490,11 @@ def _hold(worst: dict, name: str, got, want, what: str) -> None:
     _check(torch.equal(got, want), f"{name} != plain {what}: max err {err}")
 
 
-def phase_compare() -> dict:
-    """Each kernel against its plain version on the card, bitwise; the
+def phase_compare(worst: dict) -> None:
+    """Each kernel against its plain version on the card, bitwise, folding
+    the largest |kernel - plain| of each kernel into ``worst``; the
     streamk plain version against k direct launches; and the exchange-path
-    solve against the direct-path solve. Returns the largest
-    |kernel - plain| of each kernel (0.0 when bitwise)."""
+    solve against the direct-path solve."""
     import numpy as np
     import torch
 
@@ -453,7 +502,6 @@ def phase_compare() -> dict:
     from heat3d_tpu_torch.ops import stencil_direct as sd
     from heat3d_tpu_torch.ops import stencil_stream as ss
 
-    worst = {k: 0.0 for k in KERNELS}
     n = chained = 0
     for shape in ((33, 17, 129), (64, 72, 200), (128, 128, 128), (256, 256, 256)):
         base = np.random.default_rng(7).standard_normal(shape).astype(np.float32)
@@ -496,7 +544,6 @@ def phase_compare() -> dict:
     _say("compare", cases=n, bitwise=True, max_abs_err=worst,
          streamk_plain_vs_direct_launches=chained, exchange_vs_direct_solves=solves,
          direct_instances=direct, generic_instance=generic, launches=ops.launch_counts())
-    return worst
 
 
 # the direct kernels' ragged shapes: nx below 2H+1, odd nz, y and z no
@@ -509,11 +556,15 @@ _DIRECT_FORCED_CHUNK = ((40, 70, 65), 3)
 
 
 def _generic_counts() -> dict:
-    """Launches that took the generic instance, per kernel wrapper."""
+    """Launches that took the generic instance, per kernel wrapper (the
+    one-update fused wrappers too)."""
     from heat3d_tpu_torch.ops import stencil_direct as sd
+    from heat3d_tpu_torch.ops import stencil_dma_fused as fd
+    from heat3d_tpu_torch.ops import stencil_fused_rdma as fr
     from heat3d_tpu_torch.ops import stencil_stream as ss
 
-    return {**sd.generic_launch_counts(), **ss.generic_launch_counts()}
+    return {**sd.generic_launch_counts(), **ss.generic_launch_counts(),
+            **fd.generic_launch_counts(), **fr.generic_launch_counts()}
 
 
 def _hold_instance(worst, name, u, taps, periodic, bcv, k, what, chunk=None) -> None:
@@ -571,22 +622,26 @@ _KNOBS = ({"HEAT3D_FACTOR_7PT": "1"}, {"HEAT3D_FACTOR_Y": "0"},
 
 def _compare_generic(worst: dict) -> dict:
     """Every stencil kernel (direct1, direct2, the stream kernel and streamk
-    at k = 2..4) at 128^3 under the factoring knobs, 7pt/27pt x fp32/bf16 x
-    three boundary settings, bitwise against its plain version; each launch
-    must take the instance ``stream_instance`` names (the generic one
-    exactly where the emission program is not a ``CHAINS`` entry), counted
-    by the wrappers."""
+    at k = 2..4, and the one-update fused kernel over (4,1,1)) at 128^3
+    under the factoring knobs, 7pt/27pt x fp32/bf16 x three boundary
+    settings (fused: Dirichlet 0.3 and periodic), bitwise against its plain
+    version; each launch must take the instance ``stream_instance`` names
+    (the generic one exactly where the emission program is not a ``CHAINS``
+    entry), counted by the wrappers."""
     import numpy as np
     import torch
 
+    from heat3d_tpu_torch.ops import stencil_dma_fused as fd
     from heat3d_tpu_torch.ops import stencil_stream as ss
 
     base = np.random.default_rng(9).standard_normal((128, 128, 128)).astype(np.float32)
+    mesh = _card_mesh((4, 1, 1), (32, 128, 128))
     cases = {}
     for knobs in _KNOBS:
         with _env(**knobs):
             for dtype in (torch.float32, torch.bfloat16):
                 u = torch.from_numpy(base).cuda().to(dtype)
+                us = _split(u, mesh)
                 for kind in ("7pt", "27pt"):
                     taps = _taps(kind)
                     code = ss.stream_instance(taps)
@@ -597,7 +652,19 @@ def _compare_generic(worst: dict) -> dict:
                             _hold_instance(worst, name, u, taps, periodic, bcv, k,
                                            f"k={k} at 128^3 {dtype} {tag} "
                                            f"periodic={periodic} bc={bcv}")
-                del u
+                    for periodic, bcv in ((False, 0.3), (True, 0.0)):
+                        name = "apply_step_fused_dma"
+                        before = _generic_counts()[name]
+                        state = fd.FusedState(mesh, 1, dtype, periodic)
+                        got = fd.apply_step_fused_dma(us, taps, mesh, state, periodic, bcv)
+                        _hold_fused(worst, name, got,
+                                    fd.reference_fused_step(us, taps, mesh, periodic, bcv),
+                                    f"128^3 on (4,1,1) {dtype} {tag} periodic={periodic}")
+                        took = _generic_counts()[name] - before
+                        _check(took == (code == ss.GENERIC),
+                               f"{name} {tag}: generic launches {took}, instance "
+                               f"{_instance_name(code)}")
+                del u, us
     return cases
 
 
@@ -1283,13 +1350,55 @@ def _unit_cells(name: str) -> int:
     return 8 * per_shard
 
 
+def _dma_sector_bytes(mesh, axis: int, width: int, itemsize: int, periodic: bool) -> int:
+    """The least bytes one axis of the DMA exchange moves in 32-byte sectors:
+    each slab row (contiguous along z) touches at least ceil(row bytes / 32)
+    sectors, once read and once written where pushed, once written where
+    filled. x and y rows are whole z rows, so this is their byte count; a
+    z slab's rows are ``width`` elements, a sector each."""
+    local = mesh.local_shape
+    ext = [width if a == axis else (m + 2 * width if a < axis else m)
+           for a, m in enumerate(local)]
+    per_side = ext[0] * ext[1] * -(-ext[2] * itemsize // 32) * 32
+    total = 0
+    for s in mesh.shards:
+        for d in (-1, +1):
+            total += per_side * (1 if mesh.neighbor(s, axis, d, periodic) is None else 2)
+    return total
+
+
+def _per_call_ms(fn, calls: int = 20, samples: int = 5) -> float:
+    """Device ms per call of ``fn(calls)`` (which makes ``calls`` calls in a
+    row), the least of ``samples``, after one warm-up call."""
+    import torch
+
+    fn(1)
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(calls)
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / calls)
+    return best
+
+
 def phase_dma_times(bw: float, worst: dict) -> dict:
-    """The push+wait pairs of each axis on a (2,2,2) mesh of 512^3 fp32
-    shards on cuda:0 (Dirichlet bc 0, the full-width phase's setting), at
-    widths 1 and 4, against the plain version's slab copies (which are
-    ``Tensor.copy_`` calls, the library yardstick too); each held bitwise
-    to the plain version there. Returns the kernels-line entry: one whole
-    width-1 exchange's DMA launches (all three axes), the tb=1 main path's."""
+    """The DMA exchange of each axis on a (2,2,2) mesh of 512^3 fp32 shards
+    on cuda:0 (Dirichlet bc 0, the full-width phase's setting), at widths 1
+    and 4, against the plain version's slab copies (which are
+    ``Tensor.copy_`` calls, the library yardstick too). ``ms``: the least of
+    10 single calls, each between its own events (the kernels' with its own
+    fork and join of the shard streams), as earlier PRs timed it;
+    ``ms_in_a_row``: the mean of 20 calls in a row (the kernels' between one
+    fork and one join), the least of 5 samples; the same two for the copies.
+    Beside them the byte bound, the sector floor (``_dma_sector_bytes``) and
+    the kernel launches a call makes; each held bitwise to the plain version
+    there. Returns the kernels-line entry: one whole width-1 exchange's DMA
+    launches (all three axes, single calls), the tb=1 main path's."""
     import torch
 
     from heat3d_tpu_torch.ops import halo_dma
@@ -1299,28 +1408,38 @@ def phase_dma_times(bw: float, worst: dict) -> dict:
     for width in (1, 4):
         pads = [torch.rand(tuple(m + 2 * width for m in mesh.local_shape),
                            device=s.device) for s in mesh.shards]
-        state = halo_dma.DmaState(mesh)
+        state = halo_dma.DmaState(mesh, pads, width, False)
         for axis in range(3):
-            def kern():
-                state.epoch += 1
+            def kern(calls=1):
                 mesh.fork()
-                halo_dma.exchange_axis_dma(pads, mesh, axis, width, False, 0.0, state)
+                for _ in range(calls):
+                    state.epoch += 1
+                    halo_dma.exchange_axis_dma(pads, mesh, axis, width, False, 0.0, state)
                 mesh.join()
 
-            def plain():
-                halo_dma.exchange_axis_dma_ref(pads, mesh, axis, width, False, 0.0)
+            def plain(calls=1):
+                for _ in range(calls):
+                    halo_dma.exchange_axis_dma_ref(pads, mesh, axis, width, False, 0.0)
 
+            before = halo_dma.launch_counts()["halo_dma"]
+            kern()
+            launches = halo_dma.launch_counts()["halo_dma"] - before
             ms = _time_ms(kern, iters=10)
             plain_ms = _time_ms(plain, iters=10)
             moved = _dma_axis_bytes(mesh, axis, width, 4, False)
+            sectors = _dma_sector_bytes(mesh, axis, width, 4, False)
             b_ms, by = bound_ms(moved, 0, bw)
             times[f"w{width}_axis{axis}"] = {
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-                "bytes": moved, "library_ms": plain_ms}
+                "ms": ms, "plain_ms": plain_ms, "ms_in_a_row": _per_call_ms(kern),
+                "plain_ms_in_a_row": _per_call_ms(plain), "bound_ms": b_ms,
+                "bound_by": by, "bytes": moved, "sector_bytes": sectors,
+                "sector_floor_ms": sectors / bw * 1e3, "launches_per_call": launches,
+                "library_ms": plain_ms}
             want = [p.clone() for p in pads]
             kern()
             halo_dma.exchange_axis_dma_ref(want, mesh, axis, width, False, 0.0)
             _hold_blocks(worst, pads, want, f"axis {axis} width {width} on 512^3 shards")
+            _check(launches <= 2, f"DMA axis {axis} width {width}: {launches} launches a call")
             del want
         del pads, state
         torch.cuda.empty_cache()
@@ -1620,13 +1739,16 @@ def phase_compare_fused(worst: dict) -> None:
          seconds=time.perf_counter() - t0)
 
 
-def phase_fused_times(bw: float, worst: dict) -> dict:
+def phase_fused_times(bw: float, worst: dict, resources: dict) -> dict:
     """Each fused kernel's ms per launch at 1024^3 fp32 7pt Dirichlet bc 0,
     one launch over all shards of the card (the DMA kernels on (8,1,1), the
     RDMA kernels on (4,1,1) with the partitioned plan's default sub-blocks:
     the full-width rows' meshes), its plain version's ms, and its bound:
     the field read once and written once plus each x-face slab sent read
-    and written once. Each timed launch is held bitwise to its plain
+    and written once; with the instance's registers, spills and resident
+    blocks per SM. The one-update kernels run on their compile-time 7pt
+    instance and, timed in the same call, on the generic instance forced
+    (the first design). Each timed launch is held bitwise to its plain
     version. The one-update kernels' result over all shards is one update
     of the 1024^3 field: their library call is one cuDNN convolution (TF32
     off, never called by the port) over the shards joined and padded with
@@ -1654,22 +1776,45 @@ def phase_fused_times(bw: float, worst: dict) -> dict:
         outs = [torch.empty_like(u) for u in us]
         kern, plain = _fused_pair(name)
         state = _fused_state(mesh, name, torch.float32, False)
+        want = plain(us, taps, mesh, None, False, 0.0)
+        inst = fd.fused_instance(k, taps)
 
-        def go():
+        def go(instance=None, dst=outs):
             mesh.fork()
-            kern(us, taps, mesh, state, False, 0.0, outs=outs)
+            if instance is None:
+                kern(us, taps, mesh, state, False, 0.0, outs=dst)
+            else:
+                fd.launch_instance(instance, us, taps, mesh, state, False, 0.0, outs=dst,
+                                   wrapper=kern)
             mesh.join()
 
         ms = _time_ms(go, iters=10)
+        _hold_fused(worst, name, outs, want, f"at {n}^3 on {mesh_shape}")
         plain_ms = _time_ms(lambda: plain(us, taps, mesh, None, False, 0.0), iters=3)
-        _hold_fused(worst, name, outs, plain(us, taps, mesh, None, False, 0.0),
-                    f"at {n}^3 on {mesh_shape}")
         b_ms, by, moved = fused_bound(n, mesh_shape, k, 4, flops, bw)
+        res = resources[f"fused_h{k}_{_instance_name(inst)}_float32"]
         times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
                        "library_ms": None, "bytes": moved, "mesh": list(mesh_shape),
                        "send_ranges": [list(b) for b in state.bounds],
-                       "blocks_per_sm": fd.blocks_per_sm(k, torch.float32)}
+                       "instance": _instance_name(inst),
+                       "xchunk": fd._launch_xchunk(k, inst, tuple(mesh.local_shape),
+                                                   len(mesh), 0, torch.float32),
+                       **{f: res[f] for f in ("blocks_per_sm", "registers", "spill_stores",
+                                              "spill_loads")}}
         if k == 1:
+            outs_generic = [torch.empty_like(u) for u in us]
+            generic_ms = _time_ms(lambda: go(0, outs_generic), iters=10)
+            _hold_fused(worst, name, outs_generic, want,
+                        f"generic instance at {n}^3 on {mesh_shape}")
+            gres = resources["fused_h1_generic_float32"]
+            times[name]["generic"] = {
+                "ms": generic_ms, "xchunk": fd._launch_xchunk(1, 0, tuple(mesh.local_shape),
+                                                              len(mesh), 0, torch.float32),
+                **{f: gres[f] for f in ("blocks_per_sm", "registers", "spill_stores",
+                                        "spill_loads")}}
+            _check(ms < generic_ms, f"{name}: compile-time instance {ms} ms, generic "
+                                    f"{generic_ms} ms at {n}^3 on {mesh_shape}")
+            del outs_generic
             torch.backends.cudnn.allow_tf32 = False
             w = torch.from_numpy(np.asarray(taps, dtype=np.float32)).cuda()[None, None]
             up = F.pad(torch.cat(us), (1, 1, 1, 1, 1, 1), value=0.0)[None, None]
@@ -1677,7 +1822,7 @@ def phase_fused_times(bw: float, worst: dict) -> dict:
             times[name].update(_library_check(name, torch.cat(outs),
                                               F.conv3d(up, w)[0, 0], taps, up))
             del up
-        del us, outs, state
+        del us, outs, state, want
         torch.cuda.empty_cache()
     _say("fused_times", grid=[n, n, n], stencil="7pt", dtype="float32", bc_value=0.0,
          times=times, bitwise=True, max_abs_err={k: worst[k] for k in _FUSED})
@@ -1735,22 +1880,11 @@ def phase_cross_gpu(worst: dict) -> None:
          dma_exchanges_in_a_row=bursts, fused_cases=fused, bitwise=True)
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this smoke test runs on the GPU",
-              file=sys.stderr)
-        return 1
+def phase_main_path(bw: float) -> dict:
+    """Phases 5 and 6 between zeroed and read launch counts; fails unless
+    every kernel was launched there, none on a generic instance. Returns
+    the launch counts."""
     from heat3d_tpu_torch import ops
-
-    t0 = time.perf_counter()
-    smi = phase_identify()
-    bw = bandwidth(torch.cuda.get_device_name(0))
-    resources = phase_build()
-    worst = phase_compare()
-    phase_compare_mesh(worst)
-    phase_compare_fused(worst)
 
     ops.reset_launch_counts()
     phase_golden()
@@ -1761,28 +1895,82 @@ def main() -> int:
     for name in KERNELS:
         _check(launches[name] > 0, f"{name} was not launched on the main path")
     _check(not any(generic.values()),
-           f"the main path's 7pt/27pt direct or stream launches took the generic "
-           f"instance: {generic}")
+           f"the main path's 7pt/27pt direct, stream or one-update fused launches took "
+           f"the generic instance: {generic}")
     equiv = {name: cells[name] / _unit_cells(name) for name in KERNELS}
     _say("main_path", kernel_launches=launches, generic_instance_launches=generic,
          output_cells=cells, launches_1024_equivalent=equiv,
          launches_1024_equivalent_unit={name: _unit_cells(name) for name in KERNELS})
+    return launches
 
-    times = phase_kernel_times(bw, worst, resources)
-    times["halo_dma"] = phase_dma_times(bw, worst)
-    times.update(phase_fused_times(bw, worst))
-    phase_shard_kernel_times(bw, worst)
-    phase_cross_gpu(worst)
-    kernels = [
-        {"name": name, "route": "cuda", "source": _SOURCES[name],
-         "replaces": _REPLACES[name], "launches": launches[name],
-         "max_abs_err": worst[name],
-         **{key: times[name][key] for key in
-            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
-        for name in KERNELS
-    ]
-    _say("done", seconds=time.perf_counter() - t0)
-    print(json.dumps({"kernels": kernels}))
+
+# the phases after the build, in the order they run; ``--only`` picks some
+PHASES = ("compare", "compare_mesh", "compare_fused", "main_path", "kernel_times",
+          "dma_times", "fused_times", "shard_kernel_times", "cross_gpu")
+
+
+def _args(argv):
+    import argparse
+
+    p = argparse.ArgumentParser(description="On-card smoke test of heat3d_tpu_torch.")
+    p.add_argument("--only", default=None, metavar="PHASE[,PHASE...]",
+                   help="run the card identification, the build and only these phases "
+                        f"({', '.join(PHASES)}), and print no kernels line: a short "
+                        "check after a kernel change")
+    args = p.parse_args(argv)
+    if args.only is not None:
+        args.only = args.only.split(",")
+        bad = sorted(set(args.only) - set(PHASES))
+        if bad:
+            p.error(f"unknown phases {bad}; choose from {', '.join(PHASES)}")
+    return args
+
+
+def main(argv=None) -> int:
+    args = _args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test runs on the GPU",
+              file=sys.stderr)
+        return 1
+    run = set(args.only or PHASES)
+
+    t0 = time.perf_counter()
+    smi = phase_identify()
+    bw = bandwidth(torch.cuda.get_device_name(0))
+    resources = phase_build()
+    worst = {name: 0.0 for name in KERNELS}
+    times = {}
+    if "compare" in run:
+        phase_compare(worst)
+    if "compare_mesh" in run:
+        phase_compare_mesh(worst)
+    if "compare_fused" in run:
+        phase_compare_fused(worst)
+    if "main_path" in run:
+        launches = phase_main_path(bw)
+    if "kernel_times" in run:
+        times.update(phase_kernel_times(bw, worst, resources))
+    if "dma_times" in run:
+        times["halo_dma"] = phase_dma_times(bw, worst)
+    if "fused_times" in run:
+        times.update(phase_fused_times(bw, worst, resources))
+    if "shard_kernel_times" in run:
+        phase_shard_kernel_times(bw, worst)
+    if "cross_gpu" in run:
+        phase_cross_gpu(worst)
+    _say("done", seconds=time.perf_counter() - t0, phases=[p for p in PHASES if p in run])
+    if args.only is None:
+        kernels = [
+            {"name": name, "route": "cuda", "source": _SOURCES[name],
+             "replaces": _REPLACES[name], "launches": launches[name],
+             "max_abs_err": worst[name],
+             **{key: times[name][key] for key in
+                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+            for name in KERNELS
+        ]
+        print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

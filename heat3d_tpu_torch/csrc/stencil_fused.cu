@@ -9,16 +9,15 @@
 // and heat3d_tpu/ops/stencil_fused_rdma.py:
 //   * ::apply_step_fused_rdma / ::apply_superstep_fused_rdma (the same
 //     sweeps with the sends split per ExchangePlan sub-block, _planned_rdma)
-// -> fused_kernel<T, 1> and fused_kernel<T, 2>, each driven by a table of
-// send ranges (one y-range per face for the DMA rows, the plan's ranges for
-// the RDMA rows), with one flag word per (receiver, side, range).
+// -> fused_chain_kernel<T, S> (one update, the chain S fixed at compile
+// time), fused_kernel<T, 1> (one update, any other chain: the generic
+// instance) and fused_kernel<T, 2>, each driven by a table of send ranges
+// (one y-range per face for the DMA rows, the plan's ranges for the RDMA
+// rows), with one flag word per (receiver, side, range).
 //
 // Bound: device-memory bytes, as the direct kernels: the field read once and
 // written once, plus each face slab read once and written once into the
-// neighbour's landing buffer. The tap program is interpreted per cell from
-// shared memory (stencil_common.cuh), so like the generic instances of the
-// direct and stream kernels this one is bound by its instruction stream
-// first; making it fast is later work.
+// neighbour's landing buffer.
 //
 // Design. One cooperative launch per device covers every shard the device
 // holds (all shards of a mesh on one card are one launch), with a grid of
@@ -38,32 +37,50 @@
 //   3. skin tiles: (shard, side, y tile, z tile) of output planes 0..H-1 and
 //      nx-H..nx-1. Thread 0 acquire-spins on the shard's flags of that side
 //      (bounded: ~2 s of globaltimer, then the error word and a trap, as in
-//      halo_dma.cu), then the block marches through the ghost planes, read
-//      from the landing buffer with L1-bypassing loads (the shard's own
-//      planes go through the read-only path).
+//      halo_dma.cu), then the block sweeps its output planes.
 // Every block finishes its pushes before it waits, and every block is
 // resident, so on one card the waits always end. Across GPUs, a device's
 // launch waits (an event) until each receiver's device has entered the
 // same exchange, so a push never lands in a buffer a previous step still
 // reads, nor in flags not yet zeroed (ops/stencil_dma_fused.py).
 //
-// A tile marches planes along x through a 3-slot ring of ghost-framed
-// (y, z) tiles in shared memory, as the direct kernels do; the plane of
-// virtual index x in [-H, nx+H) is the shard's own plane, a landing-buffer
-// plane, or (at a Dirichlet x domain face) bc. The y/z frame is synthesized
-// as a domain boundary (wrap or bc). The halo-2 kernel keeps a second ring
-// of intermediate planes, rounded through the storage type, pinned to bc
-// in the y/z ring (Dirichlet) and at the x domain faces, exactly as two
-// plain steps see them.
+// fused_chain_kernel<T, S> (the 7pt and 27pt chains of the wrapper's table,
+// ops/stencil_stream.py CHAINS) sweeps a tile with direct_kernel<T, 1, S>'s
+// block state (stencil_direct.cuh): 32 x 8 threads own a 64 x 40 frame,
+// x-neighbours in registers, the chain unrolled, input planes loaded ahead
+// by cp.async, the y/z ghosts built by the loader as a domain boundary
+// (wrap or bc). Its plane source (ShardPlanes) gives input plane gx as the
+// shard's own plane (0 <= gx < nx), the landing buffer a neighbour pushes
+// into, or bc at a Dirichlet x domain face. Interior tiles read own planes
+// only; a skin tile reads one landed plane, after its acquire, with
+// synchronous ld.global.cg loads: another block or GPU wrote it during the
+// launch, so it must not come through L1. A send's slab is one contiguous
+// run of (y1 - y0) * nz elements, pushed as 16-byte vectors where the
+// source and destination share their alignment (copy_rows.cuh).
 //
-// Arithmetic contract: the emission program of stencil_common.cuh, so each
-// kernel equals its plain version (ops.stencil_dma_fused.reference_fused_*)
-// bitwise.
+// fused_kernel<T, H> is the first design: the tap program interpreted
+// per cell from shared memory (stencil_common.cuh) over a 3-slot float ring
+// of ghost-framed (16, 64) tiles loaded synchronously, element by element.
+// The halo-2 kernel keeps a second ring of intermediate planes, rounded
+// through the storage type, pinned to bc in the y/z ring (Dirichlet) and at
+// the x domain faces, exactly as two plain steps see them.
+//
+// Arithmetic contract: the emission program of stencil_common.cuh, in the
+// order of the unrolled chain or of the interpreter, so each kernel equals
+// its plain version (ops.stencil_dma_fused.reference_fused_*) bitwise.
+//
+// Measured (chip_smoke.py fused_times, "NVIDIA H100 80GB HBM3, 700.00 W"),
+// 1024^3 fp32 7pt in one launch over all shards: fused_chain_kernel 5.96 ms
+// over (8,1,1) and 5.66 over (4,1,1) (3 blocks/SM, 79 registers, no
+// spills; bytes bound 2.60 / 2.58), the generic fused_kernel<T,1> 13.2 /
+// 12.7 in the same calls, fused_kernel<T,2> 25.9 / 25.0 (bound 2.63 /
+// 2.59); PERF.md section 6 rows 9-12.
 //
 // Launches go on the caller's stream, allocate nothing, and return
 // cudaGetLastError() (or the launch's own error).
 
-#include "stencil_common.cuh"
+#include "copy_rows.cuh"
+#include "stencil_direct.cuh"
 #include "sync_flags.cuh"
 
 constexpr int MAX_LOCAL = 16;  // shards of one launch (one device)
@@ -423,8 +440,153 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <class T, int H>
-int launch(const FusedArgs& a, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// The compile-time instance of the one-update kernel: fused_chain_kernel<T,
+// S>, the sweep of direct_kernel<T, 1, S> (stencil_direct.cuh) over the
+// shard's planes, the landing buffers and bc.
+
+// The input planes of one shard: its own (0 <= gx < nx), the landed ghost
+// planes, or bc (null: a Dirichlet x domain face, no neighbour).
+template <class T>
+struct ShardPlanes {
+  static constexpr bool kLands = true;
+  const T* u;
+  const T* lo;  // plane -1
+  const T* hi;  // plane nx
+  int64_t plane;
+  int nx;
+  __device__ __forceinline__ const T* at(int gx) const {
+    return gx < 0 ? lo : gx >= nx ? hi : u + gx * plane;
+  }
+  __device__ __forceinline__ bool is_bc(int gx) const {
+    return at(gx) == nullptr;
+  }
+  __device__ __forceinline__ bool landed(int gx) const {
+    return gx < 0 || gx >= nx;
+  }
+  __device__ __forceinline__ int parity(int gx) const {
+    return landed(gx) ? 0 : (int)(gx & plane & 1);
+  }
+};
+
+// Push tile t of the one-update instance: its chunk of one send's x-face
+// slab, which is one contiguous run of (y1 - y0) * nz elements, copied as
+// vectors where the source and destination allow; then the arrival, as in
+// push_tile.
+template <class T>
+__device__ void push_flat(const FusedArgs& a, int t) {
+  typedef typename Bits<T>::type B;
+  int s = 0;
+  while (s + 1 < a.nsends && a.sends[s + 1].tile0 <= t) ++s;
+  const FusedSend snd = a.sends[s];
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int64_t at = (int64_t)snd.y0 * a.nz;
+  const int64_t n = (int64_t)(snd.y1 - snd.y0) * a.nz;
+  const int64_t lo = (int64_t)(t - snd.tile0) * PUSH_CHUNK;
+  const int len = (int)((lo + PUSH_CHUNK < n ? lo + PUSH_CHUNK : n) - lo);
+  const B* src = static_cast<const B*>(a.u[snd.shard]) +
+                 (int64_t)snd.x0 * a.ny * a.nz + at + lo;
+  B* dst = static_cast<B*>(snd.dst) + at + lo;
+  copy_row<B>(dst, src, len, tid, SNT, false, B(0), 0u);
+  // arrival: this block's stores are visible system-wide before it counts
+  __threadfence_system();
+  __syncthreads();
+  if (tid == 0) {
+    if (atomicAdd(snd.counter, 1u) == (unsigned int)snd.ntiles - 1u) {
+      atomicExch(snd.counter, 0u);  // the next launch starts at 0
+      __threadfence_system();
+      store_release_sys(snd.flag, a.epoch);
+    }
+  }
+}
+
+// Launch bounds: three blocks an SM, so a thread may hold 85 registers; at
+// four (64) the tile loops spill (chip probe: 3 blocks/SM, no spills, ran
+// faster than 4 or 5 with spills).
+constexpr int CHAIN_MIN_BLOCKS = 3;
+
+template <class T, int S>
+__global__ void __launch_bounds__(SNT, CHAIN_MIN_BLOCKS)
+    fused_chain_kernel(FusedArgs a, Weights w, unsigned int* err) {
+  static_assert(centre_x_only<S>(),
+                "chain reads x-1/x+1 planes off the cell: generic instance");
+  using G = Geom<1>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int NB = gridDim.x;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+
+  // 1. pushes
+  for (int t = blockIdx.x; t < a.push_tiles; t += NB) push_flat<T>(a, t);
+
+  Direct<T, 1, S, ShardPlanes<T>> st;
+  st.in_slot = reinterpret_cast<T*>(smem_raw);
+  st.lvl = st.in_slot + in_slots<T, 1, S>() * G::FH * in_stride<T, 1>();
+  st.xsp = reinterpret_cast<float*>(st.lvl);
+  st.ny = a.ny;
+  st.nz = a.nz;
+  st.periodic = a.periodic;
+  st.bc = a.bc;
+  const int64_t plane = (int64_t)a.ny * a.nz;
+  const int nzt = (a.nz + G::TZ - 1) / G::TZ;
+  const int yz = ((a.ny + G::TY - 1) / G::TY) * nzt;
+  // the tile's shard: its planes and output
+  auto on_shard = [&](int li) {
+    const FusedShard sh = a.shards[li];
+    st.src = ShardPlanes<T>{static_cast<const T*>(a.u[li]),
+                            sh.wait_lo ? static_cast<const T*>(sh.glo) : nullptr,
+                            sh.wait_hi ? static_cast<const T*>(sh.ghi) : nullptr,
+                            plane, a.nx};
+    st.out = static_cast<T*>(a.out[li]);
+    return sh;
+  };
+
+  // 2. interior: output planes [1, nx-1), the shard's own planes only
+  const int inner = a.nx - 2;
+  const int nchunks = inner > 0 ? (inner + a.xchunk - 1) / a.xchunk : 0;
+  const int interior_tiles = a.nlocal * nchunks * yz;
+  for (int t = blockIdx.x; t < interior_tiles; t += NB) {
+    const int li = t / (nchunks * yz);
+    const int rest = t - li * nchunks * yz;
+    const int ch = rest / yz;
+    const int tyz = rest - ch * yz;
+    on_shard(li);
+    st.y0 = (tyz / nzt) * G::TY;
+    st.z0 = (tyz % nzt) * G::TZ;
+    st.xs0 = 1 + ch * a.xchunk;
+    __syncthreads();  // the previous tile has read its slots
+    st.run(min(a.nx - 1, st.xs0 + a.xchunk), w);
+  }
+
+  // 3. skin: output planes 0 and nx-1, after the waits
+  const int skin_tiles = a.nlocal * 2 * yz;
+  for (int t = blockIdx.x; t < skin_tiles; t += NB) {
+    const int li = t / (2 * yz);
+    const int rest = t - li * 2 * yz;
+    const int side = rest / yz;
+    const int tyz = rest - side * yz;
+    const FusedShard sh = on_shard(li);
+    st.y0 = (tyz / nzt) * G::TY;
+    st.z0 = (tyz % nzt) * G::TZ;
+    st.xs0 = side == 0 ? 0 : a.nx - 1;
+    __syncthreads();  // the previous tile has read its slots
+    if (tid == 0 && (side == 0 ? sh.wait_lo : sh.wait_hi)) {
+      const unsigned long long t0 = globaltimer_ns();
+      const unsigned int code = 1u + 2u * (unsigned int)sh.rank + side;
+      for (int p = 0; p < sh.nparts; ++p) {
+        spin_until(sh.flags + side * MAX_PARTS + p, a.epoch, t0,
+                   a.timeout_ns, code, err);
+      }
+      __threadfence();
+    }
+    __syncthreads();
+    st.run(st.xs0 + 1, w);
+  }
+}
+
+// Grid and launch of one instance: the cooperative grid is the resident
+// blocks (occupancy x SMs), or fewer when there are fewer tiles.
+int cooperative_grid(const void* fn, int threads, int smem, long long want,
+                     int* grid) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -434,10 +596,57 @@ int launch(const FusedArgs& a, cudaStream_t stream) {
   if (!coop) return 1002;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fused_kernel<T, H>, NTHREADS, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
+                                                      smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return 1003;
+  const long long cap = (long long)per_sm * sms;
+  *grid = (int)(want < cap ? (want > 0 ? want : 1) : cap);
+  return 0;
+}
+
+// The compile-time instance of chain S.
+template <class T, int S>
+struct Chain {
+  static constexpr int bytes = smem_bytes<T, 1, S>();
+  static const void* fn() {
+    return reinterpret_cast<const void*>(fused_chain_kernel<T, S>);
+  }
+  static cudaError_t prepare() {
+    static std::atomic<unsigned long long> done{0};
+    return set_smem_once(done, fused_chain_kernel<T, S>, bytes);
+  }
+  static int launch(const FusedArgs& a, cudaStream_t stream) {
+    cudaError_t err = prepare();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    using G = Geom<1>;
+    const long long yz = (long long)((a.ny + G::TY - 1) / G::TY) *
+                         ((a.nz + G::TZ - 1) / G::TZ);
+    const int inner = a.nx - 2;
+    const int nchunks = inner > 0 ? (inner + a.xchunk - 1) / a.xchunk : 0;
+    long long want = a.push_tiles;
+    if ((long long)a.nlocal * nchunks * yz > want) {
+      want = (long long)a.nlocal * nchunks * yz;
+    }
+    if ((long long)a.nlocal * 2 * yz > want) want = (long long)a.nlocal * 2 * yz;
+    int grid = 0;
+    const int res = cooperative_grid(fn(), SNT, bytes, want, &grid);
+    if (res != 0) return res;
+    FusedArgs args = a;
+    Weights w;
+    for (int i = 0; i < MAX_TERMS; ++i) w.w[i] = i < a.prog.n ? a.prog.t[i].w : 0.f;
+    unsigned int* e = g_err_dev;
+    void* params[] = {&args, &w, &e};
+    err = cudaLaunchCooperativeKernel(fn(), dim3(grid), dim3(SBZ, SBY), params,
+                                      bytes, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// The interpreted kernel of H updates (the generic instance at H = 1).
+template <class T, int H>
+int launch_interpreted(const FusedArgs& a, cudaStream_t stream) {
   const int nyt = (a.ny + TY - 1) / TY;
   const int nzt = (a.nz + TZ - 1) / TZ;
   const int inner = a.nx - 2 * H;
@@ -447,17 +656,97 @@ int launch(const FusedArgs& a, cudaStream_t stream) {
   const long long skin = (long long)a.nlocal * 2 * nyt * nzt;
   if (interior > want) want = interior;
   if (skin > want) want = skin;
-  const long long cap = (long long)per_sm * sms;
-  const int grid = (int)(want < cap ? (want > 0 ? want : 1) : cap);
+  int grid = 0;
+  const int res = cooperative_grid(
+      reinterpret_cast<const void*>(fused_kernel<T, H>), NTHREADS, 0, want,
+      &grid);
+  if (res != 0) return res;
   FusedArgs args = a;
   unsigned int* e = g_err_dev;
   void* params[] = {&args, &e};
-  err = cudaLaunchCooperativeKernel(
+  cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(fused_kernel<T, H>), dim3(grid),
       dim3(BZ, BY), params, 0, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The interpreted kernel as an instance.
+template <class T, int H>
+struct Interpreted {
+  static constexpr int bytes = 0;
+  static const void* fn() {
+    return reinterpret_cast<const void*>(fused_kernel<T, H>);
+  }
+  static cudaError_t prepare() { return cudaSuccess; }
+  static int launch(const FusedArgs& a, cudaStream_t stream) {
+    return launch_interpreted<T, H>(a, stream);
+  }
+};
+
+// f.template run<Instance, threads>() for instance (halo, spec, dtype):
+// spec 0 the interpreted kernel (halo 1 or 2), 1 / 2 the compile-time 7pt /
+// 27pt chain (halo 1); `bad` for arguments no instance takes.
+template <class T, class F>
+int by_spec(int halo, int spec, const F& f) {
+  if (halo == 2) {
+    return spec == SPEC_GENERIC ? f.template run<Interpreted<T, 2>>(NTHREADS)
+                                : f.bad;
+  }
+  switch (spec) {
+    case SPEC_7PT:
+      return f.template run<Chain<T, SPEC_7PT>>(SNT);
+    case SPEC_27PT:
+      return f.template run<Chain<T, SPEC_27PT>>(SNT);
+    default:
+      return f.template run<Interpreted<T, 1>>(NTHREADS);
+  }
+}
+
+template <class F>
+int with_instance(int halo, int spec, int dtype, const F& f) {
+  if ((dtype != 0 && dtype != 1) || (halo != 1 && halo != 2) ||
+      spec < SPEC_GENERIC || spec > SPEC_27PT) {
+    return f.bad;
+  }
+  return dtype == 0 ? by_spec<float>(halo, spec, f)
+                    : by_spec<__nv_bfloat16>(halo, spec, f);
+}
+
+struct BlocksPerSm {
+  int bad = -1;
+  template <class I>
+  int run(int threads) const {
+    if (I::prepare() != cudaSuccess) return -1;
+    int n = 0;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &n, I::fn(), threads, I::bytes) == cudaSuccess
+               ? n
+               : -1;
+  }
+};
+struct Registers {
+  int bad = -1;
+  template <class I>
+  int run(int) const {
+    cudaFuncAttributes attr;
+    return cudaFuncGetAttributes(&attr, I::fn()) == cudaSuccess
+               ? attr.numRegs
+               : -1;
+  }
+};
+struct SmemBytes {
+  int bad = -1;
+  template <class I>
+  int run(int) const { return I::bytes; }
+};
+struct Launch {
+  int bad = 1000;
+  const FusedArgs* a;
+  cudaStream_t stream;
+  template <class I>
+  int run(int) const { return I::launch(*a, stream); }
+};
 
 }  // namespace
 
@@ -469,53 +758,54 @@ int heat3d_fused_init() { return alloc_error_word(); }
 // side).
 unsigned int heat3d_fused_error() { return read_error_word(); }
 
-// Resident blocks per SM of the kernel (the cooperative grid is this times
-// the SM count), or -1 on an error.
-int heat3d_fused_blocks_per_sm(int halo, int dtype) {
-  int per_sm = 0;
-  cudaError_t err;
-  if (dtype == 0) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, halo == 1 ? fused_kernel<float, 1> : fused_kernel<float, 2>,
-        NTHREADS, 0);
-  } else {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm,
-        halo == 1 ? fused_kernel<__nv_bfloat16, 1>
-                  : fused_kernel<__nv_bfloat16, 2>,
-        NTHREADS, 0);
-  }
-  return err == cudaSuccess ? per_sm : -1;
+// Resident blocks per SM of instance (halo, spec, dtype) (the cooperative
+// grid is this times the SM count), registers a thread and dynamic shared
+// memory of one block; -1 on an error or for no such instance. spec: 0 the
+// interpreted kernel, 1 / 2 the compile-time 7pt / 27pt chain (halo 1).
+int heat3d_fused_blocks_per_sm(int halo, int spec, int dtype) {
+  return with_instance(halo, spec, dtype, BlocksPerSm{});
+}
+int heat3d_fused_registers(int halo, int spec, int dtype) {
+  return with_instance(halo, spec, dtype, Registers{});
+}
+int heat3d_fused_smem_bytes(int halo, int spec, int dtype) {
+  return with_instance(halo, spec, dtype, SmemBytes{});
 }
 
-// Constants the wrapper lays its tables out by.
+// Constants the wrapper lays its tables out by, and the (y, z) tile of an
+// instance (spec 0: the interpreted kernel's; else the chain's, halo 1).
 int heat3d_fused_max_local() { return MAX_LOCAL; }
 int heat3d_fused_max_parts() { return MAX_PARTS; }
 int heat3d_fused_push_chunk() { return PUSH_CHUNK; }
-int heat3d_fused_tile_y() { return TY; }
-int heat3d_fused_tile_z() { return TZ; }
+int heat3d_fused_tile_y(int spec) {
+  return spec == SPEC_GENERIC ? TY : Geom<1>::TY;
+}
+int heat3d_fused_tile_z(int spec) {
+  return spec == SPEC_GENERIC ? TZ : Geom<1>::TZ;
+}
 int heat3d_fused_args_bytes() { return (int)sizeof(FusedArgs); }
 int heat3d_fused_shard_bytes() { return (int)sizeof(FusedShard); }
 int heat3d_fused_send_bytes() { return (int)sizeof(FusedSend); }
 
-// halo: 1 or 2 updates; dtype: 0 float, 1 bf16. Returns a cudaError_t (0
-// on success); 1000 for bad arguments, 1002 when the device cannot launch
-// cooperatively, 1003 when no block fits an SM.
-int heat3d_fused_launch(int halo, int dtype, const FusedArgs* a,
+// halo: 1 or 2 updates; spec as above (a chain's program must be that
+// chain: prog's (src, row, dk)); dtype: 0 float, 1 bf16. Returns a
+// cudaError_t (0 on success); 1000 for bad arguments, 1002 when the device
+// cannot launch cooperatively, 1003 when no block fits an SM.
+int heat3d_fused_launch(int halo, int spec, int dtype, const FusedArgs* a,
                         void* stream) {
   if (g_err_dev == nullptr || a == nullptr || (halo != 1 && halo != 2) ||
       (dtype != 0 && dtype != 1) || a->nlocal < 1 ||
       a->nlocal > MAX_LOCAL || a->nx < 2 * halo || a->ny < 1 || a->nz < 1 ||
       a->xchunk < 1 || a->nsends < 0 || a->push_tiles < 0 ||
-      a->shards == nullptr || a->prog.n < 1 || a->prog.n > MAX_TERMS) {
+      a->shards == nullptr || a->prog.n < 1 || a->prog.n > MAX_TERMS ||
+      (spec == SPEC_7PT && !matches<SPEC_7PT>(a->prog)) ||
+      (spec == SPEC_27PT && !matches<SPEC_27PT>(a->prog))) {
     return 1000;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return halo == 1 ? launch<float, 1>(*a, s) : launch<float, 2>(*a, s);
-  }
-  return halo == 1 ? launch<__nv_bfloat16, 1>(*a, s)
-                   : launch<__nv_bfloat16, 2>(*a, s);
+  Launch f;
+  f.a = a;
+  f.stream = static_cast<cudaStream_t>(stream);
+  return with_instance(halo, spec, dtype, f);
 }
 
 }  // extern "C"

@@ -7,7 +7,7 @@ package (listed in ``.gitignore``), named by a hash of the source, the
 shared headers (``csrc/*.cuh``) and the flags, so an edited source or
 header rebuilds and concurrent processes never load a half-written file.
 A source may take flags of its own from its wrapper (``source_flags``: the
-stream and direct kernels' chain table).
+stream, direct and fused kernels' chain table).
 """
 
 from __future__ import annotations
@@ -58,10 +58,10 @@ def nvcc_path() -> str:
 
 
 def source_flags(name: str) -> tuple:
-    """Flags of ``csrc/<name>.cu`` beyond ``NVCC_FLAGS``: the stream and
-    direct kernels take their compile-time tap chains from the stream
-    wrapper's table."""
-    if name in ("stencil_stream", "stencil_direct"):
+    """Flags of ``csrc/<name>.cu`` beyond ``NVCC_FLAGS``: the stream,
+    direct and fused kernels take their compile-time tap chains from the
+    stream wrapper's table."""
+    if name in ("stencil_stream", "stencil_direct", "stencil_fused"):
         from heat3d_tpu_torch.ops.stencil_stream import nvcc_defines
 
         return nvcc_defines()

@@ -211,17 +211,19 @@ def _xchunk(shape, ty: int, tz: int) -> int:
     return -(-nx // chunks)
 
 
-def wave_xchunk(shape, ty: int, tz: int, resident: int) -> int:
-    """x-chunk length of a compile-time direct launch over (nx, ny, nz)
-    with (ty, tz) tiles: x is cut into chunks (each costs 2*halo extra
-    plane reads) until the launch holds ``_WAVES`` waves of ``resident``
+def wave_xchunk(nx: int, tiles: int, resident: int, waves: int = _WAVES,
+                min_chunk: int = _MIN_XCHUNK) -> int:
+    """x-chunk length of a compile-time launch over ``nx`` planes and
+    ``tiles`` (y, z) tiles: x is cut into chunks (each costs 2*halo extra
+    plane reads) until the launch holds ``waves`` waves of ``resident``
     blocks (the blocks the card holds at once), with chunks no shorter than
-    ``_MIN_XCHUNK`` planes. Many short blocks keep every SM busy to the
-    end of the launch; a few long ones leave a last wave on few SMs
-    (``scripts/torch_direct_probe.py`` sweeps the chunk count)."""
-    nx, ny, nz = shape
-    tiles = -(-ny // ty) * -(-nz // tz)
-    chunks = max(1, min(-(-_WAVES * resident // tiles), -(-nx // _MIN_XCHUNK)))
+    ``min_chunk`` planes. Many short blocks keep every SM busy to the end
+    of the launch; a few long ones leave a last wave on few SMs
+    (``scripts/torch_direct_probe.py`` sweeps the chunk count). The fused
+    kernels use the same rule with their own waves and floor."""
+    if nx < 1:
+        return 1
+    chunks = max(1, min(-(-waves * resident // max(1, tiles)), -(-nx // min_chunk)))
     return -(-nx // chunks)
 
 
@@ -280,7 +282,7 @@ def _launch_xchunk(shape, halo: int, inst: int, device: int, dtype: torch.dtype)
     if per_sm < 1:
         raise RuntimeError(f"direct instance (halo {halo}, {inst}, {dtype}) fits no SM")
     resident = per_sm * torch.cuda.get_device_properties(device).multi_processor_count
-    return wave_xchunk(shape, ty, tz, resident)
+    return wave_xchunk(shape[0], -(-shape[1] // ty) * -(-shape[2] // tz), resident)
 
 
 def _launch(wrapper, halo, u, taps, periodic, bc_value, out,

@@ -6,9 +6,9 @@ Port of ``heat3d_tpu.ops.stencil_dma_fused`` (``apply_step_fused_dma``,
 ``apply_superstep_fused_dma``, the gates ``fused_dma_supported`` /
 ``fused_dma_3d_supported`` / ``fused_dma2_supported`` and
 ``substitute_dirichlet_x_edges``). For CUDA shards each wrapper launches a
-hand-written kernel from ``csrc/stencil_fused.cu`` (``fused_kernel<T, 1>``
-or ``<T, 2>``, built on first use by ``ops._build``), one cooperative launch
-per device over every shard the device holds, or raises; for CPU shards it
+hand-written kernel from ``csrc/stencil_fused.cu`` (built on first use by
+``ops._build``), one cooperative launch per device over every shard the
+device holds, or raises; for CPU shards it
 runs the kernels' plain version, :func:`reference_fused_step` /
 :func:`reference_fused_superstep` (the JAX ``reference_fused_step_xla`` /
 ``reference_fused_superstep_xla``): a ring shift of the x faces from the
@@ -27,13 +27,24 @@ VMEM (``_fused_choose_chunk``, ``_GHOST_BUDGET``): the CUDA kernel tiles
 (y, z) and keeps the ghost planes in device memory, so it has no such
 limit, and the port's gates accept every shape the rules above allow.
 
+The one-update kernel has an instance with the chain fixed at compile time
+for each entry of the stream kernels' table (``stencil_stream.CHAINS``:
+``fused_chain_kernel<T, S>``, the direct kernel's sweep over the shard's
+planes and the landing buffers) and a generic instance that interprets any
+other program (``fused_kernel<T, 1>``, the first design);
+``stencil_stream.stream_instance`` picks one, as for the direct and stream
+kernels, and :func:`launch_instance` forces one for a measurement. The
+two-update kernel (``fused_kernel<T, 2>``) has the interpreted design
+only. A launch error raises: no launch falls back to another instance.
+
 The landing buffers, flag words, arrival counters, device tables and epoch
 live in a :class:`FusedState`, one per (mesh, width, send ranges, storage
 dtype, boundary), built and zeroed on the stream its kernels run on.
 
 ``<wrapper>.launches`` counts launches (one per device and call),
-``<wrapper>.cells`` their output cells;
-``launch_counts`` reports them.
+``<wrapper>.cells`` their output cells, and, for the one-update wrappers,
+``<wrapper>.generic_launches`` the launches that took the generic
+instance; ``launch_counts`` and ``generic_launch_counts`` report them.
 """
 
 from __future__ import annotations
@@ -45,7 +56,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from heat3d_tpu_torch.ops.halo_dma import enable_peer_access
+from heat3d_tpu_torch.ops.halo_dma import device_table, enable_peer_access
 from heat3d_tpu_torch.ops.stencil_direct import (
     _DTYPE_CODES,
     _Program,
@@ -53,14 +64,22 @@ from heat3d_tpu_torch.ops.stencil_direct import (
     check_route,
     storage_bc,
 )
+from heat3d_tpu_torch.ops.stencil_direct import wave_xchunk as _direct_wave_xchunk
 from heat3d_tpu_torch.ops.stencil_eager import apply_taps_padded
+from heat3d_tpu_torch.ops.stencil_stream import GENERIC, stream_instance
 
 _LIB = "stencil_fused"
 # a wait that has not seen its neighbours' pushes after this long traps
 TIMEOUT_NS = 2_000_000_000
-# interior tiles a launch aims for (x is cut into chunks below that)
+# the generic instance: interior tiles a launch aims for (x is cut into
+# chunks below that)
 _TARGET_TILES = 4096
 _MIN_XCHUNK = 16
+# the compile-time instances: waves of resident blocks the interior tiles
+# aim for, with chunks no shorter than _MIN_CHAIN_XCHUNK planes
+# (``wave_xchunk``)
+_WAVES = 48
+_MIN_CHAIN_XCHUNK = 16
 _ERRORS = {1000: "bad arguments", 1002: "no cooperative launch on this device",
            1003: "no block fits an SM"}
 
@@ -122,18 +141,22 @@ def _lib():
 
     lib = _build.load(_LIB)
     for fn in ("heat3d_fused_init", "heat3d_fused_max_local", "heat3d_fused_max_parts",
-               "heat3d_fused_push_chunk", "heat3d_fused_tile_y", "heat3d_fused_tile_z",
-               "heat3d_fused_args_bytes", "heat3d_fused_shard_bytes",
-               "heat3d_fused_send_bytes"):
+               "heat3d_fused_push_chunk", "heat3d_fused_args_bytes",
+               "heat3d_fused_shard_bytes", "heat3d_fused_send_bytes"):
         getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = ctypes.c_int
+    for fn in ("heat3d_fused_tile_y", "heat3d_fused_tile_z"):
+        getattr(lib, fn).argtypes = [ctypes.c_int]
+        getattr(lib, fn).restype = ctypes.c_int
+    for fn in ("heat3d_fused_blocks_per_sm", "heat3d_fused_registers",
+               "heat3d_fused_smem_bytes"):
+        getattr(lib, fn).argtypes = [ctypes.c_int] * 3
         getattr(lib, fn).restype = ctypes.c_int
     lib.heat3d_fused_error.argtypes = []
     lib.heat3d_fused_error.restype = ctypes.c_uint
     lib.heat3d_fused_launch.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(_Args), ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(_Args), ctypes.c_void_p]
     lib.heat3d_fused_launch.restype = ctypes.c_int
-    lib.heat3d_fused_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.heat3d_fused_blocks_per_sm.restype = ctypes.c_int
     layout = {
         "max_local": (lib.heat3d_fused_max_local(), MAX_LOCAL),
         "max_parts": (lib.heat3d_fused_max_parts(), MAX_PARTS),
@@ -150,10 +173,25 @@ def _lib():
     return lib
 
 
-def blocks_per_sm(halo: int, dtype: torch.dtype) -> int:
-    """Resident blocks per SM of the fused kernel of ``halo`` updates (its
-    cooperative grid is this times the SM count); CUDA hosts only."""
-    return _lib().heat3d_fused_blocks_per_sm(halo, _DTYPE_CODES[dtype])
+def instance_resources(halo: int, instance: int, dtype: torch.dtype) -> dict:
+    """Resident blocks per SM (the cooperative grid is this times the SM
+    count), registers a thread and dynamic shared memory (bytes) of one
+    instance of the fused kernel of ``halo`` updates on the current CUDA
+    device: ``instance`` 0 the interpreted kernel, else a compile-time chain
+    (halo 1). CUDA hosts only."""
+    lib = _lib()
+    code = _DTYPE_CODES[dtype]
+    return {"blocks_per_sm": lib.heat3d_fused_blocks_per_sm(halo, instance, code),
+            "registers": lib.heat3d_fused_registers(halo, instance, code),
+            "smem_bytes": lib.heat3d_fused_smem_bytes(halo, instance, code)}
+
+
+def fused_instance(halo: int, taps: np.ndarray) -> int:
+    """The instance a launch of ``halo`` updates takes under the current
+    factoring knobs: ``stream_instance(taps)`` at halo 1 (0, the generic
+    instance, for a chain outside ``CHAINS``); the interpreted kernel (0)
+    at halo 2."""
+    return stream_instance(taps) if halo == 1 else GENERIC
 
 
 def raise_if_timed_out() -> None:
@@ -385,14 +423,8 @@ class FusedState:
                                      li, x0, a, b, tile0, ntiles)
                     tile0 += ntiles
                 g.nsends, g.push_tiles = len(sends), tile0
-                g.sends = _to_device(table, g.device)
-                g.table = _to_device((_Shard * len(shards))(*shards), g.device)
-
-
-def _to_device(cstruct, device) -> torch.Tensor:
-    """A ctypes table copied into device memory (on the current stream)."""
-    host = torch.frombuffer(bytearray(bytes(cstruct)), dtype=torch.uint8)
-    return host.to(device)
+                g.sends = device_table(table, g.device)
+                g.table = device_table((_Shard * len(shards))(*shards), g.device)
 
 
 # ---- launch ----------------------------------------------------------------
@@ -412,6 +444,9 @@ def _check(us, outs, mesh, state: FusedState):
                 f"{tuple(u.shape)} {u.dtype} {u.device}")
         if u.dtype not in _DTYPE_CODES or not u.is_contiguous():
             raise ValueError("shards must be contiguous float32 or bfloat16")
+        if u.data_ptr() % 4:
+            # bf16 rows are copied as aligned element pairs
+            raise ValueError("shards must start on a 4-byte boundary")
         if outs is not None:
             o = outs[s.rank]
             if (tuple(o.shape) != shape or o.dtype != u.dtype or o.device != u.device
@@ -425,18 +460,50 @@ def _check(us, outs, mesh, state: FusedState):
 
 
 def _xchunk(inner: int, tiles_yz: int) -> int:
-    """Interior x-chunk length: enough interior tiles to fill the card."""
+    """Interior x-chunk length of the interpreted kernels: enough interior
+    tiles to fill the card."""
     if inner < 1:
         return 1
     chunks = max(1, min(-(-_TARGET_TILES // max(1, tiles_yz)), -(-inner // _MIN_XCHUNK)))
     return -(-inner // chunks)
 
 
+# interior x-chunk length of a compile-time instance over ``inner`` planes
+# and ``tiles_yz`` (y, z) tiles over all shards of the launch: the direct
+# kernels' rule at the fused kernels' waves and floor (the grid's blocks
+# take the tiles in a fixed stride, so the last wave is as uneven as one
+# tile in a block's share)
+wave_xchunk = functools.partial(_direct_wave_xchunk, waves=_WAVES,
+                                min_chunk=_MIN_CHAIN_XCHUNK)
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_xchunk(halo: int, instance: int, local_shape, nlocal: int, device: int,
+                   dtype: torch.dtype) -> int:
+    """The interior x-chunk of a launch: :func:`wave_xchunk` from the
+    compile-time instance's resident blocks on ``device``; the interpreted
+    kernels keep the first design's rule (``_xchunk``)."""
+    lib = _lib()
+    nx, ny, nz = local_shape
+    tiles_yz = nlocal * -(-ny // lib.heat3d_fused_tile_y(instance)) * \
+        -(-nz // lib.heat3d_fused_tile_z(instance))
+    if instance == GENERIC:
+        return _xchunk(nx - 2 * halo, tiles_yz)
+    with torch.cuda.device(device):
+        per_sm = lib.heat3d_fused_blocks_per_sm(halo, instance, _DTYPE_CODES[dtype])
+    if per_sm < 1:
+        raise RuntimeError(f"fused instance (halo {halo}, {instance}, {dtype}) fits no SM")
+    resident = per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+    return wave_xchunk(nx - 2 * halo, tiles_yz, resident)
+
+
 def launch(halo: int, us, taps, mesh, state: FusedState, periodic: bool,
-           bc_value: float, outs, wrapper) -> List[torch.Tensor]:
+           bc_value: float, outs, wrapper, instance=None) -> List[torch.Tensor]:
     """One fused launch per device of ``state``: ``halo`` updates of every
-    shard; counts each launch on ``wrapper.launches`` and its output cells
-    on ``wrapper.cells``."""
+    shard on ``instance`` (default :func:`fused_instance`); counts each
+    launch on ``wrapper.launches`` (and ``wrapper.generic_launches`` when it
+    took the generic one-update instance) and its output cells on
+    ``wrapper.cells``."""
     if state.width != halo or state.periodic != bool(periodic):
         raise ValueError(
             f"state is width {state.width}, periodic={state.periodic}; the launch "
@@ -450,9 +517,8 @@ def launch(halo: int, us, taps, mesh, state: FusedState, periodic: bool,
     lib = _lib()
     raise_if_timed_out()
     prog = chain_program(taps)
+    inst = fused_instance(halo, taps) if instance is None else instance
     bc = storage_bc(bc_value, state.dtype)
-    ty, tz = lib.heat3d_fused_tile_y(), lib.heat3d_fused_tile_z()
-    tiles_yz = -(-ny // ty) * -(-nz // tz)
     outs = list(outs) if outs is not None else [None] * len(mesh)
     state.epoch += 1
     for g in state.groups:
@@ -482,18 +548,22 @@ def launch(halo: int, us, taps, mesh, state: FusedState, periodic: bool,
         args.nsends = g.nsends
         args.push_tiles = g.push_tiles
         args.nx, args.ny, args.nz = nx, ny, nz
-        args.xchunk = _xchunk(nx - 2 * halo, len(g.shards) * tiles_yz)
+        args.xchunk = _launch_xchunk(halo, inst, tuple(mesh.local_shape), len(g.shards),
+                                     g.device.index, state.dtype)
         args.periodic = int(bool(periodic))
         args.bc = bc
         args.prog = prog
         with torch.cuda.device(g.device):
-            err = lib.heat3d_fused_launch(halo, _DTYPE_CODES[state.dtype],
+            err = lib.heat3d_fused_launch(halo, inst, _DTYPE_CODES[state.dtype],
                                           ctypes.byref(args), g.stream.cuda_stream)
         if err != 0:
             raise RuntimeError(
-                f"fused kernel (halo {halo}) launch failed on {g.device}: error {err}"
+                f"fused kernel (halo {halo}, instance {inst}) launch failed on "
+                f"{g.device}: error {err}"
                 + (f" ({_ERRORS[err]})" if err in _ERRORS else ""))
         wrapper.launches += 1
+        if halo == 1:
+            wrapper.generic_launches += inst == GENERIC
         wrapper.cells += len(g.shards) * nx * ny * nz
     _join(state)
     return outs
@@ -561,7 +631,8 @@ def apply_superstep_fused_dma(us: Sequence[torch.Tensor], taps: np.ndarray, mesh
                       bc_value, outs)
 
 
-def _step(wrapper, us, taps, mesh, state, periodic, bc_value, outs, return_ghosts=False):
+def _step(wrapper, us, taps, mesh, state, periodic, bc_value, outs, return_ghosts=False,
+          instance=None):
     taps = check_route(taps)
     if us[0].device.type == "cpu":
         res = reference_fused_step(us, taps, mesh, periodic, bc_value, return_ghosts)
@@ -570,7 +641,7 @@ def _step(wrapper, us, taps, mesh, state, periodic, bc_value, outs, return_ghost
         return _into(res, outs)
     if state is None:
         raise ValueError("a CUDA launch needs its FusedState")
-    res = launch(1, us, taps, mesh, state, periodic, bc_value, outs, wrapper)
+    res = launch(1, us, taps, mesh, state, periodic, bc_value, outs, wrapper, instance)
     if return_ghosts:
         return res, _landed(mesh, state, periodic, bc_value)
     return res
@@ -587,11 +658,31 @@ def _superstep(wrapper, us, taps, mesh, state, periodic, bc_value, outs):
     return launch(2, us, taps, mesh, state, periodic, bc_value, outs, wrapper)
 
 
+def launch_instance(instance: int, us: Sequence[torch.Tensor], taps: np.ndarray, mesh,
+                    state: FusedState, periodic: bool = False, bc_value: float = 0.0,
+                    outs: Optional[Sequence[torch.Tensor]] = None, wrapper=None):
+    """:func:`apply_step_fused_dma` on a named instance of the one-update
+    kernel, for measurements: the generic instance (0) takes any chain, a
+    compile-time one only its own (else the launch raises). CUDA shards
+    only; counted on ``wrapper`` (default ``apply_step_fused_dma``; the RDMA
+    rows pass ``stencil_fused_rdma.apply_step_fused_rdma``)."""
+    if us[0].device.type != "cuda":
+        raise ValueError(f"no kernel for device {us[0].device}")
+    return _step(wrapper or apply_step_fused_dma, us, taps, mesh, state, periodic,
+                 bc_value, outs, instance=instance)
+
+
 KERNELS = (apply_step_fused_dma, apply_superstep_fused_dma)
 
 
 def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def generic_launch_counts() -> dict:
+    """Launches of the one-update wrapper that took the generic instance
+    (the two-update kernel has no compile-time instance yet)."""
+    return {apply_step_fused_dma.__name__: apply_step_fused_dma.generic_launches}
 
 
 def cell_counts() -> dict:
@@ -600,7 +691,7 @@ def cell_counts() -> dict:
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = k.cells = 0
+        k.launches = k.generic_launches = k.cells = 0
 
 
 reset_launch_counts()

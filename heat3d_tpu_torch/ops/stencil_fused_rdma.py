@@ -78,13 +78,19 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
+def generic_launch_counts() -> dict:
+    """Launches of the one-update wrapper that took the generic instance
+    (``stencil_dma_fused.fused_instance``)."""
+    return {apply_step_fused_rdma.__name__: apply_step_fused_rdma.generic_launches}
+
+
 def cell_counts() -> dict:
     return {k.__name__: k.cells for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = k.cells = 0
+        k.launches = k.generic_launches = k.cells = 0
 
 
 reset_launch_counts()

@@ -16,8 +16,10 @@ mesh ``exchange_halo`` into the plan's block; otherwise
 - for x, then y, then z: on an axis of mesh size 1 each shard fills its own
   ghosts (self-wrap, or bc); otherwise the ``ppermute`` transport copies
   each shard's face slabs into its neighbours' ghost slabs
-  (``push_axis_slabs``), or the ``dma`` transport launches the push/wait
-  kernels (``ops.halo_dma.exchange_axis_dma``).
+  (``push_axis_slabs``), or the ``dma`` transport launches, per device,
+  one push and one wait kernel over every shard the device holds
+  (``ops.halo_dma.exchange_axis_dma``, its launch tables kept in the
+  plan's ``DmaState``).
 
 Stream order (:class:`StreamSync`, CUDA meshes of several shards, one
 stream per shard): at the start of an exchange each shard records an
@@ -25,7 +27,10 @@ stream per shard): at the start of an exchange each shard records an
 push into that block waits for it (the TPU kernel's neighbour barrier);
 on the ppermute transport each shard records a "pushed" event after its
 pushes of an axis and its neighbours wait for it before the next axis or
-the compute; on the DMA transport the wait kernels take that place.
+the compute; on the DMA transport the wait kernels take that place, and
+each device's launch orders itself after the device's shard streams and
+they after it (the "entered" events order pushes into blocks on other
+devices).
 
 :class:`FacesPlan` is the same for ``exchange_halo_faces`` (the
 faces-direct step): six ghost face buffers per shard and no padded block.
@@ -259,7 +264,7 @@ class ExchangePlan(_Plan):
         if transport == "dma" and len(mesh) > 1:
             from heat3d_tpu_torch.ops.halo_dma import DmaState
 
-            self.dma = DmaState(mesh)
+            self.dma = DmaState(mesh, self.pads, width, self.periodic)
 
     def apply(self, us: Sequence[torch.Tensor], bc_value: float) -> List[torch.Tensor]:
         """The padded blocks of the fields ``us`` (rank order), ghosts

@@ -140,7 +140,10 @@ def test_direct_build_name_follows_the_table_and_header(monkeypatch, tmp_path):
     header = csrc / "stencil_chain.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     assert _build._target("stencil_direct") != before
+    # the source reaches the chain header through the sweep's header
     assert (_build.CSRC_DIR / "stencil_direct.cu").read_text().count(
+        '#include "stencil_direct.cuh"') == 1
+    assert (_build.CSRC_DIR / "stencil_direct.cuh").read_text().count(
         '#include "stencil_chain.cuh"') == 1
 
 
@@ -178,7 +181,8 @@ def test_wave_xchunk_aims_for_waves_of_resident_blocks(shape, tiles, resident, w
     """The compile-time instances cut x into chunks until the launch holds
     ``_WAVES`` waves of the card's resident blocks, chunks no shorter than
     ``_MIN_XCHUNK`` planes; the chunks cover x."""
-    got = sd.wave_xchunk(shape, *tiles, resident)
+    got = sd.wave_xchunk(shape[0], -(-shape[1] // tiles[0]) * -(-shape[2] // tiles[1]),
+                         resident)
     assert got == want
     chunks = -(-shape[0] // got)
     assert (chunks - 1) * got < shape[0] <= chunks * got

@@ -604,6 +604,87 @@ def test_fused_state_and_wrapper_checks():
     assert fd.launch_counts() == before  # the plain version launches nothing
 
 
+@pytest.mark.parametrize("kind,knobs,want", [
+    ("7pt", {}, 1), ("27pt", {}, 2),
+    ("7pt", {"HEAT3D_FACTOR_7PT": "1"}, 0), ("27pt", {"HEAT3D_FACTOR_Y": "0"}, 0)])
+def test_fused_instance_choice(monkeypatch, kind, knobs, want):
+    """The one-update fused kernel runs the 7pt and 27pt chains on their
+    compile-time instances (the stream kernels' table) and any other chain
+    on the generic one; the two-update kernel has the interpreted design
+    only."""
+    for k, v in knobs.items():
+        monkeypatch.setenv(k, v)
+    taps = _taps(config, kind)
+    assert fd.fused_instance(1, taps) == want
+    assert fd.fused_instance(2, taps) == fd.GENERIC
+
+
+def test_fused_build_takes_the_chain_table(monkeypatch):
+    """The fused source is built with the stream kernels' chain table (its
+    compile-time instances are those chains), and its library name follows
+    the table, so an edited table rebuilds it."""
+    from heat3d_tpu_torch.ops import _build
+    from heat3d_tpu_torch.ops import stencil_stream as ss
+
+    assert _build.source_flags("stencil_fused") == ss.nvcc_defines()
+    before = _build._target("stencil_fused")
+    chains = dict(ss.CHAINS)
+    chains[1] = ("7pt", ss.CHAINS[1][1][::-1])
+    monkeypatch.setattr(ss, "CHAINS", chains)
+    assert _build._target("stencil_fused") != before
+    monkeypatch.undo()
+    assert _build._target("stencil_fused") == before
+
+
+def _kernel_tiles(local_shape, nlocal: int, xchunk: int):
+    """The one-update kernels' tiles as ``fused_chain_kernel`` (and
+    ``fused_kernel<T, 1>``) walk them: ``interior``, (local shard, first
+    output plane, end plane) per x-chunk of the planes [1, nx - 1), and
+    ``skin``, the same per side; each also covers every (y, z) tile of its
+    shard."""
+    nx = local_shape[0]
+    inner = nx - 2
+    nchunks = -(-inner // xchunk) if inner > 0 else 0
+    interior = [(li, 1 + c * xchunk, min(nx - 1, 1 + (c + 1) * xchunk))
+                for li in range(nlocal) for c in range(nchunks)]
+    skin = [(li, 0 if side == 0 else nx - 1, 1 if side == 0 else nx)
+            for li in range(nlocal) for side in (0, 1)]
+    return interior, skin
+
+
+@pytest.mark.parametrize("local", [(2, 40, 70), (3, 9, 66), (16, 20, 70), (128, 1024, 1024),
+                                   (256, 1024, 1024), (37, 77, 125)])
+@pytest.mark.parametrize("nlocal,resident", [(1, 1), (4, 528), (8, 528), (2, 660)])
+def test_fused_tiles_cover_each_plane_once(local, nlocal, resident):
+    """The one-update kernel's tiles at the x-chunk the host computes for a
+    compile-time instance: every output plane of every shard is in exactly
+    one tile; an interior tile's input planes lie inside the shard (no x
+    ghost, so it never waits), a skin tile's include one x ghost plane."""
+    nx, ny, nz = local
+    tiles_yz = nlocal * -(-ny // 38) * -(-nz // 62)
+    xchunk = fd.wave_xchunk(nx - 2, tiles_yz, resident)
+    assert xchunk >= 1
+    interior, skin = _kernel_tiles(local, nlocal, xchunk)
+    for li in range(nlocal):
+        planes = []
+        for sh, x0, x1 in interior:
+            if sh == li:
+                assert 0 <= x0 - 1 and x1 + 1 <= nx, (x0, x1)
+                planes += range(x0, x1)
+        for sh, x0, x1 in skin:
+            if sh == li:
+                assert x0 - 1 < 0 or x1 + 1 > nx, (x0, x1)
+                planes += range(x0, x1)
+        assert sorted(planes) == list(range(nx))
+    assert len(skin) == 2 * nlocal
+    # no more chunks than the floor on their length allows (each at least
+    # half the floor, but the last of a shard, which takes the rest), and no
+    # more than the waves need
+    floor = min(fd._MIN_CHAIN_XCHUNK, nx - 2)
+    assert all(x1 - x0 >= floor // 2 for _, x0, x1 in interior if x1 < nx - 1)
+    assert len(interior) // nlocal <= max(1, -(-fd._WAVES * resident // tiles_yz))
+
+
 @pytest.mark.parametrize("argv,route", [
     (["--mesh", "4", "1", "1", "--halo", "dma", "--overlap", "--time-blocking", "2",
       "--steps", "5"], ("fused-dma", "fused-dma2")),

@@ -13,15 +13,18 @@ driven on its own ring of 4 shards, as tests/multidevice_checks.py
 Two port sides are held to each case:
 - the kernels' plain version (``exchange_axis_dma`` on CPU blocks runs
   ``exchange_axis_dma_ref``);
-- the kernels' launch arguments (``launch_args``: offsets, extents, bc
-  bits, flag words, epochs), executed by a Python model of
-  ``halo_push_kernel``/``halo_wait_kernel``, which also checks that no
-  push writes a cell another push of the axis reads or writes, and that
-  every wait finds its flags at the epoch.
+- the kernels' launch table (``launch_table``: per device the push items'
+  blocks, slab origins, fills and flag words, the waits' flag words and
+  error codes, the slab extents), executed by a Python model of
+  ``halo_push_kernel``/``halo_wait_kernel``, which also checks that the
+  table gives each shard's two sides exactly once, that no push writes a
+  cell another push of the axis reads or writes, and that every wait finds
+  its flags at the epoch.
 The same model holds whole exchanges (``ExchangePlan`` with the ``dma``
 transport) to the ``ppermute`` transport on 3-D meshes the JAX interpreter
-cannot run. The kernels themselves run on the card
-(tests/test_torch_kernels.py, marked ``cuda``).
+cannot run, with the shards spread over one or several modelled devices.
+The kernels themselves run on the card (tests/test_torch_kernels.py,
+marked ``cuda``).
 """
 
 import os
@@ -112,53 +115,67 @@ def _region(off, ext):
 
 
 def run_modelled(pads, mesh, axis, width, periodic, bcv, state):
-    """One axis of the DMA exchange at ``state.epoch`` from
-    ``halo_dma.launch_args``, executed as the kernels would: every push
-    (reads of the whole axis first, as the pushes run concurrently), then
-    every wait. Fails on a push that writes what another push reads or
-    writes, or a wait whose flags are short."""
-    pushes, waits = halo_dma.launch_args(pads, mesh, axis, width, periodic, bcv, state)
+    """One axis of the DMA exchange at ``state.epoch`` from the state's
+    launch tables (``halo_dma.launch_table``), executed as the kernels would: every push
+    item of every device's launch (reads of the whole axis first, as the
+    pushes run concurrently), then every wait. Fails on a table that does
+    not give each shard's two sides exactly once, a push that writes what
+    another push reads or writes, or a wait whose flags are short."""
+    launches = state.launches[axis]
+    assert state.blocks == (tuple(p.data_ptr() for p in pads), width, periodic)
     by_ptr = {p.data_ptr(): i for i, p in enumerate(pads)}
     flag_of = {f.data_ptr(): i for i, f in enumerate(state.flags)}
     word = state.flags[0].element_size()
+    bc = _bits_value(halo_dma._bc_bits(bcv, pads[0].dtype), pads[0].dtype)
     reads = [torch.zeros(p.shape, dtype=torch.bool) for p in pads]
     writes = [torch.zeros(p.shape, dtype=torch.int32) for p in pads]
-    staged = []
-    for shard, push in pushes:
-        assert push.src == pads[shard.rank].data_ptr()
-        assert push.counter == state.counters[shard.rank].data_ptr()
-        assert push.epoch == state.epoch
-        assert push.elem_bytes == pads[0].element_size()
-        assert tuple(push.P) == tuple(pads[0].shape)
-        ext = tuple(push.E)
-        for side in push.side:
-            dst = by_ptr[side.dst]
-            d = _region(side.dst_off, ext)
+    staged, sides, owed = [], [], []
+    assert [lau.device for lau in launches] == list(state.groups)
+    for lau in launches:
+        assert all(s.device == lau.device for s in lau.shards)
+        assert tuple(lau.P) == tuple(pads[0].shape)
+        assert len(lau.items) == 2 * len(lau.shards)
+        ext = tuple(lau.E)
+        for i, item in enumerate(lau.items):
+            shard, k = lau.shards[i // 2], i % 2
+            sides.append((shard.rank, k))
+            assert item.src == pads[shard.rank].data_ptr()
+            dst = by_ptr[item.dst]
+            d = _region(item.dst_off, ext)
             writes[dst][d] += 1
-            if side.fill:
-                assert dst == shard.rank and side.flag is None
-                staged.append((dst, d, _bits_value(push.bc_bits, pads[0].dtype)))
+            nb = mesh.neighbor(shard, axis, 2 * k - 1, periodic)
+            if item.fill:
+                assert nb is None and dst == shard.rank and item.flag is None
+                staged.append((dst, d, bc))
             else:
-                s = _region(side.src_off, ext)
+                assert nb is not None and dst == nb.rank
+                assert (nb.rank in lau.remote) == (nb.device != lau.device)
+                assert item.flag == state.flags[nb.rank].data_ptr() + (2 * axis + 1 - k) * word
+                s = _region(item.src_off, ext)
                 reads[shard.rank][s] = True
                 staged.append((dst, d, pads[shard.rank][s].clone()))
+        for wait in lau.waits:
+            owed.append((wait.flag, wait.code))
+    assert sorted(sides) == [(s.rank, k) for s in mesh.shards for k in (0, 1)]
     for r, w in zip(reads, writes):
         assert int(w.max()) <= 1, "two pushes write one cell"
         assert not bool((r & (w > 0)).any()), "a push writes a cell another reads"
     for dst, d, val in staged:
         pads[dst][d] = val
-    for shard, push in pushes:  # the last block of each push signals
-        for side in push.side:
-            if side.flag is not None:
-                base = max(p for p in flag_of if p <= side.flag)
-                state.flags[flag_of[base]][(side.flag - base) // word] = push.epoch
-    for shard, f0, f1, code in waits:
-        assert code == 1 + shard.rank * 4 + axis
-        for f in (f0, f1):
-            if f is not None:
-                base = state.flags[shard.rank].data_ptr()
-                assert base <= f < base + 6 * word
-                assert int(state.flags[shard.rank][(f - base) // word]) == state.epoch
+    for lau in launches:  # the last block of each launch signals
+        for item in lau.items:
+            if item.flag is not None:
+                base = max(p for p in flag_of if p <= item.flag)
+                state.flags[flag_of[base]][(item.flag - base) // word] = state.epoch
+    want = sorted(
+        (state.flags[s.rank].data_ptr() + (2 * axis + side) * word, 1 + s.rank * 4 + axis)
+        for s in mesh.shards for side, d in ((0, -1), (1, +1))
+        if mesh.neighbor(s, axis, d, periodic) is not None)
+    assert sorted(owed) == want
+    for f, code in owed:
+        rank = (code - 1) // 4
+        base = state.flags[rank].data_ptr()
+        assert int(state.flags[rank][(f - base) // word]) == state.epoch
 
 
 def _ring(axis):
@@ -202,14 +219,16 @@ def test_plain_version_and_launch_args_equal_jax_dma(jax_ref, axis, width, perio
     dtype = getattr(torch, storage)
     u = torch.from_numpy(_base()).to(dtype)  # round to nearest even, as JAX
     mesh = _ring(axis)
-    state = halo_dma.DmaState(mesh)
 
     pads = _padded_shards(mesh, u, width, dtype)
+    state = halo_dma.DmaState(mesh, pads, width, periodic)
+    assert list(state.launches) == [axis]
     halo_dma.exchange_axis_dma(pads, mesh, axis, width, periodic, bcv, state)
     got = _axis_grown(pads, mesh, axis, width)
     assert got.shape == want.shape and got.tobytes() == want.tobytes()
 
     pads = _padded_shards(mesh, u, width, dtype)
+    state = halo_dma.DmaState(mesh, pads, width, periodic)
     state.epoch += 1
     run_modelled(pads, mesh, axis, width, periodic, bcv, state)
     modelled = _axis_grown(pads, mesh, axis, width)
@@ -224,11 +243,24 @@ def _bc(periodic):
 @pytest.mark.parametrize("storage", STORAGE)
 def test_modelled_dma_exchange_equals_ppermute_on_3d_meshes(monkeypatch, mesh_shape, storage):
     """A whole exchange with the dma transport, its kernels modelled from
-    their launch arguments over 3 exchanges in a row (epochs 1-3 on the
-    same flags), equals the ppermute transport byte for byte."""
+    their launch tables over 3 exchanges in a row (epochs 1-3 on the same
+    flags), equals the ppermute transport byte for byte."""
+    _modelled_vs_ppermute(monkeypatch, mesh_shape, storage, 1)
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 1, 1), (2, 2, 2), (3, 1, 2)])
+@pytest.mark.parametrize("storage", STORAGE)
+def test_modelled_dma_exchange_over_modelled_devices(monkeypatch, mesh_shape, storage):
+    """The same with the shards dealt over two modelled devices: one launch
+    per device, and the receivers on the other device in its ``remote``."""
+    _modelled_vs_ppermute(monkeypatch, mesh_shape, storage, 2)
+
+
+def _modelled_vs_ppermute(monkeypatch, mesh_shape, storage, devices):
     dtype = getattr(torch, storage)
     local = (4, 5, 6)
-    mesh = ShardMesh(mesh_shape, local, [torch.device("cpu")] * int(np.prod(mesh_shape)))
+    n = int(np.prod(mesh_shape))
+    mesh = ShardMesh(mesh_shape, local, [torch.device("cpu", r % devices) for r in range(n)])
     rng = np.random.default_rng(11)
     monkeypatch.setattr(
         "heat3d_tpu_torch.ops.halo_dma.exchange_axis_dma",
@@ -251,10 +283,15 @@ def test_modelled_dma_exchange_equals_ppermute_on_3d_meshes(monkeypatch, mesh_sh
 
 def test_dma_rejects_size_one_axis_and_bad_blocks():
     mesh = ShardMesh((1, 2, 1), (4, 4, 4), [torch.device("cpu")] * 2)
-    state = halo_dma.DmaState(mesh)
     pads = [torch.zeros((6, 6, 6)) for _ in range(2)]
+    state = halo_dma.DmaState(mesh, pads, 1, False)
+    assert list(state.launches) == [1]
     with pytest.raises(ValueError, match="mesh size 1"):
         halo_dma.exchange_axis_dma(pads, mesh, 0, 1, False, 0.0, state)
+    fresh = [torch.zeros((6, 6, 6)) for _ in range(2)]
+    for blocks, width, periodic in ((fresh, 1, False), (pads, 1, True), (pads, 2, False)):
+        with pytest.raises(ValueError, match="other padded blocks"):
+            halo_dma.exchange_axis_dma(blocks, mesh, 1, width, periodic, 0.0, state)
     pads = [torch.zeros((6, 6, 6), dtype=torch.float64, device="meta") for _ in range(2)]
     with pytest.raises(ValueError, match="no kernel"):
         halo_dma.exchange_axis_dma(pads, mesh, 1, 1, False, 0.0, state)

@@ -279,6 +279,40 @@ def test_dma_exchange_equals_plain_version(cuda, mesh_shape, dtype):
     assert halo_dma.launch_counts()["halo_dma"] > 0
 
 
+@pytest.mark.parametrize("mesh_shape", [(2, 2, 2), (3, 1, 2), (1, 2, 1)])
+def test_dma_exchange_odd_extents_bf16(cuda, mesh_shape):
+    """bf16 blocks of odd extents, so padded rows start on either 4-byte
+    parity and the push copies them in the widest vectors each row allows:
+    widths 1-4, three boundary settings, 3 exchanges a plan, against the
+    ppermute slab copies; each axis one push and one wait launch on the
+    one card."""
+    from heat3d_tpu_torch.ops import halo_dma
+    from heat3d_tpu_torch.parallel.plan import ExchangePlan
+
+    local = (7, 5, 9)
+    mesh = _card_mesh(cuda, mesh_shape, local)
+    rng = np.random.default_rng(10)
+    axes = sum(1 for n in mesh_shape if n > 1)
+    for periodic, bcv in ((False, 0.0), (False, 0.3), (True, 0.0)):
+        bc = BoundaryCondition.PERIODIC if periodic else BoundaryCondition.DIRICHLET
+        for width in (1, 2, 3, 4):
+            dma = ExchangePlan(mesh, bc, width, "dma", torch.bfloat16)
+            ref = ExchangePlan(mesh, bc, width, "ppermute", torch.bfloat16)
+            for _ in range(3):
+                us = [torch.from_numpy(rng.standard_normal(local).astype(np.float32))
+                      .to(cuda).to(torch.bfloat16) for _ in mesh.shards]
+                before = halo_dma.launch_counts()["halo_dma"]
+                mesh.fork()
+                got = dma.apply(us, bcv)
+                want = ref.apply(us, bcv)
+                mesh.join()
+                torch.cuda.synchronize()
+                halo_dma.raise_if_timed_out()
+                assert halo_dma.launch_counts()["halo_dma"] - before == 2 * axes
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (periodic, bcv, width)
+
+
 def test_streamk_edge_mask_equals_plain_version(cuda):
     """Each shard of a (3,1,2) mesh with its own domain-edge mask."""
     from heat3d_tpu_torch.parallel.plan import ExchangePlan
@@ -414,6 +448,76 @@ def test_fused_kernels_equal_plain_versions(cuda, mesh_shape, shape, dtype):
                             assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
     assert fd.launch_counts()["apply_step_fused_dma"] > 0
     assert fr.launch_counts()["apply_step_fused_rdma"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("mesh_shape,shape,parts", [
+    ((8, 1, 1), (64, 40, 70), 1), ((4, 1, 1), (16, 20, 70), 3), ((2, 2, 2), (12, 20, 70), 1),
+    ((2, 1, 1), (4, 77, 125), 2)])
+def test_fused_compile_time_and_generic_instances_equal(cuda, mesh_shape, shape, parts, dtype):
+    """The one-update fused kernel's compile-time instance (the one the 7pt
+    and 27pt taps take) and its generic instance forced, both bitwise equal
+    to the plain version: x-slabs with whole-face and partitioned send
+    ranges, the 3D mesh, and a ragged, odd ny*nz at nx = 2 a shard."""
+    from heat3d_tpu_torch.ops import stencil_dma_fused as fd
+    from heat3d_tpu_torch.parallel.plan import partition_bounds
+
+    local = tuple(g // p for g, p in zip(shape, mesh_shape))
+    mesh = _card_mesh(cuda, mesh_shape, local)
+    u = torch.from_numpy(np.random.default_rng(14).standard_normal(shape).astype(np.float32))
+    us = _split(u.to(cuda).to(dtype), mesh)
+    bounds = None if parts == 1 else partition_bounds(local[1], parts)
+    for kind in ("7pt", "27pt"):
+        taps = _taps(kind)
+        inst = fd.fused_instance(1, taps)
+        assert inst != 0
+        for periodic, bcv in ((False, 0.3), (True, 0.0)):
+            state = fd.FusedState(mesh, 1, dtype, periodic, bounds)
+            want = fd.reference_fused_step(us, taps, mesh, periodic, bcv)
+            for instance in (inst, 0):
+                before = fd.generic_launch_counts()["apply_step_fused_dma"]
+                got = fd.launch_instance(instance, us, taps, mesh, state, periodic, bcv)
+                torch.cuda.synchronize()
+                fd.raise_if_timed_out()
+                took = fd.generic_launch_counts()["apply_step_fused_dma"] - before
+                assert took == (instance == 0)
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (kind, periodic, instance)
+
+
+def test_fused_launches_in_a_row_see_fresh_landed_planes(cuda):
+    """50 compile-time fused launches on one state, the input changed on the
+    shard streams between them and no host sync: each launch's skin planes
+    must read the ghosts its own pushes landed, not an earlier launch's
+    (a stale read, through L1 or out of order, shows as a mismatch)."""
+    from heat3d_tpu_torch.ops import stencil_dma_fused as fd
+    from heat3d_tpu_torch.parallel.plan import partition_bounds
+
+    mesh = _card_mesh(cuda, (8, 1, 1), (8, 40, 70))
+    taps = _taps("7pt")
+    base = _split(torch.from_numpy(np.random.default_rng(15).standard_normal((64, 40, 70))
+                                   .astype(np.float32)).to(cuda), mesh)
+    state = fd.FusedState(mesh, 1, torch.float32, False, partition_bounds(40, 2))
+    snaps = []
+    mesh.fork()
+    for i in range(50):
+        us = []
+        for s, b in zip(mesh.shards, base):
+            with mesh.on(s):
+                us.append(b * (i + 1))
+        outs = fd.apply_step_fused_dma(us, taps, mesh, state, False, 0.3)
+        snap = []
+        for s, o in zip(mesh.shards, outs):
+            with mesh.on(s):
+                snap.append(o.clone())
+        snaps.append(snap)
+    mesh.join()
+    torch.cuda.synchronize()
+    fd.raise_if_timed_out()
+    for i, snap in enumerate(snaps):
+        want = fd.reference_fused_step([b * (i + 1) for b in base], taps, mesh, False, 0.3)
+        for g, w in zip(snap, want):
+            assert torch.equal(g, w), i
 
 
 def test_fused_launch_checks(cuda):
