@@ -14,8 +14,8 @@ non-zero without one. Phases, each printing its own lines:
    per SM (k = 1..4 x the 7pt, 27pt and generic instances x fp32/bf16) and
    each direct instance's shared memory, registers, spills and resident
    blocks per SM (halo 1 and 2 x the same instances), and the same for
-   each fused instance (the one-update kernel's 7pt, 27pt and generic
-   instances, the two-update kernel; fp32/bf16);
+   each fused instance (the one- and two-update kernels' 7pt, 27pt and
+   generic instances; fp32/bf16);
 3. hold each kernel against its plain PyTorch version on the card, bitwise,
    for 7pt/27pt x Dirichlet (bc 0 and 0.3)/periodic x fp32/bf16 storage at
    ragged shapes, 128^3 (the golden phase's grid) and 256^3: the direct
@@ -24,8 +24,8 @@ non-zero without one. Phases, each printing its own lines:
    odd nz, y and z no multiple of their tiles, nx = 1024 cut into x-chunks
    and a forced 3-plane x-chunk; every stencil kernel's generic instance at
    128^3 under the factoring knobs (``HEAT3D_FACTOR_7PT=1``,
-   ``HEAT3D_FACTOR_Y=0``, both; the one-update fused kernel too, over
-   (4,1,1)), each launch on the instance ``stream_instance`` names; also
+   ``HEAT3D_FACTOR_Y=0``, both; the fused kernels too, over (4,1,1)),
+   each launch on the instance ``stream_instance`` names; also
    the streamk plain version against k
    direct kernel launches, and the exchange-path solve of k steps against
    the direct-path solve, both bitwise;
@@ -77,22 +77,24 @@ non-zero without one. Phases, each printing its own lines:
    phase 4 holds them bitwise to their plain versions on (4,1,1), (8,1,1)
    and (2,2,2) at 128^3 (with the landed ghosts), 7pt/27pt x Dirichlet
    0.3/periodic x fp32/bf16, the RDMA ones with the plan's sub-blocks at
-   the default floor and at floor 0, and at the full-width shard shapes of
-   1024^3 over (8,1,1) and (4,1,1); 50 launches in a row without a host
+   the default floor and at floor 0, at the full-width shard shapes of
+   1024^3 over (8,1,1) and (4,1,1), and on a ragged, odd ny*nz (2,1,1)
+   mesh (sends whole, in two and in three ranges); 50 launches in a row
+   without a host
    sync; a state built mid-run on busy streams (1024^3 on (8,1,1), tb=2, 11
    steps, equal to the (1,1,1) solve); and every overlap route's 128^3
    solve against the (1,1,1) solve. Phases 5 and 6 run the overlap routes
    through the command line (golden) and ``bench_throughput`` (1024^3);
    phase 7 times each fused kernel at 1024^3 over all shards of the card
-   (the one-update kernels on their compile-time instance and on the
-   generic instance forced, in the same call).
+   (on its compile-time instance and on the generic instance forced, in
+   the same call).
 
 ``--only`` runs phases 1 and 2 and the named ones of ``PHASES`` (the
 check after a kernel change, before the whole run) and prints no kernels
 line. The kernel launch counts are zeroed just before phase 5 and read just after
 phase 6; the script fails if any kernel was not launched there, or if a
-direct, stream or one-update fused kernel launch there took the generic
-instance. The ``main_path``
+direct, stream or fused kernel launch there took the generic instance.
+The ``main_path``
 line also gives each wrapper's output cells as launches of the size the
 kernels line times (1024^3-equivalent launches). The last
 three lines are the kernels' JSON object (``{"kernels": [...]}``), the
@@ -103,6 +105,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import os
 import subprocess
@@ -346,7 +349,7 @@ def _direct_ptxas() -> dict:
 def _fused_ptxas() -> dict:
     """Registers and spills (bytes) of each fused kernel instance, from the
     compiler's report, keyed ``h<halo>_<instance>_<dtype>`` (the
-    compile-time one-update instances by chain, the interpreted kernels as
+    compile-time instances by chain, the interpreted kernels as
     ``generic``)."""
     import re
 
@@ -355,9 +358,9 @@ def _fused_ptxas() -> dict:
     names = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
     out = {}
     for entry, r in _build.ptxas_report("stencil_fused").items():
-        m = re.search(r"fused_chain_kernelI(f|13__nv_bfloat16)Li(\d)E", entry)
+        m = re.search(r"fused_chain_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)E", entry)
         if m:
-            out[f"h1_{_instance_name(int(m.group(2)))}_{names[m.group(1)]}"] = r
+            out[f"h{m.group(2)}_{_instance_name(int(m.group(3)))}_{names[m.group(1)]}"] = r
         m = re.search(r"fused_kernelI(f|13__nv_bfloat16)Li(\d)E", entry)
         if m:
             out[f"h{m.group(2)}_generic_{names[m.group(1)]}"] = r
@@ -406,8 +409,8 @@ def phase_build() -> dict:
     resources.update(direct)
     ptxas = _fused_ptxas()
     fused = {}
-    for h, codes in ((1, (ss.GENERIC, *ss.CHAINS)), (2, (ss.GENERIC,))):
-        for code in codes:
+    for h in (1, 2):
+        for code in (ss.GENERIC, *ss.CHAINS):
             for dtype in (torch.float32, torch.bfloat16):
                 key = f"h{h}_{_instance_name(code)}_{str(dtype)[6:]}"
                 fused[key] = {**fd.instance_resources(h, code, dtype),
@@ -415,7 +418,7 @@ def phase_build() -> dict:
                                  for f in ("spill_stores", "spill_loads")}}
                 _check(fused[key]["blocks_per_sm"] > 0,
                        f"fused instance {key} fits no SM: {fused[key]}")
-    _check(len(ptxas) == 8, f"compiler report of the fused instances: {sorted(ptxas)}")
+    _check(len(ptxas) == 12, f"compiler report of the fused instances: {sorted(ptxas)}")
     _say("build", fused_instances=fused)
     resources.update({f"fused_{k}": v for k, v in fused.items()})
     return resources
@@ -622,7 +625,7 @@ _KNOBS = ({"HEAT3D_FACTOR_7PT": "1"}, {"HEAT3D_FACTOR_Y": "0"},
 
 def _compare_generic(worst: dict) -> dict:
     """Every stencil kernel (direct1, direct2, the stream kernel and streamk
-    at k = 2..4, and the one-update fused kernel over (4,1,1)) at 128^3
+    at k = 2..4, and the one- and two-update fused kernels over (4,1,1)) at 128^3
     under the factoring knobs, 7pt/27pt x fp32/bf16 x three boundary
     settings (fused: Dirichlet 0.3 and periodic), bitwise against its plain
     version; each launch must take the instance ``stream_instance`` names
@@ -652,13 +655,14 @@ def _compare_generic(worst: dict) -> dict:
                             _hold_instance(worst, name, u, taps, periodic, bcv, k,
                                            f"k={k} at 128^3 {dtype} {tag} "
                                            f"periodic={periodic} bc={bcv}")
-                    for periodic, bcv in ((False, 0.3), (True, 0.0)):
-                        name = "apply_step_fused_dma"
+                    for (periodic, bcv), name in itertools.product(
+                            ((False, 0.3), (True, 0.0)),
+                            ("apply_step_fused_dma", "apply_superstep_fused_dma")):
+                        kern, plain = _fused_pair(name)
                         before = _generic_counts()[name]
-                        state = fd.FusedState(mesh, 1, dtype, periodic)
-                        got = fd.apply_step_fused_dma(us, taps, mesh, state, periodic, bcv)
-                        _hold_fused(worst, name, got,
-                                    fd.reference_fused_step(us, taps, mesh, periodic, bcv),
+                        state = fd.FusedState(mesh, _FUSED[name][0], dtype, periodic)
+                        got = kern(us, taps, mesh, state, periodic, bcv)
+                        _hold_fused(worst, name, got, plain(us, taps, mesh, None, periodic, bcv),
                                     f"128^3 on (4,1,1) {dtype} {tag} periodic={periodic}")
                         took = _generic_counts()[name] - before
                         _check(took == (code == ss.GENERIC),
@@ -1621,7 +1625,10 @@ def phase_compare_fused(worst: dict) -> None:
     landed ghosts too), 7pt/27pt x Dirichlet 0.3/periodic x fp32/bf16, the
     RDMA kernels at floor 0 and the default floor; the full-width shard
     shapes (1024^3 over (8,1,1), (4,1,1) and (2,2,2), the landed ghosts
-    too); 50 launches in a row; the overlap routes' 128^3 solves against the
+    too); (8,77,125) over (2,1,1), a ragged, odd ny*nz (bf16 planes, landed
+    ones too, start on either parity) with sends whole and in two and
+    three ranges, the same settings; 50 launches in a row; the overlap
+    routes' 128^3 solves against the
     (1,1,1) solve; and at 1024^3 against the (1,1,1) solve: the (8,1,1)
     tb=2 run whose tb=1 state is built mid-run on busy streams, the (2,2,2)
     3D fused route and the (2,2,2) overlap split."""
@@ -1634,6 +1641,7 @@ def phase_compare_fused(worst: dict) -> None:
     )
     from heat3d_tpu_torch.models.heat3d import HeatSolver3D
     from heat3d_tpu_torch.ops import stencil_dma_fused as fd
+    from heat3d_tpu_torch.parallel.plan import partition_bounds
     from heat3d_tpu_torch.parallel.step import step_route, superstep_route
 
     t0 = time.perf_counter()
@@ -1676,6 +1684,24 @@ def phase_compare_fused(worst: dict) -> None:
                 torch.cuda.empty_cache()
         del base
         torch.cuda.empty_cache()
+
+    mesh = _card_mesh((2, 1, 1), (4, 77, 125))
+    base = torch.from_numpy(
+        np.random.default_rng(16).standard_normal((8, 77, 125)).astype(np.float32)).cuda()
+    for kind, dtype, (periodic, bcv) in itertools.product(
+            ("7pt", "27pt"), (torch.float32, torch.bfloat16), ((False, 0.3), (True, 0.0))):
+        taps = _taps(kind)
+        us = _split(base.to(dtype), mesh)
+        for name, parts in itertools.product(_FUSED, (1, 2, 3)):
+            kern, plain = _fused_pair(name)
+            state = fd.FusedState(mesh, _FUSED[name][0], dtype, periodic,
+                                  partition_bounds(77, parts))
+            got = kern(us, taps, mesh, state, periodic, bcv)
+            _hold_fused(worst, name, got, plain(us, taps, mesh, None, periodic, bcv),
+                        f"(8,77,125) on (2,1,1) {kind} {dtype} periodic={periodic} bc={bcv} "
+                        f"ranges {state.bounds}")
+            cases += 1
+    del base, us
 
     mesh = _card_mesh((8, 1, 1), (16, 128, 128))
     base_us = _split(torch.from_numpy(
@@ -1739,6 +1765,11 @@ def phase_compare_fused(worst: dict) -> None:
          seconds=time.perf_counter() - t0)
 
 
+# interior x-chunks a shard that fused_times sweeps the compile-time
+# instances over (ms_by_xchunks)
+_FUSED_CHUNK_SWEEP = (1, 2, 3, 4, 6, 8, 12)
+
+
 def phase_fused_times(bw: float, worst: dict, resources: dict) -> dict:
     """Each fused kernel's ms per launch at 1024^3 fp32 7pt Dirichlet bc 0,
     one launch over all shards of the card (the DMA kernels on (8,1,1), the
@@ -1746,9 +1777,11 @@ def phase_fused_times(bw: float, worst: dict, resources: dict) -> dict:
     the full-width rows' meshes), its plain version's ms, and its bound:
     the field read once and written once plus each x-face slab sent read
     and written once; with the instance's registers, spills and resident
-    blocks per SM. The one-update kernels run on their compile-time 7pt
-    instance and, timed in the same call, on the generic instance forced
-    (the first design). Each timed launch is held bitwise to its plain
+    blocks per SM. Each kernel runs on its compile-time 7pt instance (also
+    at 1 to 12 interior x-chunks a shard, ``ms_by_xchunks``) and, timed in
+    the same call, on the generic instance forced (the first design); the
+    DMA kernels also over (2,1,1) (``ms_on_2x1x1``: two 512-plane shards,
+    little skin and push). Each timed launch is held bitwise to its plain
     version. The one-update kernels' result over all shards is one update
     of the 1024^3 field: their library call is one cuDNN convolution (TF32
     off, never called by the port) over the shards joined and padded with
@@ -1779,13 +1812,13 @@ def phase_fused_times(bw: float, worst: dict, resources: dict) -> dict:
         want = plain(us, taps, mesh, None, False, 0.0)
         inst = fd.fused_instance(k, taps)
 
-        def go(instance=None, dst=outs):
+        def go(instance=None, dst=outs, xchunk=None):
             mesh.fork()
             if instance is None:
                 kern(us, taps, mesh, state, False, 0.0, outs=dst)
             else:
                 fd.launch_instance(instance, us, taps, mesh, state, False, 0.0, outs=dst,
-                                   wrapper=kern)
+                                   wrapper=kern, xchunk=xchunk)
             mesh.join()
 
         ms = _time_ms(go, iters=10)
@@ -1797,24 +1830,36 @@ def phase_fused_times(bw: float, worst: dict, resources: dict) -> dict:
                        "library_ms": None, "bytes": moved, "mesh": list(mesh_shape),
                        "send_ranges": [list(b) for b in state.bounds],
                        "instance": _instance_name(inst),
+                       "kernel": (f"fused_chain_kernel<float,{k},{_instance_name(inst)}>"
+                                  if inst else f"fused_kernel<float,{k}>"),
                        "xchunk": fd._launch_xchunk(k, inst, tuple(mesh.local_shape),
                                                    len(mesh), 0, torch.float32),
                        **{f: res[f] for f in ("blocks_per_sm", "registers", "spill_stores",
                                               "spill_loads")}}
+        # the interior cut into c x-chunks a shard (each re-reads 2k planes)
+        inner = mesh.local_shape[0] - 2 * k
+        sweep = {}
+        for c in _FUSED_CHUNK_SWEEP:
+            swept = [torch.empty_like(u) for u in us]
+            sweep[c] = _time_ms(lambda: go(inst, swept, -(-inner // c)), iters=5)
+            _hold_fused(worst, name, swept, want,
+                        f"{c} x-chunks at {n}^3 on {mesh_shape}")
+        times[name]["ms_by_xchunks"] = sweep
+        del swept
+        outs_generic = [torch.empty_like(u) for u in us]
+        generic_ms = _time_ms(lambda: go(0, outs_generic), iters=10)
+        _hold_fused(worst, name, outs_generic, want,
+                    f"generic instance at {n}^3 on {mesh_shape}")
+        gres = resources[f"fused_h{k}_generic_float32"]
+        times[name]["generic"] = {
+            "ms": generic_ms, "xchunk": fd._launch_xchunk(k, 0, tuple(mesh.local_shape),
+                                                          len(mesh), 0, torch.float32),
+            **{f: gres[f] for f in ("blocks_per_sm", "registers", "spill_stores",
+                                    "spill_loads")}}
+        _check(ms < generic_ms, f"{name}: compile-time instance {ms} ms, generic "
+                                f"{generic_ms} ms at {n}^3 on {mesh_shape}")
+        del outs_generic
         if k == 1:
-            outs_generic = [torch.empty_like(u) for u in us]
-            generic_ms = _time_ms(lambda: go(0, outs_generic), iters=10)
-            _hold_fused(worst, name, outs_generic, want,
-                        f"generic instance at {n}^3 on {mesh_shape}")
-            gres = resources["fused_h1_generic_float32"]
-            times[name]["generic"] = {
-                "ms": generic_ms, "xchunk": fd._launch_xchunk(1, 0, tuple(mesh.local_shape),
-                                                              len(mesh), 0, torch.float32),
-                **{f: gres[f] for f in ("blocks_per_sm", "registers", "spill_stores",
-                                        "spill_loads")}}
-            _check(ms < generic_ms, f"{name}: compile-time instance {ms} ms, generic "
-                                    f"{generic_ms} ms at {n}^3 on {mesh_shape}")
-            del outs_generic
             torch.backends.cudnn.allow_tf32 = False
             w = torch.from_numpy(np.asarray(taps, dtype=np.float32)).cuda()[None, None]
             up = F.pad(torch.cat(us), (1, 1, 1, 1, 1, 1), value=0.0)[None, None]
@@ -1824,6 +1869,27 @@ def phase_fused_times(bw: float, worst: dict, resources: dict) -> dict:
             del up
         del us, outs, state, want
         torch.cuda.empty_cache()
+    # the DMA kernels over (2,1,1), two 512-plane shards, where the skin
+    # planes and the pushes are a small part of the launch: the sweep beside
+    # the direct kernels' (kernel_times)
+    mesh = _card_mesh((2, 1, 1), (n // 2, n, n))
+    us = [torch.rand(mesh.local_shape, device=s.device) for s in mesh.shards]
+    outs = [torch.empty_like(u) for u in us]
+    for name in ("apply_step_fused_dma", "apply_superstep_fused_dma"):
+        kern, plain = _fused_pair(name)
+        state = _fused_state(mesh, name, torch.float32, False)
+
+        def go2():
+            mesh.fork()
+            kern(us, taps, mesh, state, False, 0.0, outs=outs)
+            mesh.join()
+
+        times[name]["ms_on_2x1x1"] = _time_ms(go2, iters=10)
+        _hold_fused(worst, name, outs, plain(us, taps, mesh, None, False, 0.0),
+                    f"at {n}^3 on (2, 1, 1)")
+        del state
+    del us, outs
+    torch.cuda.empty_cache()
     _say("fused_times", grid=[n, n, n], stencil="7pt", dtype="float32", bc_value=0.0,
          times=times, bitwise=True, max_abs_err={k: worst[k] for k in _FUSED})
     return times
@@ -1895,8 +1961,8 @@ def phase_main_path(bw: float) -> dict:
     for name in KERNELS:
         _check(launches[name] > 0, f"{name} was not launched on the main path")
     _check(not any(generic.values()),
-           f"the main path's 7pt/27pt direct, stream or one-update fused launches took "
-           f"the generic instance: {generic}")
+           f"the main path's 7pt/27pt direct, stream or fused launches took the generic "
+           f"instance: {generic}")
     equiv = {name: cells[name] / _unit_cells(name) for name in KERNELS}
     _say("main_path", kernel_launches=launches, generic_instance_launches=generic,
          output_cells=cells, launches_1024_equivalent=equiv,
@@ -1967,7 +2033,8 @@ def main(argv=None) -> int:
              "replaces": _REPLACES[name], "launches": launches[name],
              "max_abs_err": worst[name],
              **{key: times[name][key] for key in
-                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+             **({"instance": times[name]["kernel"]} if "kernel" in times[name] else {})}
             for name in KERNELS
         ]
         print(json.dumps({"kernels": kernels}))

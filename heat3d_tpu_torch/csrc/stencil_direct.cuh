@@ -1,20 +1,23 @@
 // The sweep of the port's direct-stencil kernels (stencil_direct.cu) and of
-// the compile-time instance of the one-update fused kernel
-// (stencil_fused.cu): H updates of the output planes [xs0, xe) of one
-// (y, z) tile, with the y/z ghosts built by the loader as a domain
-// boundary (Dirichlet bc or periodic wrap) and the input planes taken from
-// a plane source Src:
-//   * FieldPlanes (direct): the unpadded field's plane, wrapped under
-//     periodic boundaries, or bc beyond a Dirichlet x domain face;
-//   * ShardPlanes (fused): a shard's own plane, a plane another block or
-//     GPU landed in a buffer during the launch (loaded through L2, not
-//     L1), or bc at a Dirichlet x domain face.
+// the compile-time instances of the fused kernels (stencil_fused.cu): H
+// updates of the output planes [xs0, xe) of one (y, z) tile, with the y/z
+// ghosts built by the loader as a domain boundary (Dirichlet bc or periodic
+// wrap) and the input planes taken from a plane source Src:
+//   * FieldPlanes (direct, and the fused kernels' interior tiles): the
+//     unpadded field's plane, wrapped under periodic boundaries, or bc
+//     beyond a Dirichlet x domain face;
+//   * ShardPlanes<T, H> (the fused kernels' skin tiles): a shard's own
+//     plane, one of the H planes on each side that another block or GPU
+//     landed in a buffer during the launch (loaded through L2, not L1), or
+//     bc at a Dirichlet x domain face.
 // A source answers at(gx) (the plane's base, null for a bc plane),
-// is_bc(gx) (at(gx) is null), landed(gx) and parity(gx) (bf16: the parity
-// of the plane's first element, every buffer being 4-byte aligned), and
-// says with kLands whether it can land planes at all (FieldPlanes cannot:
-// the landed path compiles away). The design is described at the head of
-// stencil_direct.cu.
+// is_bc(gx) (at(gx) is null: at H = 2 the level-1 plane there is pinned to
+// bc), landed(gx) and parity(gx) (bf16: the parity of the plane's first
+// element, every buffer being 4-byte aligned), and says with kLands whether
+// it can land planes at all (FieldPlanes cannot: the landed path compiles
+// away). The sweep asks the source nothing else, so the depth of the
+// landed region is the source's own. The design is described at the head
+// of stencil_direct.cu.
 
 #pragma once
 

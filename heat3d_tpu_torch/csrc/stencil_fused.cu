@@ -9,11 +9,11 @@
 // and heat3d_tpu/ops/stencil_fused_rdma.py:
 //   * ::apply_step_fused_rdma / ::apply_superstep_fused_rdma (the same
 //     sweeps with the sends split per ExchangePlan sub-block, _planned_rdma)
-// -> fused_chain_kernel<T, S> (one update, the chain S fixed at compile
-// time), fused_kernel<T, 1> (one update, any other chain: the generic
-// instance) and fused_kernel<T, 2>, each driven by a table of send ranges
-// (one y-range per face for the DMA rows, the plan's ranges for the RDMA
-// rows), with one flag word per (receiver, side, range).
+// -> fused_chain_kernel<T, H, S> (H = 1 or 2 updates, the chain S fixed at
+// compile time) and fused_kernel<T, H> (any other chain: the generic
+// instance, the first design), each driven by a table of send ranges (one
+// y-range per face for the DMA rows, the plan's ranges for the RDMA rows),
+// with one flag word per (receiver, side, range).
 //
 // Bound: device-memory bytes, as the direct kernels: the field read once and
 // written once, plus each face slab read once and written once into the
@@ -44,18 +44,23 @@
 // same exchange, so a push never lands in a buffer a previous step still
 // reads, nor in flags not yet zeroed (ops/stencil_dma_fused.py).
 //
-// fused_chain_kernel<T, S> (the 7pt and 27pt chains of the wrapper's table,
-// ops/stencil_stream.py CHAINS) sweeps a tile with direct_kernel<T, 1, S>'s
-// block state (stencil_direct.cuh): 32 x 8 threads own a 64 x 40 frame,
-// x-neighbours in registers, the chain unrolled, input planes loaded ahead
-// by cp.async, the y/z ghosts built by the loader as a domain boundary
-// (wrap or bc). Its plane source (ShardPlanes) gives input plane gx as the
-// shard's own plane (0 <= gx < nx), the landing buffer a neighbour pushes
-// into, or bc at a Dirichlet x domain face. Interior tiles read own planes
-// only; a skin tile reads one landed plane, after its acquire, with
-// synchronous ld.global.cg loads: another block or GPU wrote it during the
-// launch, so it must not come through L1. A send's slab is one contiguous
-// run of (y1 - y0) * nz elements, pushed as 16-byte vectors where the
+// fused_chain_kernel<T, H, S> (the 7pt and 27pt chains of the wrapper's
+// table, ops/stencil_stream.py CHAINS) sweeps a tile with
+// direct_kernel<T, H, S>'s block state (stencil_direct.cuh): 32 x 8 threads
+// own a 64 x 40 (H = 1) or 64 x 32 (H = 2) frame, x-neighbours in
+// registers, the chain unrolled, input planes loaded ahead by cp.async, the
+// y/z ghosts built by the loader as a domain boundary (wrap or bc), at H = 2
+// the level-1 plane in one shared slot, rounded to T and pinned to bc
+// outside the domain. Interior tiles read the shard's own planes only, so
+// they take the field's plane source (FieldPlanes, nothing landed: the
+// sweep of direct_kernel itself). Skin tiles take ShardPlanes<T, H>: input
+// plane gx is the shard's own plane (0 <= gx < nx), plane gx + H or gx - nx
+// of the (H, ny, nz) landing buffer a neighbour pushes into, or bc at a
+// Dirichlet x domain face, where the level-1 plane is pinned to bc too
+// (is_bc). A skin tile reads its H landed planes after its acquire, with
+// synchronous ld.global.cg loads: another block or GPU wrote them during
+// the launch, so they must not come through L1. A send's slab is H runs of
+// (y1 - y0) * nz elements, one a plane, pushed as 16-byte vectors where the
 // source and destination share their alignment (copy_rows.cuh).
 //
 // fused_kernel<T, H> is the first design: the tap program interpreted
@@ -70,11 +75,12 @@
 // its plain version (ops.stencil_dma_fused.reference_fused_*) bitwise.
 //
 // Measured (chip_smoke.py fused_times, "NVIDIA H100 80GB HBM3, 700.00 W"),
-// 1024^3 fp32 7pt in one launch over all shards: fused_chain_kernel 5.96 ms
-// over (8,1,1) and 5.66 over (4,1,1) (3 blocks/SM, 79 registers, no
-// spills; bytes bound 2.60 / 2.58), the generic fused_kernel<T,1> 13.2 /
-// 12.7 in the same calls, fused_kernel<T,2> 25.9 / 25.0 (bound 2.63 /
-// 2.59); PERF.md section 6 rows 9-12.
+// 1024^3 fp32 7pt in one launch over all shards, over (8,1,1) / (4,1,1):
+// fused_chain_kernel at H = 1 5.69 / 5.55 ms (78 registers, no spills;
+// bytes bound 2.60 / 2.58), at H = 2 6.86 / 6.30 (80 registers, 12 bytes
+// of spills; bound 2.63 / 2.59), both at 3 blocks/SM; the generic
+// fused_kernel<T,1> 12.82 / 12.61 and fused_kernel<T,2> 25.33 / 24.91 in
+// the same call; PERF.md section 6 rows 9-12.
 //
 // Launches go on the caller's stream, allocate nothing, and return
 // cudaGetLastError() (or the launch's own error).
@@ -131,7 +137,13 @@ struct FusedArgs {
 
 namespace {
 
-constexpr int PUSH_CHUNK = NTHREADS * 8;  // elements of one push tile
+// Elements of one push tile. Each tile ends in a system-scope fence, a
+// barrier and an arrival: 128 KB (fp32) tiles took the two-update launch
+// 6.90 / 6.62 ms over (8,1,1) and 6.62 / 6.27 over (4,1,1) where 8 KB
+// tiles took 6.93 and 6.85 (chip_smoke.py fused_times on copies with this
+// constant edited, one call, "NVIDIA H100 80GB HBM3, 700.00 W"); the
+// one-update launch did not move.
+constexpr int PUSH_CHUNK = NTHREADS * 128;
 
 template <class T>
 struct Bits;
@@ -441,22 +453,30 @@ __global__ void __launch_bounds__(NTHREADS)
 }
 
 // ---------------------------------------------------------------------------
-// The compile-time instance of the one-update kernel: fused_chain_kernel<T,
-// S>, the sweep of direct_kernel<T, 1, S> (stencil_direct.cuh) over the
-// shard's planes, the landing buffers and bc.
+// The compile-time instances: fused_chain_kernel<T, H, S>, the sweep of
+// direct_kernel<T, H, S> (stencil_direct.cuh) over the shard's planes, the
+// landing buffers and bc.
 
-// The input planes of one shard: its own (0 <= gx < nx), the landed ghost
-// planes, or bc (null: a Dirichlet x domain face, no neighbour).
-template <class T>
+// The input planes of a skin tile's shard for H updates: its own
+// (0 <= gx < nx), the landed ghost planes -H..-1 and nx..nx+H-1 (the
+// landing buffers, each (H, ny, nz)), or bc (null: a Dirichlet x domain
+// face, no neighbour).
+template <class T, int H>
 struct ShardPlanes {
   static constexpr bool kLands = true;
   const T* u;
-  const T* lo;  // plane -1
-  const T* hi;  // plane nx
+  const T* lo;  // planes -H..-1
+  const T* hi;  // planes nx..nx+H-1
   int64_t plane;
   int nx;
+  // a landed plane's index in its landing buffer
+  __device__ __forceinline__ int slab(int gx) const {
+    return gx < 0 ? gx + H : gx - nx;
+  }
   __device__ __forceinline__ const T* at(int gx) const {
-    return gx < 0 ? lo : gx >= nx ? hi : u + gx * plane;
+    if (!landed(gx)) return u + gx * plane;
+    const T* b = gx < 0 ? lo : hi;
+    return b == nullptr ? nullptr : b + slab(gx) * plane;
   }
   __device__ __forceinline__ bool is_bc(int gx) const {
     return at(gx) == nullptr;
@@ -464,30 +484,42 @@ struct ShardPlanes {
   __device__ __forceinline__ bool landed(int gx) const {
     return gx < 0 || gx >= nx;
   }
+  // bf16: a landed plane starts at the parity of its slab offset
   __device__ __forceinline__ int parity(int gx) const {
-    return landed(gx) ? 0 : (int)(gx & plane & 1);
+    return (int)((landed(gx) ? slab(gx) : gx) & plane & 1);
   }
 };
 
-// Push tile t of the one-update instance: its chunk of one send's x-face
-// slab, which is one contiguous run of (y1 - y0) * nz elements, copied as
-// vectors where the source and destination allow; then the arrival, as in
-// push_tile.
-template <class T>
+// Push tile t: its chunk of one send, the sender's planes x0..x0+H-1 over
+// rows [y0, y1). Those are H runs of (y1 - y0) * nz elements, one a plane
+// (they meet when the range is the whole face), laid end to end as the
+// host counts the send's tiles (ceil(H * (y1 - y0) * nz / PUSH_CHUNK));
+// each run's part of the chunk is copied as vectors where the source and
+// destination allow. Then the arrival, as in push_tile.
+template <class T, int H>
 __device__ void push_flat(const FusedArgs& a, int t) {
   typedef typename Bits<T>::type B;
   int s = 0;
   while (s + 1 < a.nsends && a.sends[s + 1].tile0 <= t) ++s;
   const FusedSend snd = a.sends[s];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int64_t plane = (int64_t)a.ny * a.nz;
   const int64_t at = (int64_t)snd.y0 * a.nz;
-  const int64_t n = (int64_t)(snd.y1 - snd.y0) * a.nz;
+  const int64_t run = (int64_t)(snd.y1 - snd.y0) * a.nz;
   const int64_t lo = (int64_t)(t - snd.tile0) * PUSH_CHUNK;
-  const int len = (int)((lo + PUSH_CHUNK < n ? lo + PUSH_CHUNK : n) - lo);
+  const int64_t hi = lo + PUSH_CHUNK < H * run ? lo + PUSH_CHUNK : H * run;
   const B* src = static_cast<const B*>(a.u[snd.shard]) +
-                 (int64_t)snd.x0 * a.ny * a.nz + at + lo;
-  B* dst = static_cast<B*>(snd.dst) + at + lo;
-  copy_row<B>(dst, src, len, tid, SNT, false, B(0), 0u);
+                 (int64_t)snd.x0 * plane + at;
+  B* dst = static_cast<B*>(snd.dst) + at;
+#pragma unroll
+  for (int q = 0; q < H; ++q) {
+    const int64_t b = lo > q * run ? lo : q * run;
+    const int64_t e = hi < (q + 1) * run ? hi : (q + 1) * run;
+    if (b < e) {
+      const int64_t o = q * plane + (b - q * run);
+      copy_row<B>(dst + o, src + o, (int)(e - b), tid, SNT, false, B(0), 0u);
+    }
+  }
   // arrival: this block's stores are visible system-wide before it counts
   __threadfence_system();
   __syncthreads();
@@ -500,74 +532,91 @@ __device__ void push_flat(const FusedArgs& a, int t) {
   }
 }
 
-// Launch bounds: three blocks an SM, so a thread may hold 85 registers; at
-// four (64) the tile loops spill (chip probe: 3 blocks/SM, no spills, ran
-// faster than 4 or 5 with spills).
+// Launch bounds: three blocks an SM, so a thread may hold 85 registers.
+// One update: at four (64) the tile loops spill (chip probe: 3 blocks/SM, no
+// spills, ran faster than 4 or 5 with spills). Two updates, 7pt fp32 at
+// 1024^3 over (8,1,1) / (4,1,1) (chip_smoke.py fused_times on copies with
+// this bound edited, "NVIDIA H100 80GB HBM3, 700.00 W"): 3 blocks/SM, 80
+// registers, 12 bytes of spills, 6.93 / 6.85 ms against 4 blocks/SM, 64
+// registers, 4 bytes of spills, 7.80 / 6.73 and 7.56 / 7.05 in the same
+// call; 2 blocks/SM, 117 registers, no spills, lost to 3 in an earlier
+// call (8.66 / 7.68 against 7.79 / 7.44).
 constexpr int CHAIN_MIN_BLOCKS = 3;
 
-template <class T, int S>
+// A sweep's block state over the launch's geometry, its slots in `smem`.
+template <class T, int H, int S, class Src>
+__device__ __forceinline__ void init_sweep(Direct<T, H, S, Src>& st,
+                                           unsigned char* smem,
+                                           const FusedArgs& a) {
+  using G = Geom<H>;
+  st.in_slot = reinterpret_cast<T*>(smem);
+  st.lvl = st.in_slot + in_slots<T, H, S>() * G::FH * in_stride<T, H>();
+  st.xsp = reinterpret_cast<float*>(st.lvl + (H - 1) * G::FH * G::FW);
+  st.ny = a.ny;
+  st.nz = a.nz;
+  st.periodic = a.periodic;
+  st.bc = a.bc;
+}
+
+template <class T, int H, int S>
 __global__ void __launch_bounds__(SNT, CHAIN_MIN_BLOCKS)
     fused_chain_kernel(FusedArgs a, Weights w, unsigned int* err) {
   static_assert(centre_x_only<S>(),
                 "chain reads x-1/x+1 planes off the cell: generic instance");
-  using G = Geom<1>;
+  using G = Geom<H>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int NB = gridDim.x;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
 
   // 1. pushes
-  for (int t = blockIdx.x; t < a.push_tiles; t += NB) push_flat<T>(a, t);
+  for (int t = blockIdx.x; t < a.push_tiles; t += NB) push_flat<T, H>(a, t);
 
-  Direct<T, 1, S, ShardPlanes<T>> st;
-  st.in_slot = reinterpret_cast<T*>(smem_raw);
-  st.lvl = st.in_slot + in_slots<T, 1, S>() * G::FH * in_stride<T, 1>();
-  st.xsp = reinterpret_cast<float*>(st.lvl);
-  st.ny = a.ny;
-  st.nz = a.nz;
-  st.periodic = a.periodic;
-  st.bc = a.bc;
   const int64_t plane = (int64_t)a.ny * a.nz;
   const int nzt = (a.nz + G::TZ - 1) / G::TZ;
   const int yz = ((a.ny + G::TY - 1) / G::TY) * nzt;
-  // the tile's shard: its planes and output
-  auto on_shard = [&](int li) {
-    const FusedShard sh = a.shards[li];
-    st.src = ShardPlanes<T>{static_cast<const T*>(a.u[li]),
-                            sh.wait_lo ? static_cast<const T*>(sh.glo) : nullptr,
-                            sh.wait_hi ? static_cast<const T*>(sh.ghi) : nullptr,
-                            plane, a.nx};
-    st.out = static_cast<T*>(a.out[li]);
-    return sh;
-  };
 
-  // 2. interior: output planes [1, nx-1), the shard's own planes only
-  const int inner = a.nx - 2;
-  const int nchunks = inner > 0 ? (inner + a.xchunk - 1) / a.xchunk : 0;
-  const int interior_tiles = a.nlocal * nchunks * yz;
-  for (int t = blockIdx.x; t < interior_tiles; t += NB) {
-    const int li = t / (nchunks * yz);
-    const int rest = t - li * nchunks * yz;
-    const int ch = rest / yz;
-    const int tyz = rest - ch * yz;
-    on_shard(li);
-    st.y0 = (tyz / nzt) * G::TY;
-    st.z0 = (tyz % nzt) * G::TZ;
-    st.xs0 = 1 + ch * a.xchunk;
-    __syncthreads();  // the previous tile has read its slots
-    st.run(min(a.nx - 1, st.xs0 + a.xchunk), w);
+  // 2. interior: output planes [H, nx-H). Their input planes are the
+  // shard's own, so the field's plane source serves (no wrap, nothing
+  // landed: the sweep state of direct_kernel).
+  {
+    Direct<T, H, S, FieldPlanes<T>> st;
+    init_sweep(st, smem_raw, a);
+    const int inner = a.nx - 2 * H;
+    const int nchunks = inner > 0 ? (inner + a.xchunk - 1) / a.xchunk : 0;
+    const int interior_tiles = a.nlocal * nchunks * yz;
+    for (int t = blockIdx.x; t < interior_tiles; t += NB) {
+      const int li = t / (nchunks * yz);
+      const int rest = t - li * nchunks * yz;
+      const int ch = rest / yz;
+      const int tyz = rest - ch * yz;
+      st.src = FieldPlanes<T>{static_cast<const T*>(a.u[li]), plane, a.nx, 0};
+      st.out = static_cast<T*>(a.out[li]);
+      st.y0 = (tyz / nzt) * G::TY;
+      st.z0 = (tyz % nzt) * G::TZ;
+      st.xs0 = H + ch * a.xchunk;
+      __syncthreads();  // the previous tile has read its slots
+      st.run(min(a.nx - H, st.xs0 + a.xchunk), w);
+    }
   }
 
-  // 3. skin: output planes 0 and nx-1, after the waits
+  // 3. skin: output planes [0, H) and [nx-H, nx), after the waits
+  Direct<T, H, S, ShardPlanes<T, H>> st;
+  init_sweep(st, smem_raw, a);
   const int skin_tiles = a.nlocal * 2 * yz;
   for (int t = blockIdx.x; t < skin_tiles; t += NB) {
     const int li = t / (2 * yz);
     const int rest = t - li * 2 * yz;
     const int side = rest / yz;
     const int tyz = rest - side * yz;
-    const FusedShard sh = on_shard(li);
+    const FusedShard sh = a.shards[li];
+    st.src = ShardPlanes<T, H>{
+        static_cast<const T*>(a.u[li]),
+        sh.wait_lo ? static_cast<const T*>(sh.glo) : nullptr,
+        sh.wait_hi ? static_cast<const T*>(sh.ghi) : nullptr, plane, a.nx};
+    st.out = static_cast<T*>(a.out[li]);
     st.y0 = (tyz / nzt) * G::TY;
     st.z0 = (tyz % nzt) * G::TZ;
-    st.xs0 = side == 0 ? 0 : a.nx - 1;
+    st.xs0 = side == 0 ? 0 : a.nx - H;
     __syncthreads();  // the previous tile has read its slots
     if (tid == 0 && (side == 0 ? sh.wait_lo : sh.wait_hi)) {
       const unsigned long long t0 = globaltimer_ns();
@@ -579,7 +628,7 @@ __global__ void __launch_bounds__(SNT, CHAIN_MIN_BLOCKS)
       __threadfence();
     }
     __syncthreads();
-    st.run(st.xs0 + 1, w);
+    st.run(st.xs0 + H, w);
   }
 }
 
@@ -605,24 +654,24 @@ int cooperative_grid(const void* fn, int threads, int smem, long long want,
   return 0;
 }
 
-// The compile-time instance of chain S.
-template <class T, int S>
+// The compile-time instance of H updates of chain S.
+template <class T, int H, int S>
 struct Chain {
-  static constexpr int bytes = smem_bytes<T, 1, S>();
+  static constexpr int bytes = smem_bytes<T, H, S>();
   static const void* fn() {
-    return reinterpret_cast<const void*>(fused_chain_kernel<T, S>);
+    return reinterpret_cast<const void*>(fused_chain_kernel<T, H, S>);
   }
   static cudaError_t prepare() {
     static std::atomic<unsigned long long> done{0};
-    return set_smem_once(done, fused_chain_kernel<T, S>, bytes);
+    return set_smem_once(done, fused_chain_kernel<T, H, S>, bytes);
   }
   static int launch(const FusedArgs& a, cudaStream_t stream) {
     cudaError_t err = prepare();
     if (err != cudaSuccess) return static_cast<int>(err);
-    using G = Geom<1>;
+    using G = Geom<H>;
     const long long yz = (long long)((a.ny + G::TY - 1) / G::TY) *
                          ((a.nz + G::TZ - 1) / G::TZ);
-    const int inner = a.nx - 2;
+    const int inner = a.nx - 2 * H;
     const int nchunks = inner > 0 ? (inner + a.xchunk - 1) / a.xchunk : 0;
     long long want = a.push_tiles;
     if ((long long)a.nlocal * nchunks * yz > want) {
@@ -685,22 +734,22 @@ struct Interpreted {
 };
 
 // f.template run<Instance, threads>() for instance (halo, spec, dtype):
-// spec 0 the interpreted kernel (halo 1 or 2), 1 / 2 the compile-time 7pt /
-// 27pt chain (halo 1); `bad` for arguments no instance takes.
-template <class T, class F>
-int by_spec(int halo, int spec, const F& f) {
-  if (halo == 2) {
-    return spec == SPEC_GENERIC ? f.template run<Interpreted<T, 2>>(NTHREADS)
-                                : f.bad;
-  }
+// spec 0 the interpreted kernel, 1 / 2 the compile-time 7pt / 27pt chain.
+template <class T, int H, class F>
+int by_spec(int spec, const F& f) {
   switch (spec) {
     case SPEC_7PT:
-      return f.template run<Chain<T, SPEC_7PT>>(SNT);
+      return f.template run<Chain<T, H, SPEC_7PT>>(SNT);
     case SPEC_27PT:
-      return f.template run<Chain<T, SPEC_27PT>>(SNT);
+      return f.template run<Chain<T, H, SPEC_27PT>>(SNT);
     default:
-      return f.template run<Interpreted<T, 1>>(NTHREADS);
+      return f.template run<Interpreted<T, H>>(NTHREADS);
   }
+}
+
+template <class T, class F>
+int by_halo(int halo, int spec, const F& f) {
+  return halo == 1 ? by_spec<T, 1>(spec, f) : by_spec<T, 2>(spec, f);
 }
 
 template <class F>
@@ -709,8 +758,8 @@ int with_instance(int halo, int spec, int dtype, const F& f) {
       spec < SPEC_GENERIC || spec > SPEC_27PT) {
     return f.bad;
   }
-  return dtype == 0 ? by_spec<float>(halo, spec, f)
-                    : by_spec<__nv_bfloat16>(halo, spec, f);
+  return dtype == 0 ? by_halo<float>(halo, spec, f)
+                    : by_halo<__nv_bfloat16>(halo, spec, f);
 }
 
 struct BlocksPerSm {
@@ -761,7 +810,7 @@ unsigned int heat3d_fused_error() { return read_error_word(); }
 // Resident blocks per SM of instance (halo, spec, dtype) (the cooperative
 // grid is this times the SM count), registers a thread and dynamic shared
 // memory of one block; -1 on an error or for no such instance. spec: 0 the
-// interpreted kernel, 1 / 2 the compile-time 7pt / 27pt chain (halo 1).
+// interpreted kernel, 1 / 2 the compile-time 7pt / 27pt chain.
 int heat3d_fused_blocks_per_sm(int halo, int spec, int dtype) {
   return with_instance(halo, spec, dtype, BlocksPerSm{});
 }
@@ -773,15 +822,16 @@ int heat3d_fused_smem_bytes(int halo, int spec, int dtype) {
 }
 
 // Constants the wrapper lays its tables out by, and the (y, z) tile of an
-// instance (spec 0: the interpreted kernel's; else the chain's, halo 1).
+// instance (spec 0: the interpreted kernel's; else the chain's of `halo`
+// updates).
 int heat3d_fused_max_local() { return MAX_LOCAL; }
 int heat3d_fused_max_parts() { return MAX_PARTS; }
 int heat3d_fused_push_chunk() { return PUSH_CHUNK; }
-int heat3d_fused_tile_y(int spec) {
-  return spec == SPEC_GENERIC ? TY : Geom<1>::TY;
+int heat3d_fused_tile_y(int halo, int spec) {
+  return spec == SPEC_GENERIC ? TY : halo == 1 ? Geom<1>::TY : Geom<2>::TY;
 }
-int heat3d_fused_tile_z(int spec) {
-  return spec == SPEC_GENERIC ? TZ : Geom<1>::TZ;
+int heat3d_fused_tile_z(int halo, int spec) {
+  return spec == SPEC_GENERIC ? TZ : halo == 1 ? Geom<1>::TZ : Geom<2>::TZ;
 }
 int heat3d_fused_args_bytes() { return (int)sizeof(FusedArgs); }
 int heat3d_fused_shard_bytes() { return (int)sizeof(FusedShard); }

@@ -27,24 +27,24 @@ VMEM (``_fused_choose_chunk``, ``_GHOST_BUDGET``): the CUDA kernel tiles
 (y, z) and keeps the ghost planes in device memory, so it has no such
 limit, and the port's gates accept every shape the rules above allow.
 
-The one-update kernel has an instance with the chain fixed at compile time
-for each entry of the stream kernels' table (``stencil_stream.CHAINS``:
-``fused_chain_kernel<T, S>``, the direct kernel's sweep over the shard's
-planes and the landing buffers) and a generic instance that interprets any
-other program (``fused_kernel<T, 1>``, the first design);
-``stencil_stream.stream_instance`` picks one, as for the direct and stream
-kernels, and :func:`launch_instance` forces one for a measurement. The
-two-update kernel (``fused_kernel<T, 2>``) has the interpreted design
-only. A launch error raises: no launch falls back to another instance.
+Each kernel (one update or two) has an instance with the chain fixed at
+compile time for each entry of the stream kernels' table
+(``stencil_stream.CHAINS``: ``fused_chain_kernel<T, H, S>``, the direct
+kernel's sweep over the shard's planes and the landing buffers) and a
+generic instance that interprets any other program (``fused_kernel<T, H>``,
+the first design); ``stencil_stream.stream_instance`` picks one, as for
+the direct and stream kernels, and :func:`launch_instance` forces one for
+a measurement. A launch error raises: no launch falls back to another
+instance.
 
 The landing buffers, flag words, arrival counters, device tables and epoch
 live in a :class:`FusedState`, one per (mesh, width, send ranges, storage
 dtype, boundary), built and zeroed on the stream its kernels run on.
 
 ``<wrapper>.launches`` counts launches (one per device and call),
-``<wrapper>.cells`` their output cells, and, for the one-update wrappers,
-``<wrapper>.generic_launches`` the launches that took the generic
-instance; ``launch_counts`` and ``generic_launch_counts`` report them.
+``<wrapper>.cells`` their output cells, and ``<wrapper>.generic_launches``
+the launches that took the generic instance; ``launch_counts`` and
+``generic_launch_counts`` report them.
 """
 
 from __future__ import annotations
@@ -76,9 +76,9 @@ TIMEOUT_NS = 2_000_000_000
 _TARGET_TILES = 4096
 _MIN_XCHUNK = 16
 # the compile-time instances: waves of resident blocks the interior tiles
-# aim for, with chunks no shorter than _MIN_CHAIN_XCHUNK planes
+# aim for, by halo, with chunks no shorter than _MIN_CHAIN_XCHUNK planes
 # (``wave_xchunk``)
-_WAVES = 48
+_WAVES = {1: 48, 2: 24}
 _MIN_CHAIN_XCHUNK = 16
 _ERRORS = {1000: "bad arguments", 1002: "no cooperative launch on this device",
            1003: "no block fits an SM"}
@@ -146,7 +146,7 @@ def _lib():
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = ctypes.c_int
     for fn in ("heat3d_fused_tile_y", "heat3d_fused_tile_z"):
-        getattr(lib, fn).argtypes = [ctypes.c_int]
+        getattr(lib, fn).argtypes = [ctypes.c_int] * 2
         getattr(lib, fn).restype = ctypes.c_int
     for fn in ("heat3d_fused_blocks_per_sm", "heat3d_fused_registers",
                "heat3d_fused_smem_bytes"):
@@ -177,8 +177,8 @@ def instance_resources(halo: int, instance: int, dtype: torch.dtype) -> dict:
     """Resident blocks per SM (the cooperative grid is this times the SM
     count), registers a thread and dynamic shared memory (bytes) of one
     instance of the fused kernel of ``halo`` updates on the current CUDA
-    device: ``instance`` 0 the interpreted kernel, else a compile-time chain
-    (halo 1). CUDA hosts only."""
+    device: ``instance`` 0 the interpreted kernel, else a compile-time chain.
+    CUDA hosts only."""
     lib = _lib()
     code = _DTYPE_CODES[dtype]
     return {"blocks_per_sm": lib.heat3d_fused_blocks_per_sm(halo, instance, code),
@@ -187,11 +187,10 @@ def instance_resources(halo: int, instance: int, dtype: torch.dtype) -> dict:
 
 
 def fused_instance(halo: int, taps: np.ndarray) -> int:
-    """The instance a launch of ``halo`` updates takes under the current
-    factoring knobs: ``stream_instance(taps)`` at halo 1 (0, the generic
-    instance, for a chain outside ``CHAINS``); the interpreted kernel (0)
-    at halo 2."""
-    return stream_instance(taps) if halo == 1 else GENERIC
+    """The instance a launch of ``halo`` (1 or 2) updates takes under the
+    current factoring knobs: ``stream_instance(taps)``, 0 (the generic
+    instance) for a chain outside ``CHAINS``."""
+    return stream_instance(taps)
 
 
 def raise_if_timed_out() -> None:
@@ -470,11 +469,10 @@ def _xchunk(inner: int, tiles_yz: int) -> int:
 
 # interior x-chunk length of a compile-time instance over ``inner`` planes
 # and ``tiles_yz`` (y, z) tiles over all shards of the launch: the direct
-# kernels' rule at the fused kernels' waves and floor (the grid's blocks
-# take the tiles in a fixed stride, so the last wave is as uneven as one
-# tile in a block's share)
-wave_xchunk = functools.partial(_direct_wave_xchunk, waves=_WAVES,
-                                min_chunk=_MIN_CHAIN_XCHUNK)
+# kernels' rule at the fused kernels' floor and their waves (``waves=``,
+# ``_WAVES`` of the halo; the grid's blocks take the tiles in a fixed
+# stride, so the last wave is as uneven as one tile in a block's share)
+wave_xchunk = functools.partial(_direct_wave_xchunk, min_chunk=_MIN_CHAIN_XCHUNK)
 
 
 @functools.lru_cache(maxsize=256)
@@ -485,8 +483,8 @@ def _launch_xchunk(halo: int, instance: int, local_shape, nlocal: int, device: i
     kernels keep the first design's rule (``_xchunk``)."""
     lib = _lib()
     nx, ny, nz = local_shape
-    tiles_yz = nlocal * -(-ny // lib.heat3d_fused_tile_y(instance)) * \
-        -(-nz // lib.heat3d_fused_tile_z(instance))
+    tiles_yz = nlocal * -(-ny // lib.heat3d_fused_tile_y(halo, instance)) * \
+        -(-nz // lib.heat3d_fused_tile_z(halo, instance))
     if instance == GENERIC:
         return _xchunk(nx - 2 * halo, tiles_yz)
     with torch.cuda.device(device):
@@ -494,16 +492,17 @@ def _launch_xchunk(halo: int, instance: int, local_shape, nlocal: int, device: i
     if per_sm < 1:
         raise RuntimeError(f"fused instance (halo {halo}, {instance}, {dtype}) fits no SM")
     resident = per_sm * torch.cuda.get_device_properties(device).multi_processor_count
-    return wave_xchunk(nx - 2 * halo, tiles_yz, resident)
+    return wave_xchunk(nx - 2 * halo, tiles_yz, resident, waves=_WAVES[halo])
 
 
 def launch(halo: int, us, taps, mesh, state: FusedState, periodic: bool,
-           bc_value: float, outs, wrapper, instance=None) -> List[torch.Tensor]:
+           bc_value: float, outs, wrapper, instance=None,
+           xchunk: Optional[int] = None) -> List[torch.Tensor]:
     """One fused launch per device of ``state``: ``halo`` updates of every
-    shard on ``instance`` (default :func:`fused_instance`); counts each
+    shard on ``instance`` (default :func:`fused_instance`) with interior
+    x-chunks of ``xchunk`` planes (default :func:`_launch_xchunk`); counts each
     launch on ``wrapper.launches`` (and ``wrapper.generic_launches`` when it
-    took the generic one-update instance) and its output cells on
-    ``wrapper.cells``."""
+    took the generic instance) and its output cells on ``wrapper.cells``."""
     if state.width != halo or state.periodic != bool(periodic):
         raise ValueError(
             f"state is width {state.width}, periodic={state.periodic}; the launch "
@@ -548,8 +547,8 @@ def launch(halo: int, us, taps, mesh, state: FusedState, periodic: bool,
         args.nsends = g.nsends
         args.push_tiles = g.push_tiles
         args.nx, args.ny, args.nz = nx, ny, nz
-        args.xchunk = _launch_xchunk(halo, inst, tuple(mesh.local_shape), len(g.shards),
-                                     g.device.index, state.dtype)
+        args.xchunk = xchunk or _launch_xchunk(halo, inst, tuple(mesh.local_shape),
+                                               len(g.shards), g.device.index, state.dtype)
         args.periodic = int(bool(periodic))
         args.bc = bc
         args.prog = prog
@@ -562,8 +561,7 @@ def launch(halo: int, us, taps, mesh, state: FusedState, periodic: bool,
                 f"{g.device}: error {err}"
                 + (f" ({_ERRORS[err]})" if err in _ERRORS else ""))
         wrapper.launches += 1
-        if halo == 1:
-            wrapper.generic_launches += inst == GENERIC
+        wrapper.generic_launches += inst == GENERIC
         wrapper.cells += len(g.shards) * nx * ny * nz
     _join(state)
     return outs
@@ -632,7 +630,7 @@ def apply_superstep_fused_dma(us: Sequence[torch.Tensor], taps: np.ndarray, mesh
 
 
 def _step(wrapper, us, taps, mesh, state, periodic, bc_value, outs, return_ghosts=False,
-          instance=None):
+          instance=None, xchunk=None):
     taps = check_route(taps)
     if us[0].device.type == "cpu":
         res = reference_fused_step(us, taps, mesh, periodic, bc_value, return_ghosts)
@@ -641,13 +639,15 @@ def _step(wrapper, us, taps, mesh, state, periodic, bc_value, outs, return_ghost
         return _into(res, outs)
     if state is None:
         raise ValueError("a CUDA launch needs its FusedState")
-    res = launch(1, us, taps, mesh, state, periodic, bc_value, outs, wrapper, instance)
+    res = launch(1, us, taps, mesh, state, periodic, bc_value, outs, wrapper, instance,
+                 xchunk)
     if return_ghosts:
         return res, _landed(mesh, state, periodic, bc_value)
     return res
 
 
-def _superstep(wrapper, us, taps, mesh, state, periodic, bc_value, outs):
+def _superstep(wrapper, us, taps, mesh, state, periodic, bc_value, outs, instance=None,
+               xchunk=None):
     taps = check_route(taps)
     if mesh.local_shape[0] < 4:
         raise ValueError(f"the two-update fused kernel needs nx >= 4, got {mesh.local_shape}")
@@ -655,21 +655,28 @@ def _superstep(wrapper, us, taps, mesh, state, periodic, bc_value, outs):
         return _into(reference_fused_superstep(us, taps, mesh, periodic, bc_value), outs)
     if state is None:
         raise ValueError("a CUDA launch needs its FusedState")
-    return launch(2, us, taps, mesh, state, periodic, bc_value, outs, wrapper)
+    return launch(2, us, taps, mesh, state, periodic, bc_value, outs, wrapper, instance,
+                  xchunk)
 
 
 def launch_instance(instance: int, us: Sequence[torch.Tensor], taps: np.ndarray, mesh,
                     state: FusedState, periodic: bool = False, bc_value: float = 0.0,
-                    outs: Optional[Sequence[torch.Tensor]] = None, wrapper=None):
-    """:func:`apply_step_fused_dma` on a named instance of the one-update
-    kernel, for measurements: the generic instance (0) takes any chain, a
-    compile-time one only its own (else the launch raises). CUDA shards
-    only; counted on ``wrapper`` (default ``apply_step_fused_dma``; the RDMA
-    rows pass ``stencil_fused_rdma.apply_step_fused_rdma``)."""
+                    outs: Optional[Sequence[torch.Tensor]] = None, wrapper=None,
+                    xchunk: Optional[int] = None):
+    """:func:`apply_step_fused_dma` (a width-1 ``state``) or
+    :func:`apply_superstep_fused_dma` (width 2) on a named instance, for
+    measurements: the generic instance (0) takes any chain, a compile-time
+    one only its own (else the launch raises); ``xchunk`` overrides the
+    interior x-chunk. CUDA shards only; counted on ``wrapper`` (default the
+    DMA wrapper of the state's width; the RDMA rows pass
+    ``stencil_fused_rdma``'s)."""
     if us[0].device.type != "cuda":
         raise ValueError(f"no kernel for device {us[0].device}")
-    return _step(wrapper or apply_step_fused_dma, us, taps, mesh, state, periodic,
-                 bc_value, outs, instance=instance)
+    if state.width == 1:
+        return _step(wrapper or apply_step_fused_dma, us, taps, mesh, state, periodic,
+                     bc_value, outs, instance=instance, xchunk=xchunk)
+    return _superstep(wrapper or apply_superstep_fused_dma, us, taps, mesh, state, periodic,
+                      bc_value, outs, instance, xchunk)
 
 
 KERNELS = (apply_step_fused_dma, apply_superstep_fused_dma)
@@ -680,9 +687,8 @@ def launch_counts() -> dict:
 
 
 def generic_launch_counts() -> dict:
-    """Launches of the one-update wrapper that took the generic instance
-    (the two-update kernel has no compile-time instance yet)."""
-    return {apply_step_fused_dma.__name__: apply_step_fused_dma.generic_launches}
+    """Launches of each wrapper that took the generic instance."""
+    return {k.__name__: k.generic_launches for k in KERNELS}
 
 
 def cell_counts() -> dict:

@@ -79,9 +79,9 @@ def launch_counts() -> dict:
 
 
 def generic_launch_counts() -> dict:
-    """Launches of the one-update wrapper that took the generic instance
+    """Launches of each wrapper that took the generic instance
     (``stencil_dma_fused.fused_instance``)."""
-    return {apply_step_fused_rdma.__name__: apply_step_fused_rdma.generic_launches}
+    return {k.__name__: k.generic_launches for k in KERNELS}
 
 
 def cell_counts() -> dict:

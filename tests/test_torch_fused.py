@@ -608,15 +608,14 @@ def test_fused_state_and_wrapper_checks():
     ("7pt", {}, 1), ("27pt", {}, 2),
     ("7pt", {"HEAT3D_FACTOR_7PT": "1"}, 0), ("27pt", {"HEAT3D_FACTOR_Y": "0"}, 0)])
 def test_fused_instance_choice(monkeypatch, kind, knobs, want):
-    """The one-update fused kernel runs the 7pt and 27pt chains on their
-    compile-time instances (the stream kernels' table) and any other chain
-    on the generic one; the two-update kernel has the interpreted design
-    only."""
+    """The one- and two-update fused kernels run the 7pt and 27pt chains on
+    their compile-time instances (the stream kernels' table) and any other
+    chain on the generic one."""
     for k, v in knobs.items():
         monkeypatch.setenv(k, v)
     taps = _taps(config, kind)
     assert fd.fused_instance(1, taps) == want
-    assert fd.fused_instance(2, taps) == fd.GENERIC
+    assert fd.fused_instance(2, taps) == want
 
 
 def test_fused_build_takes_the_chain_table(monkeypatch):
@@ -636,53 +635,107 @@ def test_fused_build_takes_the_chain_table(monkeypatch):
     assert _build._target("stencil_fused") == before
 
 
-def _kernel_tiles(local_shape, nlocal: int, xchunk: int):
-    """The one-update kernels' tiles as ``fused_chain_kernel`` (and
-    ``fused_kernel<T, 1>``) walk them: ``interior``, (local shard, first
-    output plane, end plane) per x-chunk of the planes [1, nx - 1), and
-    ``skin``, the same per side; each also covers every (y, z) tile of its
+# the (y, z) output tile of the compile-time instances by halo: Geom<H> of
+# csrc/stencil_chain.cuh (a 40 x 64 or 32 x 64 frame less 2H a side)
+_CHAIN_TILE = {1: (38, 62), 2: (28, 60)}
+
+
+def _kernel_tiles(local_shape, nlocal: int, xchunk: int, halo: int = 1):
+    """The tiles of the kernels of ``halo`` updates as
+    ``fused_chain_kernel<T, H, S>`` (and ``fused_kernel<T, H>``) walk them:
+    ``interior``, (local shard, first output plane, end plane) per x-chunk
+    of the planes [H, nx - H), and ``skin``, the planes [0, H) and
+    [nx - H, nx) per shard; each also covers every (y, z) tile of its
     shard."""
     nx = local_shape[0]
-    inner = nx - 2
+    inner = nx - 2 * halo
     nchunks = -(-inner // xchunk) if inner > 0 else 0
-    interior = [(li, 1 + c * xchunk, min(nx - 1, 1 + (c + 1) * xchunk))
+    interior = [(li, halo + c * xchunk, min(nx - halo, halo + (c + 1) * xchunk))
                 for li in range(nlocal) for c in range(nchunks)]
-    skin = [(li, 0 if side == 0 else nx - 1, 1 if side == 0 else nx)
+    skin = [(li, 0 if side == 0 else nx - halo, halo if side == 0 else nx)
             for li in range(nlocal) for side in (0, 1)]
     return interior, skin
 
 
-@pytest.mark.parametrize("local", [(2, 40, 70), (3, 9, 66), (16, 20, 70), (128, 1024, 1024),
-                                   (256, 1024, 1024), (37, 77, 125)])
+_TILE_LOCALS = {1: [(2, 40, 70), (3, 9, 66), (16, 20, 70), (128, 1024, 1024),
+                    (256, 1024, 1024), (37, 77, 125)],
+                2: [(4, 77, 125), (5, 9, 66), (16, 20, 70), (128, 1024, 1024),
+                    (256, 1024, 1024), (37, 77, 125)]}
+
+
+@pytest.mark.parametrize("halo,local", [
+    pytest.param(h, local, id=f"{'' if h == 1 else 'h2-'}local{i}")
+    for h, locals_ in _TILE_LOCALS.items() for i, local in enumerate(locals_)])
 @pytest.mark.parametrize("nlocal,resident", [(1, 1), (4, 528), (8, 528), (2, 660)])
-def test_fused_tiles_cover_each_plane_once(local, nlocal, resident):
-    """The one-update kernel's tiles at the x-chunk the host computes for a
-    compile-time instance: every output plane of every shard is in exactly
-    one tile; an interior tile's input planes lie inside the shard (no x
-    ghost, so it never waits), a skin tile's include one x ghost plane."""
+def test_fused_tiles_cover_each_plane_once(halo, local, nlocal, resident):
+    """The tiles of the kernel of ``halo`` updates at the x-chunk the host
+    computes for a compile-time instance: every output plane of every shard
+    is in exactly one tile; an interior tile's input planes [x0 - H,
+    x1 + H) lie inside the shard (no x ghost, so it never waits), a skin
+    tile's include an x ghost plane."""
     nx, ny, nz = local
-    tiles_yz = nlocal * -(-ny // 38) * -(-nz // 62)
-    xchunk = fd.wave_xchunk(nx - 2, tiles_yz, resident)
+    ty, tz = _CHAIN_TILE[halo]
+    tiles_yz = nlocal * -(-ny // ty) * -(-nz // tz)
+    xchunk = fd.wave_xchunk(nx - 2 * halo, tiles_yz, resident, waves=fd._WAVES[halo])
     assert xchunk >= 1
-    interior, skin = _kernel_tiles(local, nlocal, xchunk)
+    interior, skin = _kernel_tiles(local, nlocal, xchunk, halo)
     for li in range(nlocal):
         planes = []
         for sh, x0, x1 in interior:
             if sh == li:
-                assert 0 <= x0 - 1 and x1 + 1 <= nx, (x0, x1)
+                assert 0 <= x0 - halo and x1 + halo <= nx, (x0, x1)
                 planes += range(x0, x1)
         for sh, x0, x1 in skin:
             if sh == li:
-                assert x0 - 1 < 0 or x1 + 1 > nx, (x0, x1)
+                assert x0 - halo < 0 or x1 + halo > nx, (x0, x1)
                 planes += range(x0, x1)
         assert sorted(planes) == list(range(nx))
     assert len(skin) == 2 * nlocal
     # no more chunks than the floor on their length allows (each at least
     # half the floor, but the last of a shard, which takes the rest), and no
     # more than the waves need
-    floor = min(fd._MIN_CHAIN_XCHUNK, nx - 2)
-    assert all(x1 - x0 >= floor // 2 for _, x0, x1 in interior if x1 < nx - 1)
-    assert len(interior) // nlocal <= max(1, -(-fd._WAVES * resident // tiles_yz))
+    floor = min(fd._MIN_CHAIN_XCHUNK, nx - 2 * halo)
+    assert all(x1 - x0 >= floor // 2 for _, x0, x1 in interior if x1 < nx - halo)
+    assert len(interior) // nlocal <= max(1, -(-fd._WAVES[halo] * resident // tiles_yz))
+
+
+def _push_runs(width, y0, y1, ny, nz, ntiles, chunk):
+    """The element runs the push tiles of one send copy, as
+    ``push_flat<T, H>`` cuts them: tile t takes elements [t * chunk,
+    (t + 1) * chunk) of the send's ``width`` runs of (y1 - y0) * nz laid end
+    to end, split where a run ends; each (plane, start, length) in the
+    (ny, nz) plane's flat index."""
+    run = (y1 - y0) * nz
+    cuts = []
+    for t in range(ntiles):
+        lo, hi = t * chunk, min((t + 1) * chunk, width * run)
+        for q in range(width):
+            b, e = max(lo, q * run), min(hi, (q + 1) * run)
+            if b < e:
+                cuts.append((q, y0 * nz + b - q * run, e - b))
+    return cuts
+
+
+@pytest.mark.parametrize("chunk", [256 * 128, 2048])
+@pytest.mark.parametrize("width", [1, 2])
+@pytest.mark.parametrize("ny,nz,parts", [(40, 70, 1), (40, 70, 2), (77, 125, 3),
+                                         (9, 66, 2), (1024, 1024, 2)])
+def test_fused_push_tiles_cover_each_send_once(width, ny, nz, parts, chunk):
+    """The push tiles the host lays out for each send (``FusedState``:
+    ceil(width * (y1 - y0) * nz / chunk) a send; ``chunk`` the kernel's
+    PUSH_CHUNK, 256 threads x 128, or a smaller one that splits small
+    sends too) cover the send's slab, planes x0 .. x0 + width - 1 over rows
+    [y0, y1), each element once, and the sends of a face tile the whole
+    (width, ny, nz) landing buffer."""
+    covered = np.zeros((width, ny * nz), dtype=np.int64)
+    for y0, y1 in port_plan.partition_bounds(ny, parts):
+        ntiles = -(-(width * (y1 - y0) * nz) // chunk)
+        cuts = _push_runs(width, y0, y1, ny, nz, ntiles, chunk)
+        assert all(0 < n <= chunk for _, _, n in cuts)
+        for q, start, n in cuts:
+            assert y0 * nz <= start and start + n <= y1 * nz
+            covered[q, start:start + n] += 1
+    assert (covered == 1).all()
 
 
 @pytest.mark.parametrize("argv,route", [

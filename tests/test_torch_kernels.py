@@ -451,14 +451,19 @@ def test_fused_kernels_equal_plain_versions(cuda, mesh_shape, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("mesh_shape,shape,parts", [
-    ((8, 1, 1), (64, 40, 70), 1), ((4, 1, 1), (16, 20, 70), 3), ((2, 2, 2), (12, 20, 70), 1),
-    ((2, 1, 1), (4, 77, 125), 2)])
-def test_fused_compile_time_and_generic_instances_equal(cuda, mesh_shape, shape, parts, dtype):
-    """The one-update fused kernel's compile-time instance (the one the 7pt
-    and 27pt taps take) and its generic instance forced, both bitwise equal
-    to the plain version: x-slabs with whole-face and partitioned send
-    ranges, the 3D mesh, and a ragged, odd ny*nz at nx = 2 a shard."""
+@pytest.mark.parametrize("halo,mesh_shape,shape,parts", [
+    (1, (8, 1, 1), (64, 40, 70), 1), (1, (4, 1, 1), (16, 20, 70), 3),
+    (1, (2, 2, 2), (12, 20, 70), 1), (1, (2, 1, 1), (4, 77, 125), 2),
+    (2, (8, 1, 1), (64, 40, 70), 1), (2, (4, 1, 1), (16, 20, 70), 3),
+    (2, (2, 1, 1), (8, 77, 125), 2), (2, (2, 1, 1), (8, 77, 125), 3)])
+def test_fused_compile_time_and_generic_instances_equal(cuda, halo, mesh_shape, shape, parts,
+                                                        dtype):
+    """The fused kernel's compile-time instance of ``halo`` updates (the one
+    the 7pt and 27pt taps take) and its generic instance forced, both
+    bitwise equal to the plain version: x-slabs with whole-face and
+    partitioned send ranges, the 3D mesh (one update), and a ragged, odd
+    ny*nz at nx = 2H a shard (bf16 planes, the landed ones too, start on
+    either parity)."""
     from heat3d_tpu_torch.ops import stencil_dma_fused as fd
     from heat3d_tpu_torch.parallel.plan import partition_bounds
 
@@ -467,29 +472,33 @@ def test_fused_compile_time_and_generic_instances_equal(cuda, mesh_shape, shape,
     u = torch.from_numpy(np.random.default_rng(14).standard_normal(shape).astype(np.float32))
     us = _split(u.to(cuda).to(dtype), mesh)
     bounds = None if parts == 1 else partition_bounds(local[1], parts)
+    wrapper = fd.KERNELS[halo - 1]
+    plain = fd.reference_fused_step if halo == 1 else fd.reference_fused_superstep
     for kind in ("7pt", "27pt"):
         taps = _taps(kind)
-        inst = fd.fused_instance(1, taps)
+        inst = fd.fused_instance(halo, taps)
         assert inst != 0
         for periodic, bcv in ((False, 0.3), (True, 0.0)):
-            state = fd.FusedState(mesh, 1, dtype, periodic, bounds)
-            want = fd.reference_fused_step(us, taps, mesh, periodic, bcv)
+            state = fd.FusedState(mesh, halo, dtype, periodic, bounds)
+            want = plain(us, taps, mesh, periodic, bcv)
             for instance in (inst, 0):
-                before = fd.generic_launch_counts()["apply_step_fused_dma"]
+                before = fd.generic_launch_counts()[wrapper.__name__]
                 got = fd.launch_instance(instance, us, taps, mesh, state, periodic, bcv)
                 torch.cuda.synchronize()
                 fd.raise_if_timed_out()
-                took = fd.generic_launch_counts()["apply_step_fused_dma"] - before
+                took = fd.generic_launch_counts()[wrapper.__name__] - before
                 assert took == (instance == 0)
                 for g, w in zip(got, want):
                     assert torch.equal(g, w), (kind, periodic, instance)
 
 
-def test_fused_launches_in_a_row_see_fresh_landed_planes(cuda):
-    """50 compile-time fused launches on one state, the input changed on the
-    shard streams between them and no host sync: each launch's skin planes
-    must read the ghosts its own pushes landed, not an earlier launch's
-    (a stale read, through L1 or out of order, shows as a mismatch)."""
+@pytest.mark.parametrize("halo", [1, 2])
+def test_fused_launches_in_a_row_see_fresh_landed_planes(cuda, halo):
+    """50 compile-time fused launches of ``halo`` updates on one state, the
+    input changed on the shard streams between them and no host sync: each
+    launch's skin planes must read the ghosts its own pushes landed, not an
+    earlier launch's (a stale read, through L1 or out of order, shows as a
+    mismatch)."""
     from heat3d_tpu_torch.ops import stencil_dma_fused as fd
     from heat3d_tpu_torch.parallel.plan import partition_bounds
 
@@ -497,7 +506,9 @@ def test_fused_launches_in_a_row_see_fresh_landed_planes(cuda):
     taps = _taps("7pt")
     base = _split(torch.from_numpy(np.random.default_rng(15).standard_normal((64, 40, 70))
                                    .astype(np.float32)).to(cuda), mesh)
-    state = fd.FusedState(mesh, 1, torch.float32, False, partition_bounds(40, 2))
+    state = fd.FusedState(mesh, halo, torch.float32, False, partition_bounds(40, 2))
+    kern = fd.KERNELS[halo - 1]
+    plain = fd.reference_fused_step if halo == 1 else fd.reference_fused_superstep
     snaps = []
     mesh.fork()
     for i in range(50):
@@ -505,7 +516,7 @@ def test_fused_launches_in_a_row_see_fresh_landed_planes(cuda):
         for s, b in zip(mesh.shards, base):
             with mesh.on(s):
                 us.append(b * (i + 1))
-        outs = fd.apply_step_fused_dma(us, taps, mesh, state, False, 0.3)
+        outs = kern(us, taps, mesh, state, False, 0.3)
         snap = []
         for s, o in zip(mesh.shards, outs):
             with mesh.on(s):
@@ -515,7 +526,7 @@ def test_fused_launches_in_a_row_see_fresh_landed_planes(cuda):
     torch.cuda.synchronize()
     fd.raise_if_timed_out()
     for i, snap in enumerate(snaps):
-        want = fd.reference_fused_step([b * (i + 1) for b in base], taps, mesh, False, 0.3)
+        want = plain([b * (i + 1) for b in base], taps, mesh, False, 0.3)
         for g, w in zip(snap, want):
             assert torch.equal(g, w), i
 
