@@ -13,7 +13,8 @@ non-zero without one. Phases, each printing its own lines:
    each stream kernel instance's dynamic shared memory and resident blocks
    per SM (k = 1..4 x the 7pt, 27pt and generic instances x fp32/bf16) and
    each direct instance's shared memory, registers, spills and resident
-   blocks per SM (halo 1 and 2 x the same instances), and the same for
+   blocks per SM (halo 1 and 2 x the same instances and the Mehrstellen
+   q-ring instance), and the same for
    each fused instance (the one- and two-update kernels' 7pt, 27pt and
    generic instances; fp32/bf16);
 3. hold each kernel against its plain PyTorch version on the card, bitwise,
@@ -29,6 +30,13 @@ non-zero without one. Phases, each printing its own lines:
    the streamk plain version against k
    direct kernel launches, and the exchange-path solve of k steps against
    the direct-path solve, both bitwise;
+   ``compare_mehrstellen``: under ``HEAT3D_MEHRSTELLEN=1`` both
+   Mehrstellen instances bitwise against their plain versions at the
+   direct kernels' ragged shapes, a forced 3-plane x-chunk, 128^3 and
+   1024^3 (fp32/bf16 x three boundary settings), the (2,2,2) faces-direct
+   solve against the (1,1,1) solve at 128^3 (tb 1 and 2), and the 27pt
+   tb=4 and ``fused-dma2`` solves, which keep the tap chain, equal to
+   their knob-off solves;
 4. the sharded solve, every shard on ``cuda:0`` on a stream of its own,
    bitwise: the DMA halo kernels against their plain version (meshes
    (2,1,1) .. (2,2,2), widths 1-4, three boundary settings, fp32/bf16, at
@@ -40,7 +48,8 @@ non-zero without one. Phases, each printing its own lines:
    at 128^3, 20 steps, 7pt and 27pt, ``--golden-check``, at tb 1, 2, 3 and
    4, with ``HEAT3D_NO_DIRECT=1`` (the exchange path) at tb 1 and 2, and on
    a (2,2,2) mesh on ``cuda:0`` (``--halo ppermute`` tb 1/2/4, ``--halo
-   dma`` tb 1/4; and an uneven 129^3 grid);
+   dma`` tb 1/4; and an uneven 129^3 grid); under ``HEAT3D_MEHRSTELLEN=1``
+   27pt tb 1 and 2 in fp32 and bf16 storage on the Mehrstellen instance;
 6. the main path at full width: ``bench_throughput`` at 1024^3 (fp32 7pt
    tb=2, the headline config; fp32 7pt tb=1; fp32 27pt tb=2; bf16 7pt
    tb=2; then the exchange path: fp32 7pt tb=4, tb=3 and tb=1 under
@@ -49,7 +58,11 @@ non-zero without one. Phases, each printing its own lines:
    and 2) with Gcell-updates/s, ms per superstep, the exchange's ms, the
    redundant-flops fraction and the end-to-end bound, and periodic 1024^3
    runs (tb=2 and tb=4, and ``halo='dma'`` tb=4 on (2,2,2); 11 steps) held
-   to conservation of sum(u);
+   to conservation of sum(u); under ``HEAT3D_MEHRSTELLEN=1`` (27pt) direct
+   tb=2, tb=1, bf16 tb=2, (2,2,2) faces-direct tb 1 and 2 (Mehrstellen
+   instance) and tb=4 and (8,1,1) ``fused-dma2`` (the chain), each row's
+   route provenance checked, and the (2,2,2) faces-direct solve at 1024^3
+   held bitwise to the (1,1,1) solve (tb 1 and 2);
 7. kernel and plain-version times at 256^3 and 1024^3 fp32 7pt, each
    kernel held bitwise to its plain version there (also with bc 0.3,
    periodic, 27pt and bf16 storage: the full-width phase's settings), the
@@ -69,6 +82,10 @@ non-zero without one. Phases, each printing its own lines:
    and each stencil kernel the (2,2,2) rows launch, on those 512^3 shards
    (streamk K=4 under corner shards' domain-edge masks), held bitwise to
    its plain version and timed beside its 512^3 bound;
+   ``mehrstellen_times``: the Mehrstellen instances at 1024^3 (fp32, bf16)
+   beside the 27pt chain instances of the same call and their bounds, with
+   registers, spills and blocks per SM, and at tb=1 the library call (a
+   27pt ``F.conv3d``, TF32 off);
 8. across GPUs: the (2,1,1) DMA check with the shards on ``cuda:0`` and
    ``cuda:1``, and the four fused kernels on that mesh, when two GPUs are
    visible (else one line says it did not run, and why);
@@ -96,8 +113,11 @@ phase 6; the script fails if any kernel was not launched there, or if a
 direct, stream or fused kernel launch there took the generic instance.
 The ``main_path``
 line also gives each wrapper's output cells as launches of the size the
-kernels line times (1024^3-equivalent launches). The last
-three lines are the kernels' JSON object (``{"kernels": [...]}``), the
+kernels line times (1024^3-equivalent launches) and the Mehrstellen
+instances' launches; the script fails if the knob's rows launched none.
+The last
+three lines are the kernels' JSON object (``{"kernels": [...]}``: the
+nine wrappers and the two Mehrstellen instances), the
 nvidia-smi line, and the status object ``{"ok": true, "device": {...}}``.
 """
 
@@ -150,6 +170,11 @@ _FUSED = {
     "apply_superstep_fused_rdma": (2, "reference_fused_superstep"),
 }
 KERNELS = tuple(_SOURCES)
+# the Mehrstellen q-ring instances of the direct kernels (HEAT3D_MEHRSTELLEN,
+# 27pt): a line each in the kernels' JSON beside their wrapper's, as
+# (wrapper, halo)
+_MEHR = {"apply_taps_direct:mehrstellen": ("apply_taps_direct", 1),
+         "apply_taps_direct2:mehrstellen": ("apply_taps_direct2", 2)}
 # the depth whose time stands in the kernels' line for streamk: the
 # full-width phase's headline exchange-path config (tb=4)
 _STREAMK_HEADLINE = 4
@@ -325,8 +350,11 @@ def phase_identify() -> str:
 
 
 def _instance_name(code: int) -> str:
+    from heat3d_tpu_torch.ops import stencil_direct as sd
     from heat3d_tpu_torch.ops import stencil_stream as ss
 
+    if code == sd.MEHRSTELLEN:
+        return "mehrstellen"
     return ss.CHAINS[code][0] if code in ss.CHAINS else "generic"
 
 
@@ -396,7 +424,7 @@ def phase_build() -> dict:
     ptxas = _direct_ptxas()
     direct = {}
     for h in (1, 2):
-        for code in (ss.GENERIC, *ss.CHAINS):
+        for code in (ss.GENERIC, *ss.CHAINS, sd.MEHRSTELLEN):
             for dtype in (torch.float32, torch.bfloat16):
                 key = f"h{h}_{_instance_name(code)}_{str(dtype)[6:]}"
                 direct[key] = {**sd.instance_resources(h, code, dtype),
@@ -404,7 +432,7 @@ def phase_build() -> dict:
                                   for f in ("spill_stores", "spill_loads")}}
                 _check(direct[key]["blocks_per_sm"] > 0,
                        f"direct instance {key} fits no SM: {direct[key]}")
-    _check(len(ptxas) == 8, f"compiler report of the direct instances: {sorted(ptxas)}")
+    _check(len(ptxas) == 12, f"compiler report of the direct instances: {sorted(ptxas)}")
     _say("build", direct_instances=direct)
     resources.update(direct)
     ptxas = _fused_ptxas()
@@ -1946,6 +1974,263 @@ def phase_cross_gpu(worst: dict) -> None:
          dma_exchanges_in_a_row=bursts, fused_cases=fused, bitwise=True)
 
 
+def _mehrstellen_counts(cells: bool = False) -> dict:
+    """Launches (or output cells) of the Mehrstellen instances, keyed as
+    ``_MEHR``."""
+    from heat3d_tpu_torch.ops import stencil_direct as sd
+
+    counts = sd.mehrstellen_cell_counts() if cells else sd.mehrstellen_launch_counts()
+    return {f"{name}:mehrstellen": n for name, n in counts.items()}
+
+
+def _hold_mehrstellen(worst: dict, u, periodic, bcv, what, chunk=None) -> int:
+    """Both direct wrappers on ``u`` under ``HEAT3D_MEHRSTELLEN`` (27pt):
+    each launch on the Mehrstellen instance (counted as such; ``chunk``
+    forces the x-chunk) and bitwise equal to its plain version."""
+    from heat3d_tpu_torch.ops import stencil_direct as sd
+
+    taps = _taps("27pt")
+    for name, (wrapper, halo) in _MEHR.items():
+        kern, plain = _kernel_pair(wrapper, halo)
+        before = _mehrstellen_counts()[name]
+        if chunk is None:
+            got = kern(u, taps, periodic, bcv)
+        else:
+            got = sd.launch_instance(halo, sd.MEHRSTELLEN, u, taps, periodic, bcv,
+                                     xchunk=chunk)
+        _hold(worst, name, got, plain(u, taps, periodic, bcv), what)
+        _check(_mehrstellen_counts()[name] == before + 1,
+               f"{name} {what}: not launched on the Mehrstellen instance")
+    return len(_MEHR)
+
+
+# (time_blocking, route, mesh, knobs) of the 27pt routes
+# that keep the tap chain under HEAT3D_MEHRSTELLEN, as the JAX kernels do
+_MEHR_CHAIN_ROUTES = ((4, "streamk", (1, 1, 1), {}),
+                      (2, "fused-dma2", (8, 1, 1), {"halo": "dma", "overlap": True}))
+
+
+def phase_compare_mehrstellen(worst: dict) -> None:
+    """Under ``HEAT3D_MEHRSTELLEN=1``: both Mehrstellen instances bitwise
+    against their plain versions at the direct kernels' ragged shapes, a
+    forced 3-plane x-chunk, 128^3 and 1024^3 (fp32/bf16 x Dirichlet bc 0
+    and 0.3/periodic); the (2,2,2) faces-direct solve against the (1,1,1)
+    solve at 128^3 (tb 1 and 2, fp32/bf16, Dirichlet 0.3/periodic), every
+    shard on cuda:0; and the routes that keep the chain (27pt tb=4 streamk,
+    fused-dma2 over (8,1,1)) equal to their knob-off solves, no Mehrstellen
+    launch among them."""
+    import torch
+
+    t0 = time.perf_counter()
+    cases = 0
+    shapes = ([(shape, None) for shape in _DIRECT_SHAPES] + [_DIRECT_FORCED_CHUNK]
+              + [((128,) * 3, None), ((1024,) * 3, None)])
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    with _env(HEAT3D_MEHRSTELLEN="1"):
+        for shape, chunk in shapes:
+            base = torch.randn(shape, generator=gen, device="cuda")
+            for dtype in (torch.float32, torch.bfloat16):
+                u = base.to(dtype)
+                for periodic, bcv in _BCS:
+                    cases += _hold_mehrstellen(
+                        worst, u, periodic, bcv,
+                        f"at {shape} chunk {chunk} {dtype} periodic={periodic} bc={bcv}", chunk)
+                del u
+            del base
+            torch.cuda.empty_cache()
+        solves = []
+        for tb in (1, 2):
+            for storage in ("float32", "bfloat16"):
+                for periodic in (False, True):
+                    bcv = 0.0 if periodic else 0.3
+                    before = sum(_mehrstellen_counts().values())
+                    want = _solve_gathered(128, (1, 1, 1), "27pt", storage, periodic, bcv, tb, 20)
+                    got = _solve_gathered(128, _MESH, "27pt", storage, periodic, bcv, tb, 20,
+                                          device="cuda:0")
+                    _check(sum(_mehrstellen_counts().values()) > before,
+                           f"no Mehrstellen launch in the tb={tb} solves")
+                    _check(got.tobytes() == want.tobytes(),
+                           f"faces-direct solve != (1,1,1) solve under the knob: tb={tb} "
+                           f"{storage} periodic={periodic}")
+                    solves.append([tb, storage, periodic])
+    chain = []
+    for tb, route, mesh, knobs in _MEHR_CHAIN_ROUTES:
+        device = None if mesh == (1, 1, 1) else "cuda:0"
+        want = _solve_gathered(128, mesh, "27pt", "float32", False, 0.3, tb, 20, device=device,
+                               **knobs)
+        with _env(HEAT3D_MEHRSTELLEN="1"):
+            before = _mehrstellen_counts()
+            got = _solve_gathered(128, mesh, "27pt", "float32", False, 0.3, tb, 20,
+                                  device=device, **knobs)
+            _check(_mehrstellen_counts() == before, f"{route} launched a Mehrstellen instance")
+        _check(got.tobytes() == want.tobytes(), f"{route} under the knob != knob off")
+        chain.append(route)
+    _say("compare_mehrstellen", cases=cases, bitwise=True,
+         max_abs_err={name: worst[name] for name in _MEHR},
+         sharded_vs_single_solves=solves, chain_routes_equal_knob_off=chain,
+         mehrstellen_launches=_mehrstellen_counts(), seconds=time.perf_counter() - t0)
+
+
+def _golden_mehrstellen() -> None:
+    """The command line at 128^3 under ``HEAT3D_MEHRSTELLEN=1``, 27pt tb 1
+    and 2, fp32 and bf16 storage, ``--golden-check``: each run launches the
+    Mehrstellen instance."""
+    for tb, want in ((1, "apply_taps_direct"), (2, "apply_taps_direct2")):
+        for dtype in ("fp32", "bf16"):
+            with _env(HEAT3D_MEHRSTELLEN="1"):
+                before = _mehrstellen_counts()[f"{want}:mehrstellen"]
+                _golden_cli(["--grid", "128", "--steps", "20", "--stencil", "27pt",
+                             "--time-blocking", str(tb), "--dtype", dtype], want,
+                            stencil="27pt", time_blocking=tb, dtype=dtype, mehrstellen=True)
+                _check(_mehrstellen_counts()[f"{want}:mehrstellen"] > before,
+                       f"golden tb={tb} {dtype}: no Mehrstellen launch")
+
+
+# (time_blocking, storage, mesh, knobs, Mehrstellen route) of the full-width
+# rows under HEAT3D_MEHRSTELLEN=1, 27pt: the direct routes on the
+# Mehrstellen instance, the exchange path and the fused route on the chain
+_MEHR_FULL_WIDTH = (
+    (2, "float32", (1, 1, 1), {}, True), (1, "float32", (1, 1, 1), {}, True),
+    (2, "bfloat16", (1, 1, 1), {}, True), (1, "float32", _MESH, {}, True),
+    (2, "float32", _MESH, {}, True), (4, "float32", (1, 1, 1), {}, False),
+    (2, "float32", (8, 1, 1), {"halo": "dma", "overlap": True}, False),
+)
+
+
+def _full_width_mehrstellen(bw: float) -> None:
+    """The full-width rows under the knob (``_MEHR_FULL_WIDTH``), each
+    beside its bound; then the (2,2,2) faces-direct solve at 1024^3 held
+    bitwise to the (1,1,1) solve (tb 1 and 2, 4 steps, hot cube)."""
+    import torch
+
+    from heat3d_tpu_torch.bench.harness import bench_throughput
+    from heat3d_tpu_torch.core.config import (
+        GridConfig, MeshConfig, Precision, SolverConfig, StencilConfig,
+    )
+    from heat3d_tpu_torch.models.heat3d import HeatSolver3D
+    from heat3d_tpu_torch.ops import stencil_direct as sd
+
+    n = 1024
+    with _env(HEAT3D_MEHRSTELLEN="1"):
+        for tb, storage, mesh, knobs, q_ring in _MEHR_FULL_WIDTH:
+            cfg = SolverConfig(grid=GridConfig.cube(n), stencil=StencilConfig(kind="27pt"),
+                               precision=Precision(storage=storage),
+                               mesh=MeshConfig(shape=mesh), time_blocking=tb, **knobs)
+            before = sum(_mehrstellen_counts().values())
+            row = bench_throughput(cfg, steps=tb * -(-20 // tb), warmup=1, repeats=3,
+                                   device=None if mesh == (1, 1, 1) else "cuda:0")
+            took = sum(_mehrstellen_counts().values()) - before
+            route = row["superstep_route"] if tb > 1 else row["step_route"]
+            _check(row["mehrstellen_route"] is q_ring and (took > 0) is q_ring,
+                   f"{route} under the knob: mehrstellen_route {row['mehrstellen_route']}, "
+                   f"{took} Mehrstellen launches")
+            itemsize = torch.empty((), dtype=getattr(torch, storage)).element_size()
+            flops = sd.MEHRSTELLEN_KERNEL_OPS if q_ring else flops_per_update(_taps("27pt"))
+            if mesh == (1, 1, 1):
+                b_ms, by = superstep_bound(route, n, tb, itemsize, flops, bw)
+            else:
+                b_ms, by, _ = sharded_superstep_bound(route, n, mesh, tb, itemsize, flops, bw)
+            _say("full_width", grid=row["grid"], stencil="27pt", dtype=storage, mehrstellen=True,
+                 mesh=row["mesh"], halo=row["halo"], overlap=row["overlap"], time_blocking=tb,
+                 route=route, mehrstellen_route=row["mehrstellen_route"],
+                 chain_ops=row["chain_ops"], mehrstellen_launches=took, steps=row["steps"],
+                 gcell_updates_per_sec=row["gcell_updates_per_sec"],
+                 ms_per_superstep=row["ms_per_launch"], bound_ms_per_superstep=b_ms,
+                 bound_by=by, bound_gcell_updates_per_sec=n**3 * tb / (b_ms / 1e3) / 1e9,
+                 kernel_launches=row["kernel_launches"], seconds_all=row["seconds_all"])
+            del row
+            torch.cuda.empty_cache()
+        for tb in (1, 2):
+            fields = {}
+            for mesh in ((1, 1, 1), _MESH):
+                cfg = SolverConfig(grid=GridConfig.cube(n), stencil=StencilConfig(kind="27pt"),
+                                   mesh=MeshConfig(shape=mesh), time_blocking=tb)
+                solver = HeatSolver3D(cfg, device="cuda:0")
+                fields[mesh] = solver.run(solver.init_state("hot-cube"), 4)
+                del solver
+            whole = _shard_list(fields[(1, 1, 1)])[0]
+            m = n // _MESH[0]
+            equal = all(
+                torch.equal(fields[_MESH][c], whole[c[0] * m:(c[0] + 1) * m,
+                                                    c[1] * m:(c[1] + 1) * m,
+                                                    c[2] * m:(c[2] + 1) * m])
+                for c in itertools.product(range(2), repeat=3))
+            _check(equal, f"faces-direct tb={tb} at {n}^3 != (1,1,1) under the knob")
+            _say("full_width_sharded_bitwise", grid=[n] * 3, mesh=list(_MESH), stencil="27pt",
+                 time_blocking=tb, steps=4, mehrstellen=True, bitwise=True)
+            del fields, whole
+            torch.cuda.empty_cache()
+
+
+def phase_mehrstellen_times(bw: float, worst: dict, resources: dict) -> dict:
+    """The Mehrstellen instances at 1024^3 (27pt, Dirichlet bc 0), fp32 and
+    bf16, beside the 27pt chain instances of the same call (the knob off):
+    ms per launch, bound (bytes, or the instance's own fp32 operations),
+    registers, spills and blocks per SM, each launch held bitwise to its
+    plain version; fp32 also the plain version's time and, at tb=1, the
+    library call (one cuDNN 27pt convolution, TF32 off, never called by the
+    port) held to the kernel within a rounding bound. Returns the fp32
+    numbers of each instance, keyed as ``_MEHR``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from heat3d_tpu_torch.ops import stencil_direct as sd
+    from heat3d_tpu_torch.ops.stencil_eager import pad_local
+
+    n = 1024
+    taps = _taps("27pt", n)
+    variants, res = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        u = torch.rand((n, n, n), device="cuda").to(dtype)
+        out = torch.empty_like(u)
+        tag = str(dtype)[6:]
+        for name, (wrapper, halo) in _MEHR.items():
+            kern, plain = _kernel_pair(wrapper, halo)
+            with _env(HEAT3D_MEHRSTELLEN="0"):
+                chain_ms = _time_ms(lambda: kern(u, taps, False, 0.0, out=out), iters=10)
+                _hold(worst, wrapper, out, plain(u, taps, False, 0.0),
+                      f"27pt chain at {n}^3 {dtype}")
+            with _env(HEAT3D_MEHRSTELLEN="1"):
+                ms = _time_ms(lambda: kern(u, taps, False, 0.0, out=out), iters=10)
+                _hold(worst, name, out, plain(u, taps, False, 0.0), f"at {n}^3 {dtype}")
+                plain_ms = (_time_ms(lambda: plain(u, taps, False, 0.0), iters=3)
+                            if dtype == torch.float32 else None)
+            b_ms, by = kernel_bound(wrapper, n, halo, u.element_size(),
+                                    sd.MEHRSTELLEN_KERNEL_OPS, bw)
+            cb_ms, cby = kernel_bound(wrapper, n, halo, u.element_size(),
+                                      flops_per_update(taps), bw)
+            row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                   "library_ms": None,
+                   "kernel": f"direct_kernel<{'float' if tag == 'float32' else '__nv_bfloat16'},"
+                             f"{halo},SPEC_MEHR>",
+                   **resources[f"h{halo}_mehrstellen_{tag}"],
+                   "chain_27pt": {"ms": chain_ms, "bound_ms": cb_ms, "bound_by": cby,
+                                  **resources[f"h{halo}_27pt_{tag}"]},
+                   "mehrstellen_over_chain": ms / chain_ms}
+            if halo == 1 and dtype == torch.float32:
+                with _env(HEAT3D_MEHRSTELLEN="1"):
+                    got = kern(u, taps, False, 0.0)
+                up = pad_local(u, _bc(False), 0.0)
+                w = torch.from_numpy(np.asarray(taps, dtype=np.float32)).cuda()[None, None]
+                torch.backends.cudnn.allow_tf32 = False
+
+                def library():
+                    return F.conv3d(up[None, None], w)
+
+                row["library_ms"] = _time_ms(library, iters=3)
+                row.update(_library_check(name, got, library()[0, 0], taps, u))
+                del up, got
+            variants[f"{name}_{tag}"] = row
+            if dtype == torch.float32:
+                res[name] = row
+        del u, out
+        torch.cuda.empty_cache()
+    _say("mehrstellen_times", grid=[n] * 3, stencil="27pt", variants=variants,
+         max_abs_err={name: worst[name] for name in _MEHR})
+    return res
+
+
 def phase_main_path(bw: float) -> dict:
     """Phases 5 and 6 between zeroed and read launch counts; fails unless
     every kernel was launched there, none on a generic instance. Returns
@@ -1954,25 +2239,31 @@ def phase_main_path(bw: float) -> dict:
 
     ops.reset_launch_counts()
     phase_golden()
+    _golden_mehrstellen()
     phase_full_width(bw)
-    launches = ops.launch_counts()
+    _full_width_mehrstellen(bw)
+    launches = {**ops.launch_counts(), **_mehrstellen_counts()}
     generic = _generic_counts()
-    cells = ops.cell_counts()
-    for name in KERNELS:
+    cells = {**ops.cell_counts(), **_mehrstellen_counts(cells=True)}
+    for name in KERNELS + tuple(_MEHR):
         _check(launches[name] > 0, f"{name} was not launched on the main path")
     _check(not any(generic.values()),
            f"the main path's 7pt/27pt direct, stream or fused launches took the generic "
            f"instance: {generic}")
-    equiv = {name: cells[name] / _unit_cells(name) for name in KERNELS}
-    _say("main_path", kernel_launches=launches, generic_instance_launches=generic,
-         output_cells=cells, launches_1024_equivalent=equiv,
-         launches_1024_equivalent_unit={name: _unit_cells(name) for name in KERNELS})
+    unit = {name: _unit_cells(_MEHR[name][0] if name in _MEHR else name)
+            for name in KERNELS + tuple(_MEHR)}
+    equiv = {name: cells[name] / unit[name] for name in unit}
+    _say("main_path", kernel_launches={name: launches[name] for name in KERNELS},
+         mehrstellen_instance_launches=_mehrstellen_counts(),
+         generic_instance_launches=generic, output_cells=cells,
+         launches_1024_equivalent=equiv, launches_1024_equivalent_unit=unit)
     return launches
 
 
 # the phases after the build, in the order they run; ``--only`` picks some
-PHASES = ("compare", "compare_mesh", "compare_fused", "main_path", "kernel_times",
-          "dma_times", "fused_times", "shard_kernel_times", "cross_gpu")
+PHASES = ("compare", "compare_mehrstellen", "compare_mesh", "compare_fused", "main_path",
+          "kernel_times", "mehrstellen_times", "dma_times", "fused_times",
+          "shard_kernel_times", "cross_gpu")
 
 
 def _args(argv):
@@ -2006,10 +2297,12 @@ def main(argv=None) -> int:
     smi = phase_identify()
     bw = bandwidth(torch.cuda.get_device_name(0))
     resources = phase_build()
-    worst = {name: 0.0 for name in KERNELS}
+    worst = {name: 0.0 for name in KERNELS + tuple(_MEHR)}
     times = {}
     if "compare" in run:
         phase_compare(worst)
+    if "compare_mehrstellen" in run:
+        phase_compare_mehrstellen(worst)
     if "compare_mesh" in run:
         phase_compare_mesh(worst)
     if "compare_fused" in run:
@@ -2018,6 +2311,8 @@ def main(argv=None) -> int:
         launches = phase_main_path(bw)
     if "kernel_times" in run:
         times.update(phase_kernel_times(bw, worst, resources))
+    if "mehrstellen_times" in run:
+        times.update(phase_mehrstellen_times(bw, worst, resources))
     if "dma_times" in run:
         times["halo_dma"] = phase_dma_times(bw, worst)
     if "fused_times" in run:
@@ -2029,13 +2324,13 @@ def main(argv=None) -> int:
     _say("done", seconds=time.perf_counter() - t0, phases=[p for p in PHASES if p in run])
     if args.only is None:
         kernels = [
-            {"name": name, "route": "cuda", "source": _SOURCES[name],
-             "replaces": _REPLACES[name], "launches": launches[name],
+            {"name": name, "route": "cuda", "source": _SOURCES[_MEHR.get(name, (name,))[0]],
+             "replaces": _REPLACES[_MEHR.get(name, (name,))[0]], "launches": launches[name],
              "max_abs_err": worst[name],
              **{key: times[name][key] for key in
                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
              **({"instance": times[name]["kernel"]} if "kernel" in times[name] else {})}
-            for name in KERNELS
+            for name in KERNELS + tuple(_MEHR)
         ]
         print(json.dumps({"kernels": kernels}))
     print(smi)

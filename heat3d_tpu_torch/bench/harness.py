@@ -25,7 +25,7 @@ import torch
 from heat3d_tpu_torch import eqn, ops
 from heat3d_tpu_torch.core.config import SolverConfig
 from heat3d_tpu_torch.models.heat3d import HeatSolver3D, resolved_backend_name
-from heat3d_tpu_torch.ops.stencil_direct import chain_ops
+from heat3d_tpu_torch.ops.stencil_direct import chain_ops, mehrstellen_route as _q_ring
 from heat3d_tpu_torch.parallel.plan import effective_halo_plan, make_schedule
 from heat3d_tpu_torch.parallel.step import (
     redundant_flops_frac,
@@ -99,6 +99,25 @@ def bench_throughput(
     )
 
 
+_DIRECT_ROUTES = ("direct", "direct2", "faces-direct", "faces-direct2")
+
+
+def mehrstellen_route(cfg: SolverConfig) -> bool:
+    """Whether the Mehrstellen route runs for ``cfg`` under the current
+    environment (port of the JAX ``_mehrstellen_route``): the knob on, the
+    solver's taps decomposing, and a compute that implements the route,
+    the plain update (``backend='jnp'``) or the direct kernels' q-ring
+    instance (a direct route at tb 1 or 2). The exchange-path and fused
+    kernels keep the tap chain."""
+    if not _q_ring(eqn.solver_taps(cfg)):
+        return False
+    if resolved_backend_name(cfg) == "jnp":
+        return True
+    tb = cfg.time_blocking
+    route = superstep_route(cfg) if tb > 1 else step_route(cfg)
+    return tb in (1, 2) and route in _DIRECT_ROUTES
+
+
 def throughput_row(
     cfg: SolverConfig,
     steps: int,
@@ -122,6 +141,7 @@ def throughput_row(
     updates = cfg.grid.num_cells * steps
     gcells = updates / best / 1e9
     on_card = devices[0].type == "cuda"
+    q_ring = mehrstellen_route(cfg)
     return {
         "bench": "throughput",
         "ts": _utc_now(),
@@ -145,8 +165,8 @@ def throughput_row(
         "streamk_path": route == "streamk",
         "fused_dma_path": route.startswith("fused-dma"),
         "fused_rdma_path": route.startswith("fused-rdma"),
-        # the Mehrstellen route raises in the port, so it never ran
-        "mehrstellen_route": False,
+        # the Mehrstellen route ran (knob, taps, a compute that has it)
+        "mehrstellen_route": q_ring,
         # the JAX row marks a route resolved to its XLA reference contract
         # off the TPU; the port has no such tier (a CUDA tensor launches
         # its kernel or raises), so on the card these are honestly False
@@ -154,8 +174,10 @@ def throughput_row(
         "streamk_emulated": False,
         "fused_rdma_emulated": False,
         # ops per cell and update of the emitted tap chain under the
-        # factoring knobs at measurement time; one conv call has no chain
-        "chain_ops": None if cfg.backend == "conv" else chain_ops(eqn.solver_taps(cfg)),
+        # factoring knobs at measurement time, or the JAX package's count
+        # of the Mehrstellen route where it ran; one conv call has no chain
+        "chain_ops": (None if cfg.backend == "conv"
+                      else chain_ops(eqn.solver_taps(cfg), mehrstellen=q_ring)),
         # the plan schedule of one exchange: face copies (sub-blocks
         # counted) and boundary bytes sent per shard
         "messages_per_exchange": schedule.messages_per_exchange(),

@@ -33,15 +33,21 @@ constexpr int kLen27 = (sizeof(HEAT3D_CHAIN_27PT) - 1) / 3;
 constexpr int SPEC_GENERIC = 0;
 constexpr int SPEC_7PT = 1;
 constexpr int SPEC_27PT = 2;
+// The Mehrstellen q-ring route of the direct kernels (stencil_direct.cuh):
+// no tap chain, the coefficients (a, b, d) of a*delta + b*S + d*F as the
+// first three weights.
+constexpr int SPEC_MEHR = 3;
 
 template <int S>
 __host__ __device__ constexpr int chain_len() {
+  static_assert(S == SPEC_7PT || S == SPEC_27PT, "spec S has no tap chain");
   return S == SPEC_7PT ? kLen7 : kLen27;
 }
 
 // Field f (0 src, 1 row, 2 dk) of term i of chain S.
 template <int S>
 __host__ __device__ constexpr int tap(int i, int f) {
+  static_assert(S == SPEC_7PT || S == SPEC_27PT, "spec S has no tap chain");
   return (S == SPEC_7PT ? HEAT3D_CHAIN_7PT[3 * i + f]
                         : HEAT3D_CHAIN_27PT[3 * i + f]) -
          '0' - (f == 2 ? 1 : 0);
@@ -49,23 +55,39 @@ __host__ __device__ constexpr int tap(int i, int f) {
 
 template <int S>
 __host__ __device__ constexpr bool uses_xsum() {
-  for (int i = 0; i < chain_len<S>(); ++i) {
-    if (tap<S>(i, 0) == 3) return true;
+  if constexpr (S == SPEC_MEHR) {
+    return false;
+  } else {
+    for (int i = 0; i < chain_len<S>(); ++i) {
+      if (tap<S>(i, 0) == 3) return true;
+    }
+    return false;
   }
-  return false;
+}
+
+// A float slot beside the input slots: the 27pt chain's x-sum plane, the
+// Mehrstellen route's z131 plane.
+template <int S>
+__host__ __device__ constexpr bool uses_fslot() {
+  return S == SPEC_MEHR || uses_xsum<S>();
 }
 
 // The planes x-1 and x+1 are read at the cell itself only: the design
-// keeps them in registers.
+// keeps them in registers. (The Mehrstellen route reads them, and their
+// q planes, at the cell only.)
 template <int S>
 __host__ __device__ constexpr bool centre_x_only() {
-  for (int i = 0; i < chain_len<S>(); ++i) {
-    const int s = tap<S>(i, 0);
-    if ((s == 0 || s == 2) && (tap<S>(i, 1) != 1 || tap<S>(i, 2) != 0)) {
-      return false;
+  if constexpr (S == SPEC_MEHR) {
+    return true;
+  } else {
+    for (int i = 0; i < chain_len<S>(); ++i) {
+      const int s = tap<S>(i, 0);
+      if ((s == 0 || s == 2) && (tap<S>(i, 1) != 1 || tap<S>(i, 2) != 0)) {
+        return false;
+      }
     }
+    return chain_len<S>() >= 1 && chain_len<S>() <= MAX_TERMS;
   }
-  return chain_len<S>() >= 1 && chain_len<S>() <= MAX_TERMS;
 }
 
 struct Weights {
@@ -98,13 +120,23 @@ __host__ __device__ constexpr int in_stride() {
   return Geom<K>::FW + (sizeof(T) == 2 ? 2 : 0);
 }
 
+// Float planes of shared memory beside the chain's slots: at K = 2 the
+// Mehrstellen route's second z131 slot (level 1's, so its z131 never waits
+// for level 0's readers) and the level-1 q planes of the two planes before
+// the fresh one (level 0's ride in registers).
+template <int K, int S>
+__host__ __device__ constexpr int q_planes() {
+  return S == SPEC_MEHR ? 3 * (K - 1) : 0;
+}
+
 // Shared memory of an instance with `slots` input slots.
 template <class T, int K, int S>
 __host__ __device__ constexpr int smem_with(int slots) {
   using G = Geom<K>;
   return slots * G::FH * in_stride<T, K>() * (int)sizeof(T) +
          (K - 1) * G::FH * G::FW * (int)sizeof(T) +
-         (uses_xsum<S>() ? G::FH * G::FW * (int)sizeof(float) : 0);
+         (uses_fslot<S>() ? G::FH * G::FW * (int)sizeof(float) : 0) +
+         q_planes<K, S>() * G::FH * G::FW * (int)sizeof(float);
 }
 
 // Input slots: planes i-1 and i under use and planes i+1 (and i+2) in

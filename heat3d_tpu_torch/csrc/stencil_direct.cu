@@ -11,7 +11,19 @@
 //     and the factored 27pt chain of the wrapper's table, ops/stencil_stream.py
 //     CHAINS, passed to nvcc as HEAT3D_CHAIN_7PT / HEAT3D_CHAIN_27PT; the
 //     weights are a kernel argument). The wrapper picks S by comparing
-//     emission_program(taps) with that table;
+//     emission_program(taps) with that table. S = SPEC_MEHR is the
+//     Mehrstellen q-ring route of the JAX kernels (HEAT3D_MEHRSTELLEN, taps
+//     a*delta + b*S + d*F; a, b, d are the first three weights): each
+//     plane's [1,3,1] (x) [1,3,1] sum q is formed once per level, when the
+//     plane is fresh (z along the warp's lanes by shuffles, y through a
+//     float z131 slot per level), and carried to the outputs that read it
+//     (in registers; at H = 2 the level-1 q planes in two float planes of
+//     shared memory, each thread at its own positions); an output is
+//     (a u0 + b ((q[x-1] + q[x+1]) + 3 q[x])) + d psum, 19 fp32 ops a cell
+//     and update. At H = 2 the level-1 q comes from the rounded, pinned
+//     intermediate, as the second update would read it. These instances
+//     carry more registers than the chains: fp32 and H = 2 run three
+//     blocks an SM (80 registers, no spills), bf16 H = 1 four;
 //   * direct1_generic / direct2_generic<T>: any other chain (other taps,
 //     HEAT3D_FACTOR_7PT=1, HEAT3D_FACTOR_Y=0), interpreted per cell from the
 //     Program in shared memory (stencil_common.cuh) over 3-slot float rings
@@ -57,12 +69,13 @@
 //
 // Measured (chip_smoke.py on "NVIDIA H100 80GB HBM3, 700.00 W"; PERF.md
 // section 6), ms per launch at 1024^3 fp32 7pt against the bytes bound of
-// 2.56: direct1 5.21 (5 blocks per SM, 47 registers), direct2 5.43 (4
-// blocks, 64 registers), no spills; 27pt 5.04 / 8.97, 7pt bf16 4.14 / 6.93
-// (bound 1.28). The first design, now the generic instance, took 10.57 /
-// 20.72. direct2 still trails streamk K=2 (4.75), the same sweep on a
-// padded block: the loader's ghost logic and 64 registers are suspects,
-// not measured.
+// 2.56: direct1 5.16 (5 blocks per SM, 46 registers), direct2 5.42 (4
+// blocks, 60 registers), no spills; 27pt 4.96 / 8.95, 7pt bf16 4.13 / 7.26
+// (bound 1.28); the Mehrstellen instances 4.61 / 8.47 fp32 (27pt chain of
+// the same call 4.90 / 8.92) and 5.70 / 10.60 bf16 (5.78 / 10.47). The
+// first design, now the generic instance, took 10.64 / 20.66. direct2
+// still trails streamk K=2 (4.69), the same sweep on a padded block: the
+// loader's ghost logic and 64 registers are suspects, not measured.
 //
 // Launches go on the caller's stream, allocate nothing, and return
 // cudaGetLastError().
@@ -73,11 +86,22 @@ namespace {
 
 constexpr int MAX_H = 2;
 
+// Blocks per SM the launch bounds set the register budget for: four (64
+// registers) for the chains and the bf16 one-update Mehrstellen instance;
+// three (80) for the fp32 one-update and both two-update Mehrstellen
+// instances, which carry q planes beside the chain's registers (at 64
+// they spill; scripts/torch_direct_probe.py, PERF.md section 6).
+template <class T, int H, int S>
+struct Bounds {
+  static constexpr int min_blocks =
+      S == SPEC_MEHR && (H == 2 || sizeof(T) == 4) ? 3 : MIN_BLOCKS;
+};
+
 // ---------------------------------------------------------------------------
 // Specialised instances.
 
 template <class T, int H, int S>
-__global__ void __launch_bounds__(SNT, MIN_BLOCKS)
+__global__ void __launch_bounds__(SNT, (Bounds<T, H, S>::min_blocks))
     direct_kernel(const T* __restrict__ u, T* __restrict__ out, int nx,
                   int ny, int nz, int xchunk, int periodic, float bc,
                   Weights w) {
@@ -305,6 +329,8 @@ int by_spec(int spec, const F& f) {
       return f.template run<Spec<T, H, SPEC_7PT>>();
     case SPEC_27PT:
       return f.template run<Spec<T, H, SPEC_27PT>>();
+    case SPEC_MEHR:
+      return f.template run<Spec<T, H, SPEC_MEHR>>();
     default:
       return f.template run<Generic<T, H>>();
   }
@@ -312,7 +338,7 @@ int by_spec(int spec, const F& f) {
 
 template <class F>
 int with_instance(int halo, int spec, int dtype, int bad, const F& f) {
-  if ((dtype != 0 && dtype != 1) || spec < SPEC_GENERIC || spec > SPEC_27PT ||
+  if ((dtype != 0 && dtype != 1) || spec < SPEC_GENERIC || spec > SPEC_MEHR ||
       halo < 1 || halo > MAX_H) {
     return bad;
   }
@@ -378,8 +404,8 @@ struct Launch {
 extern "C" {
 
 // Tile extents of instance (halo, spec) (spec 0 generic, 1 the 7pt chain,
-// 2 the 27pt chain), so the wrapper sizes its x-chunks from the same
-// numbers; -1 if there is no such instance.
+// 2 the 27pt chain, 3 the Mehrstellen route), so the wrapper sizes its
+// x-chunks from the same numbers; -1 if there is no such instance.
 int heat3d_direct_tile_y(int halo, int spec) {
   return with_instance(halo, spec, 0, -1, TileY{});
 }
@@ -405,10 +431,11 @@ int heat3d_direct_registers(int halo, int spec, int dtype) {
 }
 
 // halo: 1 (one update) or 2 (two fused updates); spec: 0 generic, 1 the 7pt
-// chain, 2 the 27pt chain (prog's (src, row, dk) must be that chain's);
-// dtype: 0 float, 1 bf16. u and out are (nx, ny, nz); bc is the Dirichlet
-// value already rounded to the storage type. Returns a cudaError_t (0 on
-// success); 1000 for bad arguments.
+// chain, 2 the 27pt chain (prog's (src, row, dk) must be that chain's), 3
+// the Mehrstellen route (prog holds three terms whose weights are a, b and
+// d); dtype: 0 float, 1 bf16. u and out are (nx, ny, nz); bc is the
+// Dirichlet value already rounded to the storage type. Returns a
+// cudaError_t (0 on success); 1000 for bad arguments.
 int heat3d_direct_launch(int halo, int spec, int dtype, const void* u,
                          void* out, int nx, int ny, int nz, int xchunk,
                          int periodic, float bc, const Program* prog,
@@ -416,7 +443,8 @@ int heat3d_direct_launch(int halo, int spec, int dtype, const void* u,
   if (nx < 1 || ny < 1 || nz < 1 || xchunk < 1 || prog == nullptr ||
       prog->n < 1 || prog->n > MAX_TERMS ||
       (spec == SPEC_7PT && !matches<SPEC_7PT>(*prog)) ||
-      (spec == SPEC_27PT && !matches<SPEC_27PT>(*prog))) {
+      (spec == SPEC_27PT && !matches<SPEC_27PT>(*prog)) ||
+      (spec == SPEC_MEHR && prog->n != 3)) {
     return 1000;
   }
   const Launch f{u, out, nx, ny, nz, xchunk, periodic, bc, prog,

@@ -69,6 +69,7 @@ struct Direct {
   static constexpr int LA = G::LA, MB = G::MB, P = G::P;
   static constexpr int FH = G::FH, FW = G::FW, SWI = in_stride<T, H>();
   static constexpr bool XS = uses_xsum<S>();
+  static constexpr bool MEHR = S == SPEC_MEHR;
   static constexpr bool SHIFT = sizeof(T) == 2;
   static constexpr int NS = in_slots<T, H, S>();  // input slots
   static constexpr int D = NS - 2;                // planes loaded ahead
@@ -81,7 +82,8 @@ struct Direct {
   T* __restrict__ out;
   T* in_slot;   // NS input slots
   T* lvl;       // the level-1 slot (H = 2)
-  float* xsp;   // the x-sum slot (27pt)
+  float* xsp;   // the x-sum slot (27pt); Mehrstellen: the z131 slot of
+                // each level, then at H = 2 level 1's two q planes
   int ny, nz, xs0, y0, z0;
   int periodic;
   float bc;
@@ -91,6 +93,8 @@ struct Direct {
   int rowout, colout;  // the thread's rows / columns of the output tile
   float g[H][P];       // level L's plane before the one in its slot
   float v[2][P];       // a stage's fresh plane until it reaches its slot
+  // Mehrstellen: the q planes of level 0's planes q-1 (qm) and q (q0)
+  float qm[MEHR ? P : 1], q0[MEHR ? P : 1];
 
   __device__ __forceinline__ int tid_base(int sw) const {
     return threadIdx.y * sw + threadIdx.x;
@@ -361,10 +365,192 @@ struct Direct {
     }
   }
 
+  // --- The Mehrstellen q-ring route (S == SPEC_MEHR), the JAX kernels'
+  // _plane_q / _plane_mehrstellen: out = (a u0 + b S) + d psum, with
+  // S = (q[x-1] + q[x+1]) + 3 q[x] over the q planes of the level's planes
+  // and q = the plane's [1,3,1] (x) [1,3,1] sum. Each plane's q is formed
+  // once, when the plane is fresh, and carried to the two later outputs
+  // that read it: level 0's in registers (qm, q0), level 1's in two float
+  // planes of shared memory, plane n's q at slot n & 1 (each thread reads
+  // and writes its own positions only: no barrier). Registers for both
+  // levels spill at H = 2 (PERF.md section 6).
+
+  // Level 1's shared q slot of plane n at the thread's position (l, m),
+  // after the two z131 slots.
+  __device__ __forceinline__ float* q_slot(int n, int l, int m) const {
+    return xsp + (2 + (n & 1)) * FH * FW + tid_base(FW) + SBY * l * FW +
+           SBZ * m;
+  }
+
+  // q of level L's fresh plane, whose values at the thread's positions are
+  // f, over level L+1's frame: z131 = (z- + z+) + 3 u along the frame row
+  // (one warp's: the z neighbours are lanes, or the next column of lane 0
+  // / 31), stored in the float slot; then y131 = (y- + y+) + 3 z131 from
+  // the rows above and below. Positions outside level L+1's columns hold
+  // junk that no output reads.
+  template <int L>
+  __device__ __forceinline__ void plane_q(const float (&f)[P], float (&q)[P]) {
+    constexpr unsigned kAll = 0xffffffffu;
+    const int tx = threadIdx.x;
+    float* zs = xsp + L * FH * FW + tid_base(FW);  // level L's z131 slot
+#pragma unroll
+    for (int l = 0; l < LA; ++l) {
+      if (!row_in(l, L)) continue;  // uniform across the warp
+#pragma unroll
+      for (int m = 0; m < MB; ++m) {
+        const int p = l * MB + m;
+        // each lane offers column b to its neighbours; lane 31 offers its
+        // column before (lane 0's z-1), lane 0 its column after (lane 31's z+1)
+        float lo = m > 0 && tx == SBZ - 1 ? f[p - 1] : f[p];
+        float hi = m < MB - 1 && tx == 0 ? f[p + 1] : f[p];
+        lo = __shfl_sync(kAll, lo, (tx + SBZ - 1) % SBZ);
+        hi = __shfl_sync(kAll, hi, (tx + 1) % SBZ);
+        q[p] = __fadd_rn(__fadd_rn(lo, hi), __fmul_rn(3.0f, f[p]));
+        zs[SBY * l * FW + SBZ * m] = q[p];
+      }
+    }
+    __syncthreads();
+    const XsView z{xsp + L * FH * FW + tid_base(FW), 0};
+#pragma unroll
+    for (int l = 0; l < LA; ++l) {
+      if (!row_in(l, L + 1)) continue;
+#pragma unroll
+      for (int m = 0; m < MB; ++m) {
+        const int p = l * MB + m;
+        q[p] = __fadd_rn(__fadd_rn(z.at(l, m, -1, 0), z.at(l, m, 1, 0)),
+                         __fmul_rn(3.0f, q[p]));
+      }
+    }
+  }
+
+  // Stage J at step i: q of level L = J-1's fresh plane n (input plane i,
+  // or the level-1 plane i-1 that stage 1 made this step), then, once the
+  // stage has work (i >= 2J), level J's plane q = i - J from level L's
+  // planes q-1 (g[L] and its q), q (its slot and q) and q+1 (the fresh
+  // plane and qp). Then the q planes and level L's slot move on.
+  template <int J>
+  __device__ __forceinline__ void stage_mehr(int i, const Weights& w) {
+    constexpr int L = J - 1;
+    if (i < 2 * L) return;  // level L has no plane yet (uniform)
+    float qp[P];
+    if constexpr (L == 0) {
+      float f[P];
+      const InView cur = in_view(i);
+#pragma unroll
+      for (int l = 0; l < LA; ++l) {
+#pragma unroll
+        for (int m = 0; m < MB; ++m) f[l * MB + m] = cur.at(l, m, 0, 0);
+      }
+      plane_q<L>(f, qp);
+    } else {
+      plane_q<L>(v[L & 1], qp);
+    }
+    const int n = i - L;  // level L's fresh plane
+    if (i >= 2 * J) {
+      if constexpr (L == 0) {
+        compute_mehr<J>(i - J, n, in_view(i - 1), in_view(i), qp, w);
+      } else {
+        compute_mehr<J>(i - J, n, lv_view(), in_view(i), qp, w);
+      }
+    }
+    if constexpr (L == 1) {
+#pragma unroll
+      for (int l = 0; l < LA; ++l) {
+        if (!row_in(l, L + 1)) continue;
+#pragma unroll
+        for (int m = 0; m < MB; ++m) *q_slot(n, l, m) = qp[l * MB + m];
+      }
+    } else {
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        qm[p] = q0[p];
+        q0[p] = qp[p];
+      }
+    }
+    if constexpr (L == 0) {
+      if (i >= 1) {
+        const InView prev = in_view(i - 1);
+#pragma unroll
+        for (int l = 0; l < LA; ++l) {
+#pragma unroll
+          for (int m = 0; m < MB; ++m) g[0][l * MB + m] = prev.at(l, m, 0, 0);
+        }
+      }
+    } else {
+      __syncthreads();  // stage J has read level L's slot
+      T* s = lvl + tid_base(FW);
+#pragma unroll
+      for (int l = 0; l < LA; ++l) {
+        if (!row_in(l, L)) continue;
+#pragma unroll
+        for (int m = 0; m < MB; ++m) {
+          if (!col_in(m, L)) continue;
+          const int p = l * MB + m;
+          const int o = SBY * l * FW + SBZ * m;
+          g[L][p] = to_f(s[o]);
+          s[o] = from_f<T>(v[L & 1][p]);
+        }
+      }
+    }
+  }
+
+  // Level J's plane q at the thread's positions of level J's frame (the
+  // output tile at J = H): (a u0 + b S) + d ((px + py) + pz), the JAX
+  // kernel's op order, then rounded and pinned (J < H) or stored.
+  template <int J, class V0>
+  __device__ __forceinline__ void compute_mehr(int q, int n, const V0& p0,
+                                               const InView& cur,
+                                               const float (&qp)[P],
+                                               const Weights& w) {
+    constexpr int L = J - 1;
+    const float a = w.w[0], b = w.w[1], d = w.w[2];
+    const int gx = plane_x(q);
+    const bool x_out = src.is_bc(gx);
+    const int64_t o0 = ((int64_t)gx * ny + y0 + (int)threadIdx.y - H) * nz +
+                       z0 + (int)threadIdx.x - H;
+#pragma unroll
+    for (int l = 0; l < LA; ++l) {
+      if (J < H ? !row_in(l, J) : !((rowout >> l) & 1)) continue;
+#pragma unroll
+      for (int m = 0; m < MB; ++m) {
+        if (J < H ? !col_in(m, J) : !((colout >> m) & 1)) continue;
+        const int p = l * MB + m;
+        float qmv, q0v;  // q of level L's planes n-2 and n-1
+        if constexpr (L == 1) {
+          qmv = *q_slot(n, l, m);
+          q0v = *q_slot(n - 1, l, m);
+        } else {
+          qmv = qm[p];
+          q0v = q0[p];
+        }
+        const float sq = __fadd_rn(__fadd_rn(qmv, qp[p]), __fmul_rn(3.0f, q0v));
+        const float pp = L == 0 ? cur.at(l, m, 0, 0) : v[L & 1][p];
+        const float px = __fadd_rn(g[L][p], pp);
+        const float py = __fadd_rn(p0.at(l, m, -1, 0), p0.at(l, m, 1, 0));
+        const float pz = __fadd_rn(p0.at(l, m, 0, -1), p0.at(l, m, 0, 1));
+        const float psum = __fadd_rn(__fadd_rn(px, py), pz);
+        const float r =
+            __fadd_rn(__fadd_rn(__fmul_rn(a, p0.at(l, m, 0, 0)), __fmul_rn(b, sq)),
+                      __fmul_rn(d, psum));
+        if constexpr (J < H) {
+          const bool pin = !periodic && (x_out || !((rowin >> l) & 1) ||
+                                         !((colin >> m) & 1));
+          v[J & 1][p] = pin ? bc : to_f(from_f<T>(r));
+        } else {
+          out[o0 + (SBY * l * nz + SBZ * m)] = from_f<T>(r);
+        }
+      }
+    }
+  }
+
   template <int... J>
   __device__ __forceinline__ void stages(int i, const Weights& w,
                                          std::integer_sequence<int, J...>) {
-    (stage<J + 1>(i, w), ...);
+    if constexpr (MEHR) {
+      (stage_mehr<J + 1>(i, w), ...);
+    } else {
+      (stage<J + 1>(i, w), ...);
+    }
   }
 
   // Output planes [xs0, xe).

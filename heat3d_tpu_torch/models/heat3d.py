@@ -64,10 +64,13 @@ def resolved_backend_name(cfg: SolverConfig) -> str:
 
 
 def _into(fn) -> LocalCompute:
+    """``fn(up, taps)`` as a padded-block compute; ``compute.plain`` names
+    ``fn``, so the overlap split's faces can follow its route."""
     def compute(up, taps, out=None):
         res = fn(up, taps)
         return res if out is None else out.copy_(res)
 
+    compute.plain = fn
     return compute
 
 
@@ -76,7 +79,9 @@ def _select_backend(cfg: SolverConfig) -> LocalCompute:
     exchange path (port of the JAX ``_select_backend``):
 
     'pallas' / 'auto' -- the stream kernel (``make_stream_compute``);
-    'jnp'  -- the plain PyTorch tap chain (``apply_taps_padded``);
+    'jnp'  -- the plain PyTorch update (``apply_taps_padded``: the tap
+              chain, or the Mehrstellen route under ``HEAT3D_MEHRSTELLEN``,
+              as the JAX jnp apply);
     'conv' -- one ``F.conv3d`` (``apply_taps_conv_padded``), the library
               A/B arm."""
     name = resolved_backend_name(cfg)

@@ -6,24 +6,28 @@ Port of ``heat3d_tpu.ops.stencil_pallas_direct`` (``apply_taps_direct``,
 hand-written kernel from ``csrc/stencil_direct.cu`` (built on first use by
 ``ops._build``) or raises; for a CPU tensor it runs the kernel's plain
 version, ``apply_taps_direct_ref`` / ``apply_taps_direct2_ref``: the ghost
-pad plus the tap chain of ``ops.stencil_eager``, once or twice, rounding
+pad plus ``ops.stencil_eager.apply_taps_padded`` (the tap chain, or the
+Mehrstellen route under ``HEAT3D_MEHRSTELLEN``), once or twice, rounding
 through the storage dtype between the two updates. On the same device the
 kernels equal their plain versions bitwise.
 
 The kernel source has an instance with the chain fixed at compile time for
 each entry of the stream kernels' table (``stencil_stream.CHAINS``, which
-the build passes to ``nvcc`` for both sources) and a generic instance that
-interprets any other program; :func:`direct_instance` picks one, as
-``stencil_stream.stream_instance`` does. A launch error raises: no launch
-falls back to another instance.
+the build passes to ``nvcc`` for both sources), a compile-time instance of
+the Mehrstellen q-ring route (:data:`MEHRSTELLEN`: the JAX kernels' route
+under ``HEAT3D_MEHRSTELLEN`` for taps that decompose as
+``a*delta + b*S + d*F``, the 27pt set), and a generic instance that
+interprets any other program; :func:`direct_instance` picks one. A launch
+error raises: no launch falls back to another instance.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, so a run
 can show that it went through the kernel, the launches that took the
-generic instance in ``<wrapper>.generic_launches``, and their output cells
-in ``<wrapper>.cells``; ``reset_launch_counts`` zeroes them.
+generic instance in ``<wrapper>.generic_launches``, those that took the
+Mehrstellen instance in ``<wrapper>.mehrstellen_launches``, and the output
+cells in ``<wrapper>.cells`` (of the Mehrstellen launches in
+``<wrapper>.mehrstellen_cells``); ``reset_launch_counts`` zeroes them.
 
-Not ported yet: the Mehrstellen q-ring route (``HEAT3D_MEHRSTELLEN``), which
-raises here, and bf16 compute dtype (the port computes in float32).
+Not ported yet: bf16 compute dtype (the port computes in float32).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch
 
 from heat3d_tpu_torch.core.config import BoundaryCondition
 from heat3d_tpu_torch.core.stencils import (
+    MEHRSTELLEN_OPS,
     _CountToken,
     accumulate_taps,
     decompose_mehrstellen,
@@ -47,6 +52,15 @@ from heat3d_tpu_torch.core.stencils import (
 from heat3d_tpu_torch.ops.stencil_eager import apply_taps_padded, pad_local
 
 _LIB = "stencil_direct"
+# The instance code of the Mehrstellen q-ring route in the kernel's
+# interface (csrc/stencil_chain.cuh SPEC_MEHR), beside the chain codes of
+# ``stencil_stream.CHAINS`` (0 generic, 1 7pt, 2 27pt).
+MEHRSTELLEN = 3
+# fp32 operations per cell and update of that instance (and of its plain
+# version), each multiply and add its own rounded op: z131 3, y131 3, S 3,
+# the three face sums 3, psum 2, the combine 5. The bench rows' chain_ops
+# give the JAX package's count of the route, MEHRSTELLEN_OPS.
+MEHRSTELLEN_KERNEL_OPS = 19
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Blocks a launch of the generic instance aims for: with the tile count
 # below this, x is cut into chunks (each costs 2*halo extra plane reads) so
@@ -95,11 +109,15 @@ def emission_program(taps: np.ndarray):
     return tuple((s, r, dk, w) for (s, r, dk), w in zip(entries, weights))
 
 
-def chain_ops(taps: np.ndarray) -> int:
+def chain_ops(taps: np.ndarray, mehrstellen: bool = False) -> int:
     """fp32 operations per cell and update of ``taps``' emission program
     under the current factoring knobs, with each plane and row sum counted
     once (as the plain version caches them): the bench rows' ``chain_ops``
-    and the flops of a kernel's bound."""
+    and the flops of a kernel's bound. With ``mehrstellen`` (the route ran)
+    and taps that decompose, the JAX package's count of the Mehrstellen
+    route, ``MEHRSTELLEN_OPS``."""
+    if mehrstellen and decompose_mehrstellen(taps) is not None:
+        return MEHRSTELLEN_OPS
     prog = emission_program(taps)
     sums = {("x",)} if any(s == 3 for s, _, _, _ in prog) else set()
     sums |= {("y", s) for s, r, _, _ in prog if r == 3}
@@ -121,16 +139,20 @@ def _program(taps_bytes: bytes, factor_7pt: str, factor_y: str) -> _Program:
     return prog
 
 
-def check_route(taps: np.ndarray) -> np.ndarray:
+def check_taps(taps: np.ndarray) -> np.ndarray:
+    """``taps`` as a contiguous float64 (3, 3, 3) array, or raise."""
     taps = np.ascontiguousarray(taps, dtype=np.float64)
     if taps.shape != (3, 3, 3):
         raise ValueError(f"taps must be (3,3,3), got {taps.shape}")
-    if mehrstellen_enabled() and decompose_mehrstellen(taps) is not None:
-        raise ValueError(
-            "HEAT3D_MEHRSTELLEN: the Mehrstellen q-ring route of the direct "
-            "kernels is not ported yet; unset it to run the tap chain"
-        )
     return taps
+
+
+def mehrstellen_route(taps: np.ndarray) -> bool:
+    """Whether the direct kernels take the Mehrstellen q-ring route for
+    ``taps`` under the current environment: the JAX gate
+    (``stencil_pallas_direct._mehrstellen_q_ring``), the knob on and the
+    taps decomposing as ``a*delta + b*S + d*F``."""
+    return mehrstellen_enabled() and decompose_mehrstellen(taps) is not None
 
 
 def _bc(periodic: bool) -> BoundaryCondition:
@@ -141,8 +163,10 @@ def apply_taps_direct_ref(
     u: torch.Tensor, taps: np.ndarray, periodic: bool = False,
     bc_value: float = 0.0,
 ) -> torch.Tensor:
-    """Plain version of :func:`apply_taps_direct`: ghost pad + tap chain."""
-    return apply_taps_padded(pad_local(u, _bc(periodic), bc_value), taps)
+    """Plain version of :func:`apply_taps_direct`: ghost pad + the update
+    of the route the environment selects (tap chain or Mehrstellen)."""
+    return apply_taps_padded(pad_local(u, _bc(periodic), bc_value), taps,
+                             mehrstellen=None)
 
 
 def apply_taps_direct2_ref(
@@ -197,6 +221,26 @@ def chain_program(taps: np.ndarray) -> _Program:
     )
 
 
+@functools.lru_cache(maxsize=64)
+def _mehrstellen_program(taps_bytes: bytes) -> _Program:
+    taps = np.frombuffer(taps_bytes, dtype=np.float64).reshape(3, 3, 3)
+    coeffs = decompose_mehrstellen(taps)
+    if coeffs is None:
+        raise ValueError("the Mehrstellen instance needs taps a*delta + b*S + d*F")
+    prog = _Program()
+    prog.n = 3
+    for i, c in enumerate(coeffs):
+        prog.t[i] = _Term(0, 0, 0, float(np.float32(c)))
+    return prog
+
+
+def mehrstellen_program(taps: np.ndarray) -> _Program:
+    """The Mehrstellen instance's arguments in the kernel's program record:
+    three entries whose weights are ``decompose_mehrstellen(taps)``'s
+    (a, b, d) as ``np.float32``, the rounding of the plain version."""
+    return _mehrstellen_program(check_taps(taps).tobytes())
+
+
 def storage_bc(bc_value: float, dtype: torch.dtype) -> float:
     """``bc_value`` rounded to the storage dtype, as the plain version's
     constant pad (and the Pallas kernels' ``dtype.type(bc)``) rounds it."""
@@ -249,12 +293,14 @@ def _lib():
 
 
 def direct_instance(taps: np.ndarray) -> int:
-    """The kernel instance that runs ``taps`` under the current factoring
-    knobs: the stream kernels' choice (``stencil_stream.stream_instance``,
-    one table, :data:`stencil_stream.CHAINS`), 0 for the generic one."""
+    """The kernel instance that runs ``taps`` under the current knobs:
+    :data:`MEHRSTELLEN` where :func:`mehrstellen_route` holds, else the
+    stream kernels' choice (``stencil_stream.stream_instance``, one table,
+    :data:`stencil_stream.CHAINS`), 0 for the generic one."""
     from heat3d_tpu_torch.ops.stencil_stream import stream_instance
 
-    return stream_instance(taps)
+    taps = check_taps(taps)
+    return MEHRSTELLEN if mehrstellen_route(taps) else stream_instance(taps)
 
 
 def instance_resources(halo: int, instance: int, dtype: torch.dtype) -> dict:
@@ -297,8 +343,8 @@ def _launch(wrapper, halo, u, taps, periodic, bc_value, out,
         # bf16 rows are copied as aligned element pairs
         raise ValueError("field must start on a 4-byte boundary")
     lib = _lib()
-    prog = chain_program(taps)
     inst = direct_instance(taps) if instance is None else instance
+    prog = mehrstellen_program(taps) if inst == MEHRSTELLEN else chain_program(taps)
     bc = storage_bc(bc_value, u.dtype)
     nx, ny, nz = u.shape
     if xchunk is None:
@@ -316,7 +362,9 @@ def _launch(wrapper, halo, u, taps, periodic, bc_value, out,
         )
     wrapper.launches += 1
     wrapper.generic_launches += inst == 0
+    wrapper.mehrstellen_launches += inst == MEHRSTELLEN
     wrapper.cells += out.numel()
+    wrapper.mehrstellen_cells += out.numel() if inst == MEHRSTELLEN else 0
     return out
 
 
@@ -331,7 +379,7 @@ def apply_taps_direct(
     (nx, ny, nz) in, (nx, ny, nz) out in the same dtype (float32 or
     bfloat16 storage, float32 compute). ``out`` (optional, preallocated)
     must not overlap ``u``."""
-    taps = check_route(taps)
+    taps = check_taps(taps)
     if u.device.type == "cpu":
         res = apply_taps_direct_ref(u, taps, periodic, bc_value)
         return res if out is None else out.copy_(res)
@@ -349,7 +397,7 @@ def apply_taps_direct2(
     intermediate rounded to the storage dtype and its Dirichlet domain
     ghosts pinned to ``bc_value``: equal to two :func:`apply_taps_direct`
     calls."""
-    taps = check_route(taps)
+    taps = check_taps(taps)
     if u.device.type == "cpu":
         res = apply_taps_direct2_ref(u, taps, periodic, bc_value)
         return res if out is None else out.copy_(res)
@@ -368,10 +416,11 @@ def launch_instance(
 ) -> torch.Tensor:
     """:func:`apply_taps_direct` (halo 1) or :func:`apply_taps_direct2`
     (halo 2) on a named kernel instance, for measurements: the generic
-    instance (0) takes any chain, a compile-time one only its own (else the
-    launch raises); ``xchunk`` forces the x-chunk length. CUDA tensors
+    instance (0) takes any chain, a compile-time one only its own, the
+    Mehrstellen one (:data:`MEHRSTELLEN`) only taps that decompose (else
+    the launch raises); ``xchunk`` forces the x-chunk length. CUDA tensors
     only; counted on the wrapper as usual."""
-    taps = check_route(taps)
+    taps = check_taps(taps)
     wrapper = apply_taps_direct if halo == 1 else apply_taps_direct2
     return _launch(wrapper, halo, u, taps, periodic, bc_value, out, instance, xchunk)
 
@@ -387,13 +436,22 @@ def generic_launch_counts() -> dict:
     return {k.__name__: k.generic_launches for k in KERNELS}
 
 
+def mehrstellen_launch_counts() -> dict:
+    return {k.__name__: k.mehrstellen_launches for k in KERNELS}
+
+
+def mehrstellen_cell_counts() -> dict:
+    return {k.__name__: k.mehrstellen_cells for k in KERNELS}
+
+
 def cell_counts() -> dict:
     return {k.__name__: k.cells for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = k.generic_launches = k.cells = 0
+        k.launches = k.generic_launches = k.mehrstellen_launches = k.cells = 0
+        k.mehrstellen_cells = 0
 
 
 reset_launch_counts()

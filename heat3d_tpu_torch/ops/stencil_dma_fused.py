@@ -14,8 +14,10 @@ runs the kernels' plain version, :func:`reference_fused_step` /
 ``reference_fused_superstep_xla``): a ring shift of the x faces from the
 neighbouring shards, bc substituted at Dirichlet x domain faces, the
 (nx+2w, ny, nz) stack padded in y/z as a domain boundary (wrap or bc), and
-``apply_taps_padded``. On the same device the kernels equal their plain
-versions bitwise.
+``apply_taps_padded`` with the tap chain. On the same device the kernels
+equal their plain versions bitwise. Under ``HEAT3D_MEHRSTELLEN`` the
+kernels and their plain versions keep the tap chain, as the JAX fused
+kernels do.
 
 Scope (the JAX gates' shape rules): a mesh sharded along x (>= 2 shards)
 and along nothing else (the slab kernels) or also along y or z (the 3D
@@ -61,7 +63,7 @@ from heat3d_tpu_torch.ops.stencil_direct import (
     _DTYPE_CODES,
     _Program,
     chain_program,
-    check_route,
+    check_taps,
     storage_bc,
 )
 from heat3d_tpu_torch.ops.stencil_direct import wave_xchunk as _direct_wave_xchunk
@@ -285,10 +287,13 @@ def reference_fused_step(us: Sequence[torch.Tensor], taps: np.ndarray, mesh,
                          return_ghosts: bool = False):
     """Plain version of :func:`apply_step_fused_dma`: per shard the ring
     ghosts (:func:`ring_ghosts`), the (nx+2, ny, nz) stack padded in y/z
-    as a domain boundary, and the tap chain. With ``return_ghosts`` also
+    as a domain boundary, and the tap chain (under the Mehrstellen knob
+    too: the fused kernels, as the JAX ones, have no Mehrstellen form). With
+    ``return_ghosts`` also
     the landed (ny, nz) planes per shard, bc substituted."""
     ghosts = ring_ghosts(us, mesh, 1, periodic, bc_value)
-    outs = [apply_taps_padded(_pad_yz(torch.cat([glo, u, ghi]), periodic, bc_value), taps)
+    outs = [apply_taps_padded(_pad_yz(torch.cat([glo, u, ghi]), periodic, bc_value), taps,
+                              mehrstellen=False)
             for u, (glo, ghi) in zip(us, ghosts)]
     if return_ghosts:
         return outs, [(glo[0], ghi[0]) for glo, ghi in ghosts]
@@ -631,7 +636,7 @@ def apply_superstep_fused_dma(us: Sequence[torch.Tensor], taps: np.ndarray, mesh
 
 def _step(wrapper, us, taps, mesh, state, periodic, bc_value, outs, return_ghosts=False,
           instance=None, xchunk=None):
-    taps = check_route(taps)
+    taps = check_taps(taps)
     if us[0].device.type == "cpu":
         res = reference_fused_step(us, taps, mesh, periodic, bc_value, return_ghosts)
         if return_ghosts:
@@ -648,7 +653,7 @@ def _step(wrapper, us, taps, mesh, state, periodic, bc_value, outs, return_ghost
 
 def _superstep(wrapper, us, taps, mesh, state, periodic, bc_value, outs, instance=None,
                xchunk=None):
-    taps = check_route(taps)
+    taps = check_taps(taps)
     if mesh.local_shape[0] < 4:
         raise ValueError(f"the two-update fused kernel needs nx >= 4, got {mesh.local_shape}")
     if us[0].device.type == "cpu":

@@ -5,18 +5,28 @@ in the same ``core.stencils.accumulate_taps`` emission order, on tensors.
 Eager PyTorch runs each multiply and each add as its own rounded operation
 (no FMA contraction), so a CUDA kernel that evaluates the chain with
 ``__fmul_rn``/``__fadd_rn`` in the same order equals it bitwise on the same
-device. These functions run on any device; on the CPU they are the stand-in
-for the kernels (``ops.stencil_direct``).
+device. The Mehrstellen route (``HEAT3D_MEHRSTELLEN``, taps that factor as
+``a*delta + b*S + d*F``) is held to the same standard in its own canonical
+order (:func:`_apply_mehrstellen_padded`). These functions run on any
+device; on the CPU they are the stand-in for the kernels
+(``ops.stencil_direct``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from heat3d_tpu_torch.core.config import BoundaryCondition
-from heat3d_tpu_torch.core.stencils import accumulate_taps, flat_taps
+from heat3d_tpu_torch.core.stencils import (
+    accumulate_taps,
+    decompose_mehrstellen,
+    flat_taps,
+    mehrstellen_enabled,
+)
 
 
 def pad_local(
@@ -34,17 +44,60 @@ def pad_local(
     return F.pad(u, (1, 1, 1, 1, 1, 1), mode="constant", value=bc_value)
 
 
-def apply_taps_padded(up: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
+def apply_taps_padded(
+    up: torch.Tensor, taps: np.ndarray, mehrstellen: Optional[bool] = None
+) -> torch.Tensor:
     """Apply 3x3x3 update taps to a ghost-padded ``up`` of shape
     (nx+2, ny+2, nz+2); returns the (nx, ny, nz) interior update in
     ``up``'s dtype, computed in float32 (the port's one compute dtype).
     Tap weights are embedded as ``np.float32(w)``, the rounding
-    ``jnp.asarray(w, float32)`` applies."""
+    ``jnp.asarray(w, float32)`` applies.
+
+    ``mehrstellen`` pins the route, as in the JAX package: None follows
+    ``HEAT3D_MEHRSTELLEN`` (``core.stencils.mehrstellen_enabled``); True
+    takes the Mehrstellen route (:func:`_apply_mehrstellen_padded`) where
+    the taps decompose as ``a*delta + b*S + d*F``; False forces the tap
+    chain. Callers beside a kernel that runs the chain under the knob (the
+    exchange-path and fused kernels' plain versions, the overlap faces
+    around them) pass False."""
+    if mehrstellen is None:
+        mehrstellen = mehrstellen_enabled()
+    if mehrstellen:
+        coeffs = decompose_mehrstellen(taps)
+        if coeffs is not None:
+            return _apply_mehrstellen_padded(up.float(), coeffs).to(up.dtype)
     flat = flat_taps(taps)
     if not flat:
         raise ValueError("stencil has no taps")
     acc = _chain_accumulate(up.float(), flat, lambda w: float(np.float32(w)))
     return acc.to(up.dtype)
+
+
+def _apply_mehrstellen_padded(upc: torch.Tensor, coeffs) -> torch.Tensor:
+    """The Mehrstellen route over a ghost-padded float32 ``upc``, port of
+    ``stencil_jnp._apply_mehrstellen_padded``: three 1D [1,3,1] sums build
+    S, the six face neighbours build F, one 3-term combine. One rounded
+    float32 op per step, in the canonical order:
+
+      z131 = (z- + z+) + 3*u       per z-line of the padded block
+      y131 = (y- + y+) + 3*z131    per y-line of z131 (a plane's q)
+      S    = (x- + x+) + 3*y131    over x-planes of y131
+      psum = (px + py) + pz        face sums of the padded block
+      out  = (a*u0 + b*S) + d*psum
+
+    ``coeffs`` are ``decompose_mehrstellen``'s (a, b, d), embedded as
+    ``np.float32`` like the tap weights."""
+    nx, ny, nz = upc.shape[0] - 2, upc.shape[1] - 2, upc.shape[2] - 2
+    a, b, d = (float(np.float32(c)) for c in coeffs)
+    z131 = (upc[:, :, 0:nz] + upc[:, :, 2 : nz + 2]) + 3.0 * upc[:, :, 1 : nz + 1]
+    y131 = (z131[:, 0:ny] + z131[:, 2 : ny + 2]) + 3.0 * z131[:, 1 : ny + 1]
+    s = (y131[0:nx] + y131[2 : nx + 2]) + 3.0 * y131[1 : nx + 1]
+    c = upc[1 : nx + 1, 1 : ny + 1, 1 : nz + 1]
+    px = upc[0:nx, 1 : ny + 1, 1 : nz + 1] + upc[2 : nx + 2, 1 : ny + 1, 1 : nz + 1]
+    py = upc[1 : nx + 1, 0:ny, 1 : nz + 1] + upc[1 : nx + 1, 2 : ny + 2, 1 : nz + 1]
+    pz = upc[1 : nx + 1, 1 : ny + 1, 0:nz] + upc[1 : nx + 1, 1 : ny + 1, 2 : nz + 2]
+    psum = (px + py) + pz
+    return (a * c + b * s) + d * psum
 
 
 def _chain_accumulate(upc: torch.Tensor, flat, scalar) -> torch.Tensor:

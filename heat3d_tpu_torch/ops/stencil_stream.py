@@ -37,8 +37,10 @@ launches), the launches that took the generic instance in
 ``<wrapper>.generic_launches`` and the output cells it computed in
 ``<wrapper>.cells``; ``reset_launch_counts`` zeroes them.
 
-Not ported yet: the Mehrstellen route (``HEAT3D_MEHRSTELLEN``), which
-raises here, and bf16 compute dtype (the port computes in float32).
+Under ``HEAT3D_MEHRSTELLEN`` these kernels run the tap chain, as the JAX
+package's windowed stream/streamk kernels do (they have no Mehrstellen
+form), and so do their plain versions (``mehrstellen=False``). Not ported
+yet: bf16 compute dtype (the port computes in float32).
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ from heat3d_tpu_torch.ops.stencil_direct import (
     _Program,
     _xchunk,
     chain_program,
-    check_route,
+    check_taps,
     check_tensors,
     emission_program,
     storage_bc,
@@ -98,7 +100,8 @@ def apply_taps_streamk_ref(
     bc_value: float = 0.0, edges=ALL_EDGES,
 ) -> torch.Tensor:
     """Plain version of :func:`apply_taps_streamk`: k ``apply_taps_padded``
-    applications over the width-k padded block, each but the last rounded
+    applications of the tap chain (under the Mehrstellen knob too, as the
+    kernel) over the width-k padded block, each but the last rounded
     to the storage dtype (``apply_taps_padded`` returns it) and, under
     Dirichlet, pinned to ``bc_value`` wherever its block index (padded
     index - k) lies outside [0, n) beyond a domain face the block touches
@@ -106,7 +109,7 @@ def apply_taps_streamk_ref(
     interior = [n - 2 * k for n in upk.shape]
     cur = upk
     for j in range(1, k + 1):
-        cur = apply_taps_padded(cur, taps)
+        cur = apply_taps_padded(cur, taps, mehrstellen=False)
         r = k - j  # ghost rings cur still carries
         if r > 0 and not periodic:
             idx = [torch.arange(-r, n + r, device=cur.device) for n in interior]
@@ -145,7 +148,7 @@ def stream_instance(taps: np.ndarray) -> int:
     """The kernel instance that runs ``taps`` under the current factoring
     knobs: the code of the :data:`CHAINS` entry whose sequence equals the
     emission program's, else :data:`GENERIC`."""
-    taps = check_route(taps)
+    taps = check_taps(taps)
     return _instance(
         taps.tobytes(),
         os.environ.get("HEAT3D_FACTOR_7PT", ""),
@@ -237,10 +240,10 @@ def apply_taps_stream(
     (nx, ny, nz) out in the same dtype (float32 or bfloat16 storage,
     float32 compute). ``out`` (optional, preallocated) must not overlap
     ``up``."""
-    taps = check_route(taps)
+    taps = check_taps(taps)
     if up.device.type == "cpu":
         _interior(up, 1)
-        res = apply_taps_padded(up, taps)
+        res = apply_taps_padded(up, taps, mehrstellen=False)
         return res if out is None else out.copy_(res)
     return _launch(apply_taps_stream, 1, up, taps, False, 0.0, out)
 
@@ -263,7 +266,7 @@ def apply_taps_streamk(
     whole-domain block)."""
     if k not in STREAMK_DEPTHS:
         raise ValueError(f"streamk kernel wants k in {STREAMK_DEPTHS}, got {k}")
-    taps = check_route(taps)
+    taps = check_taps(taps)
     edge_bits(edges)
     if upk.device.type == "cpu":
         _interior(upk, k)

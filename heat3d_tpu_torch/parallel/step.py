@@ -275,14 +275,19 @@ def _patch_boundary_shells(out, u, faces, taps, cfg: SolverConfig, axes=(0, 1, 2
     (where the kernel's local ghost synthesis is wrong) from virtual padded
     slabs over the exchanged ``faces``, and patch them into ``out``. Axes
     of mesh size 1 are skipped: the kernel's local BC/wrap is exact there.
-    The shells use the plain chain: the JAX package computes them outside
-    any kernel too, and on the card it equals the kernel bitwise."""
+    The shells use the plain update of the route the environment selects
+    (the tap chain, or the Mehrstellen route under ``HEAT3D_MEHRSTELLEN``,
+    as the direct bulk): the JAX package computes them outside any kernel
+    too, and on the card they equal the kernel bitwise. The fused-dma-3d
+    step patches its y/z shells here as well, following the environment
+    as the JAX step does there."""
     for axis in axes:
         if cfg.mesh.shape[axis] == 1:
             continue
         n = u.shape[axis]
         for start in (0, n - 1):
-            shell = apply_taps_padded(_padded_slab(u, faces, axis, start), taps)
+            shell = apply_taps_padded(_padded_slab(u, faces, axis, start), taps,
+                                      mehrstellen=None)
             out[_planes(axis, start, start + 1)] = shell
     return out
 
@@ -315,7 +320,7 @@ def _local_superstep_direct_faces(u, faces, taps, cfg: SolverConfig, shard, out=
     kernel over the unpadded shard, then the outermost TWO planes per side
     of each sharded axis recomputed from 6-thick virtual width-2 padded
     slabs (apply, pin the intermediate's domain ghosts, apply) and patched
-    in."""
+    in, on the route the environment selects, as the bulk."""
     out = apply_taps_direct2(u, taps, _periodic(cfg), cfg.stencil.bc_value, out=out)
     for axis, size in enumerate(cfg.mesh.shape):
         if size == 1:
@@ -323,9 +328,10 @@ def _local_superstep_direct_faces(u, faces, taps, cfg: SolverConfig, shard, out=
         n = u.shape[axis]
         for start in (0, n - 2):  # width-2 padded coords; final planes
             slab = _padded_slab(u, faces, axis, start, w=2, thickness=6)
-            mid = _pin_slab_mid(apply_taps_padded(slab, taps), cfg, axis, start,
-                                shard.origin)
-            out[_planes(axis, start, start + 2)] = apply_taps_padded(mid, taps)
+            mid = _pin_slab_mid(apply_taps_padded(slab, taps, mehrstellen=None), cfg,
+                                axis, start, shard.origin)
+            out[_planes(axis, start, start + 2)] = apply_taps_padded(
+                mid, taps, mehrstellen=None)
     return out
 
 
@@ -336,15 +342,21 @@ def _local_step_overlap(u, up, taps, cfg: SolverConfig, compute_padded: LocalCom
     interior cells (local 1..n-2 per axis) from the backend's padded
     compute over the shard as its own padded input, which reads no ghost;
     the six 1-thick faces from the exchanged width-1 block ``up`` by the
-    plain chain. Edge and corner cells are written by two or three faces
-    with the same value. Equal to the unsplit step."""
+    plain update on the interior's route: the environment's where the
+    interior is the plain update itself (``backend='jnp'``), else the tap
+    chain, as the stream kernel and the conv arm run under the
+    Mehrstellen knob (the JAX ``face_mehrstellen``). Edge and corner cells
+    are written by two or three faces with the same value. Equal to the
+    unsplit step."""
     if out is None:
         out = torch.empty_like(u)
     out[1:-1, 1:-1, 1:-1] = compute_padded(u, taps)
+    face_mehrstellen = (None if getattr(compute_padded, "plain", None) is apply_taps_padded
+                        else False)
     for axis, n in enumerate(u.shape):
         for start in (0, n - 1):
             out[_planes(axis, start, start + 1)] = apply_taps_padded(
-                up.narrow(axis, start, 3), taps)
+                up.narrow(axis, start, 3), taps, mehrstellen=face_mehrstellen)
     return _pin_padding(out, cfg, shard)
 
 

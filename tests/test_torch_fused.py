@@ -604,6 +604,34 @@ def test_fused_state_and_wrapper_checks():
     assert fd.launch_counts() == before  # the plain version launches nothing
 
 
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("periodic,bcv", [(False, 0.3), (True, 0.0)], ids=["dir0.3", "periodic"])
+def test_fused_plain_versions_keep_the_chain_under_mehrstellen(monkeypatch, periodic, bcv,
+                                                               storage):
+    """Under ``HEAT3D_MEHRSTELLEN`` the fused wrappers (DMA and RDMA, one
+    and two updates) run the tap chain, as the JAX fused kernels do: their
+    plain versions, which the CPU wrappers run, equal their knob-off
+    results bitwise, and the instance stays the chain's."""
+    mesh = _cpu_mesh(RING, (4, 9, 11))
+    taps = _taps(config, "27pt")
+    rng = np.random.default_rng(12)
+    us = [torch.from_numpy(rng.standard_normal((4, 9, 11)).astype(np.float32)).to(storage)
+          for _ in range(4)]
+    wrappers = (fd.apply_step_fused_dma, fd.apply_superstep_fused_dma,
+                fr.apply_step_fused_rdma, fr.apply_superstep_fused_rdma)
+
+    def run():
+        return [[t.clone() for t in w(us, taps, mesh, None, periodic, bcv)] for w in wrappers]
+
+    monkeypatch.delenv("HEAT3D_MEHRSTELLEN", raising=False)
+    off = run()
+    monkeypatch.setenv("HEAT3D_MEHRSTELLEN", "1")
+    on = run()
+    for w, a, b in zip(wrappers, off, on):
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), w.__name__
+    assert fd.fused_instance(1, taps) == fd.fused_instance(2, taps) == 2
+
+
 @pytest.mark.parametrize("kind,knobs,want", [
     ("7pt", {}, 1), ("27pt", {}, 2),
     ("7pt", {"HEAT3D_FACTOR_7PT": "1"}, 0), ("27pt", {"HEAT3D_FACTOR_Y": "0"}, 0)])

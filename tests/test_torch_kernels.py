@@ -127,6 +127,80 @@ def test_direct_instances_fit_and_raise_without_fallback(cuda):
         sd.apply_taps_direct(flat[1:].view(10, 10, 10), _taps("7pt"))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 3, 5), (3, 9, 67), (5, 77, 125),
+                                   (6, 39, 127), (33, 17, 129), (40, 70, 65), (70, 45, 131)])
+def test_mehrstellen_instance_equals_plain_version(cuda, monkeypatch, shape, dtype):
+    """Under ``HEAT3D_MEHRSTELLEN`` the 27pt direct launches take the
+    compile-time Mehrstellen instance (counted in ``mehrstellen_launches``)
+    and equal its plain version bitwise, Dirichlet bc 0 and 0.3 and
+    periodic, at halo 1 and 2: extents below 2H+1, odd nz, y and z no
+    multiple of the tiles, and several x-chunks (the wrapper's, and forced
+    to 3 planes)."""
+    monkeypatch.setenv("HEAT3D_MEHRSTELLEN", "1")
+    base = np.random.default_rng(13).standard_normal(shape).astype(np.float32)
+    u = torch.from_numpy(base).to(cuda).to(dtype)
+    taps = _taps("27pt")
+    assert sd.direct_instance(taps) == sd.MEHRSTELLEN
+    sd.reset_launch_counts()
+    for periodic, bcv in ((False, 0.0), (False, 0.3), (True, 0.0)):
+        for halo, (kernel, plain) in enumerate(PAIRS, start=1):
+            want = plain(u, taps, periodic, bcv)
+            got = kernel(u, taps, periodic, bcv)
+            chunked = sd.launch_instance(halo, sd.MEHRSTELLEN, u, taps, periodic, bcv,
+                                         xchunk=3)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (kernel.__name__, periodic, bcv)
+            assert torch.equal(chunked, want), (kernel.__name__, periodic, bcv, "xchunk 3")
+    assert sd.mehrstellen_launch_counts() == sd.launch_counts() == {
+        "apply_taps_direct": 6, "apply_taps_direct2": 6}
+    assert sd.generic_launch_counts() == {"apply_taps_direct": 0, "apply_taps_direct2": 0}
+
+
+def test_mehrstellen_instance_fits_and_raises_without_fallback(cuda, monkeypatch):
+    """The Mehrstellen instances fit three blocks of 256 threads an SM (their
+    launch bounds: the bf16 one-update instance four); forced on taps that
+    do not decompose the launch raises, and a 7pt solve under the knob
+    keeps its chain instance."""
+    for halo in (1, 2):
+        for dtype in (torch.float32, torch.bfloat16):
+            r = sd.instance_resources(halo, sd.MEHRSTELLEN, dtype)
+            want = 4 if (halo, dtype) == (1, torch.bfloat16) else 3
+            assert r["blocks_per_sm"] >= want, (halo, dtype, r)
+    monkeypatch.setenv("HEAT3D_MEHRSTELLEN", "1")
+    u = torch.rand((8, 8, 8), device=cuda)
+    sd.reset_launch_counts()
+    with pytest.raises(ValueError, match="a\\*delta"):
+        sd.launch_instance(1, sd.MEHRSTELLEN, u, _taps("7pt"))
+    sd.apply_taps_direct2(u, _taps("7pt"))
+    assert sd.mehrstellen_launch_counts() == {"apply_taps_direct": 0, "apply_taps_direct2": 0}
+    assert sd.launch_counts() == {"apply_taps_direct": 0, "apply_taps_direct2": 1}
+
+
+@pytest.mark.parametrize("tb", [1, 2])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_mehrstellen_sharded_solve_equals_single_shard_on_card(cuda, monkeypatch, tb,
+                                                               storage):
+    """Under the knob the (2,2,2) faces-direct solve (Mehrstellen instance
+    on each shard, Mehrstellen plain shells) equals the (1,1,1) solve."""
+    from heat3d_tpu_torch.core.config import MeshConfig, Precision
+
+    monkeypatch.setenv("HEAT3D_MEHRSTELLEN", "1")
+
+    def solve(mesh):
+        cfg = SolverConfig(grid=GridConfig(shape=(24, 20, 70)),
+                           stencil=StencilConfig(kind="27pt", bc_value=0.3),
+                           mesh=MeshConfig(shape=mesh), time_blocking=tb,
+                           precision=Precision(storage=storage))
+        solver = HeatSolver3D(cfg, device=cuda)
+        return solver.gather(solver.run(solver.init_state("random"), 9))
+
+    sd.reset_launch_counts()
+    want = solve((1, 1, 1))
+    assert sum(sd.mehrstellen_launch_counts().values()) > 0
+    assert solve((2, 2, 2)).tobytes() == want.tobytes()
+
+
 def test_launch_counts_and_out_checks(cuda):
     u = torch.rand((8, 8, 8), device=cuda)
     taps = _taps("7pt")

@@ -17,9 +17,10 @@ import pytest
 import torch
 
 import heat3d_tpu.ops.stencil_pallas_direct as ref_direct
+from heat3d_tpu_torch.core.config import BoundaryCondition
 from heat3d_tpu_torch.ops import stencil_direct as sd
-from heat3d_tpu_torch.ops.stencil_eager import residual_sumsq
-from torch_port_checks import DTYPES, _check_pair, _taps
+from heat3d_tpu_torch.ops.stencil_eager import apply_taps_padded, pad_local, residual_sumsq
+from torch_port_checks import BCS, DTYPES, _check_pair, _taps
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: d[0])
@@ -51,10 +52,27 @@ def test_cpu_path_does_not_count_launches():
 
 
 def test_mehrstellen_route_raises(monkeypatch):
+    """The Mehrstellen route, which the port refused before its kernel
+    instance existed, now runs: under ``HEAT3D_MEHRSTELLEN`` the direct
+    wrappers equal their plain versions, which take the Mehrstellen update
+    (``apply_taps_padded(mehrstellen=True)``, once or twice with the
+    storage round trip and the pin between), not the tap chain; Dirichlet
+    bc 0 and 0.3 and periodic."""
     monkeypatch.setenv("HEAT3D_MEHRSTELLEN", "1")
-    taps = _taps("27pt", (8, 8, 8))
-    with pytest.raises(ValueError, match="not ported yet"):
-        sd.apply_taps_direct(torch.zeros((8, 8, 8)), taps)
+    shape = (6, 9, 11)
+    taps = _taps("27pt", shape)
+    u = torch.from_numpy(np.random.default_rng(5).standard_normal(shape).astype(np.float32))
+    for periodic, bcv in BCS:
+        bc = BoundaryCondition.PERIODIC if periodic else BoundaryCondition.DIRICHLET
+        once = apply_taps_padded(pad_local(u, bc, bcv), taps, mehrstellen=True)
+        got = sd.apply_taps_direct(u, taps, periodic, bcv)
+        assert torch.equal(got, once), (periodic, bcv)
+        assert torch.equal(got, sd.apply_taps_direct_ref(u, taps, periodic, bcv))
+        assert not torch.equal(once, apply_taps_padded(pad_local(u, bc, bcv), taps,
+                                                       mehrstellen=False))
+        twice = sd.apply_taps_direct(once, taps, periodic, bcv)
+        assert torch.equal(sd.apply_taps_direct2(u, taps, periodic, bcv), twice)
+        assert torch.equal(sd.apply_taps_direct2_ref(u, taps, periodic, bcv), twice)
 
 
 def test_emission_program_follows_factoring_knobs(monkeypatch):

@@ -152,12 +152,39 @@ def test_streamk_wrapper_checks_and_cpu_counts():
 
 
 def test_mehrstellen_route_raises(monkeypatch):
-    monkeypatch.setenv("HEAT3D_MEHRSTELLEN", "1")
-    taps = _taps("27pt", (8, 8, 8))
-    with pytest.raises(ValueError, match="not ported yet"):
-        ss.apply_taps_stream(torch.zeros((6, 6, 6)), taps)
-    with pytest.raises(ValueError, match="not ported yet"):
-        ss.apply_taps_streamk(torch.zeros((8, 8, 8)), taps, 2)
+    """Under ``HEAT3D_MEHRSTELLEN`` the stream and streamk wrappers, which
+    refused the knob before, run the tap chain, as the JAX windowed
+    stream/streamk kernels do (they have no Mehrstellen form): equal to
+    the JAX kernels in interpret mode under the knob, and bitwise to the
+    wrappers with the knob off; fp32 and bf16 storage."""
+    shape = (6, 7, 9)
+    taps = _taps("27pt", shape)
+    for storage, tdtype, jdtype in DTYPES:
+        jup, tup = _field(tuple(n + 2 for n in shape), 6, jdtype)
+        ju, tu = _field(shape, 7, jdtype)
+        up2 = {bc: exchange_halo(tu.to(tdtype), _bc(bc[0]), bc[1], 2) for bc in BCS}
+        monkeypatch.delenv("HEAT3D_MEHRSTELLEN", raising=False)
+        off = [ss.apply_taps_stream(tup.to(tdtype), taps)]
+        off += [ss.apply_taps_streamk(up2[bc], taps, 2, *bc) for bc in BCS]
+        monkeypatch.setenv("HEAT3D_MEHRSTELLEN", "1")
+        want = ref_pallas.apply_taps_pallas(jup, taps, compute_dtype=jnp.float32,
+                                            out_dtype=jdtype, interpret=True)
+        got = ss.apply_taps_stream(tup.to(tdtype), taps)
+        assert torch.equal(got, off[0])
+        assert_close_per_update(_as_np(got), np.asarray(want.astype(jnp.float32)),
+                                storage, 1, err_msg=f"stream {storage}")
+        for (periodic, bcv), got_off in zip(BCS, off[1:]):
+            cfg = ref_config(shape, "27pt", periodic, bcv, tb=2)
+            want = on_mesh(
+                lambda x: ref_pallas.apply_taps_pallas_stream2(
+                    ref_exchange(x, cfg, width=2), taps, cfg.mesh.axis_names,
+                    periodic=periodic, bc_value=bcv, interpret=True),
+                cfg, ju)
+            got = ss.apply_taps_streamk(up2[(periodic, bcv)], taps, 2, periodic, bcv)
+            assert torch.equal(got, got_off)
+            assert_close_per_update(
+                _as_np(got), np.asarray(want.astype(jnp.float32)), storage, 2,
+                err_msg=f"streamk {storage} periodic={periodic} bc={bcv}")
 
 
 @pytest.mark.parametrize("kind", ["7pt", "27pt"])
