@@ -9,14 +9,14 @@ non-zero without one. Phases, each printing its own lines:
 
 1. identify the card (nvidia-smi name and power limit, torch and CUDA);
 2. build the CUDA kernels from ``heat3d_tpu_torch/csrc`` (one nvcc per
-   source, all started together) and print the compiler's resource report,
-   each stream kernel instance's dynamic shared memory and resident blocks
-   per SM (k = 1..4 x the 7pt, 27pt and generic instances x fp32/bf16) and
-   each direct instance's shared memory, registers, spills and resident
-   blocks per SM (halo 1 and 2 x the same instances and the Mehrstellen
-   q-ring instance), and the same for
-   each fused instance (the one- and two-update kernels' 7pt, 27pt and
-   generic instances; fp32/bf16);
+   source, all started together) and print each source's build seconds,
+   the compiler's resource report, and each stream instance's (k = 1..4 x
+   the 7pt, 27pt and generic instances x fp32/bf16 storage), direct
+   instance's (halo 1 and 2 x the same instances and the Mehrstellen
+   q-ring instance) and fused instance's (the one- and two-update
+   kernels' 7pt, 27pt and generic instances) shared memory, registers,
+   spills and resident blocks per SM, each compile-time instance in fp32
+   and in bf16 compute (the ``Bf16Math`` policy; keys end ``_bf16c``);
 3. hold each kernel against its plain PyTorch version on the card, bitwise,
    for 7pt/27pt x Dirichlet (bc 0 and 0.3)/periodic x fp32/bf16 storage at
    ragged shapes, 128^3 (the golden phase's grid) and 256^3: the direct
@@ -37,6 +37,14 @@ non-zero without one. Phases, each printing its own lines:
    solve against the (1,1,1) solve at 128^3 (tb 1 and 2), and the 27pt
    tb=4 and ``fused-dma2`` solves, which keep the tap chain, equal to
    their knob-off solves;
+   ``compare_bf16``: every bf16-compute instance (``compute_dtype=
+   torch.bfloat16``) bitwise against its plain version in bf16 compute,
+   each launch counted as one: the direct kernels at their ragged shapes
+   and a forced 3-plane x-chunk, every stencil kernel at (33,17,129) and
+   128^3, the Mehrstellen instances, the generic instances forced (the
+   fused ones over (4,1,1)), the fused kernels over (8,1,1), the RDMA ones
+   over (4,1,1) (floor 0 and the default) and over a ragged (2,1,1);
+   7pt/27pt x fp32/bf16 storage x the boundary settings;
 4. the sharded solve, every shard on ``cuda:0`` on a stream of its own,
    bitwise: the DMA halo kernels against their plain version (meshes
    (2,1,1) .. (2,2,2), widths 1-4, three boundary settings, fp32/bf16, at
@@ -50,6 +58,11 @@ non-zero without one. Phases, each printing its own lines:
    a (2,2,2) mesh on ``cuda:0`` (``--halo ppermute`` tb 1/2/4, ``--halo
    dma`` tb 1/4; and an uneven 129^3 grid); under ``HEAT3D_MEHRSTELLEN=1``
    27pt tb 1 and 2 in fp32 and bf16 storage on the Mehrstellen instance;
+   with ``--compute-dtype bf16`` (10 steps): 7pt tb 1, 2 and 4 in fp32
+   and bf16 storage, the exchange path, the Mehrstellen instances and the
+   four fused kernels, each launching its bf16-compute instance; and the
+   7pt bf16-compute drift at 10 and 20 steps (``_bf16_drift``: printed
+   beside the gate, the solve held bitwise to the plain per-op update);
 6. the main path at full width: ``bench_throughput`` at 1024^3 (fp32 7pt
    tb=2, the headline config; fp32 7pt tb=1; fp32 27pt tb=2; bf16 7pt
    tb=2; then the exchange path: fp32 7pt tb=4, tb=3 and tb=1 under
@@ -62,7 +75,11 @@ non-zero without one. Phases, each printing its own lines:
    tb=2, tb=1, bf16 tb=2, (2,2,2) faces-direct tb 1 and 2 (Mehrstellen
    instance) and tb=4 and (8,1,1) ``fused-dma2`` (the chain), each row's
    route provenance checked, and the (2,2,2) faces-direct solve at 1024^3
-   held bitwise to the (1,1,1) solve (tb 1 and 2);
+   held bitwise to the (1,1,1) solve (tb 1 and 2); and BASELINE config
+   5's precision (bf16 stencil, fp32 residual) cut to one card
+   (``_FULL_WIDTH_BF16``: fp32 storage 7pt tb 2 and 4, bf16 storage tb=2,
+   27pt Mehrstellen tb=2, (8,1,1) ``fused-dma2``, (4,1,1) ``fused-rdma``
+   tb=1), each launching bf16-compute instances;
 7. kernel and plain-version times at 256^3 and 1024^3 fp32 7pt, each
    kernel held bitwise to its plain version there (also with bc 0.3,
    periodic, 27pt and bf16 storage: the full-width phase's settings), the
@@ -86,6 +103,10 @@ non-zero without one. Phases, each printing its own lines:
    beside the 27pt chain instances of the same call and their bounds, with
    registers, spills and blocks per SM, and at tb=1 the library call (a
    27pt ``F.conv3d``, TF32 off);
+   ``compute_bf16_times``: each bf16-compute instance at 1024^3 beside
+   the fp32-compute instance of the same chain in the same call (timed
+   fp32, bf16, bf16, fp32), with the bound (the storage dtype's bytes),
+   registers, spills and blocks per SM, each bf16 launch held bitwise;
 8. across GPUs: the (2,1,1) DMA check with the shards on ``cuda:0`` and
    ``cuda:1``, and the four fused kernels on that mesh, when two GPUs are
    visible (else one line says it did not run, and why);
@@ -109,15 +130,20 @@ non-zero without one. Phases, each printing its own lines:
 ``--only`` runs phases 1 and 2 and the named ones of ``PHASES`` (the
 check after a kernel change, before the whole run) and prints no kernels
 line. The kernel launch counts are zeroed just before phase 5 and read just after
-phase 6; the script fails if any kernel was not launched there, or if a
-direct, stream or fused kernel launch there took the generic instance.
+phase 6; the script fails if any kernel was not launched there, if a
+direct, stream or fused kernel launch there took the generic instance, or
+if a computing wrapper (all but the DMA pair; the Mehrstellen instances
+too) launched no bf16-compute instance there
+(``compute_bf16_instance_launches``).
 The ``main_path``
 line also gives each wrapper's output cells as launches of the size the
 kernels line times (1024^3-equivalent launches) and the Mehrstellen
 instances' launches; the script fails if the knob's rows launched none.
 The last
 three lines are the kernels' JSON object (``{"kernels": [...]}``: the
-nine wrappers and the two Mehrstellen instances), the
+nine wrappers and the two Mehrstellen instances; each computing entry
+with ``compute_bf16_ms``, its ``max_abs_err`` the worst over both compute
+dtypes), the
 nvidia-smi line, and the status object ``{"ok": true, "device": {...}}``.
 """
 
@@ -175,6 +201,9 @@ KERNELS = tuple(_SOURCES)
 # (wrapper, halo)
 _MEHR = {"apply_taps_direct:mehrstellen": ("apply_taps_direct", 1),
          "apply_taps_direct2:mehrstellen": ("apply_taps_direct2", 2)}
+# the kernels that compute (all but the DMA pair, which moves bytes), with a
+# bf16-compute instance each
+COMPUTE_KERNELS = tuple(n for n in KERNELS if n != "halo_dma") + tuple(_MEHR)
 # the depth whose time stands in the kernels' line for streamk: the
 # full-width phase's headline exchange-path config (tb=4)
 _STREAMK_HEADLINE = 4
@@ -358,50 +387,83 @@ def _instance_name(code: int) -> str:
     return ss.CHAINS[code][0] if code in ss.CHAINS else "generic"
 
 
-def _direct_ptxas() -> dict:
-    """Registers and spills (bytes) of each compile-time direct instance,
-    from the compiler's report, keyed ``h<halo>_<chain>_<dtype>``."""
+# the key suffix of a bf16-compute instance (the arithmetic policy
+# Bf16Math of csrc/stencil_common.cuh); fp32-compute keys have none
+BF16C = "_bf16c"
+_DTYPE_NAMES = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
+
+
+def _compute_tag(entry: str) -> str:
+    """``BF16C`` for a kernel of the bf16 policy, by its mangled name."""
+    return BF16C if "Bf16Math" in entry else ""
+
+
+def _ptxas(source: str, kernel: str, prefix: str) -> dict:
+    """Registers and spills (bytes) of each compile-time instance of
+    ``kernel`` in ``source``, from the compiler's report, keyed
+    ``<prefix><n>_<chain>_<dtype>`` (+ ``BF16C`` in bf16 compute)."""
     import re
 
     from heat3d_tpu_torch.ops import _build
 
-    names = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
     out = {}
-    for entry, r in _build.ptxas_report("stencil_direct").items():
-        m = re.search(r"direct_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)E", entry)
+    for entry, r in _build.ptxas_report(source).items():
+        m = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d)ELi(\d)E", entry)
         if m:
-            out[f"h{m.group(2)}_{_instance_name(int(m.group(3)))}_{names[m.group(1)]}"] = r
+            out[f"{prefix}{m.group(2)}_{_instance_name(int(m.group(3)))}_"
+                f"{_DTYPE_NAMES[m.group(1)]}{_compute_tag(entry)}"] = r
     return out
+
+
+def _direct_ptxas() -> dict:
+    """Registers and spills (bytes) of each compile-time direct instance,
+    keyed ``h<halo>_<chain>_<dtype>`` (+ ``BF16C``)."""
+    return _ptxas("stencil_direct", "direct_kernel", "h")
+
+
+def _stream_ptxas() -> dict:
+    """Registers and spills (bytes) of each compile-time stream instance,
+    keyed ``k<k>_<chain>_<dtype>`` (+ ``BF16C``)."""
+    return _ptxas("stencil_stream", "stream_kernel", "k")
 
 
 def _fused_ptxas() -> dict:
     """Registers and spills (bytes) of each fused kernel instance, from the
     compiler's report, keyed ``h<halo>_<instance>_<dtype>`` (the
-    compile-time instances by chain, the interpreted kernels as
-    ``generic``)."""
+    compile-time instances by chain, + ``BF16C`` in bf16 compute; the
+    interpreted kernels, one for both compute dtypes, as ``generic``)."""
     import re
 
     from heat3d_tpu_torch.ops import _build
 
-    names = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
-    out = {}
+    out = _ptxas("stencil_fused", "fused_chain_kernel", "h")
     for entry, r in _build.ptxas_report("stencil_fused").items():
-        m = re.search(r"fused_chain_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)E", entry)
-        if m:
-            out[f"h{m.group(2)}_{_instance_name(int(m.group(3)))}_{names[m.group(1)]}"] = r
         m = re.search(r"fused_kernelI(f|13__nv_bfloat16)Li(\d)E", entry)
         if m:
-            out[f"h{m.group(2)}_generic_{names[m.group(1)]}"] = r
+            out[f"h{m.group(2)}_generic_{_DTYPE_NAMES[m.group(1)]}"] = r
     return out
 
 
+def _computes(code: int):
+    """(compute dtype, key suffix) of the instances of ``code``: both
+    policies for a compile-time instance; the generic instance serves both
+    compute dtypes with one kernel, reported once."""
+    import torch
+
+    from heat3d_tpu_torch.ops.stencil_stream import GENERIC
+
+    both = ((torch.float32, ""), (torch.bfloat16, BF16C))
+    return both if code != GENERIC else both[:1]
+
+
 def phase_build() -> dict:
-    """Build every source; print the compiler's report, each stream
-    instance's dynamic shared memory and resident blocks per SM, and each
-    direct and fused instance's shared memory, registers, spills and
-    resident blocks per SM. Returns those, keyed ``k<k>_<instance>_<dtype>``
-    (stream), ``h<halo>_<instance>_<dtype>`` (direct) and
-    ``fused_h<halo>_<instance>_<dtype>``."""
+    """Build every source; print the compiler's report and each source's
+    build seconds, each stream, direct and fused instance's shared memory,
+    registers, spills and resident blocks per SM (fp32 and bf16 compute).
+    Returns those, keyed ``k<k>_<instance>_<dtype>`` (stream),
+    ``h<halo>_<instance>_<dtype>`` (direct) and
+    ``fused_h<halo>_<instance>_<dtype>``, + ``BF16C`` for a bf16-compute
+    instance."""
     import torch
 
     from heat3d_tpu_torch.ops import _build
@@ -413,26 +475,32 @@ def phase_build() -> dict:
     _say("build", seconds=seconds)
     for name in seconds:
         print(_build.build_log(name).strip(), flush=True)
-    resources = {
-        f"k{k}_{_instance_name(code)}_{str(dtype)[6:]}": ss.instance_resources(k, code, dtype)
-        for k in (1, *ss.STREAMK_DEPTHS) for code in (ss.GENERIC, *ss.CHAINS)
-        for dtype in (torch.float32, torch.bfloat16)
-    }
-    for key, r in resources.items():
-        _check(r["blocks_per_sm"] > 0, f"stream instance {key} fits no SM: {r}")
+    spills = ("registers", "spill_stores", "spill_loads")
+    ptxas = _stream_ptxas()
+    _check(len(ptxas) == 32, f"compiler report of the stream instances: {sorted(ptxas)}")
+    resources = {}
+    for k in (1, *ss.STREAMK_DEPTHS):
+        for code in (ss.GENERIC, *ss.CHAINS):
+            for dtype in (torch.float32, torch.bfloat16):
+                for cd, tag in _computes(code):
+                    key = f"k{k}_{_instance_name(code)}_{str(dtype)[6:]}{tag}"
+                    resources[key] = {**ss.instance_resources(k, code, dtype, cd),
+                                      **{f: ptxas.get(key, {}).get(f) for f in spills[1:]}}
+                    _check(resources[key]["blocks_per_sm"] > 0,
+                           f"stream instance {key} fits no SM: {resources[key]}")
     _say("build", stream_instances=resources)
     ptxas = _direct_ptxas()
     direct = {}
     for h in (1, 2):
         for code in (ss.GENERIC, *ss.CHAINS, sd.MEHRSTELLEN):
             for dtype in (torch.float32, torch.bfloat16):
-                key = f"h{h}_{_instance_name(code)}_{str(dtype)[6:]}"
-                direct[key] = {**sd.instance_resources(h, code, dtype),
-                               **{f: ptxas.get(key, {}).get(f)
-                                  for f in ("spill_stores", "spill_loads")}}
-                _check(direct[key]["blocks_per_sm"] > 0,
-                       f"direct instance {key} fits no SM: {direct[key]}")
-    _check(len(ptxas) == 12, f"compiler report of the direct instances: {sorted(ptxas)}")
+                for cd, tag in _computes(code):
+                    key = f"h{h}_{_instance_name(code)}_{str(dtype)[6:]}{tag}"
+                    direct[key] = {**sd.instance_resources(h, code, dtype, cd),
+                                   **{f: ptxas.get(key, {}).get(f) for f in spills[1:]}}
+                    _check(direct[key]["blocks_per_sm"] > 0,
+                           f"direct instance {key} fits no SM: {direct[key]}")
+    _check(len(ptxas) == 24, f"compiler report of the direct instances: {sorted(ptxas)}")
     _say("build", direct_instances=direct)
     resources.update(direct)
     ptxas = _fused_ptxas()
@@ -440,13 +508,13 @@ def phase_build() -> dict:
     for h in (1, 2):
         for code in (ss.GENERIC, *ss.CHAINS):
             for dtype in (torch.float32, torch.bfloat16):
-                key = f"h{h}_{_instance_name(code)}_{str(dtype)[6:]}"
-                fused[key] = {**fd.instance_resources(h, code, dtype),
-                              **{f: ptxas.get(key, {}).get(f)
-                                 for f in ("spill_stores", "spill_loads")}}
-                _check(fused[key]["blocks_per_sm"] > 0,
-                       f"fused instance {key} fits no SM: {fused[key]}")
-    _check(len(ptxas) == 12, f"compiler report of the fused instances: {sorted(ptxas)}")
+                for cd, tag in _computes(code):
+                    key = f"h{h}_{_instance_name(code)}_{str(dtype)[6:]}{tag}"
+                    fused[key] = {**fd.instance_resources(h, code, dtype, cd),
+                                  **{f: ptxas.get(key, {}).get(f) for f in spills[1:]}}
+                    _check(fused[key]["blocks_per_sm"] > 0,
+                           f"fused instance {key} fits no SM: {fused[key]}")
+    _check(len(ptxas) == 20, f"compiler report of the fused instances: {sorted(ptxas)}")
     _say("build", fused_instances=fused)
     resources.update({f"fused_{k}": v for k, v in fused.items()})
     return resources
@@ -474,30 +542,37 @@ def _kernel_input(name, u, periodic, bcv, k):
     return _padded(u, periodic, bcv, k)
 
 
-def _kernel_pair(name, k, edges=(True,) * 6):
+def _kernel_pair(name, k, edges=(True,) * 6, cd=None):
     """``name``'s kernel and its plain version, both called as
     ``f(x, taps, periodic, bc_value)`` on ``_kernel_input``'s ``x`` (the
-    kernel also takes ``out=``); streamk with the domain-edge mask
-    ``edges`` (default: a whole-domain block's)."""
+    kernel also takes ``out=``) in compute dtype ``cd`` (default float32);
+    streamk with the domain-edge mask ``edges`` (default: a whole-domain
+    block's)."""
+    import torch
+
     from heat3d_tpu_torch.ops import stencil_direct as sd
     from heat3d_tpu_torch.ops import stencil_stream as ss
     from heat3d_tpu_torch.ops.stencil_eager import apply_taps_padded
 
-    if name == "apply_taps_direct":
-        return sd.apply_taps_direct, sd.apply_taps_direct_ref
-    if name == "apply_taps_direct2":
-        return sd.apply_taps_direct2, sd.apply_taps_direct2_ref
+    cd = cd or torch.float32
+    if name in ("apply_taps_direct", "apply_taps_direct2"):
+        kern = getattr(sd, name)
+        ref = getattr(sd, name + "_ref")
+        return (lambda x, t, p, b, out=None: kern(x, t, p, b, out=out, compute_dtype=cd),
+                lambda x, t, p, b: ref(x, t, p, b, cd))
     if name == "apply_taps_stream":
-        return (lambda x, t, p, b, out=None: ss.apply_taps_stream(x, t, out=out),
-                lambda x, t, p, b: apply_taps_padded(x, t))
+        return (lambda x, t, p, b, out=None: ss.apply_taps_stream(x, t, out=out,
+                                                                  compute_dtype=cd),
+                lambda x, t, p, b: apply_taps_padded(x, t, compute_dtype=cd))
     return (lambda x, t, p, b, out=None: ss.apply_taps_streamk(x, t, k, p, b, out=out,
-                                                               edges=edges),
-            lambda x, t, p, b: ss.apply_taps_streamk_ref(x, t, k, p, b, edges))
+                                                               edges=edges, compute_dtype=cd),
+            lambda x, t, p, b: ss.apply_taps_streamk_ref(x, t, k, p, b, edges, cd))
 
 
-def _run_kernel(name, u, taps, periodic, bcv, k=1):
-    """(kernel output, plain output) of ``name`` on field ``u``."""
-    kern, plain = _kernel_pair(name, k)
+def _run_kernel(name, u, taps, periodic, bcv, k=1, cd=None):
+    """(kernel output, plain output) of ``name`` on field ``u`` in compute
+    dtype ``cd``."""
+    kern, plain = _kernel_pair(name, k, cd=cd)
     x = _kernel_input(name, u, periodic, bcv, k)
     return kern(x, taps, periodic, bcv), plain(x, taps, periodic, bcv)
 
@@ -1567,15 +1642,30 @@ def _fused_state(mesh, name, dtype, periodic, floor=None):
     return fd.FusedState(mesh, k, dtype, periodic, bounds)
 
 
-def _fused_pair(name):
-    """(kernel wrapper, plain version) of fused kernel ``name``, both
-    called ``f(us, taps, mesh, state, periodic, bc_value)``."""
+def _fused_wrapper(name):
+    """The wrapper function of fused kernel ``name`` (it holds the counts)."""
     from heat3d_tpu_torch.ops import stencil_dma_fused as fd
     from heat3d_tpu_torch.ops import stencil_fused_rdma as fr
 
-    kern = getattr(fd, name, None) or getattr(fr, name)
+    return getattr(fd, name, None) or getattr(fr, name)
+
+
+def _fused_pair(name, cd=None):
+    """(kernel wrapper, plain version) of fused kernel ``name``, both
+    called ``f(us, taps, mesh, state, periodic, bc_value)``, in compute
+    dtype ``cd`` (default float32; the kernel also takes ``outs=``)."""
+    import torch
+
+    from heat3d_tpu_torch.ops import stencil_dma_fused as fd
+
+    cd = cd or torch.float32
+    wrapper = _fused_wrapper(name)
     ref = getattr(fd, _FUSED[name][1])
-    return kern, (lambda us, t, m, st, p, b: ref(us, t, m, p, b))
+
+    def kern(us, t, m, st, p, b, outs=None):
+        return wrapper(us, t, m, st, p, b, outs=outs, compute_dtype=cd)
+
+    return kern, (lambda us, t, m, st, p, b: ref(us, t, m, p, b, compute_dtype=cd))
 
 
 def _fused_names(mesh_shape, nx):
@@ -1793,6 +1883,215 @@ def phase_compare_fused(worst: dict) -> None:
          seconds=time.perf_counter() - t0)
 
 
+def _bf16_counts() -> dict:
+    """Launches in bf16 compute, per stencil kernel wrapper and of the
+    Mehrstellen instances (keyed as ``_MEHR``)."""
+    from heat3d_tpu_torch import ops
+    from heat3d_tpu_torch.ops import stencil_direct as sd
+
+    return {**ops.compute_bf16_launch_counts(),
+            **{f"{name}:mehrstellen": n
+               for name, n in sd.compute_bf16_mehrstellen_launch_counts().items()}}
+
+
+def _hold_bf16(worst, name, run, want, what, counted=None) -> None:
+    """``run()`` (one launch of ``name``'s wrapper in bf16 compute) bitwise
+    against ``want`` (a tensor, or the shards' list), counted once as a
+    bf16-compute launch of ``counted`` (default ``name``)."""
+    from heat3d_tpu_torch.ops import stencil_dma_fused as fd
+
+    counted = counted or name
+    before = _bf16_counts()[counted]
+    got = run()
+    if isinstance(got, list):
+        _hold_fused(worst, name, got, want, what)
+    else:
+        _hold(worst, name, got, want, what)
+    fd.raise_if_timed_out()
+    _check(_bf16_counts()[counted] == before + 1,
+           f"{counted} {what}: not one bf16-compute launch")
+
+
+def phase_compare_bf16(worst: dict) -> None:
+    """bf16 compute: every bf16-compute instance bitwise against its plain
+    version on the card (the plain version's bf16 ops round as the
+    kernel's policy does), each launch counted as one; the errors fold into
+    ``worst`` beside the fp32-compute ones. The direct kernels at their
+    ragged shapes and a forced 3-plane x-chunk; every stencil kernel
+    (direct1, direct2, the stream kernel, streamk k = 2..4) at
+    (33,17,129) and 128^3; the Mehrstellen instances under
+    ``HEAT3D_MEHRSTELLEN=1`` at the ragged shapes and 128^3; 7pt/27pt x
+    fp32/bf16 storage x Dirichlet bc 0 and 0.3/periodic; the generic
+    instances forced (both factoring knobs, and the direct kernels' generic
+    instance on the default chain) at 128^3, fused over (4,1,1) too; the
+    fused one- and two-update kernels over (8,1,1), the RDMA ones over
+    (4,1,1) with the plan's sub-blocks (floor 0 and the default), and
+    (8,77,125) over (2,1,1) in one and three send ranges."""
+    import numpy as np
+    import torch
+
+    from heat3d_tpu_torch.ops import stencil_direct as sd
+    from heat3d_tpu_torch.ops import stencil_dma_fused as fd
+    from heat3d_tpu_torch.ops import stencil_stream as ss
+    from heat3d_tpu_torch.parallel.plan import partition_bounds
+
+    t0 = time.perf_counter()
+    bf = torch.bfloat16
+    cases = {"direct_ragged": 0, "kernels": 0, "mehrstellen": 0, "generic": 0, "fused": 0}
+    shapes = [(shape, None) for shape in _DIRECT_SHAPES[:5]] + [_DIRECT_FORCED_CHUNK]
+    for shape, chunk in shapes:
+        base = np.random.default_rng(18).standard_normal(shape).astype(np.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            u = torch.from_numpy(base).cuda().to(dtype)
+            for kind in ("7pt", "27pt"):
+                taps = _taps(kind)
+                for periodic, bcv in _BCS:
+                    for name, halo in _cases()[:2]:
+                        what = f"bf16 compute at {shape} chunk {chunk} {dtype} {kind} " \
+                               f"periodic={periodic} bc={bcv}"
+                        _hold_bf16(worst, name, lambda: sd.launch_instance(
+                            halo, sd.direct_instance(taps), u, taps, periodic, bcv,
+                            xchunk=chunk, compute_dtype=bf),
+                            _kernel_pair(name, halo, cd=bf)[1](u, taps, periodic, bcv), what)
+                        cases["direct_ragged"] += 1
+                with _env(HEAT3D_MEHRSTELLEN="1"):
+                    for periodic, bcv in _BCS:
+                        cases["mehrstellen"] += _hold_mehrstellen_bf16(
+                            worst, u, periodic, bcv,
+                            f"bf16 compute at {shape} chunk {chunk} {dtype} "
+                            f"periodic={periodic} bc={bcv}", chunk)
+    for shape in ((33, 17, 129), (128, 128, 128)):
+        base = np.random.default_rng(19).standard_normal(shape).astype(np.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            u = torch.from_numpy(base).cuda().to(dtype)
+            for kind in ("7pt", "27pt"):
+                taps = _taps(kind)
+                for periodic, bcv in _BCS:
+                    for name, k in _cases():
+                        kern, plain = _kernel_pair(name, k, cd=bf)
+                        x = _kernel_input(name, u, periodic, bcv, k)
+                        _hold_bf16(worst, name, lambda: kern(x, taps, periodic, bcv),
+                                   plain(x, taps, periodic, bcv),
+                                   f"bf16 compute k={k} at {shape} {dtype} {kind} "
+                                   f"periodic={periodic} bc={bcv}")
+                        cases["kernels"] += 1
+            if shape == (128, 128, 128):
+                with _env(HEAT3D_MEHRSTELLEN="1"):
+                    for periodic, bcv in _BCS:
+                        cases["mehrstellen"] += _hold_mehrstellen_bf16(
+                            worst, u, periodic, bcv,
+                            f"bf16 compute at 128^3 {dtype} periodic={periodic} bc={bcv}")
+            del u
+        torch.cuda.empty_cache()
+
+    # the generic instances: under both factoring knobs every chain is
+    # generic; and the direct kernels' generic instance forced on the
+    # default 7pt chain
+    base = np.random.default_rng(20).standard_normal((128, 128, 128)).astype(np.float32)
+    mesh4 = _card_mesh((4, 1, 1), (32, 128, 128))
+    for dtype in (torch.float32, torch.bfloat16):
+        u = torch.from_numpy(base).cuda().to(dtype)
+        us = _split(u, mesh4)
+        with _env(HEAT3D_FACTOR_7PT="1", HEAT3D_FACTOR_Y="0"):
+            for kind in ("7pt", "27pt"):
+                taps = _taps(kind)
+                _check(ss.stream_instance(taps) == ss.GENERIC, f"{kind} not generic")
+                for periodic, bcv in _BCS:
+                    for name, k in _cases():
+                        kern, plain = _kernel_pair(name, k, cd=bf)
+                        x = _kernel_input(name, u, periodic, bcv, k)
+                        before = _generic_counts()[name]
+                        _hold_bf16(worst, name, lambda: kern(x, taps, periodic, bcv),
+                                   plain(x, taps, periodic, bcv),
+                                   f"bf16 compute generic k={k} at 128^3 {dtype} {kind} "
+                                   f"periodic={periodic} bc={bcv}")
+                        _check(_generic_counts()[name] == before + 1,
+                               f"{name} {kind}: not on the generic instance")
+                        cases["generic"] += 1
+                for (periodic, bcv), name in itertools.product(
+                        ((False, 0.3), (True, 0.0)),
+                        ("apply_step_fused_dma", "apply_superstep_fused_dma")):
+                    kern, plain = _fused_pair(name, cd=bf)
+                    state = fd.FusedState(mesh4, _FUSED[name][0], dtype, periodic)
+                    before = _generic_counts()[name]
+                    _hold_bf16(worst, name, lambda: kern(us, taps, mesh4, state, periodic, bcv),
+                               plain(us, taps, mesh4, None, periodic, bcv),
+                               f"bf16 compute generic 128^3 on (4,1,1) {dtype} {kind} "
+                               f"periodic={periodic}")
+                    _check(_generic_counts()[name] == before + 1,
+                           f"{name} {kind}: not on the generic instance")
+                    cases["generic"] += 1
+        taps = _taps("7pt")
+        for name, halo in _cases()[:2]:
+            _hold_bf16(worst, name, lambda: sd.launch_instance(
+                halo, ss.GENERIC, u, taps, False, 0.3, compute_dtype=bf),
+                _kernel_pair(name, halo, cd=bf)[1](u, taps, False, 0.3),
+                f"bf16 compute generic instance forced on the 7pt chain, 128^3 {dtype}")
+            cases["generic"] += 1
+        del u, us
+    torch.cuda.empty_cache()
+
+    # the fused kernels
+    base = torch.from_numpy(
+        np.random.default_rng(21).standard_normal((128, 128, 128)).astype(np.float32)).cuda()
+    for mesh_shape in ((8, 1, 1), (4, 1, 1)):
+        mesh = _card_mesh(mesh_shape, tuple(128 // p for p in mesh_shape))
+        names = [n for n in _FUSED if n.endswith("dma") == (mesh_shape == (8, 1, 1))]
+        for kind, dtype, (periodic, bcv) in itertools.product(
+                ("7pt", "27pt"), (torch.float32, torch.bfloat16),
+                ((False, 0.3), (True, 0.0))):
+            taps = _taps(kind)
+            us = _split(base.to(dtype), mesh)
+            for name in names:
+                kern, plain = _fused_pair(name, cd=bf)
+                for floor in ((0, None) if name.endswith("rdma") else (None,)):
+                    state = _fused_state(mesh, name, dtype, periodic, floor)
+                    _hold_bf16(worst, name, lambda: kern(us, taps, mesh, state, periodic, bcv),
+                               plain(us, taps, mesh, None, periodic, bcv),
+                               f"bf16 compute 128^3 on {mesh_shape} {kind} {dtype} "
+                               f"periodic={periodic} ranges {state.bounds}")
+                    cases["fused"] += 1
+            del us
+    del base
+    mesh = _card_mesh((2, 1, 1), (4, 77, 125))
+    base = torch.from_numpy(
+        np.random.default_rng(22).standard_normal((8, 77, 125)).astype(np.float32)).cuda()
+    for kind, dtype, (periodic, bcv) in itertools.product(
+            ("7pt", "27pt"), (torch.float32, torch.bfloat16), ((False, 0.3), (True, 0.0))):
+        taps = _taps(kind)
+        us = _split(base.to(dtype), mesh)
+        for name, parts in itertools.product(_FUSED, (1, 3)):
+            kern, plain = _fused_pair(name, cd=bf)
+            state = fd.FusedState(mesh, _FUSED[name][0], dtype, periodic,
+                                  partition_bounds(77, parts))
+            _hold_bf16(worst, name, lambda: kern(us, taps, mesh, state, periodic, bcv),
+                       plain(us, taps, mesh, None, periodic, bcv),
+                       f"bf16 compute (8,77,125) on (2,1,1) {kind} {dtype} "
+                       f"periodic={periodic} ranges {state.bounds}")
+            cases["fused"] += 1
+    del base, us
+    torch.cuda.empty_cache()
+    _say("compare_bf16", cases=cases, bitwise=True, max_abs_err=worst,
+         compute_bf16_launches=_bf16_counts(), seconds=time.perf_counter() - t0)
+
+
+def _hold_mehrstellen_bf16(worst: dict, u, periodic, bcv, what, chunk=None) -> int:
+    """Both Mehrstellen instances in bf16 compute on ``u`` (27pt, the knob
+    on), bitwise against their plain versions, each counted as a
+    bf16-compute Mehrstellen launch."""
+    import torch
+
+    from heat3d_tpu_torch.ops import stencil_direct as sd
+
+    bf = torch.bfloat16
+    taps = _taps("27pt")
+    for name, (wrapper, halo) in _MEHR.items():
+        _hold_bf16(worst, name, lambda: sd.launch_instance(
+            halo, sd.MEHRSTELLEN, u, taps, periodic, bcv, xchunk=chunk, compute_dtype=bf),
+            _kernel_pair(wrapper, halo, cd=bf)[1](u, taps, periodic, bcv), what, counted=name)
+    return len(_MEHR)
+
+
 # interior x-chunks a shard that fused_times sweeps the compile-time
 # instances over (ms_by_xchunks)
 _FUSED_CHUNK_SWEEP = (1, 2, 3, 4, 6, 8, 12)
@@ -1846,7 +2145,7 @@ def phase_fused_times(bw: float, worst: dict, resources: dict) -> dict:
                 kern(us, taps, mesh, state, False, 0.0, outs=dst)
             else:
                 fd.launch_instance(instance, us, taps, mesh, state, False, 0.0, outs=dst,
-                                   wrapper=kern, xchunk=xchunk)
+                                   wrapper=_fused_wrapper(name), xchunk=xchunk)
             mesh.join()
 
         ms = _time_ms(go, iters=10)
@@ -2231,6 +2530,262 @@ def phase_mehrstellen_times(bw: float, worst: dict, resources: dict) -> dict:
     return res
 
 
+# Steps of the golden runs in bf16 compute. The bf16 stencil rounds the
+# weights and every operation to bf16, which drifts the 7pt hot cube by
+# about 0.25% a step against the fp64 oracle: at 20 steps (the fp32
+# goldens' count) 7pt reaches 0.0501 relative error, above the 5e-2 gate,
+# in the port and in the JAX package alike once XLA rounds every operation
+# (``--xla_allow_excess_precision=false``; its default-flag CPU run, 0.0492,
+# keeps float32 between operations). ``_bf16_drift`` shows that 20-step
+# run; the gated runs take 10 steps.
+_BF16_GOLDEN_STEPS = 10
+# (stencil, extra flags, time_blocking, storage, env, kernel it must launch)
+# of the golden runs in bf16 compute (--compute-dtype bf16), 128^3: the
+# direct kernels and streamk (fp32 and bf16 storage), the stream kernel on
+# the exchange path, the Mehrstellen instances, and the four fused kernels
+# on cuda:0
+_GOLDEN_BF16 = tuple(
+    ("7pt", [], tb, storage, {}, want)
+    for tb, want in ((1, "apply_taps_direct"), (2, "apply_taps_direct2"),
+                     (4, "apply_taps_streamk"))
+    for storage in ("fp32", "bf16")) + (
+    ("7pt", [], 1, "fp32", {"HEAT3D_NO_DIRECT": "1"}, "apply_taps_stream"),
+    ("27pt", [], 1, "fp32", {"HEAT3D_MEHRSTELLEN": "1"}, "apply_taps_direct:mehrstellen"),
+    ("27pt", [], 2, "fp32", {"HEAT3D_MEHRSTELLEN": "1"}, "apply_taps_direct2:mehrstellen"),
+    ("7pt", ["--mesh", "8", "1", "1", "--halo", "dma", "--overlap", "--device", "cuda:0"],
+     1, "fp32", {}, "apply_step_fused_dma"),
+    ("7pt", ["--mesh", "8", "1", "1", "--halo", "dma", "--overlap", "--device", "cuda:0"],
+     2, "fp32", {}, "apply_superstep_fused_dma"),
+    ("27pt", ["--mesh", "4", "1", "1", "--fused-rdma", "on", "--halo-plan", "partitioned",
+              "--device", "cuda:0"], 1, "bf16", {"HEAT3D_PLAN_PART_MIN_BYTES": "0"},
+     "apply_step_fused_rdma"),
+    ("27pt", ["--mesh", "4", "1", "1", "--fused-rdma", "on", "--halo-plan", "partitioned",
+              "--device", "cuda:0"], 2, "bf16", {"HEAT3D_PLAN_PART_MIN_BYTES": "0"},
+     "apply_superstep_fused_rdma"),
+)
+
+
+def _golden_bf16() -> None:
+    """The command line at 128^3 with ``--compute-dtype bf16`` and
+    ``--golden-check`` (the 5e-2 gate of a chain with bf16 in it): each
+    run launches its kernel's bf16-compute instance (``_GOLDEN_BF16``);
+    then ``_bf16_drift``."""
+    for kind, flags, tb, storage, env, want in _GOLDEN_BF16:
+        before = _bf16_counts()[want]
+        with _env(**env):
+            _golden_cli(["--grid", "128", "--steps", str(_BF16_GOLDEN_STEPS), "--stencil", kind,
+                         "--time-blocking", str(tb), "--dtype", storage,
+                         "--compute-dtype", "bf16", *flags], want.split(":")[0],
+                        stencil=kind, time_blocking=tb, dtype=storage, compute_dtype="bf16",
+                        flags=flags, env=env)
+        _check(_bf16_counts()[want] > before,
+               f"golden bf16 compute {kind} tb={tb} {storage} {flags} {env}: no "
+               f"bf16-compute launch of {want}")
+    _bf16_drift()
+
+
+def _bf16_drift() -> None:
+    """The 7pt hot cube at 128^3 in bf16 compute (fp32 storage, tb=1), 10
+    and 20 steps, against the fp64 oracle: the relative error printed
+    beside the 5e-2 gate (not gated: at 20 steps it is the bf16 stencil's
+    own drift, see ``_BF16_GOLDEN_STEPS``); gated: the solver's field
+    equals, bitwise, the plain per-op bf16 update applied as many times on
+    the card (the arithmetic the JAX package computes when XLA rounds every
+    operation)."""
+    import numpy as np
+    import torch
+
+    from heat3d_tpu_torch import eqn
+    from heat3d_tpu_torch.core import golden
+    from heat3d_tpu_torch.core.config import GridConfig, Precision, SolverConfig
+    from heat3d_tpu_torch.models.heat3d import HeatSolver3D
+    from heat3d_tpu_torch.ops import stencil_direct as sd
+
+    cfg = SolverConfig(grid=GridConfig.cube(128),
+                       precision=Precision(storage="float32", compute="bfloat16"))
+    taps = eqn.solver_taps(cfg)
+    solver = HeatSolver3D(cfg)
+    u = solver.init_state("hot-cube")
+    plain = u.clone()
+    u0 = golden.make_init("hot-cube", cfg.grid.shape, seed=cfg.run.seed)
+    rel, done = {}, 0
+    for steps in (10, 20):
+        u = solver.run(u, steps - done)
+        for _ in range(steps - done):
+            plain = sd.apply_taps_direct_ref(plain, taps, False, 0.0, torch.bfloat16)
+        done = steps
+        torch.cuda.synchronize()
+        _check(torch.equal(u, plain), f"bf16 compute solve != plain per-op update at {steps}")
+        g = golden.run(u0, cfg.grid, cfg.stencil, steps, taps=taps)
+        got = solver.gather(u).astype(np.float64)
+        rel[steps] = float(np.max(np.abs(got - g)) / np.max(np.abs(g)))
+    _say("bf16_drift", grid=[128] * 3, stencil="7pt", dtype="float32", compute_dtype="bfloat16",
+         time_blocking=1, golden_rel_err_by_steps=rel, gate=5e-2,
+         golden_pass_by_steps={k: v < 5e-2 for k, v in rel.items()},
+         solve_equals_plain_per_op_update=True)
+
+
+# BASELINE.json config 5 ("bf16 stencil + fp32 residual norm, 4096^3
+# strong-scale on v5p-128") cut to one card: 1024^3, every shard on cuda:0
+_CONFIG5_CUT = ("BASELINE.json config 5 is 4096^3 over 128 chips; here 1024^3 on one "
+                "H100, every shard of a mesh on cuda:0")
+# (stencil, storage, time_blocking, mesh, knobs, env) of the full-width rows
+# in bf16 compute
+_FULL_WIDTH_BF16 = (
+    ("7pt", "float32", 2, (1, 1, 1), {}, {}),
+    ("7pt", "float32", 4, (1, 1, 1), {}, {}),
+    ("7pt", "bfloat16", 2, (1, 1, 1), {}, {}),
+    ("27pt", "float32", 2, (1, 1, 1), {}, {"HEAT3D_MEHRSTELLEN": "1"}),
+    ("7pt", "float32", 2, (8, 1, 1), {"halo": "dma", "overlap": True}, {}),
+    ("7pt", "float32", 1, (4, 1, 1), {"fused_rdma": "on", "halo_plan": "partitioned"}, {}),
+)
+
+
+def _full_width_bf16(bw: float) -> None:
+    """The full-width rows of BASELINE config 5's precision (bf16 stencil,
+    fp32 residual) cut to one card (``_CONFIG5_CUT``), each beside its
+    bound: the compute dtype moves no bytes, so the bound is the storage
+    dtype's (its operations counted at the fp32 rate, below the bytes
+    either way). Each row must launch bf16-compute instances."""
+    import torch
+
+    from heat3d_tpu_torch.bench.harness import bench_throughput
+    from heat3d_tpu_torch.core.config import (
+        GridConfig, MeshConfig, Precision, SolverConfig, StencilConfig,
+    )
+    from heat3d_tpu_torch.ops import stencil_direct as sd
+
+    n = 1024
+    for kind, storage, tb, mesh, knobs, env in _FULL_WIDTH_BF16:
+        with _env(**env):
+            cfg = SolverConfig(grid=GridConfig.cube(n), stencil=StencilConfig(kind=kind),
+                               precision=Precision(storage=storage, compute="bfloat16"),
+                               mesh=MeshConfig(shape=mesh), time_blocking=tb, **knobs)
+            before = sum(_bf16_counts().values())
+            row = bench_throughput(cfg, steps=tb * -(-20 // tb), warmup=1, repeats=3,
+                                   device=None if mesh == (1, 1, 1) else "cuda:0")
+            took = sum(_bf16_counts().values()) - before
+        route = row["superstep_route"] if tb > 1 else row["step_route"]
+        _check(took > 0 and row["compute_dtype"] == "bfloat16",
+               f"{route} bf16 compute: {took} bf16-compute launches, row {row}")
+        itemsize = torch.empty((), dtype=getattr(torch, storage)).element_size()
+        flops = (sd.MEHRSTELLEN_KERNEL_OPS if row.get("mehrstellen_route")
+                 else flops_per_update(_taps(kind)))
+        if mesh == (1, 1, 1):
+            b_ms, by = superstep_bound(route, n, tb, itemsize, flops, bw)
+        else:
+            b_ms, by, _ = sharded_superstep_bound(route, n, mesh, tb, itemsize, flops, bw)
+        _say("full_width", grid=row["grid"], stencil=kind, dtype=storage,
+             compute_dtype=row["compute_dtype"], cut=_CONFIG5_CUT, mesh=row["mesh"],
+             halo=row["halo"], overlap=row["overlap"], fused_rdma=row["fused_rdma"],
+             halo_plan=row["halo_plan"], env=env, time_blocking=tb, route=route,
+             mehrstellen_route=row.get("mehrstellen_route"), steps=row["steps"],
+             gcell_updates_per_sec=row["gcell_updates_per_sec"],
+             ms_per_superstep=row["ms_per_launch"], bound_ms_per_superstep=b_ms,
+             bound_by=by, bound_gcell_updates_per_sec=n**3 * tb / (b_ms / 1e3) / 1e9,
+             compute_bf16_launches=took, kernel_launches=row["kernel_launches"],
+             seconds_all=row["seconds_all"])
+        del row
+        torch.cuda.empty_cache()
+
+
+def phase_compute_bf16_times(bw: float, worst: dict, resources: dict) -> dict:
+    """Each bf16-compute instance at 1024^3 (Dirichlet bc 0) beside the
+    fp32-compute instance of the same chain in the same call, timed in the
+    order fp32, bf16, bf16, fp32 (the least of each arm's 20 launches):
+    direct1, direct2, the stream kernel and streamk k = 2..4 (7pt, fp32
+    storage), direct1/direct2 in bf16 storage, the Mehrstellen instances
+    (27pt, fp32 storage), the fused DMA kernels over (8,1,1) and the RDMA
+    ones over (4,1,1) (7pt, fp32 storage; the partitioned plan's default
+    sub-blocks). Each bf16 launch is held bitwise to its plain version.
+    The bound is the fp32 arm's: compute moves no bytes. Returns, per
+    kernels-line name, ``{"compute_fp32": ..., "compute_bf16": ...}`` with
+    ms, bound, blocks per SM, registers and spills."""
+    import torch
+
+    from heat3d_tpu_torch.ops import stencil_direct as sd
+    from heat3d_tpu_torch.ops import stencil_dma_fused as fd
+    from heat3d_tpu_torch.ops import stencil_stream as ss
+
+    n = 1024
+    f32, bf = torch.float32, torch.bfloat16
+    fields = ("blocks_per_sm", "registers", "spill_stores", "spill_loads")
+    res = {}
+
+    def ab(run32, runbf):
+        a, b = _time_ms(run32, iters=10), _time_ms(runbf, iters=10)
+        b = min(b, _time_ms(runbf, iters=10))
+        return min(a, _time_ms(run32, iters=10)), b
+
+    def pair(ms32, msbf, b_ms, by, key):
+        return {"compute_fp32": {"ms": ms32, "bound_ms": b_ms, "bound_by": by,
+                                 **{f: resources[key].get(f) for f in fields}},
+                "compute_bf16": {"ms": msbf, "bound_ms": b_ms, "bound_by": by,
+                                 **{f: resources[key + BF16C].get(f) for f in fields}},
+                "bf16_over_fp32": msbf / ms32, "instance_key": key}
+
+    cases = ([(name if name != "apply_taps_streamk" else f"{name}_k{k}", name, k, "7pt", f32, {})
+              for name, k in _cases()]
+             + [(f"{name}_bfloat16", name, k, "7pt", bf, {}) for name, k in _cases()[:2]]
+             + [(m, w, h, "27pt", f32, {"HEAT3D_MEHRSTELLEN": "1"}) for m, (w, h) in _MEHR.items()])
+    base = torch.rand((n, n, n), device="cuda")
+    for key, name, k, kind, dtype, env in cases:
+        taps = _taps(kind, n)
+        u = base.to(dtype)
+        with _env(**env):
+            k32 = _kernel_pair(name, k)[0]
+            kbf, pbf = _kernel_pair(name, k, cd=bf)
+            x = _kernel_input(name, u, False, 0.0, k)
+            o32, obf = torch.empty_like(u), torch.empty_like(u)
+            ms32, msbf = ab(lambda: k32(x, taps, False, 0.0, out=o32),
+                            lambda: kbf(x, taps, False, 0.0, out=obf))
+            _hold(worst, key if key in _MEHR else name, obf, pbf(x, taps, False, 0.0),
+                  f"bf16 compute k={k} at {n}^3 {kind} {dtype} bc=0.0")
+            direct = name in ("apply_taps_direct", "apply_taps_direct2")
+            code = sd.direct_instance(taps) if direct else ss.stream_instance(taps)
+        flops = sd.MEHRSTELLEN_KERNEL_OPS if key in _MEHR else flops_per_update(taps)
+        b_ms, by = kernel_bound(name, n, k, u.element_size(), flops, bw)
+        res[key] = pair(ms32, msbf, b_ms, by, f"{'h' if direct else 'k'}{k}_"
+                                              f"{_instance_name(code)}_{str(dtype)[6:]}")
+        del u, x, o32, obf
+        torch.cuda.empty_cache()
+    del base
+    torch.cuda.empty_cache()
+    taps = _taps("7pt", n)
+    for name, mesh_shape in (("apply_step_fused_dma", (8, 1, 1)),
+                             ("apply_superstep_fused_dma", (8, 1, 1)),
+                             ("apply_step_fused_rdma", (4, 1, 1)),
+                             ("apply_superstep_fused_rdma", (4, 1, 1))):
+        k = _FUSED[name][0]
+        mesh = _card_mesh(mesh_shape, tuple(n // p for p in mesh_shape))
+        us = [torch.rand(mesh.local_shape, device=s.device) for s in mesh.shards]
+        o32 = [torch.empty_like(u) for u in us]
+        obf = [torch.empty_like(u) for u in us]
+        state = _fused_state(mesh, name, f32, False)
+        k32 = _fused_pair(name)[0]
+        kbf, pbf = _fused_pair(name, cd=bf)
+
+        def go(kern, dst):
+            mesh.fork()
+            kern(us, taps, mesh, state, False, 0.0, outs=dst)
+            mesh.join()
+
+        ms32, msbf = ab(lambda: go(k32, o32), lambda: go(kbf, obf))
+        _hold_fused(worst, name, obf, pbf(us, taps, mesh, None, False, 0.0),
+                    f"bf16 compute at {n}^3 on {mesh_shape}")
+        b_ms, by, _ = fused_bound(n, mesh_shape, k, 4, flops_per_update(taps), bw)
+        inst = fd.fused_instance(k, taps)
+        res[name] = pair(ms32, msbf, b_ms, by, f"fused_h{k}_{_instance_name(inst)}_float32")
+        res[name]["mesh"] = list(mesh_shape)
+        res[name]["send_ranges"] = [list(b) for b in state.bounds]
+        del us, o32, obf, state
+        torch.cuda.empty_cache()
+    res["apply_taps_streamk"] = res[f"apply_taps_streamk_k{_STREAMK_HEADLINE}"]
+    _say("compute_bf16_times", grid=[n] * 3, bc_value=0.0, times=res, bitwise=True,
+         max_abs_err={name: worst[name] for name in COMPUTE_KERNELS})
+    return res
+
+
 def phase_main_path(bw: float) -> dict:
     """Phases 5 and 6 between zeroed and read launch counts; fails unless
     every kernel was launched there, none on a generic instance. Returns
@@ -2240,13 +2795,18 @@ def phase_main_path(bw: float) -> dict:
     ops.reset_launch_counts()
     phase_golden()
     _golden_mehrstellen()
+    _golden_bf16()
     phase_full_width(bw)
     _full_width_mehrstellen(bw)
+    _full_width_bf16(bw)
     launches = {**ops.launch_counts(), **_mehrstellen_counts()}
     generic = _generic_counts()
+    bf16 = _bf16_counts()
     cells = {**ops.cell_counts(), **_mehrstellen_counts(cells=True)}
     for name in KERNELS + tuple(_MEHR):
         _check(launches[name] > 0, f"{name} was not launched on the main path")
+    for name in COMPUTE_KERNELS:
+        _check(bf16[name] > 0, f"{name} launched no bf16-compute instance on the main path")
     _check(not any(generic.values()),
            f"the main path's 7pt/27pt direct, stream or fused launches took the generic "
            f"instance: {generic}")
@@ -2255,15 +2815,16 @@ def phase_main_path(bw: float) -> dict:
     equiv = {name: cells[name] / unit[name] for name in unit}
     _say("main_path", kernel_launches={name: launches[name] for name in KERNELS},
          mehrstellen_instance_launches=_mehrstellen_counts(),
+         compute_bf16_instance_launches=bf16,
          generic_instance_launches=generic, output_cells=cells,
          launches_1024_equivalent=equiv, launches_1024_equivalent_unit=unit)
     return launches
 
 
 # the phases after the build, in the order they run; ``--only`` picks some
-PHASES = ("compare", "compare_mehrstellen", "compare_mesh", "compare_fused", "main_path",
-          "kernel_times", "mehrstellen_times", "dma_times", "fused_times",
-          "shard_kernel_times", "cross_gpu")
+PHASES = ("compare", "compare_mehrstellen", "compare_bf16", "compare_mesh", "compare_fused",
+          "main_path", "kernel_times", "mehrstellen_times", "compute_bf16_times", "dma_times",
+          "fused_times", "shard_kernel_times", "cross_gpu")
 
 
 def _args(argv):
@@ -2303,6 +2864,8 @@ def main(argv=None) -> int:
         phase_compare(worst)
     if "compare_mehrstellen" in run:
         phase_compare_mehrstellen(worst)
+    if "compare_bf16" in run:
+        phase_compare_bf16(worst)
     if "compare_mesh" in run:
         phase_compare_mesh(worst)
     if "compare_fused" in run:
@@ -2313,6 +2876,8 @@ def main(argv=None) -> int:
         times.update(phase_kernel_times(bw, worst, resources))
     if "mehrstellen_times" in run:
         times.update(phase_mehrstellen_times(bw, worst, resources))
+    if "compute_bf16_times" in run:
+        bf16_times = phase_compute_bf16_times(bw, worst, resources)
     if "dma_times" in run:
         times["halo_dma"] = phase_dma_times(bw, worst)
     if "fused_times" in run:
@@ -2329,6 +2894,8 @@ def main(argv=None) -> int:
              "max_abs_err": worst[name],
              **{key: times[name][key] for key in
                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+             **({"compute_bf16_ms": bf16_times[name]["compute_bf16"]["ms"]}
+                if name in COMPUTE_KERNELS else {}),
              **({"instance": times[name]["kernel"]} if "kernel" in times[name] else {})}
             for name in KERNELS + tuple(_MEHR)
         ]

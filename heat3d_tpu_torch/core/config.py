@@ -433,9 +433,9 @@ def _unported(what: str) -> ValueError:
         f"{what} is not ported yet: the PyTorch/CUDA port runs the "
         "explicit-Euler solve over any mesh of shards (halo ppermute|dma, "
         "halo_plan monolithic|partitioned, fused_rdma off|on, overlap, "
-        "time_blocking k >= 1, backend auto|pallas|jnp|conv, float32 "
-        "compute) through its direct, exchange-path (stream, streamk), DMA "
-        "halo and fused exchange-and-sweep kernels"
+        "time_blocking k >= 1, backend auto|pallas|jnp|conv, float32 or "
+        "bfloat16 storage and compute) through its direct, exchange-path "
+        "(stream, streamk), DMA halo and fused exchange-and-sweep kernels"
     )
 
 
@@ -462,7 +462,7 @@ def check_ported(cfg: "SolverConfig") -> None:
         raise _unported(f"integrator={cfg.integrator!r}")
     if cfg.backend not in ("auto", "pallas", "jnp", "conv"):
         raise _unported(f"backend={cfg.backend!r}")
-    if cfg.precision.compute != "float32":
+    if cfg.precision.compute not in ("float32", "bfloat16"):
         raise _unported(f"compute dtype {cfg.precision.compute!r}")
     if cfg.precision.storage not in ("float32", "bfloat16"):
         raise _unported(f"storage dtype {cfg.precision.storage!r}")

@@ -7,8 +7,10 @@
 // (ops/stencil_stream.py CHAINS), which the build passes to nvcc as
 // HEAT3D_CHAIN_7PT / HEAT3D_CHAIN_27PT: three digits a term, src, row and
 // dk + 1, in emission order. A term is one or two shared loads at
-// immediate offsets, __fmul_rn and __fadd_rn (built with --fmad=false), so
-// an instance equals the plain version (ops.stencil_eager) bitwise.
+// immediate offsets, a rounded multiply and a rounded add of the
+// arithmetic policy M (stencil_common.cuh: F32Math, __fmul_rn and
+// __fadd_rn, built with --fmad=false; Bf16Math, each rounded on to bf16),
+// so an instance equals the plain version (ops.stencil_eager) bitwise.
 
 #pragma once
 
@@ -180,8 +182,10 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // A plane of a slot as this thread reads it: element (ty + 8 l + da,
 // tx + 32 m + db) of the frame. SHIFT: a bf16 input slot, whose rows next
-// to the thread's rows sit `nb` elements further on.
-template <class T, int SW, bool SHIFT>
+// to the thread's rows sit `nb` elements further on. M: the input slots'
+// field values are read as policy M reads them (rounded to bf16 from float
+// storage under bf16 compute); the other slots hold values the update made.
+template <class T, int SW, bool SHIFT, class M = F32Math>
 struct View {
   const T* c;
   int nb;
@@ -190,7 +194,7 @@ struct View {
     if constexpr (SHIFT) {
       if (da != 0) o += nb;
     }
-    return to_f(c[o]);
+    return M::template read<T>(to_f(c[o]));
   }
 };
 
@@ -212,7 +216,9 @@ struct Cell {
   }
 };
 
-template <int S, int I, class C>
+// Term I of chain S under the arithmetic policy M (weights already in
+// the compute dtype).
+template <int S, class M, int I, class C>
 __device__ __forceinline__ void emit(float& acc, const Weights& w,
                                      const C& c) {
   constexpr int src = tap<S>(I, 0);
@@ -224,29 +230,30 @@ __device__ __forceinline__ void emit(float& acc, const Weights& w,
   } else if constexpr (src == 2) {
     v = c.pp;
   } else if constexpr (row == 3) {
-    v = __fadd_rn(c.template get<src>(-1, dk), c.template get<src>(1, dk));
+    v = M::add(c.template get<src>(-1, dk), c.template get<src>(1, dk));
   } else {
     v = c.template get<src>(row - 1, dk);
   }
-  const float t = __fmul_rn(w.w[I], v);
+  const float t = M::mul(w.w[I], v);
   if constexpr (I == 0) {
     acc = t;
   } else {
-    acc = __fadd_rn(acc, t);
+    acc = M::add(acc, t);
   }
 }
 
-template <int S, class C, int... I>
+template <int S, class M, class C, int... I>
 __device__ __forceinline__ float chain_impl(const Weights& w, const C& c,
                                             std::integer_sequence<int, I...>) {
   float acc = 0.0f;
-  (emit<S, I>(acc, w, c), ...);
+  (emit<S, M, I>(acc, w, c), ...);
   return acc;
 }
 
-template <int S, class C>
+template <int S, class M, class C>
 __device__ __forceinline__ float chain(const Weights& w, const C& c) {
-  return chain_impl<S>(w, c, std::make_integer_sequence<int, chain_len<S>()>{});
+  return chain_impl<S, M>(w, c,
+                          std::make_integer_sequence<int, chain_len<S>()>{});
 }
 
 // ---------------------------------------------------------------------------

@@ -10,8 +10,15 @@
 // entries) with __fmul_rn/__fadd_rn in exactly that order, plane and row
 // sums recomputed in the same operand order as the cached sums of the
 // plain PyTorch version (ops.stencil_eager), so a kernel built on it with
-// --fmad=false equals that version bitwise. Storage is float or bf16;
-// compute is float.
+// --fmad=false equals that version bitwise. Storage is float or bf16.
+// Compute is float or bf16 (the JAX package's Precision.compute): under
+// bf16 compute every field value is rounded to bf16 as it is read and
+// every multiply and add is rounded to bf16, round to nearest even, as
+// eager PyTorch rounds each bf16 operation; the values stay in float
+// registers and shared memory, where bf16 values are exact. The
+// compile-time instances take the rounding as a policy (F32Math,
+// Bf16Math); the interpreted evaluator picks the policy per cell from
+// Program::bf16.
 
 #pragma once
 
@@ -35,6 +42,7 @@ struct Term {
 
 struct Program {
   int n;
+  int bf16;  // 1: bf16 compute (the library sets it from the compute code)
   Term t[MAX_TERMS];
 };
 
@@ -62,43 +70,98 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// Source plane value at frame offset o.
+// Arithmetic policies of the compile-time instances: the rounded add and
+// multiply of the compute dtype, and a value of storage type T (a field
+// value, or bc) as the update reads it. Bf16Math rounds the float result
+// once more to bf16: float's 24 bits are at least 2 * 8 + 2, so rounding a
+// sum or a product of two bf16 values to float and then to bf16 equals
+// rounding it to bf16 once. (Never an fma: a multiply and its add are two
+// roundings.)
+struct F32Math {
+  template <class T>
+  __device__ __forceinline__ static float read(float v) {
+    return v;
+  }
+  __device__ __forceinline__ static float add(float a, float b) {
+    return __fadd_rn(a, b);
+  }
+  __device__ __forceinline__ static float mul(float a, float b) {
+    return __fmul_rn(a, b);
+  }
+};
+
+struct Bf16Math {
+  __device__ __forceinline__ static float round(float a) {
+    return __bfloat162float(__float2bfloat16_rn(a));
+  }
+  // bf16 storage holds bf16 values already
+  template <class T>
+  __device__ __forceinline__ static float read(float v) {
+    if constexpr (sizeof(T) == 4) {
+      return round(v);
+    } else {
+      return v;
+    }
+  }
+  __device__ __forceinline__ static float add(float a, float b) {
+    return round(__fadd_rn(a, b));
+  }
+  __device__ __forceinline__ static float mul(float a, float b) {
+    return round(__fmul_rn(a, b));
+  }
+};
+
+// Source plane value at frame offset o, read as policy M reads a float
+// field value (the interpreted kernels' planes are float copies).
+template <class M>
 __device__ __forceinline__ float src_at(int src, const float* pm,
                                         const float* p0, const float* pp,
                                         int o) {
   switch (src) {
     case 0:
-      return pm[o];
+      return M::template read<float>(pm[o]);
     case 1:
-      return p0[o];
+      return M::template read<float>(p0[o]);
     case 2:
-      return pp[o];
+      return M::template read<float>(pp[o]);
     default:
-      return __fadd_rn(pm[o], pp[o]);
+      return M::add(M::template read<float>(pm[o]),
+                    M::template read<float>(pp[o]));
   }
 }
 
-// The update of the cell at frame (cy, cz) of planes (pm, p0, pp).
-__device__ __forceinline__ float apply_program(const Program& p,
-                                               const float* pm,
-                                               const float* p0,
-                                               const float* pp, int cy,
-                                               int cz, int stride) {
+template <class M>
+__device__ __forceinline__ float eval_program(const Program& p,
+                                              const float* pm,
+                                              const float* p0,
+                                              const float* pp, int cy, int cz,
+                                              int stride) {
   float acc = 0.0f;
   for (int i = 0; i < p.n; ++i) {
     const Term t = p.t[i];
     const int z = cz + t.dk;
     float v;
     if (t.row == 3) {
-      v = __fadd_rn(src_at(t.src, pm, p0, pp, (cy - 1) * stride + z),
-                    src_at(t.src, pm, p0, pp, (cy + 1) * stride + z));
+      v = M::add(src_at<M>(t.src, pm, p0, pp, (cy - 1) * stride + z),
+                 src_at<M>(t.src, pm, p0, pp, (cy + 1) * stride + z));
     } else {
-      v = src_at(t.src, pm, p0, pp, (cy + t.row - 1) * stride + z);
+      v = src_at<M>(t.src, pm, p0, pp, (cy + t.row - 1) * stride + z);
     }
-    const float m = __fmul_rn(t.w, v);
-    acc = i == 0 ? m : __fadd_rn(acc, m);
+    const float m = M::mul(t.w, v);
+    acc = i == 0 ? m : M::add(acc, m);
   }
   return acc;
+}
+
+// The update of the cell at frame (cy, cz) of planes (pm, p0, pp), in the
+// program's compute dtype (one branch a cell, uniform across the launch).
+__device__ __forceinline__ float apply_program(const Program& p,
+                                               const float* pm,
+                                               const float* p0,
+                                               const float* pp, int cy,
+                                               int cz, int stride) {
+  return p.bf16 ? eval_program<Bf16Math>(p, pm, p0, pp, cy, cz, stride)
+                : eval_program<F32Math>(p, pm, p0, pp, cy, cz, stride);
 }
 
 __device__ __forceinline__ void copy_program(Program* dst,

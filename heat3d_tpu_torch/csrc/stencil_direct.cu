@@ -7,7 +7,7 @@
 // H = 2).
 //
 // Two families of instances, as in stencil_stream.cu:
-//   * direct_kernel<T, H, S>: the tap chain S fixed at compile time (the 7pt
+//   * direct_kernel<T, H, S, M>: the tap chain S fixed at compile time (the 7pt
 //     and the factored 27pt chain of the wrapper's table, ops/stencil_stream.py
 //     CHAINS, passed to nvcc as HEAT3D_CHAIN_7PT / HEAT3D_CHAIN_27PT; the
 //     weights are a kernel argument). The wrapper picks S by comparing
@@ -23,11 +23,16 @@
 //     and update. At H = 2 the level-1 q comes from the rounded, pinned
 //     intermediate, as the second update would read it. These instances
 //     carry more registers than the chains: fp32 and H = 2 run three
-//     blocks an SM (80 registers, no spills), bf16 H = 1 four;
+//     blocks an SM (80 registers, no spills), bf16 H = 1 four. M is the
+//     arithmetic policy (stencil_common.cuh): F32Math, or Bf16Math for
+//     bf16 compute (each read of a float field and each multiply and add
+//     rounded to bf16), an instance of its own for each chain and the
+//     Mehrstellen route;
 //   * direct1_generic / direct2_generic<T>: any other chain (other taps,
 //     HEAT3D_FACTOR_7PT=1, HEAT3D_FACTOR_Y=0), interpreted per cell from the
 //     Program in shared memory (stencil_common.cuh) over 3-slot float rings
-//     of ghost-framed planes loaded synchronously: the first design.
+//     of ghost-framed planes loaded synchronously: the first design. The
+//     compute dtype rides in the program (Program::bf16).
 //
 // Bound: device-memory bytes. One sweep reads the field once and writes it
 // once (8 B/cell in fp32, 4 B/cell in bf16) for 13 (7pt) to 26 (27pt,
@@ -75,7 +80,12 @@
 // the same call 4.90 / 8.92) and 5.70 / 10.60 bf16 (5.78 / 10.47). The
 // first design, now the generic instance, took 10.64 / 20.66. direct2
 // still trails streamk K=2 (4.69), the same sweep on a padded block: the
-// loader's ghost logic and 64 registers are suspects, not measured.
+// loader's ghost logic and 64 registers are suspects, not measured. In bf16
+// compute (chip_smoke.py compute_bf16_times, same card, the fp32-compute
+// instance of the same call in brackets): 7pt fp32 storage 6.55 [5.05] /
+// 11.93 [5.42], bf16 storage 5.67 [4.08] / 11.12 [7.09], Mehrstellen 9.37
+// [4.58] / 17.80 [8.24], with the same blocks per SM and registers: each
+// rounding to bf16 is a conversion and a shift beside every fp32 op.
 //
 // Launches go on the caller's stream, allocate nothing, and return
 // cudaGetLastError().
@@ -100,7 +110,7 @@ struct Bounds {
 // ---------------------------------------------------------------------------
 // Specialised instances.
 
-template <class T, int H, int S>
+template <class T, int H, int S, class M>
 __global__ void __launch_bounds__(SNT, (Bounds<T, H, S>::min_blocks))
     direct_kernel(const T* __restrict__ u, T* __restrict__ out, int nx,
                   int ny, int nz, int xchunk, int periodic, float bc,
@@ -109,7 +119,7 @@ __global__ void __launch_bounds__(SNT, (Bounds<T, H, S>::min_blocks))
                 "chain reads x-1/x+1 planes off the cell: generic instance");
   using G = Geom<H>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Direct<T, H, S, FieldPlanes<T>> st;
+  Direct<T, H, S, M, FieldPlanes<T>> st;
   st.src = FieldPlanes<T>{u, (int64_t)ny * nz, nx, periodic};
   st.out = out;
   st.in_slot = reinterpret_cast<T*>(smem_raw);
@@ -121,7 +131,7 @@ __global__ void __launch_bounds__(SNT, (Bounds<T, H, S>::min_blocks))
   st.y0 = blockIdx.y * G::TY;
   st.z0 = blockIdx.x * G::TZ;
   st.periodic = periodic;
-  st.bc = bc;
+  st.bc = M::template read<T>(bc);
   st.run(min(nx, st.xs0 + xchunk), w);
 }
 
@@ -265,16 +275,16 @@ __global__ void __launch_bounds__(NTHREADS)
 // Host side.
 
 // One instance: its kernel, dynamic shared memory, tile and launch.
-template <class T, int H, int S>
+template <class T, int H, int S, class M>
 struct Spec {
   static constexpr int bytes = smem_bytes<T, H, S>();
   static constexpr int ty = Geom<H>::TY;
   static constexpr int tz = Geom<H>::TZ;
   static dim3 block() { return dim3(SBZ, SBY); }
-  static void* fn() { return (void*)direct_kernel<T, H, S>; }
+  static void* fn() { return (void*)direct_kernel<T, H, S, M>; }
   static cudaError_t prepare() {
     static std::atomic<unsigned long long> done{0};
-    return set_smem_once(done, direct_kernel<T, H, S>, bytes);
+    return set_smem_once(done, direct_kernel<T, H, S, M>, bytes);
   }
   static cudaError_t launch(dim3 grid, const void* u, void* out, int nx,
                             int ny, int nz, int xchunk, int periodic,
@@ -282,7 +292,7 @@ struct Spec {
                             cudaStream_t stream) {
     Weights w;
     for (int i = 0; i < MAX_TERMS; ++i) w.w[i] = i < prog.n ? prog.t[i].w : 0.f;
-    direct_kernel<T, H, S><<<grid, block(), bytes, stream>>>(
+    direct_kernel<T, H, S, M><<<grid, block(), bytes, stream>>>(
         static_cast<const T*>(u), static_cast<T*>(out), nx, ny, nz, xchunk,
         periodic, bc, w);
     return cudaGetLastError();
@@ -320,33 +330,41 @@ struct Generic {
   }
 };
 
-// f.template run<Instance>() for instance (halo, spec, dtype); `bad` for
-// arguments no instance takes.
-template <class T, int H, class F>
+// f.template run<Instance>() for instance (halo, spec, dtype, compute);
+// `bad` for arguments no instance takes. The generic instance serves both
+// compute dtypes (Program::bf16).
+template <class T, int H, class M, class F>
 int by_spec(int spec, const F& f) {
   switch (spec) {
     case SPEC_7PT:
-      return f.template run<Spec<T, H, SPEC_7PT>>();
+      return f.template run<Spec<T, H, SPEC_7PT, M>>();
     case SPEC_27PT:
-      return f.template run<Spec<T, H, SPEC_27PT>>();
+      return f.template run<Spec<T, H, SPEC_27PT, M>>();
     case SPEC_MEHR:
-      return f.template run<Spec<T, H, SPEC_MEHR>>();
+      return f.template run<Spec<T, H, SPEC_MEHR, M>>();
     default:
       return f.template run<Generic<T, H>>();
   }
 }
 
+template <class T, class M, class F>
+int by_halo(int halo, int spec, const F& f) {
+  return halo == 1 ? by_spec<T, 1, M>(spec, f) : by_spec<T, 2, M>(spec, f);
+}
+
 template <class F>
-int with_instance(int halo, int spec, int dtype, int bad, const F& f) {
-  if ((dtype != 0 && dtype != 1) || spec < SPEC_GENERIC || spec > SPEC_MEHR ||
-      halo < 1 || halo > MAX_H) {
+int with_instance(int halo, int spec, int dtype, int compute, int bad,
+                  const F& f) {
+  if ((dtype != 0 && dtype != 1) || (compute != 0 && compute != 1) ||
+      spec < SPEC_GENERIC || spec > SPEC_MEHR || halo < 1 || halo > MAX_H) {
     return bad;
   }
   if (dtype == 0) {
-    return halo == 1 ? by_spec<float, 1>(spec, f) : by_spec<float, 2>(spec, f);
+    return compute == 0 ? by_halo<float, F32Math>(halo, spec, f)
+                        : by_halo<float, Bf16Math>(halo, spec, f);
   }
-  return halo == 1 ? by_spec<__nv_bfloat16, 1>(spec, f)
-                   : by_spec<__nv_bfloat16, 2>(spec, f);
+  return compute == 0 ? by_halo<__nv_bfloat16, F32Math>(halo, spec, f)
+                      : by_halo<__nv_bfloat16, Bf16Math>(halo, spec, f);
 }
 
 struct TileY {
@@ -407,39 +425,43 @@ extern "C" {
 // 2 the 27pt chain, 3 the Mehrstellen route), so the wrapper sizes its
 // x-chunks from the same numbers; -1 if there is no such instance.
 int heat3d_direct_tile_y(int halo, int spec) {
-  return with_instance(halo, spec, 0, -1, TileY{});
+  return with_instance(halo, spec, 0, 0, -1, TileY{});
 }
 int heat3d_direct_tile_z(int halo, int spec) {
-  return with_instance(halo, spec, 0, -1, TileZ{});
+  return with_instance(halo, spec, 0, 0, -1, TileZ{});
 }
 
-// Dynamic shared memory of one block of instance (halo, spec, dtype), bytes.
-int heat3d_direct_smem_bytes(int halo, int spec, int dtype) {
-  return with_instance(halo, spec, dtype, -1, SmemBytes{});
+// Dynamic shared memory of one block of instance (halo, spec, dtype,
+// compute), bytes.
+int heat3d_direct_smem_bytes(int halo, int spec, int dtype, int compute) {
+  return with_instance(halo, spec, dtype, compute, -1, SmemBytes{});
 }
 
-// Resident blocks per SM of instance (halo, spec, dtype) on the current
-// device (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1 on error.
-int heat3d_direct_blocks_per_sm(int halo, int spec, int dtype) {
-  return with_instance(halo, spec, dtype, -1, BlocksPerSm{});
+// Resident blocks per SM of instance (halo, spec, dtype, compute) on the
+// current device (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1 on
+// error.
+int heat3d_direct_blocks_per_sm(int halo, int spec, int dtype, int compute) {
+  return with_instance(halo, spec, dtype, compute, -1, BlocksPerSm{});
 }
 
-// Registers a thread of instance (halo, spec, dtype) uses
+// Registers a thread of instance (halo, spec, dtype, compute) uses
 // (cudaFuncGetAttributes); -1 on error.
-int heat3d_direct_registers(int halo, int spec, int dtype) {
-  return with_instance(halo, spec, dtype, -1, Registers{});
+int heat3d_direct_registers(int halo, int spec, int dtype, int compute) {
+  return with_instance(halo, spec, dtype, compute, -1, Registers{});
 }
 
 // halo: 1 (one update) or 2 (two fused updates); spec: 0 generic, 1 the 7pt
 // chain, 2 the 27pt chain (prog's (src, row, dk) must be that chain's), 3
 // the Mehrstellen route (prog holds three terms whose weights are a, b and
-// d); dtype: 0 float, 1 bf16. u and out are (nx, ny, nz); bc is the
-// Dirichlet value already rounded to the storage type. Returns a
-// cudaError_t (0 on success); 1000 for bad arguments.
-int heat3d_direct_launch(int halo, int spec, int dtype, const void* u,
-                         void* out, int nx, int ny, int nz, int xchunk,
-                         int periodic, float bc, const Program* prog,
-                         void* stream) {
+// d); dtype: 0 float, 1 bf16 storage; compute: 0 float, 1 bf16 (prog's
+// weights already in that dtype; prog->bf16 is set from it). u and out
+// are (nx, ny, nz); bc is the Dirichlet value already rounded to the
+// storage type. Returns a cudaError_t (0 on success); 1000 for bad
+// arguments.
+int heat3d_direct_launch(int halo, int spec, int dtype, int compute,
+                         const void* u, void* out, int nx, int ny, int nz,
+                         int xchunk, int periodic, float bc,
+                         const Program* prog, void* stream) {
   if (nx < 1 || ny < 1 || nz < 1 || xchunk < 1 || prog == nullptr ||
       prog->n < 1 || prog->n > MAX_TERMS ||
       (spec == SPEC_7PT && !matches<SPEC_7PT>(*prog)) ||
@@ -447,9 +469,11 @@ int heat3d_direct_launch(int halo, int spec, int dtype, const void* u,
       (spec == SPEC_MEHR && prog->n != 3)) {
     return 1000;
   }
-  const Launch f{u, out, nx, ny, nz, xchunk, periodic, bc, prog,
+  Program p = *prog;
+  p.bf16 = compute == 1;
+  const Launch f{u, out, nx, ny, nz, xchunk, periodic, bc, &p,
                  static_cast<cudaStream_t>(stream)};
-  return with_instance(halo, spec, dtype, 1000, f);
+  return with_instance(halo, spec, dtype, compute, 1000, f);
 }
 
 }  // extern "C"

@@ -16,8 +16,11 @@
 // element, every buffer being 4-byte aligned), and says with kLands whether
 // it can land planes at all (FieldPlanes cannot: the landed path compiles
 // away). The sweep asks the source nothing else, so the depth of the
-// landed region is the source's own. The design is described at the head
-// of stencil_direct.cu.
+// landed region is the source's own. The arithmetic is the policy M's
+// (stencil_common.cuh: F32Math or Bf16Math); under bf16 compute the input
+// slots' float field values are rounded as they are read, and bc (ghosts
+// and the level-1 pins) is read as M reads a T (the kernels set it so). The
+// design is described at the head of stencil_direct.cu.
 
 #pragma once
 
@@ -62,8 +65,9 @@ struct FieldPlanes {
 };
 
 // The state of one block of the sweep: H updates of the output planes
-// [xs0, xe) of the (y0, z0) tile, the input planes from the source Src.
-template <class T, int H, int S, class Src>
+// [xs0, xe) of the (y0, z0) tile under the arithmetic policy M, the input
+// planes from the source Src.
+template <class T, int H, int S, class M, class Src>
 struct Direct {
   using G = Geom<H>;
   static constexpr int LA = G::LA, MB = G::MB, P = G::P;
@@ -74,7 +78,7 @@ struct Direct {
   static constexpr int NS = in_slots<T, H, S>();  // input slots
   static constexpr int D = NS - 2;                // planes loaded ahead
   static constexpr int NP = MB / 2 + 1;           // bf16 pairs a thread copies
-  using InView = View<T, SWI, SHIFT>;
+  using InView = View<T, SWI, SHIFT, M>;
   using LvView = View<T, FW, false>;
   using XsView = View<float, FW, false>;
 
@@ -86,7 +90,7 @@ struct Direct {
                 // each level, then at H = 2 level 1's two q planes
   int ny, nz, xs0, y0, z0;
   int periodic;
-  float bc;
+  float bc;            // the Dirichlet value as M reads a T
   int rowin, colin;    // the thread's frame rows / columns inside the domain
   int pairin;          // bf16: pair j of shift s inside the domain, bit j+NP*s
   int zfull;           // every column the block copies lies inside [0, nz)
@@ -291,8 +295,7 @@ struct Direct {
             if (!col_in(m, L)) continue;
             const int p = l * MB + m;
             const float pp = L == 0 ? cur.at(l, m, 0, 0) : v[L & 1][p];
-            xsp[tid_base(FW) + SBY * l * FW + SBZ * m] =
-                __fadd_rn(g[L][p], pp);
+            xsp[tid_base(FW) + SBY * l * FW + SBZ * m] = M::add(g[L][p], pp);
           }
         }
         __syncthreads();
@@ -353,7 +356,7 @@ struct Direct {
         const int p = l * MB + m;
         const float pp = L == 0 ? cur.at(l, m, 0, 0) : v[L & 1][p];
         const Cell<V0, XsView> c{g[L][p], pp, p0, xs, l, m};
-        const float r = chain<S>(w, c);
+        const float r = chain<S, M>(w, c);
         if constexpr (J < H) {
           const bool pin = !periodic && (x_out || !((rowin >> l) & 1) ||
                                          !((colin >> m) & 1));
@@ -405,7 +408,7 @@ struct Direct {
         float hi = m < MB - 1 && tx == 0 ? f[p + 1] : f[p];
         lo = __shfl_sync(kAll, lo, (tx + SBZ - 1) % SBZ);
         hi = __shfl_sync(kAll, hi, (tx + 1) % SBZ);
-        q[p] = __fadd_rn(__fadd_rn(lo, hi), __fmul_rn(3.0f, f[p]));
+        q[p] = M::add(M::add(lo, hi), M::mul(3.0f, f[p]));
         zs[SBY * l * FW + SBZ * m] = q[p];
       }
     }
@@ -417,8 +420,8 @@ struct Direct {
 #pragma unroll
       for (int m = 0; m < MB; ++m) {
         const int p = l * MB + m;
-        q[p] = __fadd_rn(__fadd_rn(z.at(l, m, -1, 0), z.at(l, m, 1, 0)),
-                         __fmul_rn(3.0f, q[p]));
+        q[p] = M::add(M::add(z.at(l, m, -1, 0), z.at(l, m, 1, 0)),
+                      M::mul(3.0f, q[p]));
       }
     }
   }
@@ -523,15 +526,15 @@ struct Direct {
           qmv = qm[p];
           q0v = q0[p];
         }
-        const float sq = __fadd_rn(__fadd_rn(qmv, qp[p]), __fmul_rn(3.0f, q0v));
+        const float sq = M::add(M::add(qmv, qp[p]), M::mul(3.0f, q0v));
         const float pp = L == 0 ? cur.at(l, m, 0, 0) : v[L & 1][p];
-        const float px = __fadd_rn(g[L][p], pp);
-        const float py = __fadd_rn(p0.at(l, m, -1, 0), p0.at(l, m, 1, 0));
-        const float pz = __fadd_rn(p0.at(l, m, 0, -1), p0.at(l, m, 0, 1));
-        const float psum = __fadd_rn(__fadd_rn(px, py), pz);
+        const float px = M::add(g[L][p], pp);
+        const float py = M::add(p0.at(l, m, -1, 0), p0.at(l, m, 1, 0));
+        const float pz = M::add(p0.at(l, m, 0, -1), p0.at(l, m, 0, 1));
+        const float psum = M::add(M::add(px, py), pz);
         const float r =
-            __fadd_rn(__fadd_rn(__fmul_rn(a, p0.at(l, m, 0, 0)), __fmul_rn(b, sq)),
-                      __fmul_rn(d, psum));
+            M::add(M::add(M::mul(a, p0.at(l, m, 0, 0)), M::mul(b, sq)),
+                   M::mul(d, psum));
         if constexpr (J < H) {
           const bool pin = !periodic && (x_out || !((rowin >> l) & 1) ||
                                          !((colin >> m) & 1));

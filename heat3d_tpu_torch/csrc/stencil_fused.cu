@@ -9,9 +9,11 @@
 // and heat3d_tpu/ops/stencil_fused_rdma.py:
 //   * ::apply_step_fused_rdma / ::apply_superstep_fused_rdma (the same
 //     sweeps with the sends split per ExchangePlan sub-block, _planned_rdma)
-// -> fused_chain_kernel<T, H, S> (H = 1 or 2 updates, the chain S fixed at
-// compile time) and fused_kernel<T, H> (any other chain: the generic
-// instance, the first design), each driven by a table of send ranges (one
+// -> fused_chain_kernel<T, H, S, M> (H = 1 or 2 updates, the chain S fixed
+// at compile time, the arithmetic policy M of stencil_common.cuh: F32Math
+// or Bf16Math) and fused_kernel<T, H> (any other chain: the generic
+// instance, the first design, its compute dtype Program::bf16), each
+// driven by a table of send ranges (one
 // y-range per face for the DMA rows, the plan's ranges for the RDMA rows),
 // with one flag word per (receiver, side, range).
 //
@@ -44,9 +46,9 @@
 // same exchange, so a push never lands in a buffer a previous step still
 // reads, nor in flags not yet zeroed (ops/stencil_dma_fused.py).
 //
-// fused_chain_kernel<T, H, S> (the 7pt and 27pt chains of the wrapper's
+// fused_chain_kernel<T, H, S, M> (the 7pt and 27pt chains of the wrapper's
 // table, ops/stencil_stream.py CHAINS) sweeps a tile with
-// direct_kernel<T, H, S>'s block state (stencil_direct.cuh): 32 x 8 threads
+// direct_kernel<T, H, S, M>'s block state (stencil_direct.cuh): 32 x 8 threads
 // own a 64 x 40 (H = 1) or 64 x 32 (H = 2) frame, x-neighbours in
 // registers, the chain unrolled, input planes loaded ahead by cp.async, the
 // y/z ghosts built by the loader as a domain boundary (wrap or bc), at H = 2
@@ -80,7 +82,10 @@
 // bytes bound 2.60 / 2.58), at H = 2 6.86 / 6.30 (80 registers, 12 bytes
 // of spills; bound 2.63 / 2.59), both at 3 blocks/SM; the generic
 // fused_kernel<T,1> 12.82 / 12.61 and fused_kernel<T,2> 25.33 / 24.91 in
-// the same call; PERF.md section 6 rows 9-12.
+// the same call; PERF.md section 6 rows 9-12. In bf16 compute
+// (compute_bf16_times, fp32 storage, 7pt, the fp32-compute instance of the
+// same call in brackets): H = 1 7.93 [5.70] / 7.71 [5.50], H = 2 14.82
+// [6.55] / 14.37 [6.14], 3 blocks/SM, 80 registers.
 //
 // Launches go on the caller's stream, allocate nothing, and return
 // cudaGetLastError() (or the launch's own error).
@@ -453,9 +458,9 @@ __global__ void __launch_bounds__(NTHREADS)
 }
 
 // ---------------------------------------------------------------------------
-// The compile-time instances: fused_chain_kernel<T, H, S>, the sweep of
-// direct_kernel<T, H, S> (stencil_direct.cuh) over the shard's planes, the
-// landing buffers and bc.
+// The compile-time instances: fused_chain_kernel<T, H, S, M>, the sweep of
+// direct_kernel<T, H, S, M> (stencil_direct.cuh) over the shard's planes,
+// the landing buffers and bc.
 
 // The input planes of a skin tile's shard for H updates: its own
 // (0 <= gx < nx), the landed ghost planes -H..-1 and nx..nx+H-1 (the
@@ -544,8 +549,8 @@ __device__ void push_flat(const FusedArgs& a, int t) {
 constexpr int CHAIN_MIN_BLOCKS = 3;
 
 // A sweep's block state over the launch's geometry, its slots in `smem`.
-template <class T, int H, int S, class Src>
-__device__ __forceinline__ void init_sweep(Direct<T, H, S, Src>& st,
+template <class T, int H, int S, class M, class Src>
+__device__ __forceinline__ void init_sweep(Direct<T, H, S, M, Src>& st,
                                            unsigned char* smem,
                                            const FusedArgs& a) {
   using G = Geom<H>;
@@ -555,10 +560,10 @@ __device__ __forceinline__ void init_sweep(Direct<T, H, S, Src>& st,
   st.ny = a.ny;
   st.nz = a.nz;
   st.periodic = a.periodic;
-  st.bc = a.bc;
+  st.bc = M::template read<T>(a.bc);
 }
 
-template <class T, int H, int S>
+template <class T, int H, int S, class M>
 __global__ void __launch_bounds__(SNT, CHAIN_MIN_BLOCKS)
     fused_chain_kernel(FusedArgs a, Weights w, unsigned int* err) {
   static_assert(centre_x_only<S>(),
@@ -579,7 +584,7 @@ __global__ void __launch_bounds__(SNT, CHAIN_MIN_BLOCKS)
   // shard's own, so the field's plane source serves (no wrap, nothing
   // landed: the sweep state of direct_kernel).
   {
-    Direct<T, H, S, FieldPlanes<T>> st;
+    Direct<T, H, S, M, FieldPlanes<T>> st;
     init_sweep(st, smem_raw, a);
     const int inner = a.nx - 2 * H;
     const int nchunks = inner > 0 ? (inner + a.xchunk - 1) / a.xchunk : 0;
@@ -600,7 +605,7 @@ __global__ void __launch_bounds__(SNT, CHAIN_MIN_BLOCKS)
   }
 
   // 3. skin: output planes [0, H) and [nx-H, nx), after the waits
-  Direct<T, H, S, ShardPlanes<T, H>> st;
+  Direct<T, H, S, M, ShardPlanes<T, H>> st;
   init_sweep(st, smem_raw, a);
   const int skin_tiles = a.nlocal * 2 * yz;
   for (int t = blockIdx.x; t < skin_tiles; t += NB) {
@@ -654,16 +659,16 @@ int cooperative_grid(const void* fn, int threads, int smem, long long want,
   return 0;
 }
 
-// The compile-time instance of H updates of chain S.
-template <class T, int H, int S>
+// The compile-time instance of H updates of chain S under policy M.
+template <class T, int H, int S, class M>
 struct Chain {
   static constexpr int bytes = smem_bytes<T, H, S>();
   static const void* fn() {
-    return reinterpret_cast<const void*>(fused_chain_kernel<T, H, S>);
+    return reinterpret_cast<const void*>(fused_chain_kernel<T, H, S, M>);
   }
   static cudaError_t prepare() {
     static std::atomic<unsigned long long> done{0};
-    return set_smem_once(done, fused_chain_kernel<T, H, S>, bytes);
+    return set_smem_once(done, fused_chain_kernel<T, H, S, M>, bytes);
   }
   static int launch(const FusedArgs& a, cudaStream_t stream) {
     cudaError_t err = prepare();
@@ -733,33 +738,38 @@ struct Interpreted {
   }
 };
 
-// f.template run<Instance, threads>() for instance (halo, spec, dtype):
-// spec 0 the interpreted kernel, 1 / 2 the compile-time 7pt / 27pt chain.
-template <class T, int H, class F>
+// f.template run<Instance, threads>() for instance (halo, spec, dtype,
+// compute): spec 0 the interpreted kernel (both compute dtypes:
+// Program::bf16), 1 / 2 the compile-time 7pt / 27pt chain.
+template <class T, int H, class M, class F>
 int by_spec(int spec, const F& f) {
   switch (spec) {
     case SPEC_7PT:
-      return f.template run<Chain<T, H, SPEC_7PT>>(SNT);
+      return f.template run<Chain<T, H, SPEC_7PT, M>>(SNT);
     case SPEC_27PT:
-      return f.template run<Chain<T, H, SPEC_27PT>>(SNT);
+      return f.template run<Chain<T, H, SPEC_27PT, M>>(SNT);
     default:
       return f.template run<Interpreted<T, H>>(NTHREADS);
   }
 }
 
-template <class T, class F>
+template <class T, class M, class F>
 int by_halo(int halo, int spec, const F& f) {
-  return halo == 1 ? by_spec<T, 1>(spec, f) : by_spec<T, 2>(spec, f);
+  return halo == 1 ? by_spec<T, 1, M>(spec, f) : by_spec<T, 2, M>(spec, f);
 }
 
 template <class F>
-int with_instance(int halo, int spec, int dtype, const F& f) {
-  if ((dtype != 0 && dtype != 1) || (halo != 1 && halo != 2) ||
-      spec < SPEC_GENERIC || spec > SPEC_27PT) {
+int with_instance(int halo, int spec, int dtype, int compute, const F& f) {
+  if ((dtype != 0 && dtype != 1) || (compute != 0 && compute != 1) ||
+      (halo != 1 && halo != 2) || spec < SPEC_GENERIC || spec > SPEC_27PT) {
     return f.bad;
   }
-  return dtype == 0 ? by_halo<float>(halo, spec, f)
-                    : by_halo<__nv_bfloat16>(halo, spec, f);
+  if (dtype == 0) {
+    return compute == 0 ? by_halo<float, F32Math>(halo, spec, f)
+                        : by_halo<float, Bf16Math>(halo, spec, f);
+  }
+  return compute == 0 ? by_halo<__nv_bfloat16, F32Math>(halo, spec, f)
+                      : by_halo<__nv_bfloat16, Bf16Math>(halo, spec, f);
 }
 
 struct BlocksPerSm {
@@ -807,18 +817,19 @@ int heat3d_fused_init() { return alloc_error_word(); }
 // side).
 unsigned int heat3d_fused_error() { return read_error_word(); }
 
-// Resident blocks per SM of instance (halo, spec, dtype) (the cooperative
-// grid is this times the SM count), registers a thread and dynamic shared
-// memory of one block; -1 on an error or for no such instance. spec: 0 the
-// interpreted kernel, 1 / 2 the compile-time 7pt / 27pt chain.
-int heat3d_fused_blocks_per_sm(int halo, int spec, int dtype) {
-  return with_instance(halo, spec, dtype, BlocksPerSm{});
+// Resident blocks per SM of instance (halo, spec, dtype, compute) (the
+// cooperative grid is this times the SM count), registers a thread and
+// dynamic shared memory of one block; -1 on an error or for no such
+// instance. spec: 0 the interpreted kernel, 1 / 2 the compile-time 7pt /
+// 27pt chain.
+int heat3d_fused_blocks_per_sm(int halo, int spec, int dtype, int compute) {
+  return with_instance(halo, spec, dtype, compute, BlocksPerSm{});
 }
-int heat3d_fused_registers(int halo, int spec, int dtype) {
-  return with_instance(halo, spec, dtype, Registers{});
+int heat3d_fused_registers(int halo, int spec, int dtype, int compute) {
+  return with_instance(halo, spec, dtype, compute, Registers{});
 }
-int heat3d_fused_smem_bytes(int halo, int spec, int dtype) {
-  return with_instance(halo, spec, dtype, SmemBytes{});
+int heat3d_fused_smem_bytes(int halo, int spec, int dtype, int compute) {
+  return with_instance(halo, spec, dtype, compute, SmemBytes{});
 }
 
 // Constants the wrapper lays its tables out by, and the (y, z) tile of an
@@ -838,13 +849,16 @@ int heat3d_fused_shard_bytes() { return (int)sizeof(FusedShard); }
 int heat3d_fused_send_bytes() { return (int)sizeof(FusedSend); }
 
 // halo: 1 or 2 updates; spec as above (a chain's program must be that
-// chain: prog's (src, row, dk)); dtype: 0 float, 1 bf16. Returns a
-// cudaError_t (0 on success); 1000 for bad arguments, 1002 when the device
-// cannot launch cooperatively, 1003 when no block fits an SM.
-int heat3d_fused_launch(int halo, int spec, int dtype, const FusedArgs* a,
-                        void* stream) {
+// chain: prog's (src, row, dk)); dtype: 0 float, 1 bf16 storage; compute:
+// 0 float, 1 bf16 (the program's weights already in that dtype; prog.bf16
+// is set from it). Returns a cudaError_t (0 on success); 1000 for bad
+// arguments, 1002 when the device cannot launch cooperatively, 1003 when
+// no block fits an SM.
+int heat3d_fused_launch(int halo, int spec, int dtype, int compute,
+                        const FusedArgs* a, void* stream) {
   if (g_err_dev == nullptr || a == nullptr || (halo != 1 && halo != 2) ||
-      (dtype != 0 && dtype != 1) || a->nlocal < 1 ||
+      (dtype != 0 && dtype != 1) || (compute != 0 && compute != 1) ||
+      a->nlocal < 1 ||
       a->nlocal > MAX_LOCAL || a->nx < 2 * halo || a->ny < 1 || a->nz < 1 ||
       a->xchunk < 1 || a->nsends < 0 || a->push_tiles < 0 ||
       a->shards == nullptr || a->prog.n < 1 || a->prog.n > MAX_TERMS ||
@@ -852,10 +866,12 @@ int heat3d_fused_launch(int halo, int spec, int dtype, const FusedArgs* a,
       (spec == SPEC_27PT && !matches<SPEC_27PT>(a->prog))) {
     return 1000;
   }
+  FusedArgs args = *a;
+  args.prog.bf16 = compute == 1;
   Launch f;
-  f.a = a;
+  f.a = &args;
   f.stream = static_cast<cudaStream_t>(stream);
-  return with_instance(halo, spec, dtype, f);
+  return with_instance(halo, spec, dtype, compute, f);
 }
 
 }  // extern "C"

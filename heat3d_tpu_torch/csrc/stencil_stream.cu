@@ -11,7 +11,7 @@
 //     ::apply_taps_pallas_stream2 (_stream2_kernel) -> K = 2..4.
 //
 // Two families of instances:
-//   * stream_kernel<T, K, S>: the tap chain S fixed at compile time. S is
+//   * stream_kernel<T, K, S, M>: the tap chain S fixed at compile time. S is
 //     one of the two emission programs the solver's stencils give under
 //     the default factoring knobs: the plain lexicographic 7pt chain (7
 //     terms) and the x- and y-factored 27pt chain (12 terms). Their
@@ -19,11 +19,12 @@
 //     (ops/stencil_stream.py CHAINS), which the build passes to nvcc as
 //     HEAT3D_CHAIN_7PT / HEAT3D_CHAIN_27PT; the weights are a kernel
 //     argument. The wrapper picks S by comparing emission_program(taps)
-//     with that table.
+//     with that table. M is the arithmetic policy (stencil_common.cuh):
+//     F32Math, or Bf16Math for bf16 compute;
 //   * stream1_generic / streamk_generic<T, K>: any other chain (other taps,
 //     HEAT3D_FACTOR_7PT=1, HEAT3D_FACTOR_Y=0), interpreted per cell from
 //     the Program in shared memory (stencil_common.cuh), over 3-slot float
-//     rings of framed planes.
+//     rings of framed planes; the compute dtype is Program::bf16.
 //
 // Bound: device-memory bytes. A launch reads the width-K padded field once
 // and writes the interior once; the K updates cost 13 (7pt) to 33 (27pt,
@@ -68,7 +69,10 @@
 // design, now the generic instance, took 9.87, 21.06, 35.46 and 58.42.
 // Still above the bound by 2x (K = 1) to 4.3x (K = 4): a deeper prefetch
 // moved little, so barriers and instruction throughput, not load latency,
-// are the suspects.
+// are the suspects. bf16 compute (chip_smoke.py compute_bf16_times, fp32
+// storage, the fp32-compute instance of the same call in brackets): K = 1
+// 6.91 [4.96], K = 2 11.79 [4.63], K = 3 17.16 [6.99], K = 4 24.70
+// [11.10], same registers and blocks per SM.
 //
 // Semantics: before a stage other than the last passes its plane on, the
 // plane is rounded through the storage type and, under Dirichlet, every
@@ -137,8 +141,8 @@ __device__ __forceinline__ void load_plane(T* slot, const T* __restrict__ up,
   }
 }
 
-// The state of one block of stream_kernel<T, K, S>.
-template <class T, int K, int S>
+// The state of one block of stream_kernel<T, K, S, M>.
+template <class T, int K, int S, class M>
 struct Stream {
   using G = Geom<K>;
   static constexpr int LA = G::LA, MB = G::MB, P = G::P;
@@ -147,7 +151,7 @@ struct Stream {
   static constexpr bool SHIFT = sizeof(T) == 2;
   static constexpr int NS = in_slots<T, K, S>();  // input slots
   static constexpr int D = NS - 2;                // planes loaded ahead
-  using InView = View<T, SWI, SHIFT>;
+  using InView = View<T, SWI, SHIFT, M>;
   using LvView = View<T, FW, false>;
   using XsView = View<float, FW, false>;
 
@@ -159,7 +163,7 @@ struct Stream {
   int nx, ny, nz, xs0, y0, z0, py, pz;
   int64_t plane;
   int periodic, edges;
-  float bc;
+  float bc;            // the pin value as M reads a T
   int rowpin, colpin;  // Dirichlet pins of the thread's rows / columns
   int rowout, colout;  // the thread's rows / columns inside the interior
   float g[K][P];       // level L's plane before the one in its slot
@@ -245,8 +249,7 @@ struct Stream {
             if (!col_in(m, L)) continue;
             const int p = l * MB + m;
             const float pp = L == 0 ? cur.at(l, m, 0, 0) : v[L & 1][p];
-            xsp[tid_base(FW) + SBY * l * FW + SBZ * m] =
-                __fadd_rn(g[L][p], pp);
+            xsp[tid_base(FW) + SBY * l * FW + SBZ * m] = M::add(g[L][p], pp);
           }
         }
         __syncthreads();
@@ -308,7 +311,7 @@ struct Stream {
         const int p = l * MB + m;
         const float pp = L == 0 ? cur.at(l, m, 0, 0) : v[L & 1][p];
         const Cell<V0, XsView> c{g[L][p], pp, p0, xs, l, m};
-        const float r = chain<S>(w, c);
+        const float r = chain<S, M>(w, c);
         if constexpr (J < K) {
           const bool pin =
               x_out || ((rowpin >> l) & 1) || ((colpin >> m) & 1);
@@ -351,7 +354,7 @@ struct Stream {
   }
 };
 
-template <class T, int K, int S>
+template <class T, int K, int S, class M>
 __global__ void __launch_bounds__(SNT, MIN_BLOCKS)
     stream_kernel(const T* __restrict__ up, T* __restrict__ out, int nx,
                   int ny, int nz, int xchunk, int periodic, float bc,
@@ -360,7 +363,7 @@ __global__ void __launch_bounds__(SNT, MIN_BLOCKS)
                 "chain reads x-1/x+1 planes off the cell: generic instance");
   using G = Geom<K>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Stream<T, K, S> st;
+  Stream<T, K, S, M> st;
   st.up = up;
   st.out = out;
   st.in_slot = reinterpret_cast<T*>(smem_raw);
@@ -377,7 +380,7 @@ __global__ void __launch_bounds__(SNT, MIN_BLOCKS)
   st.plane = (int64_t)st.py * st.pz;
   st.periodic = periodic;
   st.edges = edges;
-  st.bc = bc;
+  st.bc = M::template read<T>(bc);
   st.run(xchunk, w);
 }
 
@@ -529,16 +532,16 @@ __global__ void __launch_bounds__(NTHREADS)
 // Host side.
 
 // One instance: its kernel, dynamic shared memory, tile and launch.
-template <class T, int K, int S>
+template <class T, int K, int S, class M>
 struct Spec {
   static constexpr int bytes = smem_bytes<T, K, S>();
   static constexpr int ty = Geom<K>::TY;
   static constexpr int tz = Geom<K>::TZ;
   static dim3 block() { return dim3(SBZ, SBY); }
-  static void* fn() { return (void*)stream_kernel<T, K, S>; }
+  static void* fn() { return (void*)stream_kernel<T, K, S, M>; }
   static cudaError_t prepare() {
     static std::atomic<unsigned long long> done{0};
-    return set_smem_once(done, stream_kernel<T, K, S>, bytes);
+    return set_smem_once(done, stream_kernel<T, K, S, M>, bytes);
   }
   static cudaError_t launch(dim3 grid, const void* up, void* out, int nx,
                             int ny, int nz, int xchunk, int periodic,
@@ -546,7 +549,7 @@ struct Spec {
                             cudaStream_t stream) {
     Weights w;
     for (int i = 0; i < MAX_TERMS; ++i) w.w[i] = i < prog.n ? prog.t[i].w : 0.f;
-    stream_kernel<T, K, S><<<grid, block(), bytes, stream>>>(
+    stream_kernel<T, K, S, M><<<grid, block(), bytes, stream>>>(
         static_cast<const T*>(up), static_cast<T*>(out), nx, ny, nz, xchunk,
         periodic, bc, edges, w);
     return cudaGetLastError();
@@ -591,41 +594,48 @@ struct Generic {
   }
 };
 
-// f.template run<Instance>() for instance (k, spec, dtype); `bad` for
-// arguments no instance takes.
-template <class T, int K, class F>
+// f.template run<Instance>() for instance (k, spec, dtype, compute); `bad`
+// for arguments no instance takes. The generic instances serve both
+// compute dtypes (Program::bf16).
+template <class T, int K, class M, class F>
 int by_spec(int spec, const F& f) {
   switch (spec) {
     case SPEC_7PT:
-      return f.template run<Spec<T, K, SPEC_7PT>>();
+      return f.template run<Spec<T, K, SPEC_7PT, M>>();
     case SPEC_27PT:
-      return f.template run<Spec<T, K, SPEC_27PT>>();
+      return f.template run<Spec<T, K, SPEC_27PT, M>>();
     default:
       return f.template run<Generic<T, K>>();
   }
 }
 
-template <class T, class F>
+template <class T, class M, class F>
 int by_k(int k, int spec, const F& f) {
   switch (k) {
     case 1:
-      return by_spec<T, 1>(spec, f);
+      return by_spec<T, 1, M>(spec, f);
     case 2:
-      return by_spec<T, 2>(spec, f);
+      return by_spec<T, 2, M>(spec, f);
     case 3:
-      return by_spec<T, 3>(spec, f);
+      return by_spec<T, 3, M>(spec, f);
     default:
-      return by_spec<T, 4>(spec, f);
+      return by_spec<T, 4, M>(spec, f);
   }
 }
 
 template <class F>
-int with_instance(int k, int spec, int dtype, int bad, const F& f) {
-  if ((dtype != 0 && dtype != 1) || spec < SPEC_GENERIC || spec > SPEC_27PT ||
-      k < 1 || k > MAX_K) {
+int with_instance(int k, int spec, int dtype, int compute, int bad,
+                  const F& f) {
+  if ((dtype != 0 && dtype != 1) || (compute != 0 && compute != 1) ||
+      spec < SPEC_GENERIC || spec > SPEC_27PT || k < 1 || k > MAX_K) {
     return bad;
   }
-  return dtype == 0 ? by_k<float>(k, spec, f) : by_k<__nv_bfloat16>(k, spec, f);
+  if (dtype == 0) {
+    return compute == 0 ? by_k<float, F32Math>(k, spec, f)
+                        : by_k<float, Bf16Math>(k, spec, f);
+  }
+  return compute == 0 ? by_k<__nv_bfloat16, F32Math>(k, spec, f)
+                      : by_k<__nv_bfloat16, Bf16Math>(k, spec, f);
 }
 
 struct TileY {
@@ -651,6 +661,13 @@ struct BlocksPerSm {
       return -1;
     }
     return n;
+  }
+};
+struct Registers {
+  template <class I>
+  int run() const {
+    cudaFuncAttributes a;
+    return cudaFuncGetAttributes(&a, I::fn()) == cudaSuccess ? a.numRegs : -1;
   }
 };
 struct Launch {
@@ -680,33 +697,42 @@ extern "C" {
 // the 27pt chain), so the wrapper sizes its x-chunks from the same
 // numbers; -1 if there is no such instance.
 int heat3d_stream_tile_y(int k, int spec) {
-  return with_instance(k, spec, 0, -1, TileY{});
+  return with_instance(k, spec, 0, 0, -1, TileY{});
 }
 int heat3d_stream_tile_z(int k, int spec) {
-  return with_instance(k, spec, 0, -1, TileZ{});
+  return with_instance(k, spec, 0, 0, -1, TileZ{});
 }
 
-// Dynamic shared memory of one block of instance (k, spec, dtype), bytes.
-int heat3d_stream_smem_bytes(int k, int spec, int dtype) {
-  return with_instance(k, spec, dtype, -1, SmemBytes{});
+// Dynamic shared memory of one block of instance (k, spec, dtype,
+// compute), bytes.
+int heat3d_stream_smem_bytes(int k, int spec, int dtype, int compute) {
+  return with_instance(k, spec, dtype, compute, -1, SmemBytes{});
 }
 
-// Resident blocks per SM of instance (k, spec, dtype) on the current
-// device (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1 on error.
-int heat3d_stream_blocks_per_sm(int k, int spec, int dtype) {
-  return with_instance(k, spec, dtype, -1, BlocksPerSm{});
+// Resident blocks per SM of instance (k, spec, dtype, compute) on the
+// current device (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1 on
+// error.
+int heat3d_stream_blocks_per_sm(int k, int spec, int dtype, int compute) {
+  return with_instance(k, spec, dtype, compute, -1, BlocksPerSm{});
+}
+
+// Registers a thread of instance (k, spec, dtype, compute) uses
+// (cudaFuncGetAttributes); -1 on error.
+int heat3d_stream_registers(int k, int spec, int dtype, int compute) {
+  return with_instance(k, spec, dtype, compute, -1, Registers{});
 }
 
 // k: 1 (one update) or 2..4 (fused updates); spec: 0 generic, 1 the 7pt
 // chain, 2 the 27pt chain (prog's (src, row, dk) must be that chain's);
-// dtype: 0 float, 1 bf16. up is the (nx+2k, ny+2k, nz+2k) padded field,
-// out the (nx, ny, nz) interior; periodic, bc and the domain-face mask
-// edges (bit 0 x_lo .. bit 5 z_hi; 63 for a whole-domain block) are read
-// for k >= 2 only. Returns a cudaError_t (0 on success); 1000 for bad
-// arguments.
-int heat3d_stream_launch(int k, int spec, int dtype, const void* up,
-                         void* out, int nx, int ny, int nz, int xchunk,
-                         int periodic, float bc, int edges,
+// dtype: 0 float, 1 bf16 storage; compute: 0 float, 1 bf16 (prog's
+// weights already in that dtype; prog->bf16 is set from it). up is the
+// (nx+2k, ny+2k, nz+2k) padded field, out the (nx, ny, nz) interior;
+// periodic, bc and the domain-face mask edges (bit 0 x_lo .. bit 5 z_hi;
+// 63 for a whole-domain block) are read for k >= 2 only. Returns a
+// cudaError_t (0 on success); 1000 for bad arguments.
+int heat3d_stream_launch(int k, int spec, int dtype, int compute,
+                         const void* up, void* out, int nx, int ny, int nz,
+                         int xchunk, int periodic, float bc, int edges,
                          const Program* prog, void* stream) {
   if (nx < 1 || ny < 1 || nz < 1 || xchunk < 1 || prog == nullptr ||
       prog->n < 1 || prog->n > MAX_TERMS ||
@@ -714,9 +740,11 @@ int heat3d_stream_launch(int k, int spec, int dtype, const void* up,
       (spec == SPEC_27PT && !matches<SPEC_27PT>(*prog))) {
     return 1000;
   }
-  const Launch f{up, out, nx, ny, nz, xchunk, periodic, bc, edges, prog,
+  Program p = *prog;
+  p.bf16 = compute == 1;
+  const Launch f{up, out, nx, ny, nz, xchunk, periodic, bc, edges, &p,
                  static_cast<cudaStream_t>(stream)};
-  return with_instance(k, spec, dtype, 1000, f);
+  return with_instance(k, spec, dtype, compute, 1000, f);
 }
 
 }  // extern "C"

@@ -63,11 +63,12 @@ def resolved_backend_name(cfg: SolverConfig) -> str:
     return "pallas" if cfg.backend == "auto" else cfg.backend
 
 
-def _into(fn) -> LocalCompute:
-    """``fn(up, taps)`` as a padded-block compute; ``compute.plain`` names
-    ``fn``, so the overlap split's faces can follow its route."""
+def _into(fn, compute_dtype: torch.dtype) -> LocalCompute:
+    """``fn(up, taps)`` in ``compute_dtype`` as a padded-block compute;
+    ``compute.plain`` names ``fn``, so the overlap split's faces can follow
+    its route."""
     def compute(up, taps, out=None):
-        res = fn(up, taps)
+        res = fn(up, taps, compute_dtype=compute_dtype)
         return res if out is None else out.copy_(res)
 
     compute.plain = fn
@@ -83,12 +84,15 @@ def _select_backend(cfg: SolverConfig) -> LocalCompute:
               chain, or the Mehrstellen route under ``HEAT3D_MEHRSTELLEN``,
               as the JAX jnp apply);
     'conv' -- one ``F.conv3d`` (``apply_taps_conv_padded``), the library
-              A/B arm."""
+              A/B arm.
+
+    Each computes in the config's compute dtype (``cfg.precision.compute``)."""
     name = resolved_backend_name(cfg)
+    compute_dtype = getattr(torch, cfg.precision.compute)
     if name == "jnp":
-        return _into(apply_taps_padded)
+        return _into(apply_taps_padded, compute_dtype)
     if name == "conv":
-        return _into(apply_taps_conv_padded)
+        return _into(apply_taps_conv_padded, compute_dtype)
     return make_stream_compute(cfg)
 
 

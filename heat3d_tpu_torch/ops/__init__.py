@@ -35,6 +35,18 @@ def cell_counts() -> dict:
     return counts
 
 
+def compute_bf16_launch_counts() -> dict:
+    """Launches in bf16 compute of every stencil kernel wrapper (the DMA
+    halo pair moves bytes and computes nothing)."""
+    from heat3d_tpu_torch.ops import halo_dma
+
+    counts = {}
+    for m in _modules():
+        if m is not halo_dma:
+            counts.update(m.compute_bf16_launch_counts())
+    return counts
+
+
 def reset_launch_counts() -> None:
     for m in _modules():
         m.reset_launch_counts()

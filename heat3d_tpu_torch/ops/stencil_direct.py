@@ -20,14 +20,22 @@ under ``HEAT3D_MEHRSTELLEN`` for taps that decompose as
 interprets any other program; :func:`direct_instance` picks one. A launch
 error raises: no launch falls back to another instance.
 
+Every instance runs in either compute dtype (``compute_dtype``, the JAX
+kernels' ``compute_dtype``): float32, or bf16, where each field value read
+and each multiply and add is rounded to bf16 (``csrc/stencil_common.cuh``:
+the compile-time instances take the rounding as a policy, ``Bf16Math``,
+an instance of their own; the generic one as a flag of its program). The
+weights are :func:`stencil_eager.compute_weight`'s, as in the plain
+version.
+
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, so a run
 can show that it went through the kernel, the launches that took the
 generic instance in ``<wrapper>.generic_launches``, those that took the
-Mehrstellen instance in ``<wrapper>.mehrstellen_launches``, and the output
-cells in ``<wrapper>.cells`` (of the Mehrstellen launches in
+Mehrstellen instance in ``<wrapper>.mehrstellen_launches``, those in bf16
+compute in ``<wrapper>.compute_bf16_launches`` (of them on the Mehrstellen
+instance in ``<wrapper>.compute_bf16_mehrstellen_launches``), and the
+output cells in ``<wrapper>.cells`` (of the Mehrstellen launches in
 ``<wrapper>.mehrstellen_cells``); ``reset_launch_counts`` zeroes them.
-
-Not ported yet: bf16 compute dtype (the port computes in float32).
 """
 
 from __future__ import annotations
@@ -49,7 +57,7 @@ from heat3d_tpu_torch.core.stencils import (
     flat_taps,
     mehrstellen_enabled,
 )
-from heat3d_tpu_torch.ops.stencil_eager import apply_taps_padded, pad_local
+from heat3d_tpu_torch.ops.stencil_eager import apply_taps_padded, compute_weight, pad_local
 
 _LIB = "stencil_direct"
 # The instance code of the Mehrstellen q-ring route in the kernel's
@@ -61,6 +69,8 @@ MEHRSTELLEN = 3
 # the three face sums 3, psum 2, the combine 5. The bench rows' chain_ops
 # give the JAX package's count of the route, MEHRSTELLEN_OPS.
 MEHRSTELLEN_KERNEL_OPS = 19
+# the storage dtype's code in the kernels' interface; the compute dtype's
+# code (F32Math / Bf16Math of csrc/stencil_common.cuh) is the same
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Blocks a launch of the generic instance aims for: with the tile count
 # below this, x is cut into chunks (each costs 2*halo extra plane reads) so
@@ -82,7 +92,16 @@ class _Term(ctypes.Structure):
 
 
 class _Program(ctypes.Structure):
-    _fields_ = [("n", ctypes.c_int), ("t", _Term * 27)]
+    # bf16: set by the library from the launch's compute code
+    _fields_ = [("n", ctypes.c_int), ("bf16", ctypes.c_int), ("t", _Term * 27)]
+
+
+def compute_code(compute_dtype: torch.dtype) -> int:
+    """The kernels' code of ``compute_dtype`` (float32 0, bfloat16 1), or
+    raise."""
+    if compute_dtype not in _DTYPE_CODES:
+        raise ValueError(f"compute dtype {compute_dtype} not supported (float32, bfloat16)")
+    return _DTYPE_CODES[compute_dtype]
 
 
 def emission_program(taps: np.ndarray):
@@ -125,7 +144,8 @@ def chain_ops(taps: np.ndarray, mehrstellen: bool = False) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def _program(taps_bytes: bytes, factor_7pt: str, factor_y: str) -> _Program:
+def _program(taps_bytes: bytes, factor_7pt: str, factor_y: str,
+             compute_dtype: torch.dtype) -> _Program:
     # the two factoring knobs are part of the key: the chain they select is
     # read from the environment inside accumulate_taps
     taps = np.frombuffer(taps_bytes, dtype=np.float64).reshape(3, 3, 3)
@@ -135,7 +155,7 @@ def _program(taps_bytes: bytes, factor_7pt: str, factor_y: str) -> _Program:
     prog = _Program()
     prog.n = len(entries)
     for i, (s, r, dk, w) in enumerate(entries):
-        prog.t[i] = _Term(s, r, dk, w)
+        prog.t[i] = _Term(s, r, dk, compute_weight(w, compute_dtype))
     return prog
 
 
@@ -161,22 +181,23 @@ def _bc(periodic: bool) -> BoundaryCondition:
 
 def apply_taps_direct_ref(
     u: torch.Tensor, taps: np.ndarray, periodic: bool = False,
-    bc_value: float = 0.0,
+    bc_value: float = 0.0, compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Plain version of :func:`apply_taps_direct`: ghost pad + the update
-    of the route the environment selects (tap chain or Mehrstellen)."""
+    of the route the environment selects (tap chain or Mehrstellen) in
+    ``compute_dtype``."""
     return apply_taps_padded(pad_local(u, _bc(periodic), bc_value), taps,
-                             mehrstellen=None)
+                             mehrstellen=None, compute_dtype=compute_dtype)
 
 
 def apply_taps_direct2_ref(
     u: torch.Tensor, taps: np.ndarray, periodic: bool = False,
-    bc_value: float = 0.0,
+    bc_value: float = 0.0, compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Plain version of :func:`apply_taps_direct2`: two plain updates, the
     intermediate held in the storage dtype."""
-    mid = apply_taps_direct_ref(u, taps, periodic, bc_value)
-    return apply_taps_direct_ref(mid, taps, periodic, bc_value)
+    mid = apply_taps_direct_ref(u, taps, periodic, bc_value, compute_dtype)
+    return apply_taps_direct_ref(mid, taps, periodic, bc_value, compute_dtype)
 
 
 def check_tensors(
@@ -211,18 +232,21 @@ def check_tensors(
     return out
 
 
-def chain_program(taps: np.ndarray) -> _Program:
+def chain_program(taps: np.ndarray, compute_dtype: torch.dtype = torch.float32) -> _Program:
     """The kernels' emission program of ``taps`` under the current
-    factoring knobs (cached per taps and knobs)."""
+    factoring knobs, its weights in ``compute_dtype`` (cached per taps,
+    knobs and compute dtype)."""
+    compute_code(compute_dtype)
     return _program(
         taps.tobytes(),
         os.environ.get("HEAT3D_FACTOR_7PT", ""),
         os.environ.get("HEAT3D_FACTOR_Y", "1"),
+        compute_dtype,
     )
 
 
 @functools.lru_cache(maxsize=64)
-def _mehrstellen_program(taps_bytes: bytes) -> _Program:
+def _mehrstellen_program(taps_bytes: bytes, compute_dtype: torch.dtype) -> _Program:
     taps = np.frombuffer(taps_bytes, dtype=np.float64).reshape(3, 3, 3)
     coeffs = decompose_mehrstellen(taps)
     if coeffs is None:
@@ -230,15 +254,18 @@ def _mehrstellen_program(taps_bytes: bytes) -> _Program:
     prog = _Program()
     prog.n = 3
     for i, c in enumerate(coeffs):
-        prog.t[i] = _Term(0, 0, 0, float(np.float32(c)))
+        prog.t[i] = _Term(0, 0, 0, compute_weight(c, compute_dtype))
     return prog
 
 
-def mehrstellen_program(taps: np.ndarray) -> _Program:
+def mehrstellen_program(taps: np.ndarray,
+                        compute_dtype: torch.dtype = torch.float32) -> _Program:
     """The Mehrstellen instance's arguments in the kernel's program record:
     three entries whose weights are ``decompose_mehrstellen(taps)``'s
-    (a, b, d) as ``np.float32``, the rounding of the plain version."""
-    return _mehrstellen_program(check_taps(taps).tobytes())
+    (a, b, d) as :func:`stencil_eager.compute_weight`, the rounding of the
+    plain version."""
+    compute_code(compute_dtype)
+    return _mehrstellen_program(check_taps(taps).tobytes(), compute_dtype)
 
 
 def storage_bc(bc_value: float, dtype: torch.dtype) -> float:
@@ -277,9 +304,9 @@ def _lib():
 
     lib = _build.load(_LIB)
     lib.heat3d_direct_launch.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.POINTER(_Program), ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.POINTER(_Program), ctypes.c_void_p,
     ]
     lib.heat3d_direct_launch.restype = ctypes.c_int
     for fn in ("heat3d_direct_tile_y", "heat3d_direct_tile_z"):
@@ -287,7 +314,7 @@ def _lib():
         getattr(lib, fn).restype = ctypes.c_int
     for fn in ("heat3d_direct_smem_bytes", "heat3d_direct_blocks_per_sm",
                "heat3d_direct_registers"):
-        getattr(lib, fn).argtypes = [ctypes.c_int] * 3
+        getattr(lib, fn).argtypes = [ctypes.c_int] * 4
         getattr(lib, fn).restype = ctypes.c_int
     return lib
 
@@ -303,19 +330,22 @@ def direct_instance(taps: np.ndarray) -> int:
     return MEHRSTELLEN if mehrstellen_route(taps) else stream_instance(taps)
 
 
-def instance_resources(halo: int, instance: int, dtype: torch.dtype) -> dict:
+def instance_resources(halo: int, instance: int, dtype: torch.dtype,
+                       compute_dtype: torch.dtype = torch.float32) -> dict:
     """Dynamic shared memory (bytes), registers a thread and resident blocks
-    per SM of one kernel instance on the current CUDA device (builds and
-    loads the library; CUDA hosts only)."""
+    per SM of one kernel instance (storage ``dtype``, ``compute_dtype``) on
+    the current CUDA device (builds and loads the library; CUDA hosts
+    only)."""
     lib = _lib()
-    code = _DTYPE_CODES[dtype]
-    return {"smem_bytes": lib.heat3d_direct_smem_bytes(halo, instance, code),
-            "registers": lib.heat3d_direct_registers(halo, instance, code),
-            "blocks_per_sm": lib.heat3d_direct_blocks_per_sm(halo, instance, code)}
+    code = (_DTYPE_CODES[dtype], compute_code(compute_dtype))
+    return {"smem_bytes": lib.heat3d_direct_smem_bytes(halo, instance, *code),
+            "registers": lib.heat3d_direct_registers(halo, instance, *code),
+            "blocks_per_sm": lib.heat3d_direct_blocks_per_sm(halo, instance, *code)}
 
 
 @functools.lru_cache(maxsize=256)
-def _launch_xchunk(shape, halo: int, inst: int, device: int, dtype: torch.dtype) -> int:
+def _launch_xchunk(shape, halo: int, inst: int, device: int, dtype: torch.dtype,
+                   compute_dtype: torch.dtype = torch.float32) -> int:
     """The x-chunk of a launch over ``shape``: :func:`wave_xchunk` for a
     compile-time instance, from its resident blocks on ``device``; the
     generic instance keeps the first design's rule (``_xchunk``)."""
@@ -324,18 +354,20 @@ def _launch_xchunk(shape, halo: int, inst: int, device: int, dtype: torch.dtype)
     if inst == 0:
         return _xchunk(shape, ty, tz)
     with torch.cuda.device(device):
-        per_sm = lib.heat3d_direct_blocks_per_sm(halo, inst, _DTYPE_CODES[dtype])
+        per_sm = lib.heat3d_direct_blocks_per_sm(halo, inst, _DTYPE_CODES[dtype],
+                                                 compute_code(compute_dtype))
     if per_sm < 1:
-        raise RuntimeError(f"direct instance (halo {halo}, {inst}, {dtype}) fits no SM")
+        raise RuntimeError(f"direct instance (halo {halo}, {inst}, {dtype}, compute "
+                           f"{compute_dtype}) fits no SM")
     resident = per_sm * torch.cuda.get_device_properties(device).multi_processor_count
     return wave_xchunk(shape[0], -(-shape[1] // ty) * -(-shape[2] // tz), resident)
 
 
 def _launch(wrapper, halo, u, taps, periodic, bc_value, out,
-            instance=None, xchunk=None) -> torch.Tensor:
+            instance=None, xchunk=None, compute_dtype=torch.float32) -> torch.Tensor:
     """Launch ``instance`` (default ``direct_instance(taps)``) at ``halo``
-    with x-chunks of ``xchunk`` planes (default ``_launch_xchunk``) and
-    count it on ``wrapper``."""
+    in ``compute_dtype`` with x-chunks of ``xchunk`` planes (default
+    ``_launch_xchunk``) and count it on ``wrapper``."""
     if u.device.type != "cuda":
         raise ValueError(f"no kernel for device {u.device}")
     out = check_tensors(u, out)
@@ -343,16 +375,19 @@ def _launch(wrapper, halo, u, taps, periodic, bc_value, out,
         # bf16 rows are copied as aligned element pairs
         raise ValueError("field must start on a 4-byte boundary")
     lib = _lib()
+    ccode = compute_code(compute_dtype)
     inst = direct_instance(taps) if instance is None else instance
-    prog = mehrstellen_program(taps) if inst == MEHRSTELLEN else chain_program(taps)
+    prog = (mehrstellen_program(taps, compute_dtype) if inst == MEHRSTELLEN
+            else chain_program(taps, compute_dtype))
     bc = storage_bc(bc_value, u.dtype)
     nx, ny, nz = u.shape
     if xchunk is None:
-        xchunk = _launch_xchunk(tuple(u.shape), halo, inst, u.device.index, u.dtype)
+        xchunk = _launch_xchunk(tuple(u.shape), halo, inst, u.device.index, u.dtype,
+                                compute_dtype)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = lib.heat3d_direct_launch(
-            halo, inst, _DTYPE_CODES[u.dtype], u.data_ptr(), out.data_ptr(),
+            halo, inst, _DTYPE_CODES[u.dtype], ccode, u.data_ptr(), out.data_ptr(),
             nx, ny, nz, xchunk, int(bool(periodic)), bc, ctypes.byref(prog), stream,
         )
     if err != 0:
@@ -363,6 +398,8 @@ def _launch(wrapper, halo, u, taps, periodic, bc_value, out,
     wrapper.launches += 1
     wrapper.generic_launches += inst == 0
     wrapper.mehrstellen_launches += inst == MEHRSTELLEN
+    wrapper.compute_bf16_launches += ccode == 1
+    wrapper.compute_bf16_mehrstellen_launches += ccode == 1 and inst == MEHRSTELLEN
     wrapper.cells += out.numel()
     wrapper.mehrstellen_cells += out.numel() if inst == MEHRSTELLEN else 0
     return out
@@ -374,16 +411,18 @@ def apply_taps_direct(
     periodic: bool = False,
     bc_value: float = 0.0,
     out: Optional[torch.Tensor] = None,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """One explicit-Euler update of the whole (1,1,1)-mesh field: unpadded
     (nx, ny, nz) in, (nx, ny, nz) out in the same dtype (float32 or
-    bfloat16 storage, float32 compute). ``out`` (optional, preallocated)
-    must not overlap ``u``."""
+    bfloat16 storage; float32 or bfloat16 ``compute_dtype``). ``out``
+    (optional, preallocated) must not overlap ``u``."""
     taps = check_taps(taps)
     if u.device.type == "cpu":
-        res = apply_taps_direct_ref(u, taps, periodic, bc_value)
+        res = apply_taps_direct_ref(u, taps, periodic, bc_value, compute_dtype)
         return res if out is None else out.copy_(res)
-    return _launch(apply_taps_direct, 1, u, taps, periodic, bc_value, out)
+    return _launch(apply_taps_direct, 1, u, taps, periodic, bc_value, out,
+                   compute_dtype=compute_dtype)
 
 
 def apply_taps_direct2(
@@ -392,6 +431,7 @@ def apply_taps_direct2(
     periodic: bool = False,
     bc_value: float = 0.0,
     out: Optional[torch.Tensor] = None,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Two fused updates of the whole (1,1,1)-mesh field in one sweep, the
     intermediate rounded to the storage dtype and its Dirichlet domain
@@ -399,9 +439,10 @@ def apply_taps_direct2(
     calls."""
     taps = check_taps(taps)
     if u.device.type == "cpu":
-        res = apply_taps_direct2_ref(u, taps, periodic, bc_value)
+        res = apply_taps_direct2_ref(u, taps, periodic, bc_value, compute_dtype)
         return res if out is None else out.copy_(res)
-    return _launch(apply_taps_direct2, 2, u, taps, periodic, bc_value, out)
+    return _launch(apply_taps_direct2, 2, u, taps, periodic, bc_value, out,
+                   compute_dtype=compute_dtype)
 
 
 def launch_instance(
@@ -413,6 +454,7 @@ def launch_instance(
     bc_value: float = 0.0,
     out: Optional[torch.Tensor] = None,
     xchunk: Optional[int] = None,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """:func:`apply_taps_direct` (halo 1) or :func:`apply_taps_direct2`
     (halo 2) on a named kernel instance, for measurements: the generic
@@ -422,7 +464,8 @@ def launch_instance(
     only; counted on the wrapper as usual."""
     taps = check_taps(taps)
     wrapper = apply_taps_direct if halo == 1 else apply_taps_direct2
-    return _launch(wrapper, halo, u, taps, periodic, bc_value, out, instance, xchunk)
+    return _launch(wrapper, halo, u, taps, periodic, bc_value, out, instance, xchunk,
+                   compute_dtype)
 
 
 KERNELS = (apply_taps_direct, apply_taps_direct2)
@@ -444,6 +487,16 @@ def mehrstellen_cell_counts() -> dict:
     return {k.__name__: k.mehrstellen_cells for k in KERNELS}
 
 
+def compute_bf16_launch_counts() -> dict:
+    """Launches of each wrapper in bf16 compute."""
+    return {k.__name__: k.compute_bf16_launches for k in KERNELS}
+
+
+def compute_bf16_mehrstellen_launch_counts() -> dict:
+    """Launches of each wrapper on the Mehrstellen instance in bf16 compute."""
+    return {k.__name__: k.compute_bf16_mehrstellen_launches for k in KERNELS}
+
+
 def cell_counts() -> dict:
     return {k.__name__: k.cells for k in KERNELS}
 
@@ -451,7 +504,8 @@ def cell_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = k.generic_launches = k.mehrstellen_launches = k.cells = 0
-        k.mehrstellen_cells = 0
+        k.mehrstellen_cells = k.compute_bf16_launches = 0
+        k.compute_bf16_mehrstellen_launches = 0
 
 
 reset_launch_counts()

@@ -43,10 +43,18 @@ The landing buffers, flag words, arrival counters, device tables and epoch
 live in a :class:`FusedState`, one per (mesh, width, send ranges, storage
 dtype, boundary), built and zeroed on the stream its kernels run on.
 
+Each instance runs in either compute dtype (``compute_dtype``: float32,
+or bf16 with each field read and each multiply and add rounded to bf16),
+as ``stencil_direct``'s: the compile-time instances have one of their own
+(``fused_chain_kernel<T, H, S, Bf16Math>``), the generic one takes a flag
+of its program.
+
 ``<wrapper>.launches`` counts launches (one per device and call),
-``<wrapper>.cells`` their output cells, and ``<wrapper>.generic_launches``
-the launches that took the generic instance; ``launch_counts`` and
-``generic_launch_counts`` report them.
+``<wrapper>.cells`` their output cells, ``<wrapper>.generic_launches``
+the launches that took the generic instance and
+``<wrapper>.compute_bf16_launches`` those in bf16 compute;
+``launch_counts``, ``generic_launch_counts`` and
+``compute_bf16_launch_counts`` report them.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from heat3d_tpu_torch.ops.stencil_direct import (
     _Program,
     chain_program,
     check_taps,
+    compute_code,
     storage_bc,
 )
 from heat3d_tpu_torch.ops.stencil_direct import wave_xchunk as _direct_wave_xchunk
@@ -152,12 +161,13 @@ def _lib():
         getattr(lib, fn).restype = ctypes.c_int
     for fn in ("heat3d_fused_blocks_per_sm", "heat3d_fused_registers",
                "heat3d_fused_smem_bytes"):
-        getattr(lib, fn).argtypes = [ctypes.c_int] * 3
+        getattr(lib, fn).argtypes = [ctypes.c_int] * 4
         getattr(lib, fn).restype = ctypes.c_int
     lib.heat3d_fused_error.argtypes = []
     lib.heat3d_fused_error.restype = ctypes.c_uint
     lib.heat3d_fused_launch.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(_Args), ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(_Args),
+        ctypes.c_void_p]
     lib.heat3d_fused_launch.restype = ctypes.c_int
     layout = {
         "max_local": (lib.heat3d_fused_max_local(), MAX_LOCAL),
@@ -175,17 +185,18 @@ def _lib():
     return lib
 
 
-def instance_resources(halo: int, instance: int, dtype: torch.dtype) -> dict:
+def instance_resources(halo: int, instance: int, dtype: torch.dtype,
+                       compute_dtype: torch.dtype = torch.float32) -> dict:
     """Resident blocks per SM (the cooperative grid is this times the SM
     count), registers a thread and dynamic shared memory (bytes) of one
-    instance of the fused kernel of ``halo`` updates on the current CUDA
-    device: ``instance`` 0 the interpreted kernel, else a compile-time chain.
-    CUDA hosts only."""
+    instance of the fused kernel of ``halo`` updates (storage ``dtype``,
+    ``compute_dtype``) on the current CUDA device: ``instance`` 0 the
+    interpreted kernel, else a compile-time chain. CUDA hosts only."""
     lib = _lib()
-    code = _DTYPE_CODES[dtype]
-    return {"blocks_per_sm": lib.heat3d_fused_blocks_per_sm(halo, instance, code),
-            "registers": lib.heat3d_fused_registers(halo, instance, code),
-            "smem_bytes": lib.heat3d_fused_smem_bytes(halo, instance, code)}
+    code = (_DTYPE_CODES[dtype], compute_code(compute_dtype))
+    return {"blocks_per_sm": lib.heat3d_fused_blocks_per_sm(halo, instance, *code),
+            "registers": lib.heat3d_fused_registers(halo, instance, *code),
+            "smem_bytes": lib.heat3d_fused_smem_bytes(halo, instance, *code)}
 
 
 def fused_instance(halo: int, taps: np.ndarray) -> int:
@@ -284,16 +295,17 @@ def _pad_yz(stack: torch.Tensor, periodic: bool, bc_value: float) -> torch.Tenso
 
 def reference_fused_step(us: Sequence[torch.Tensor], taps: np.ndarray, mesh,
                          periodic: bool = False, bc_value: float = 0.0,
-                         return_ghosts: bool = False):
+                         return_ghosts: bool = False,
+                         compute_dtype: torch.dtype = torch.float32):
     """Plain version of :func:`apply_step_fused_dma`: per shard the ring
     ghosts (:func:`ring_ghosts`), the (nx+2, ny, nz) stack padded in y/z
-    as a domain boundary, and the tap chain (under the Mehrstellen knob
-    too: the fused kernels, as the JAX ones, have no Mehrstellen form). With
-    ``return_ghosts`` also
-    the landed (ny, nz) planes per shard, bc substituted."""
+    as a domain boundary, and the tap chain in ``compute_dtype`` (under
+    the Mehrstellen knob too: the fused kernels, as the JAX ones, have no
+    Mehrstellen form). With ``return_ghosts`` also the landed (ny, nz)
+    planes per shard, bc substituted."""
     ghosts = ring_ghosts(us, mesh, 1, periodic, bc_value)
     outs = [apply_taps_padded(_pad_yz(torch.cat([glo, u, ghi]), periodic, bc_value), taps,
-                              mehrstellen=False)
+                              mehrstellen=False, compute_dtype=compute_dtype)
             for u, (glo, ghi) in zip(us, ghosts)]
     if return_ghosts:
         return outs, [(glo[0], ghi[0]) for glo, ghi in ghosts]
@@ -301,11 +313,13 @@ def reference_fused_step(us: Sequence[torch.Tensor], taps: np.ndarray, mesh,
 
 
 def reference_fused_superstep(us: Sequence[torch.Tensor], taps: np.ndarray, mesh,
-                              periodic: bool = False, bc_value: float = 0.0):
+                              periodic: bool = False, bc_value: float = 0.0,
+                              compute_dtype: torch.dtype = torch.float32):
     """Plain version of :func:`apply_superstep_fused_dma`: two plain steps
     (the intermediate held in the storage dtype)."""
     for _ in range(2):
-        us = reference_fused_step(us, taps, mesh, periodic, bc_value)
+        us = reference_fused_step(us, taps, mesh, periodic, bc_value,
+                                  compute_dtype=compute_dtype)
     return us
 
 
@@ -482,7 +496,7 @@ wave_xchunk = functools.partial(_direct_wave_xchunk, min_chunk=_MIN_CHAIN_XCHUNK
 
 @functools.lru_cache(maxsize=256)
 def _launch_xchunk(halo: int, instance: int, local_shape, nlocal: int, device: int,
-                   dtype: torch.dtype) -> int:
+                   dtype: torch.dtype, compute_dtype: torch.dtype = torch.float32) -> int:
     """The interior x-chunk of a launch: :func:`wave_xchunk` from the
     compile-time instance's resident blocks on ``device``; the interpreted
     kernels keep the first design's rule (``_xchunk``)."""
@@ -493,21 +507,26 @@ def _launch_xchunk(halo: int, instance: int, local_shape, nlocal: int, device: i
     if instance == GENERIC:
         return _xchunk(nx - 2 * halo, tiles_yz)
     with torch.cuda.device(device):
-        per_sm = lib.heat3d_fused_blocks_per_sm(halo, instance, _DTYPE_CODES[dtype])
+        per_sm = lib.heat3d_fused_blocks_per_sm(halo, instance, _DTYPE_CODES[dtype],
+                                                compute_code(compute_dtype))
     if per_sm < 1:
-        raise RuntimeError(f"fused instance (halo {halo}, {instance}, {dtype}) fits no SM")
+        raise RuntimeError(f"fused instance (halo {halo}, {instance}, {dtype}, compute "
+                           f"{compute_dtype}) fits no SM")
     resident = per_sm * torch.cuda.get_device_properties(device).multi_processor_count
     return wave_xchunk(nx - 2 * halo, tiles_yz, resident, waves=_WAVES[halo])
 
 
 def launch(halo: int, us, taps, mesh, state: FusedState, periodic: bool,
            bc_value: float, outs, wrapper, instance=None,
-           xchunk: Optional[int] = None) -> List[torch.Tensor]:
+           xchunk: Optional[int] = None,
+           compute_dtype: torch.dtype = torch.float32) -> List[torch.Tensor]:
     """One fused launch per device of ``state``: ``halo`` updates of every
-    shard on ``instance`` (default :func:`fused_instance`) with interior
-    x-chunks of ``xchunk`` planes (default :func:`_launch_xchunk`); counts each
-    launch on ``wrapper.launches`` (and ``wrapper.generic_launches`` when it
-    took the generic instance) and its output cells on ``wrapper.cells``."""
+    shard in ``compute_dtype`` on ``instance`` (default
+    :func:`fused_instance`) with interior x-chunks of ``xchunk`` planes
+    (default :func:`_launch_xchunk`); counts each launch on
+    ``wrapper.launches`` (and ``wrapper.generic_launches`` when it took the
+    generic instance, ``wrapper.compute_bf16_launches`` in bf16 compute)
+    and its output cells on ``wrapper.cells``."""
     if state.width != halo or state.periodic != bool(periodic):
         raise ValueError(
             f"state is width {state.width}, periodic={state.periodic}; the launch "
@@ -520,7 +539,8 @@ def launch(halo: int, us, taps, mesh, state: FusedState, periodic: bool,
         raise ValueError(f"fused kernel of {halo} update(s) needs nx >= {2 * halo}, got {nx}")
     lib = _lib()
     raise_if_timed_out()
-    prog = chain_program(taps)
+    ccode = compute_code(compute_dtype)
+    prog = chain_program(taps, compute_dtype)
     inst = fused_instance(halo, taps) if instance is None else instance
     bc = storage_bc(bc_value, state.dtype)
     outs = list(outs) if outs is not None else [None] * len(mesh)
@@ -553,12 +573,13 @@ def launch(halo: int, us, taps, mesh, state: FusedState, periodic: bool,
         args.push_tiles = g.push_tiles
         args.nx, args.ny, args.nz = nx, ny, nz
         args.xchunk = xchunk or _launch_xchunk(halo, inst, tuple(mesh.local_shape),
-                                               len(g.shards), g.device.index, state.dtype)
+                                               len(g.shards), g.device.index, state.dtype,
+                                               compute_dtype)
         args.periodic = int(bool(periodic))
         args.bc = bc
         args.prog = prog
         with torch.cuda.device(g.device):
-            err = lib.heat3d_fused_launch(halo, inst, _DTYPE_CODES[state.dtype],
+            err = lib.heat3d_fused_launch(halo, inst, _DTYPE_CODES[state.dtype], ccode,
                                           ctypes.byref(args), g.stream.cuda_stream)
         if err != 0:
             raise RuntimeError(
@@ -567,6 +588,7 @@ def launch(halo: int, us, taps, mesh, state: FusedState, periodic: bool,
                 + (f" ({_ERRORS[err]})" if err in _ERRORS else ""))
         wrapper.launches += 1
         wrapper.generic_launches += inst == GENERIC
+        wrapper.compute_bf16_launches += ccode == 1
         wrapper.cells += len(g.shards) * nx * ny * nz
     _join(state)
     return outs
@@ -609,65 +631,70 @@ def _into(res, outs):
 def apply_step_fused_dma(us: Sequence[torch.Tensor], taps: np.ndarray, mesh,
                          state: Optional[FusedState] = None, periodic: bool = False,
                          bc_value: float = 0.0, outs: Optional[Sequence[torch.Tensor]] = None,
-                         return_ghosts: bool = False):
+                         return_ghosts: bool = False,
+                         compute_dtype: torch.dtype = torch.float32):
     """One update of every shard of an x-sharded ``mesh`` (fields ``us`` in
-    rank order, each the unpadded local block), the x-face pushes to the
-    ring neighbours in flight under the interior sweep. ``state`` is the
-    route's :class:`FusedState` (width 1, whole-face sends); ``outs``
-    (optional) preallocated results. With ``return_ghosts`` also the landed
-    (ny, nz) x ghost planes per shard, bc at Dirichlet x domain faces:
-    ``(outs, [(glo, ghi), ...])``; the planes are the state's buffers,
-    valid until its next launch."""
+    rank order, each the unpadded local block) in ``compute_dtype``, the
+    x-face pushes to the ring neighbours in flight under the interior
+    sweep. ``state`` is the route's :class:`FusedState` (width 1,
+    whole-face sends); ``outs`` (optional) preallocated results. With
+    ``return_ghosts`` also the landed (ny, nz) x ghost planes per shard, bc
+    at Dirichlet x domain faces: ``(outs, [(glo, ghi), ...])``; the planes
+    are the state's buffers, valid until its next launch."""
     return _step(apply_step_fused_dma, us, taps, mesh, state, periodic, bc_value, outs,
-                 return_ghosts)
+                 return_ghosts, compute_dtype=compute_dtype)
 
 
 def apply_superstep_fused_dma(us: Sequence[torch.Tensor], taps: np.ndarray, mesh,
                               state: Optional[FusedState] = None, periodic: bool = False,
                               bc_value: float = 0.0,
-                              outs: Optional[Sequence[torch.Tensor]] = None):
+                              outs: Optional[Sequence[torch.Tensor]] = None,
+                              compute_dtype: torch.dtype = torch.float32):
     """Two updates of every shard of an x-slab ``mesh`` in one sweep, the
     width-2 face pushes in flight under the interior sweep; the
     intermediate rounded to storage and pinned to bc at Dirichlet domain
     faces: equal to two :func:`apply_step_fused_dma` calls."""
     return _superstep(apply_superstep_fused_dma, us, taps, mesh, state, periodic,
-                      bc_value, outs)
+                      bc_value, outs, compute_dtype=compute_dtype)
 
 
 def _step(wrapper, us, taps, mesh, state, periodic, bc_value, outs, return_ghosts=False,
-          instance=None, xchunk=None):
+          instance=None, xchunk=None, compute_dtype=torch.float32):
     taps = check_taps(taps)
     if us[0].device.type == "cpu":
-        res = reference_fused_step(us, taps, mesh, periodic, bc_value, return_ghosts)
+        res = reference_fused_step(us, taps, mesh, periodic, bc_value, return_ghosts,
+                                   compute_dtype)
         if return_ghosts:
             return _into(res[0], outs), res[1]
         return _into(res, outs)
     if state is None:
         raise ValueError("a CUDA launch needs its FusedState")
     res = launch(1, us, taps, mesh, state, periodic, bc_value, outs, wrapper, instance,
-                 xchunk)
+                 xchunk, compute_dtype)
     if return_ghosts:
         return res, _landed(mesh, state, periodic, bc_value)
     return res
 
 
 def _superstep(wrapper, us, taps, mesh, state, periodic, bc_value, outs, instance=None,
-               xchunk=None):
+               xchunk=None, compute_dtype=torch.float32):
     taps = check_taps(taps)
     if mesh.local_shape[0] < 4:
         raise ValueError(f"the two-update fused kernel needs nx >= 4, got {mesh.local_shape}")
     if us[0].device.type == "cpu":
-        return _into(reference_fused_superstep(us, taps, mesh, periodic, bc_value), outs)
+        return _into(reference_fused_superstep(us, taps, mesh, periodic, bc_value,
+                                               compute_dtype), outs)
     if state is None:
         raise ValueError("a CUDA launch needs its FusedState")
     return launch(2, us, taps, mesh, state, periodic, bc_value, outs, wrapper, instance,
-                  xchunk)
+                  xchunk, compute_dtype)
 
 
 def launch_instance(instance: int, us: Sequence[torch.Tensor], taps: np.ndarray, mesh,
                     state: FusedState, periodic: bool = False, bc_value: float = 0.0,
                     outs: Optional[Sequence[torch.Tensor]] = None, wrapper=None,
-                    xchunk: Optional[int] = None):
+                    xchunk: Optional[int] = None,
+                    compute_dtype: torch.dtype = torch.float32):
     """:func:`apply_step_fused_dma` (a width-1 ``state``) or
     :func:`apply_superstep_fused_dma` (width 2) on a named instance, for
     measurements: the generic instance (0) takes any chain, a compile-time
@@ -679,9 +706,10 @@ def launch_instance(instance: int, us: Sequence[torch.Tensor], taps: np.ndarray,
         raise ValueError(f"no kernel for device {us[0].device}")
     if state.width == 1:
         return _step(wrapper or apply_step_fused_dma, us, taps, mesh, state, periodic,
-                     bc_value, outs, instance=instance, xchunk=xchunk)
+                     bc_value, outs, instance=instance, xchunk=xchunk,
+                     compute_dtype=compute_dtype)
     return _superstep(wrapper or apply_superstep_fused_dma, us, taps, mesh, state, periodic,
-                      bc_value, outs, instance, xchunk)
+                      bc_value, outs, instance, xchunk, compute_dtype)
 
 
 KERNELS = (apply_step_fused_dma, apply_superstep_fused_dma)
@@ -700,9 +728,14 @@ def cell_counts() -> dict:
     return {k.__name__: k.cells for k in KERNELS}
 
 
+def compute_bf16_launch_counts() -> dict:
+    """Launches of each wrapper in bf16 compute."""
+    return {k.__name__: k.compute_bf16_launches for k in KERNELS}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = k.generic_launches = k.cells = 0
+        k.launches = k.generic_launches = k.cells = k.compute_bf16_launches = 0
 
 
 reset_launch_counts()

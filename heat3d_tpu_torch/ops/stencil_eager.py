@@ -7,9 +7,13 @@ Eager PyTorch runs each multiply and each add as its own rounded operation
 ``__fmul_rn``/``__fadd_rn`` in the same order equals it bitwise on the same
 device. The Mehrstellen route (``HEAT3D_MEHRSTELLEN``, taps that factor as
 ``a*delta + b*S + d*F``) is held to the same standard in its own canonical
-order (:func:`_apply_mehrstellen_padded`). These functions run on any
-device; on the CPU they are the stand-in for the kernels
-(``ops.stencil_direct``).
+order (:func:`_apply_mehrstellen_padded`). Under bf16 compute
+(``compute_dtype=torch.bfloat16``, the JAX package's
+``Precision.compute='bfloat16'``) the chain runs on bf16 tensors: eager
+PyTorch computes each bf16 multiply and add in float and rounds it once to
+bf16, the rounding of eager JAX and of the kernels' bf16 policy. These
+functions run on any device; on the CPU they are the stand-in for the
+kernels (``ops.stencil_direct``).
 """
 
 from __future__ import annotations
@@ -44,14 +48,28 @@ def pad_local(
     return F.pad(u, (1, 1, 1, 1, 1, 1), mode="constant", value=bc_value)
 
 
+def compute_weight(w: float, compute_dtype: torch.dtype = torch.float32) -> float:
+    """Tap weight (or Mehrstellen coefficient) ``w`` as the update
+    multiplies by it: ``np.float32(w)``, rounded on to bf16 under bf16
+    compute (what ``jnp.asarray(w, compute_dtype)`` gives). A bf16 tensor
+    times a Python float is computed in float with the float as given, so
+    the weight must already be a bf16 value."""
+    w32 = np.float32(w)
+    if compute_dtype == torch.float32:
+        return float(w32)
+    return float(torch.tensor(w32).to(compute_dtype))
+
+
 def apply_taps_padded(
-    up: torch.Tensor, taps: np.ndarray, mehrstellen: Optional[bool] = None
+    up: torch.Tensor, taps: np.ndarray, mehrstellen: Optional[bool] = None,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Apply 3x3x3 update taps to a ghost-padded ``up`` of shape
     (nx+2, ny+2, nz+2); returns the (nx, ny, nz) interior update in
-    ``up``'s dtype, computed in float32 (the port's one compute dtype).
-    Tap weights are embedded as ``np.float32(w)``, the rounding
-    ``jnp.asarray(w, float32)`` applies.
+    ``up``'s dtype, computed in ``compute_dtype`` (float32 or bfloat16):
+    ``up`` cast to it, each multiply and add one rounded operation of it.
+    Tap weights are embedded as :func:`compute_weight`, the rounding
+    ``jnp.asarray(w, compute_dtype)`` applies.
 
     ``mehrstellen`` pins the route, as in the JAX package: None follows
     ``HEAT3D_MEHRSTELLEN`` (``core.stencils.mehrstellen_enabled``); True
@@ -60,24 +78,27 @@ def apply_taps_padded(
     chain. Callers beside a kernel that runs the chain under the knob (the
     exchange-path and fused kernels' plain versions, the overlap faces
     around them) pass False."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype {compute_dtype} (float32 or bfloat16)")
+    upc = up.to(compute_dtype)
     if mehrstellen is None:
         mehrstellen = mehrstellen_enabled()
     if mehrstellen:
         coeffs = decompose_mehrstellen(taps)
         if coeffs is not None:
-            return _apply_mehrstellen_padded(up.float(), coeffs).to(up.dtype)
+            return _apply_mehrstellen_padded(upc, coeffs).to(up.dtype)
     flat = flat_taps(taps)
     if not flat:
         raise ValueError("stencil has no taps")
-    acc = _chain_accumulate(up.float(), flat, lambda w: float(np.float32(w)))
+    acc = _chain_accumulate(upc, flat, lambda w: compute_weight(w, compute_dtype))
     return acc.to(up.dtype)
 
 
 def _apply_mehrstellen_padded(upc: torch.Tensor, coeffs) -> torch.Tensor:
-    """The Mehrstellen route over a ghost-padded float32 ``upc``, port of
-    ``stencil_jnp._apply_mehrstellen_padded``: three 1D [1,3,1] sums build
-    S, the six face neighbours build F, one 3-term combine. One rounded
-    float32 op per step, in the canonical order:
+    """The Mehrstellen route over a ghost-padded compute-dtype ``upc``,
+    port of ``stencil_jnp._apply_mehrstellen_padded``: three 1D [1,3,1]
+    sums build S, the six face neighbours build F, one 3-term combine. One
+    rounded op of ``upc``'s dtype per step, in the canonical order:
 
       z131 = (z- + z+) + 3*u       per z-line of the padded block
       y131 = (y- + y+) + 3*z131    per y-line of z131 (a plane's q)
@@ -86,9 +107,9 @@ def _apply_mehrstellen_padded(upc: torch.Tensor, coeffs) -> torch.Tensor:
       out  = (a*u0 + b*S) + d*psum
 
     ``coeffs`` are ``decompose_mehrstellen``'s (a, b, d), embedded as
-    ``np.float32`` like the tap weights."""
+    :func:`compute_weight` like the tap weights (3.0 is exact in both)."""
     nx, ny, nz = upc.shape[0] - 2, upc.shape[1] - 2, upc.shape[2] - 2
-    a, b, d = (float(np.float32(c)) for c in coeffs)
+    a, b, d = (compute_weight(c, upc.dtype) for c in coeffs)
     z131 = (upc[:, :, 0:nz] + upc[:, :, 2 : nz + 2]) + 3.0 * upc[:, :, 1 : nz + 1]
     y131 = (z131[:, 0:ny] + z131[:, 2 : ny + 2]) + 3.0 * z131[:, 1 : ny + 1]
     s = (y131[0:nx] + y131[2 : nx + 2]) + 3.0 * y131[1 : nx + 1]
@@ -126,19 +147,21 @@ def _chain_accumulate(upc: torch.Tensor, flat, scalar) -> torch.Tensor:
     return accumulate_taps(flat, term, scalar)
 
 
-def apply_taps_conv_padded(up: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
+def apply_taps_conv_padded(up: torch.Tensor, taps: np.ndarray,
+                           compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The ``backend='conv'`` arm, port of ``stencil_jnp.apply_taps_conv_padded``:
     one ``F.conv3d`` (cross-correlation, as XLA's conv: no kernel flip,
-    matching ``out[c] = sum_d T[d] u[c+d-1]``) of the float32 taps over
-    the ghost-padded block, VALID, in float32 with TF32 off on the card.
-    The JAX package computes it outside any Pallas kernel too: a library
-    call is this arm's definition. Not bitwise to the tap chain (cuDNN and
-    oneDNN sum in their own order)."""
-    w = torch.from_numpy(np.asarray(taps, dtype=np.float32)).to(up.device)
+    matching ``out[c] = sum_d T[d] u[c+d-1]``) of the taps over the
+    ghost-padded block, VALID, in ``compute_dtype`` (block and taps cast to
+    it), with TF32 off on the card. The JAX package computes it outside
+    any Pallas kernel too: a library call is this arm's definition. Not
+    bitwise to the tap chain (cuDNN and oneDNN sum in their own order and
+    precision)."""
+    w = torch.from_numpy(np.asarray(taps, dtype=np.float32)).to(up.device, compute_dtype)
     allow = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        y = F.conv3d(up.float()[None, None], w[None, None])
+        y = F.conv3d(up.to(compute_dtype)[None, None], w[None, None])
     finally:
         torch.backends.cudnn.allow_tf32 = allow
     return y[0, 0].to(up.dtype)

@@ -41,34 +41,40 @@ def plan_send_bounds(plan, local_shape, itemsize: int) -> Tuple[Tuple[int, int],
     return plan.face_partition_bounds(0, local_shape, itemsize)
 
 
-def reference_fused_rdma_step(us, taps, mesh, periodic=False, bc_value=0.0):
+def reference_fused_rdma_step(us, taps, mesh, periodic=False, bc_value=0.0,
+                              compute_dtype=torch.float32):
     """Plain version of :func:`apply_step_fused_rdma` (plan-independent)."""
-    return fd.reference_fused_step(us, taps, mesh, periodic, bc_value)
+    return fd.reference_fused_step(us, taps, mesh, periodic, bc_value,
+                                   compute_dtype=compute_dtype)
 
 
-def reference_fused_rdma_superstep(us, taps, mesh, periodic=False, bc_value=0.0):
+def reference_fused_rdma_superstep(us, taps, mesh, periodic=False, bc_value=0.0,
+                                   compute_dtype=torch.float32):
     """Plain version of :func:`apply_superstep_fused_rdma`."""
-    return fd.reference_fused_superstep(us, taps, mesh, periodic, bc_value)
+    return fd.reference_fused_superstep(us, taps, mesh, periodic, bc_value, compute_dtype)
 
 
 def apply_step_fused_rdma(us: Sequence[torch.Tensor], taps: np.ndarray, mesh,
                           state: Optional[fd.FusedState] = None, periodic: bool = False,
                           bc_value: float = 0.0,
-                          outs: Optional[Sequence[torch.Tensor]] = None):
-    """One update of every shard of an x-slab ``mesh`` with the sends of
-    ``state.bounds`` (the plan's ranges, :func:`plan_send_bounds`) in
-    flight under the interior sweep."""
-    return fd._step(apply_step_fused_rdma, us, taps, mesh, state, periodic, bc_value, outs)
+                          outs: Optional[Sequence[torch.Tensor]] = None,
+                          compute_dtype: torch.dtype = torch.float32):
+    """One update of every shard of an x-slab ``mesh`` in ``compute_dtype``
+    with the sends of ``state.bounds`` (the plan's ranges,
+    :func:`plan_send_bounds`) in flight under the interior sweep."""
+    return fd._step(apply_step_fused_rdma, us, taps, mesh, state, periodic, bc_value, outs,
+                    compute_dtype=compute_dtype)
 
 
 def apply_superstep_fused_rdma(us: Sequence[torch.Tensor], taps: np.ndarray, mesh,
                                state: Optional[fd.FusedState] = None,
                                periodic: bool = False, bc_value: float = 0.0,
-                               outs: Optional[Sequence[torch.Tensor]] = None):
+                               outs: Optional[Sequence[torch.Tensor]] = None,
+                               compute_dtype: torch.dtype = torch.float32):
     """Two updates of every shard of an x-slab ``mesh`` in one sweep with
     the width-2 sends of ``state.bounds`` in flight under the interior."""
     return fd._superstep(apply_superstep_fused_rdma, us, taps, mesh, state, periodic,
-                         bc_value, outs)
+                         bc_value, outs, compute_dtype=compute_dtype)
 
 
 KERNELS = (apply_step_fused_rdma, apply_superstep_fused_rdma)
@@ -88,9 +94,14 @@ def cell_counts() -> dict:
     return {k.__name__: k.cells for k in KERNELS}
 
 
+def compute_bf16_launch_counts() -> dict:
+    """Launches of each wrapper in bf16 compute."""
+    return {k.__name__: k.compute_bf16_launches for k in KERNELS}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = k.generic_launches = k.cells = 0
+        k.launches = k.generic_launches = k.cells = k.compute_bf16_launches = 0
 
 
 reset_launch_counts()

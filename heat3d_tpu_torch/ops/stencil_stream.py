@@ -31,16 +31,21 @@ a generic instance that interprets any other program;
 :func:`stream_instance` picks one by comparing the emission program's
 ``(src, row, dk)`` sequence with the table.
 
+Every instance runs in either compute dtype (``compute_dtype``: float32,
+or bf16 with each field read and each multiply and add rounded to bf16),
+as ``stencil_direct``'s: a compile-time instance of its own for each
+``CHAINS`` entry, the generic one by a flag of its program.
+
 Each wrapper counts its kernel launches in ``<wrapper>.launches``
 (``apply_taps_stream2`` counts as ``apply_taps_streamk``, whose kernel it
 launches), the launches that took the generic instance in
-``<wrapper>.generic_launches`` and the output cells it computed in
+``<wrapper>.generic_launches``, those in bf16 compute in
+``<wrapper>.compute_bf16_launches`` and the output cells it computed in
 ``<wrapper>.cells``; ``reset_launch_counts`` zeroes them.
 
 Under ``HEAT3D_MEHRSTELLEN`` these kernels run the tap chain, as the JAX
 package's windowed stream/streamk kernels do (they have no Mehrstellen
-form), and so do their plain versions (``mehrstellen=False``). Not ported
-yet: bf16 compute dtype (the port computes in float32).
+form), and so do their plain versions (``mehrstellen=False``).
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from heat3d_tpu_torch.ops.stencil_direct import (
     chain_program,
     check_taps,
     check_tensors,
+    compute_code,
     emission_program,
     storage_bc,
 )
@@ -97,11 +103,12 @@ def edge_bits(edges) -> int:
 
 def apply_taps_streamk_ref(
     upk: torch.Tensor, taps: np.ndarray, k: int, periodic: bool = False,
-    bc_value: float = 0.0, edges=ALL_EDGES,
+    bc_value: float = 0.0, edges=ALL_EDGES, compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Plain version of :func:`apply_taps_streamk`: k ``apply_taps_padded``
-    applications of the tap chain (under the Mehrstellen knob too, as the
-    kernel) over the width-k padded block, each but the last rounded
+    applications of the tap chain in ``compute_dtype`` (under the
+    Mehrstellen knob too, as the kernel) over the width-k padded block,
+    each but the last rounded
     to the storage dtype (``apply_taps_padded`` returns it) and, under
     Dirichlet, pinned to ``bc_value`` wherever its block index (padded
     index - k) lies outside [0, n) beyond a domain face the block touches
@@ -109,7 +116,7 @@ def apply_taps_streamk_ref(
     interior = [n - 2 * k for n in upk.shape]
     cur = upk
     for j in range(1, k + 1):
-        cur = apply_taps_padded(cur, taps, mehrstellen=False)
+        cur = apply_taps_padded(cur, taps, mehrstellen=False, compute_dtype=compute_dtype)
         r = k - j  # ghost rings cur still carries
         if r > 0 and not periodic:
             idx = [torch.arange(-r, n + r, device=cur.device) for n in interior]
@@ -162,7 +169,7 @@ def _lib():
 
     lib = _build.load(_LIB)
     lib.heat3d_stream_launch.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.POINTER(_Program),
         ctypes.c_void_p,
@@ -171,20 +178,24 @@ def _lib():
     for fn in ("heat3d_stream_tile_y", "heat3d_stream_tile_z"):
         getattr(lib, fn).argtypes = [ctypes.c_int, ctypes.c_int]
         getattr(lib, fn).restype = ctypes.c_int
-    for fn in ("heat3d_stream_smem_bytes", "heat3d_stream_blocks_per_sm"):
-        getattr(lib, fn).argtypes = [ctypes.c_int] * 3
+    for fn in ("heat3d_stream_smem_bytes", "heat3d_stream_blocks_per_sm",
+               "heat3d_stream_registers"):
+        getattr(lib, fn).argtypes = [ctypes.c_int] * 4
         getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
-def instance_resources(k: int, instance: int, dtype: torch.dtype) -> dict:
-    """Dynamic shared memory (bytes) and resident blocks per SM of one
-    kernel instance on the current CUDA device (builds and loads the
+def instance_resources(k: int, instance: int, dtype: torch.dtype,
+                       compute_dtype: torch.dtype = torch.float32) -> dict:
+    """Dynamic shared memory (bytes), registers a thread and resident
+    blocks per SM of one kernel instance (storage ``dtype``,
+    ``compute_dtype``) on the current CUDA device (builds and loads the
     library; CUDA hosts only)."""
     lib = _lib()
-    code = _DTYPE_CODES[dtype]
-    return {"smem_bytes": lib.heat3d_stream_smem_bytes(k, instance, code),
-            "blocks_per_sm": lib.heat3d_stream_blocks_per_sm(k, instance, code)}
+    code = (_DTYPE_CODES[dtype], compute_code(compute_dtype))
+    return {"smem_bytes": lib.heat3d_stream_smem_bytes(k, instance, *code),
+            "registers": lib.heat3d_stream_registers(k, instance, *code),
+            "blocks_per_sm": lib.heat3d_stream_blocks_per_sm(k, instance, *code)}
 
 
 def _interior(up: torch.Tensor, k: int):
@@ -199,9 +210,9 @@ def _interior(up: torch.Tensor, k: int):
 
 
 def _launch(wrapper, k, up, taps, periodic, bc_value, out,
-            edges=ALL_EDGES) -> torch.Tensor:
-    """Launch instance ``stream_instance(taps)`` at depth k and count it on
-    ``wrapper``."""
+            edges=ALL_EDGES, compute_dtype=torch.float32) -> torch.Tensor:
+    """Launch instance ``stream_instance(taps)`` at depth k in
+    ``compute_dtype`` and count it on ``wrapper``."""
     if up.device.type != "cuda":
         raise ValueError(f"no kernel for device {up.device}")
     shape = _interior(up, k)
@@ -210,7 +221,8 @@ def _launch(wrapper, k, up, taps, periodic, bc_value, out,
         # bf16 rows are copied as aligned element pairs
         raise ValueError("padded field must start on a 4-byte boundary")
     lib = _lib()
-    prog = chain_program(taps)
+    ccode = compute_code(compute_dtype)
+    prog = chain_program(taps, compute_dtype)
     inst = stream_instance(taps)
     bc = storage_bc(bc_value, up.dtype)
     xchunk = _xchunk(shape, lib.heat3d_stream_tile_y(k, inst),
@@ -218,7 +230,7 @@ def _launch(wrapper, k, up, taps, periodic, bc_value, out,
     with torch.cuda.device(up.device):
         stream = torch.cuda.current_stream(up.device).cuda_stream
         err = lib.heat3d_stream_launch(
-            k, inst, _DTYPE_CODES[up.dtype], up.data_ptr(), out.data_ptr(),
+            k, inst, _DTYPE_CODES[up.dtype], ccode, up.data_ptr(), out.data_ptr(),
             *shape, xchunk, int(bool(periodic)), bc, edge_bits(edges),
             ctypes.byref(prog), stream,
         )
@@ -229,23 +241,26 @@ def _launch(wrapper, k, up, taps, periodic, bc_value, out,
         )
     wrapper.launches += 1
     wrapper.generic_launches += inst == GENERIC
+    wrapper.compute_bf16_launches += ccode == 1
     wrapper.cells += out.numel()
     return out
 
 
 def apply_taps_stream(
-    up: torch.Tensor, taps: np.ndarray, out: Optional[torch.Tensor] = None
+    up: torch.Tensor, taps: np.ndarray, out: Optional[torch.Tensor] = None,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """One update from a ghost-padded block: (nx+2, ny+2, nz+2) in,
-    (nx, ny, nz) out in the same dtype (float32 or bfloat16 storage,
-    float32 compute). ``out`` (optional, preallocated) must not overlap
-    ``up``."""
+    (nx, ny, nz) out in the same dtype (float32 or bfloat16 storage;
+    float32 or bfloat16 ``compute_dtype``). ``out`` (optional,
+    preallocated) must not overlap ``up``."""
     taps = check_taps(taps)
     if up.device.type == "cpu":
         _interior(up, 1)
-        res = apply_taps_padded(up, taps, mehrstellen=False)
+        res = apply_taps_padded(up, taps, mehrstellen=False, compute_dtype=compute_dtype)
         return res if out is None else out.copy_(res)
-    return _launch(apply_taps_stream, 1, up, taps, False, 0.0, out)
+    return _launch(apply_taps_stream, 1, up, taps, False, 0.0, out,
+                   compute_dtype=compute_dtype)
 
 
 def apply_taps_streamk(
@@ -256,6 +271,7 @@ def apply_taps_streamk(
     bc_value: float = 0.0,
     out: Optional[torch.Tensor] = None,
     edges=ALL_EDGES,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """k = 2..4 fused updates from a width-k ghost-padded block:
     (nx+2k, ny+2k, nz+2k) in, the (nx, ny, nz) interior after k updates
@@ -270,9 +286,11 @@ def apply_taps_streamk(
     edge_bits(edges)
     if upk.device.type == "cpu":
         _interior(upk, k)
-        res = apply_taps_streamk_ref(upk, taps, k, periodic, bc_value, edges)
+        res = apply_taps_streamk_ref(upk, taps, k, periodic, bc_value, edges,
+                                     compute_dtype)
         return res if out is None else out.copy_(res)
-    return _launch(apply_taps_streamk, k, upk, taps, periodic, bc_value, out, edges)
+    return _launch(apply_taps_streamk, k, upk, taps, periodic, bc_value, out, edges,
+                   compute_dtype)
 
 
 def apply_taps_stream2(
@@ -281,10 +299,12 @@ def apply_taps_stream2(
     periodic: bool = False,
     bc_value: float = 0.0,
     out: Optional[torch.Tensor] = None,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Two fused updates from a width-2 padded block: the k=2 instance of
     :func:`apply_taps_streamk` (counterpart of ``apply_taps_pallas_stream2``)."""
-    return apply_taps_streamk(up2, taps, 2, periodic, bc_value, out=out)
+    return apply_taps_streamk(up2, taps, 2, periodic, bc_value, out=out,
+                              compute_dtype=compute_dtype)
 
 
 KERNELS = (apply_taps_stream, apply_taps_streamk)
@@ -302,9 +322,14 @@ def cell_counts() -> dict:
     return {k.__name__: k.cells for k in KERNELS}
 
 
+def compute_bf16_launch_counts() -> dict:
+    """Launches of each wrapper in bf16 compute."""
+    return {k.__name__: k.compute_bf16_launches for k in KERNELS}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = k.generic_launches = k.cells = 0
+        k.launches = k.generic_launches = k.cells = k.compute_bf16_launches = 0
 
 
 reset_launch_counts()
@@ -313,10 +338,11 @@ reset_launch_counts()
 def make_stream_compute(cfg):
     """The exchange path's padded-block compute through the stream kernel,
     ``(up, taps, out=None) -> interior``: counterpart of
-    ``make_pallas_compute(cfg)``. The kernel reads everything it needs
-    from the block (shape, storage dtype), so ``cfg`` selects nothing."""
+    ``make_pallas_compute(cfg)``. The kernel reads the shape and the
+    storage dtype from the block; ``cfg`` gives the compute dtype."""
+    compute_dtype = getattr(torch, cfg.precision.compute)
 
     def compute(up: torch.Tensor, taps: np.ndarray, out=None) -> torch.Tensor:
-        return apply_taps_stream(up, taps, out=out)
+        return apply_taps_stream(up, taps, out=out, compute_dtype=compute_dtype)
 
     return compute

@@ -107,6 +107,10 @@ def _storage_dtype(cfg: SolverConfig) -> torch.dtype:
     return getattr(torch, cfg.precision.storage)
 
 
+def _compute_dtype(cfg: SolverConfig) -> torch.dtype:
+    return getattr(torch, cfg.precision.compute)
+
+
 def _periodic(cfg: SolverConfig) -> bool:
     return cfg.stencil.bc is BoundaryCondition.PERIODIC
 
@@ -287,7 +291,7 @@ def _patch_boundary_shells(out, u, faces, taps, cfg: SolverConfig, axes=(0, 1, 2
         n = u.shape[axis]
         for start in (0, n - 1):
             shell = apply_taps_padded(_padded_slab(u, faces, axis, start), taps,
-                                      mehrstellen=None)
+                                      mehrstellen=None, compute_dtype=_compute_dtype(cfg))
             out[_planes(axis, start, start + 1)] = shell
     return out
 
@@ -297,7 +301,8 @@ def _local_step_direct_faces(u, faces, taps, cfg: SolverConfig, shard, out=None)
     unpadded shard (its in-kernel domain ghosts are exact on axes of mesh
     size 1, wrong only in the outermost shell of sharded axes), then those
     shells patched from the exchanged faces."""
-    out = apply_taps_direct(u, taps, _periodic(cfg), cfg.stencil.bc_value, out=out)
+    out = apply_taps_direct(u, taps, _periodic(cfg), cfg.stencil.bc_value, out=out,
+                            compute_dtype=_compute_dtype(cfg))
     return _patch_boundary_shells(out, u, faces, taps, cfg)
 
 
@@ -321,17 +326,20 @@ def _local_superstep_direct_faces(u, faces, taps, cfg: SolverConfig, shard, out=
     of each sharded axis recomputed from 6-thick virtual width-2 padded
     slabs (apply, pin the intermediate's domain ghosts, apply) and patched
     in, on the route the environment selects, as the bulk."""
-    out = apply_taps_direct2(u, taps, _periodic(cfg), cfg.stencil.bc_value, out=out)
+    cd = _compute_dtype(cfg)
+    out = apply_taps_direct2(u, taps, _periodic(cfg), cfg.stencil.bc_value, out=out,
+                             compute_dtype=cd)
     for axis, size in enumerate(cfg.mesh.shape):
         if size == 1:
             continue
         n = u.shape[axis]
         for start in (0, n - 2):  # width-2 padded coords; final planes
             slab = _padded_slab(u, faces, axis, start, w=2, thickness=6)
-            mid = _pin_slab_mid(apply_taps_padded(slab, taps, mehrstellen=None), cfg,
-                                axis, start, shard.origin)
+            mid = _pin_slab_mid(apply_taps_padded(slab, taps, mehrstellen=None,
+                                                  compute_dtype=cd),
+                                cfg, axis, start, shard.origin)
             out[_planes(axis, start, start + 2)] = apply_taps_padded(
-                mid, taps, mehrstellen=None)
+                mid, taps, mehrstellen=None, compute_dtype=cd)
     return out
 
 
@@ -356,7 +364,8 @@ def _local_step_overlap(u, up, taps, cfg: SolverConfig, compute_padded: LocalCom
     for axis, n in enumerate(u.shape):
         for start in (0, n - 1):
             out[_planes(axis, start, start + 1)] = apply_taps_padded(
-                up.narrow(axis, start, 3), taps, mehrstellen=face_mehrstellen)
+                up.narrow(axis, start, 3), taps, mehrstellen=face_mehrstellen,
+                compute_dtype=_compute_dtype(cfg))
     return _pin_padding(out, cfg, shard)
 
 
@@ -371,7 +380,8 @@ def _local_step_fused_dma_3d(us, outs, taps, cfg: SolverConfig, mesh, ex: Exchan
     dtype = _storage_dtype(cfg)
     periodic, bc_value = _periodic(cfg), cfg.stencil.bc_value
     new, ghosts = fused_dma.apply_step_fused_dma(
-        us, taps, mesh, ex.fused(1, dtype), periodic, bc_value, outs, return_ghosts=True)
+        us, taps, mesh, ex.fused(1, dtype), periodic, bc_value, outs, return_ghosts=True,
+        compute_dtype=_compute_dtype(cfg))
     faces = ex.faces(1, dtype).apply(us, bc_value, x_ghosts=ghosts)
     return _per_shard(
         mesh, lambda s, out, u, f: _pin_padding(
@@ -607,7 +617,7 @@ def make_step_fn(
     taps = _solver_taps(cfg) if taps is None else taps
     periodic = _periodic(cfg)
     bc_value = cfg.stencil.bc_value
-    dtype = _storage_dtype(cfg)
+    dtype, cd = _storage_dtype(cfg), _compute_dtype(cfg)
     ex = exchanges or make_exchanges(cfg, mesh)
     route = step_route(cfg)
 
@@ -620,14 +630,16 @@ def make_step_fn(
 
         def step(us: Fields, outs: Optional[Fields] = None):
             return fused_rdma.apply_step_fused_rdma(
-                us, taps, mesh, ex.fused(1, dtype, bounds), periodic, bc_value, outs)
+                us, taps, mesh, ex.fused(1, dtype, bounds), periodic, bc_value, outs,
+                compute_dtype=cd)
 
     elif route == "direct":
         _log_step_path_once("step path: single-shard direct kernel (no padded copy)")
 
         def step(us: Fields, outs: Optional[Fields] = None):
             return _per_shard(
-                mesh, lambda s, u, out: apply_taps_direct(u, taps, periodic, bc_value, out=out),
+                mesh, lambda s, u, out: apply_taps_direct(u, taps, periodic, bc_value, out=out,
+                                                          compute_dtype=cd),
                 us, _outs(mesh, outs))
 
     elif route == "faces-direct":
@@ -648,7 +660,8 @@ def make_step_fn(
 
         def step(us: Fields, outs: Optional[Fields] = None):
             return fused_dma.apply_step_fused_dma(
-                us, taps, mesh, ex.fused(1, dtype), periodic, bc_value, outs)
+                us, taps, mesh, ex.fused(1, dtype), periodic, bc_value, outs,
+                compute_dtype=cd)
 
     elif route == "fused-dma-3d":
         _log_step_path_once("step path: fused DMA-overlap kernel + y/z shell patches "
@@ -713,7 +726,7 @@ def make_superstep_fn(
     taps = _solver_taps(cfg) if taps is None else taps
     periodic = _periodic(cfg)
     bc_value = cfg.stencil.bc_value
-    dtype = _storage_dtype(cfg)
+    dtype, cd = _storage_dtype(cfg), _compute_dtype(cfg)
     ex = exchanges or make_exchanges(cfg, mesh)
 
     if route == "fused-dma2":
@@ -722,7 +735,8 @@ def make_superstep_fn(
 
         def superstep(us: Fields, outs: Optional[Fields] = None):
             return fused_dma.apply_superstep_fused_dma(
-                us, taps, mesh, ex.fused(2, dtype), periodic, bc_value, outs)
+                us, taps, mesh, ex.fused(2, dtype), periodic, bc_value, outs,
+                compute_dtype=cd)
 
     elif route == "fused-rdma2":
         bounds = _rdma_bounds(ex, cfg, 2, dtype)
@@ -733,14 +747,16 @@ def make_superstep_fn(
 
         def superstep(us: Fields, outs: Optional[Fields] = None):
             return fused_rdma.apply_superstep_fused_rdma(
-                us, taps, mesh, ex.fused(2, dtype, bounds), periodic, bc_value, outs)
+                us, taps, mesh, ex.fused(2, dtype, bounds), periodic, bc_value, outs,
+                compute_dtype=cd)
 
     elif route == "direct2":
         _log_step_path_once("superstep path: single-shard fused direct2 kernel")
 
         def superstep(us: Fields, outs: Optional[Fields] = None):
             return _per_shard(
-                mesh, lambda s, u, out: apply_taps_direct2(u, taps, periodic, bc_value, out=out),
+                mesh, lambda s, u, out: apply_taps_direct2(u, taps, periodic, bc_value,
+                                                           out=out, compute_dtype=cd),
                 us, _outs(mesh, outs))
 
     elif route == "faces-direct2":
@@ -767,7 +783,8 @@ def make_superstep_fn(
             return _per_shard(
                 mesh,
                 lambda s, upk, out: apply_taps_streamk(
-                    upk, taps, k, periodic, bc_value, out=out, edges=s.edges),
+                    upk, taps, k, periodic, bc_value, out=out, edges=s.edges,
+                    compute_dtype=cd),
                 pads, _outs(mesh, outs))
 
     else:

@@ -94,7 +94,7 @@ def test_decomposition_equal():
         (dict(time_blocking=0), "time_blocking=0 (auto)"),
         (dict(integrator="implicit-cg"), "integrator='implicit-cg'"),
         (dict(integrator="leapfrog", equation="wave"), "integrator='leapfrog'"),
-        (dict(precision=config.Precision(compute="bfloat16")), "compute dtype"),
+        (dict(precision=config.Precision(compute="float16")), "compute dtype"),
     ],
 )
 def test_config_rejects_unported(kw, needle):
@@ -107,30 +107,37 @@ def test_config_rejects_unported(kw, needle):
 def test_config_accepts_slice_scope():
     for tb in (1, 2, 3, 4, 5):
         for storage in ("float32", "bfloat16"):
-            for kind in ("7pt", "27pt"):
-                for backend in ("auto", "pallas", "jnp", "conv"):
-                    config.SolverConfig(
-                        grid=config.GridConfig.cube(8),
-                        stencil=config.StencilConfig(kind=kind),
-                        precision=config.Precision(storage=storage),
-                        time_blocking=tb,
-                        backend=backend,
-                    )
+            for compute in ("float32", "bfloat16"):
+                for kind in ("7pt", "27pt"):
+                    for backend in ("auto", "pallas", "jnp", "conv"):
+                        config.SolverConfig(
+                            grid=config.GridConfig.cube(8),
+                            stencil=config.StencilConfig(kind=kind),
+                            precision=config.Precision(storage=storage, compute=compute),
+                            time_blocking=tb,
+                            backend=backend,
+                        )
     # any mesh, both transports, and uneven Dirichlet grids (bc-padded)
     for mesh in ((2, 1, 1), (1, 2, 1), (1, 1, 2), (2, 2, 1), (2, 2, 2), (3, 1, 4)):
         for halo in ("ppermute", "dma"):
             for shape in ((12, 12, 12), (13, 10, 9)):
-                cfg = config.SolverConfig(
-                    grid=config.GridConfig(shape=shape),
-                    mesh=config.MeshConfig(shape=mesh), halo=halo,
-                )
-                assert cfg.is_padded == any(g % p for g, p in zip(shape, mesh))
+                for compute in ("float32", "bfloat16"):
+                    cfg = config.SolverConfig(
+                        grid=config.GridConfig(shape=shape),
+                        mesh=config.MeshConfig(shape=mesh), halo=halo,
+                        precision=config.Precision(compute=compute),
+                    )
+                    assert cfg.is_padded == any(g % p for g, p in zip(shape, mesh))
     # the overlap routes' knobs
     for kw in (dict(overlap=True), dict(overlap=True, halo="dma"),
                dict(fused_rdma="on"), dict(fused_rdma="on", halo_plan="partitioned"),
                dict(halo_plan="partitioned")):
-        config.SolverConfig(grid=config.GridConfig.cube(8),
-                            mesh=config.MeshConfig(shape=(2, 1, 1)), **kw)
+        for storage in ("float32", "bfloat16"):
+            for compute in ("float32", "bfloat16"):
+                config.SolverConfig(grid=config.GridConfig.cube(8),
+                                    mesh=config.MeshConfig(shape=(2, 1, 1)),
+                                    precision=config.Precision(storage=storage,
+                                                               compute=compute), **kw)
     with pytest.raises(ValueError, match="not divisible"):
         config.SolverConfig(
             grid=config.GridConfig(shape=(13, 12, 12)),

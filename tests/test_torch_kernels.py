@@ -672,3 +672,102 @@ def test_fused_state_built_mid_run_on_busy_streams(cuda):
     for s, shard in zip(solver.mesh.shards, got.shards):
         region = tuple(slice(o, o + n) for o, n in zip(s.origin, solver.mesh.local_shape))
         assert torch.equal(shard, want[region]), s.coords
+
+
+# ---- bf16 compute ------------------------------------------------------------
+
+BF16_KERNELS = ["direct1", "direct2", "direct1_mehrstellen", "direct2_mehrstellen",
+                "stream1", "streamk2", "streamk3", "streamk4"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("kernel", BF16_KERNELS)
+def test_compute_bf16_instances_equal_plain_versions(cuda, monkeypatch, kernel, dtype):
+    """Every stencil kernel's bf16-compute instance (``compute_dtype=
+    torch.bfloat16``: the ``Bf16Math`` policy) against its plain version in
+    bf16 compute, bitwise, 7pt and 27pt (the Mehrstellen instances 27pt
+    under ``HEAT3D_MEHRSTELLEN=1``), Dirichlet bc 0 and 0.3 and periodic,
+    at a ragged shape and with the generic instance forced on the same
+    chain (the chains only); each launch counted as one bf16-compute
+    launch."""
+    bf = torch.bfloat16
+    mehr = kernel.endswith("mehrstellen")
+    monkeypatch.setenv("HEAT3D_MEHRSTELLEN", "1" if mehr else "0")
+    shape = (37, 45, 131)
+    u = torch.from_numpy(np.random.default_rng(12).standard_normal(shape)
+                         .astype(np.float32)).to(cuda).to(dtype)
+    for kind in (("27pt",) if mehr else ("7pt", "27pt")):
+        taps = _taps(kind)
+        for periodic, bcv in ((False, 0.0), (False, 0.3), (True, 0.0)):
+            bc = BoundaryCondition.PERIODIC if periodic else BoundaryCondition.DIRICHLET
+            if kernel.startswith("direct"):
+                halo = int(kernel[6])
+                plain = PAIRS[halo - 1][1](u, taps, periodic, bcv, bf)
+                # the generic instance runs the chain, not the Mehrstellen route
+                codes = (sd.direct_instance(taps),) + (() if mehr else (ss.GENERIC,))
+                runs = [lambda c=c: sd.launch_instance(halo, c, u, taps, periodic, bcv,
+                                                       compute_dtype=bf) for c in codes]
+                counts = sd.compute_bf16_launch_counts
+                name = PAIRS[halo - 1][0].__name__
+            else:
+                k = 1 if kernel == "stream1" else int(kernel[-1])
+                up = exchange_halo(u, bc, bcv, k)
+                if k == 1:
+                    plain = apply_taps_padded(up, taps, mehrstellen=False, compute_dtype=bf)
+                    runs = [lambda: ss.apply_taps_stream(up, taps, compute_dtype=bf)]
+                    name = "apply_taps_stream"
+                else:
+                    plain = ss.apply_taps_streamk_ref(up, taps, k, periodic, bcv,
+                                                      compute_dtype=bf)
+                    runs = [lambda: ss.apply_taps_streamk(up, taps, k, periodic, bcv,
+                                                          compute_dtype=bf)]
+                    name = "apply_taps_streamk"
+                counts = ss.compute_bf16_launch_counts
+            for run in runs:
+                before = counts()[name]
+                got = run()
+                torch.cuda.synchronize()
+                assert torch.equal(got, plain), (kernel, kind, periodic, bcv)
+                assert counts()[name] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("mesh_shape,shape", [((8, 1, 1), (64, 40, 70)),
+                                              ((4, 1, 1), (16, 20, 70))])
+def test_fused_compute_bf16_instances_equal_plain_versions(cuda, mesh_shape, shape, dtype):
+    """The four fused kernels' bf16-compute instances (compile-time and
+    generic), every shard on one card in one launch, against their plain
+    versions in bf16 compute, bitwise; the RDMA ones with three send
+    ranges a face."""
+    from heat3d_tpu_torch.ops import stencil_dma_fused as fd
+    from heat3d_tpu_torch.ops import stencil_fused_rdma as fr
+    from heat3d_tpu_torch.parallel.plan import partition_bounds
+
+    bf = torch.bfloat16
+    local = tuple(g // p for g, p in zip(shape, mesh_shape))
+    mesh = _card_mesh(cuda, mesh_shape, local)
+    u = torch.from_numpy(np.random.default_rng(13).standard_normal(shape).astype(np.float32))
+    us = _split(u.to(cuda).to(dtype), mesh)
+    for kind in ("7pt", "27pt"):
+        taps = _taps(kind)
+        for periodic, bcv in ((False, 0.3), (True, 0.0)):
+            for tb in (1, 2):
+                want = (fd.reference_fused_step(us, taps, mesh, periodic, bcv, compute_dtype=bf)
+                        if tb == 1 else
+                        fd.reference_fused_superstep(us, taps, mesh, periodic, bcv,
+                                                     compute_dtype=bf))
+                for bounds, wrapper in ((None, (fd.apply_step_fused_dma,
+                                                fd.apply_superstep_fused_dma)[tb - 1]),
+                                        (partition_bounds(local[1], 3),
+                                         (fr.apply_step_fused_rdma,
+                                          fr.apply_superstep_fused_rdma)[tb - 1])):
+                    state = fd.FusedState(mesh, tb, dtype, periodic, bounds)
+                    for instance in (fd.fused_instance(tb, taps), ss.GENERIC):
+                        before = wrapper.compute_bf16_launches
+                        got = fd.launch_instance(instance, us, taps, mesh, state, periodic,
+                                                 bcv, wrapper=wrapper, compute_dtype=bf)
+                        torch.cuda.synchronize()
+                        fd.raise_if_timed_out()
+                        for g, w in zip(got, want):
+                            assert torch.equal(g, w), (kind, periodic, tb, bounds, instance)
+                        assert wrapper.compute_bf16_launches == before + 1
