@@ -166,6 +166,24 @@ non-zero without one. Phases, each printing its own lines:
    full width leapfrog 7pt tb 1 and 2 at 1024^3 and CG 7pt at the largest
    cube of ``_CG_CUBES`` that fits, each with its ms a step and
    ``torch.cuda.max_memory_allocated()``.
+13. ``state``, after ``integrators``, in a temporary directory (fails,
+   naming the bytes, without ``_STATE_DISK`` free there; removed at the
+   end), every line with the card's name and power limit: a 1024^3 fp32
+   7pt tb=2 solve of 20 steps against 10 steps, ``save_checkpoint``, a
+   fresh solver's ``load_checkpoint`` and 10 more, bitwise, direct2
+   launched, the save's and load's seconds, GB/s and shares (device-to-host
+   copy, checksum, file write; file read, checksum, host-to-device copy);
+   at 512^3 a (2,2,2) save resumed on (1,1,1), a bf16 round trip and
+   leapfrog's two-level carry resumed, each bitwise; supervised 512^3
+   (2,2,2) runs on ``cuda:0`` under ``_STATE_FAULTS`` (backend loss healed
+   by the real probe child, a hang under a 3 s watchdog, a corrupt
+   generation quarantined, a partial device loss re-planned onto (4,1,1)
+   under ``heal_mode='elastic'`` over ``halo='dma'``, its stream and DMA
+   launches counted), each bitwise equal to a clean supervised run, each
+   recovery record printed; the supervised command line at 256^3 killed by
+   ``HEAT3D_FAULTS=sigterm:step=4`` (exit 3) and relaunched (exit 0), its
+   final generation byte-equal to a clean run's; ``--dump-vtk`` at 128^3
+   equal to ``gather``; the probe child's ``"cuda"`` and its seconds.
 
 ``--only`` runs phases 1 and 2 and the named ones of ``PHASES`` (the
 check after a kernel change, before the whole run) and prints no kernels
@@ -194,6 +212,7 @@ import io
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -3426,9 +3445,348 @@ def phase_integrators(bw: float, n: int = 128, cubes=_CG_CUBES) -> dict:
     return launches
 
 
+# the state phase: the grids of its parts, its fast heal policy's delays and
+# its disk budget. Disk: part 1's 1024^3 fp32 checkpoint (4 GiB) is removed
+# before part 3, whose 512^3 fp32 runs keep at most three generations each
+# (0.5 GiB apiece) for a clean and a faulted run at once (3 GiB); 1 GiB of
+# margin for the file system.
+_STATE_FULL = 1024
+_STATE_N = 512
+_STATE_CLI_N = 256
+_STATE_VTK_N = 128
+_STATE_DISK = (4 << 30) + (1 << 30)
+_STATE_WATCHDOG_S = 3.0
+# (fault spec, extra run_supervised knobs, config) of part 3's faulted runs
+_STATE_FAULTS = (
+    ("backend-loss:step=6:down=1", {"probe": None}, "tb2"),
+    ("hang:step=6", {"watchdog_s": _STATE_WATCHDOG_S}, "tb2"),
+    ("corrupt-shard:save=2,backend-loss:step=8", {}, "tb2"),
+    ("partial-device-loss:step=6:keep=4", {"heal_mode": "elastic"}, "dma"),
+)
+
+
+def _state_cfg(n, tb=2, mesh=(1, 1, 1), storage="float32", halo="ppermute"):
+    from heat3d_tpu_torch.core.config import (
+        GridConfig, MeshConfig, Precision, SolverConfig,
+    )
+
+    return SolverConfig(grid=GridConfig.cube(n), mesh=MeshConfig(shape=mesh),
+                        precision=Precision(storage=storage), time_blocking=tb, halo=halo)
+
+
+def _same(a, b) -> bool:
+    """Bitwise equality of two states (tensors, ShardedFields or level
+    pairs), on the device."""
+    import torch
+
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    xs, ys = _shard_list(a), _shard_list(b)
+    return len(xs) == len(ys) and all(
+        torch.equal(x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
+                    y.view(torch.int16) if y.dtype == torch.bfloat16 else y)
+        for x, y in zip(xs, ys))
+
+
+def _io_rates(stats: dict, seconds: float, parts) -> dict:
+    """Seconds, GB/s and each part's share of a save or load."""
+    return {"seconds": seconds, "bytes": stats["bytes"],
+            "gb_per_s": stats["bytes"] / seconds / 1e9,
+            **{f"{p}_share": stats.get(f"{p}_s", 0.0) / seconds for p in parts}}
+
+
+def _state_resume(root: str, card: str) -> dict:
+    """Part 1: 1024^3 fp32 7pt tb=2 on cuda:0, 20 steps uninterrupted against
+    10 steps, ``save_checkpoint``, a fresh solver's ``load_checkpoint`` and
+    10 more steps: bitwise, with direct2 launched; the save's and load's
+    seconds, GB/s and shares."""
+    import torch
+
+    from heat3d_tpu_torch import ops
+    from heat3d_tpu_torch.models.heat3d import HeatSolver3D
+
+    cfg = _state_cfg(_STATE_FULL)
+    path = os.path.join(root, "full")
+    before = ops.launch_counts()
+    ref_solver = HeatSolver3D(cfg, device="cuda:0")
+    ref = ref_solver.run(ref_solver.init_state("hot-cube"), 20)
+    first = HeatSolver3D(cfg, device="cuda:0")
+    u = first.run(first.init_state("hot-cube"), 10)
+    save_stats, load_stats = {}, {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first.save_checkpoint(path, u, 10, stats=save_stats)
+    save_s = time.perf_counter() - t0
+    del first, u
+    torch.cuda.empty_cache()
+    second = HeatSolver3D(cfg, device="cuda:0")
+    t0 = time.perf_counter()
+    u, step = second.load_checkpoint(path, stats=load_stats)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    u = second.run(u, 10)
+    torch.cuda.synchronize()
+    direct2 = ops.launch_counts()["apply_taps_direct2"] - before["apply_taps_direct2"]
+    _check(step == 10 and _same(u, ref),
+           f"{_STATE_FULL}^3 tb=2 resume from step {step} differs from the 20-step run")
+    _check(direct2 > 0, "the 1024^3 resume launched no direct2")
+    res = {"grid": [_STATE_FULL] * 3, "time_blocking": 2, "bitwise": True,
+           "direct2_launches": direct2,
+           "save": _io_rates(save_stats, save_s, ("d2h", "crc", "write")),
+           "load": _io_rates(load_stats, load_s, ("read", "crc", "h2d"))}
+    _say("state_resume", card=card, **res)
+    del ref_solver, ref, second, u
+    torch.cuda.empty_cache()
+    shutil.rmtree(path)
+    return res
+
+
+def _state_cross(root: str, card: str) -> list:
+    """Part 2 at 512^3 on cuda:0: a (2,2,2) faces-direct tb=2 save resumed on
+    (1,1,1) for 4 more steps against the uninterrupted (1,1,1) run; a bf16
+    save/load round trip; leapfrog's two-level carry saved, resumed and
+    stepped against the uninterrupted run; each bitwise."""
+    import torch
+
+    from heat3d_tpu_torch.models.heat3d import HeatSolver3D
+
+    n, out = _STATE_N, []
+
+    def resume(name, save_cfg, load_cfg, init, steps):
+        saver = HeatSolver3D(save_cfg, device="cuda:0")
+        u = saver.run(saver.init_state(init), steps)
+        path = os.path.join(root, name)
+        stats = {}
+        t0 = time.perf_counter()
+        saver.save_checkpoint(path, u, steps, stats=stats)
+        save_s = time.perf_counter() - t0
+        loader = HeatSolver3D(load_cfg, device="cuda:0")
+        t0 = time.perf_counter()
+        got, step = loader.load_checkpoint(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        _check(step == steps, f"{name}: loaded step {step}")
+        return saver, u, loader, got, path, {"save_s": save_s, "load_s": load_s,
+                                             "bytes": stats["bytes"]}
+
+    # cross-mesh: (2,2,2) saves, (1,1,1) resumes
+    one = _state_cfg(n)
+    saver, u, loader, got, path, io_ = resume(
+        "cross", _state_cfg(n, mesh=(2, 2, 2)), one, "hot-cube", 4)
+    ref_solver = HeatSolver3D(one, device="cuda:0")
+    ref = ref_solver.run(ref_solver.init_state("hot-cube"), 8)
+    _check(_same(loader.run(got, 4), ref), "(2,2,2) save resumed on (1,1,1) differs")
+    out.append({"case": "cross-mesh (2,2,2) -> (1,1,1)", **io_})
+    del saver, u, loader, got, ref_solver, ref
+    shutil.rmtree(path)
+    # bf16 storage round trip
+    bf = _state_cfg(n, storage="bfloat16")
+    saver, u, loader, got, path, io_ = resume("bf16", bf, bf, "hot-cube", 4)
+    _check(_same(got, u), "bf16 save/load round trip differs")
+    out.append({"case": "bf16 round trip", **io_})
+    del saver, u, loader, got
+    shutil.rmtree(path)
+    # leapfrog's (u, u_prev): save at 4, resume for 4, against 8 straight
+    wave = _wave_cfg(n, "7pt", 1)
+    saver, u, loader, got, path, io_ = resume("leapfrog", wave, wave, "gaussian", 4)
+    _check(_same(got, u) and os.path.isdir(os.path.join(path, "level-1")),
+           "leapfrog levels differ after the round trip")
+    ref_solver = HeatSolver3D(wave, device="cuda:0")
+    ref = ref_solver.run(ref_solver.init_state("gaussian"), 8)
+    _check(_same(loader.run(got, 4), ref), "leapfrog resume differs from the 8-step run")
+    out.append({"case": "leapfrog two-level resume", **io_})
+    del saver, u, loader, got, ref_solver, ref
+    shutil.rmtree(path)
+    torch.cuda.empty_cache()
+    for r in out:
+        _say("state_cross", card=card, grid=[n] * 3, bitwise=True, **r)
+    return out
+
+
+def _state_supervised(root: str, card: str) -> list:
+    """Part 3: supervised 512^3 (2,2,2) runs on cuda:0, 12 steps,
+    checkpoint_every 4, one per ``_STATE_FAULTS`` entry, each bitwise equal
+    to the clean supervised run of its config (faces-direct tb=2, or
+    ``halo='dma'`` tb=1 for the elastic run, whose stream and DMA launches
+    are counted); each recovery record printed."""
+    import numpy as np
+    import torch
+
+    from heat3d_tpu_torch import ops
+    from heat3d_tpu_torch.models.heat3d import HeatSolver3D
+    from heat3d_tpu_torch.resilience.faults import FaultPlan, _parse_spec
+    from heat3d_tpu_torch.resilience.retry import RetryPolicy
+
+    # sub-second probe delays (the default probes every 60 s); the deadline
+    # covers a real probe child's start on the card
+    fast = RetryPolicy(base_delay_s=0.05, multiplier=1.5, max_delay_s=0.2, deadline_s=120.0)
+    cfgs = {"tb2": _state_cfg(_STATE_N, mesh=(2, 2, 2)),
+            "dma": _state_cfg(_STATE_N, tb=1, mesh=(2, 2, 2), halo="dma")}
+
+    def supervise(cfg, name, faults, **kw):
+        kw.setdefault("probe", lambda: "cuda")
+        t0 = time.perf_counter()
+        res = HeatSolver3D(cfg, device="cuda:0").run_supervised(
+            12, os.path.join(root, name), checkpoint_every=4, heal_policy=fast,
+            faults=FaultPlan(_parse_spec(faults) if faults else None), **kw)
+        return res, time.perf_counter() - t0
+
+    out = []
+    for key, cfg in cfgs.items():
+        clean, clean_s = supervise(cfg, f"clean-{key}", "")
+        _check(clean.steps_done == 12 and not clean.recoveries, f"clean {key}: {clean}")
+        for spec, kw, which in _STATE_FAULTS:
+            if which != key:
+                continue
+            before = ops.launch_counts()
+            res, seconds = supervise(cfg, "faulted", spec, **kw)
+            after = ops.launch_counts()
+            launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            _check(res.steps_done == 12 and len(res.recoveries) == 1,
+                   f"{spec}: {res.to_record()}")
+            # a survivor mesh holds other shards: compared as gathered fields
+            same = (_same(res.u, clean.u) if res.mesh_shape == clean.mesh_shape
+                    else np.array_equal(res.solver.gather(res.u),
+                                        clean.solver.gather(clean.u)))
+            _check(same, f"{spec}: result differs from the clean run")
+            rec = res.recoveries[0].to_record()
+            if spec.startswith("corrupt-shard"):
+                _check(rec["resumed_from"] == 4 and len(rec["quarantined"]) == 1,
+                       f"{spec}: no fallback past the corrupt generation: {rec}")
+            if spec.startswith("partial"):
+                _check(res.degraded and res.mesh_shape == (4, 1, 1)
+                       and all(s.device == torch.device("cuda", 0)
+                               for s in res.solver.mesh.shards),
+                       f"{spec}: survivor mesh {res.mesh_shape}")
+                _check(launches.get("apply_taps_stream", 0) > 0
+                       and launches.get("halo_dma", 0) > 0,
+                       f"{spec}: the dma run launched {launches}")
+            row = {"fault": spec, "config": key, "bitwise": True, "recovery": rec,
+                   "seconds": seconds, "clean_seconds": clean_s,
+                   "survivor_mesh": list(res.mesh_shape), "kernel_launches": launches}
+            _say("state_supervised", card=card, grid=[_STATE_N] * 3, mesh=[2, 2, 2], **row)
+            out.append(row)
+            del res
+            shutil.rmtree(os.path.join(root, "faulted"))
+        del clean
+        shutil.rmtree(os.path.join(root, f"clean-{key}"))
+        torch.cuda.empty_cache()
+    return out
+
+
+def _state_cli(root: str, card: str) -> dict:
+    """Part 4: the supervised command line at 256^3, killed by an injected
+    SIGTERM at step 4 (exit 3), relaunched (exit 0): its final generation's
+    shard byte-equal to a clean run's."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    for k in ("HEAT3D_FAULTS", "HEAT3D_FAULT_STATE", "HEAT3D_HEAL_MODE"):
+        env.pop(k, None)
+
+    def run(ck, faults=None):
+        e = dict(env, **({"HEAT3D_FAULTS": faults,
+                          "HEAT3D_FAULT_STATE": os.path.join(root, "fstate")}
+                         if faults else {}))
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "heat3d_tpu_torch", "--grid", str(_STATE_CLI_N),
+             "--steps", "8", "--checkpoint", os.path.join(root, ck), "--checkpoint-every",
+             "2", "--supervise"], env=e, capture_output=True, text=True, timeout=300,
+            cwd=here)
+        return p, time.perf_counter() - t0
+
+    clean, clean_s = run("cli-clean")
+    _check(clean.returncode == 0, f"clean supervised CLI exited {clean.returncode}: "
+                                  f"{clean.stderr[-2000:]}")
+    killed, killed_s = run("cli-kill", "sigterm:step=4")
+    _check(killed.returncode == 3, f"SIGTERM'd CLI exited {killed.returncode}: "
+                                   f"{killed.stderr[-2000:]}")
+    relaunch, relaunch_s = run("cli-kill", "sigterm:step=4")
+    _check(relaunch.returncode == 0, f"relaunched CLI exited {relaunch.returncode}: "
+                                     f"{relaunch.stderr[-2000:]}")
+    summary = json.loads(relaunch.stdout.strip().splitlines()[-1])
+    same = {}
+    for name in ("shard_0_0_0.npy", "shard_0_0_0.npy.crc32"):
+        with open(os.path.join(root, "cli-clean", "gen-00000008", name), "rb") as a, \
+                open(os.path.join(root, "cli-kill", "gen-00000008", name), "rb") as b:
+            same[name] = a.read() == b.read()
+    _check(all(same.values()), f"relaunched run's gen-00000008 differs: {same}")
+    res = {"grid": [_STATE_CLI_N] * 3, "killed_rc": killed.returncode,
+           "relaunch_rc": relaunch.returncode, "byte_equal": True,
+           "resumed_from": summary["supervised"]["resumed_from"],
+           "platform": summary["platform"], "seconds": {
+               "clean": clean_s, "killed": killed_s, "relaunch": relaunch_s}}
+    _check(summary["platform"] == "gpu", f"the relaunch ran on {summary['platform']}")
+    _say("state_cli", card=card, **res)
+    return res
+
+
+def _state_vtk_probe(root: str, card: str) -> dict:
+    """Part 5: ``--dump-vtk`` at 128^3 read back with
+    ``read_structured_points``, equal to ``gather`` of the same solve; the
+    probe child's answer on the card and its seconds."""
+    from heat3d_tpu_torch import cli
+    from heat3d_tpu_torch.models.heat3d import HeatSolver3D
+    from heat3d_tpu_torch.utils import backendprobe, vtkio
+
+    import numpy as np
+
+    path = os.path.join(root, "u.vtk")
+    n = _STATE_VTK_N
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--grid", str(n), "--steps", "10", "--mesh", "1", "1", "1",
+                       "--dump-vtk", path])
+    _check(rc == 0, f"--dump-vtk run exited {rc}")
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    field, meta = vtkio.read_structured_points(path)
+    s = HeatSolver3D(_state_cfg(n, tb=1), device="cuda:0")
+    want = s.gather(s.run(s.init_state("hot-cube"), 10))
+    _check(summary["vtk_path"] == path and np.array_equal(field, want),
+           "the VTK dump differs from gather")
+    t0 = time.perf_counter()
+    platform = backendprobe.probe_platform()
+    probe_s = time.perf_counter() - t0
+    _check(platform == "cuda", f"the probe child found {platform!r} on the card")
+    res = {"vtk_grid": list(meta["dimensions"]), "vtk_equal_gather": True,
+           "probe_platform": platform, "probe_seconds": probe_s}
+    _say("state_vtk_probe", card=card, **res)
+    return res
+
+
+def phase_state(smi: str) -> dict:
+    """State and resilience on the card (the checkpoint format, the
+    supervisor, the supervised command line, the VTK dump, the probe
+    child), in a temporary directory removed at the end; fails without
+    ``_STATE_DISK`` bytes free there. Every line carries the card's name
+    and power limit: the numbers are host and disk figures of this
+    machine."""
+    import tempfile
+
+    from heat3d_tpu_torch import ops
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="heat3d_state_")
+    try:
+        free = shutil.disk_usage(root).free
+        _check(free >= _STATE_DISK,
+               f"the state phase needs {_STATE_DISK} bytes free in {root}, has {free}")
+        before = ops.launch_counts()
+        res = {"resume": _state_resume(root, smi), "cross": _state_cross(root, smi),
+               "supervised": _state_supervised(root, smi), "cli": _state_cli(root, smi),
+               "vtk_probe": _state_vtk_probe(root, smi)}
+        after = ops.launch_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {k: after[k] - before[k] for k in after}
+    _say("state_path", card=smi, kernel_launches=launches, disk_free=free,
+         seconds=time.perf_counter() - t0)
+    return res
+
+
 # the phases after the build, in the order they run; ``--only`` picks some
 PHASES = ("compare", "compare_mehrstellen", "compare_bf16", "compare_mesh", "compare_fused",
-          "main_path", "families", "integrators", "kernel_times", "mehrstellen_times",
+          "main_path", "families", "integrators", "state", "kernel_times", "mehrstellen_times",
           "compute_bf16_times", "dma_times", "halo_bench", "fused_times",
           "shard_kernel_times", "cross_gpu")
 
@@ -3482,6 +3840,8 @@ def main(argv=None) -> int:
         phase_families(bw, worst)
     if "integrators" in run:
         phase_integrators(bw)
+    if "state" in run:
+        phase_state(smi)
     if "kernel_times" in run:
         times.update(phase_kernel_times(bw, worst, resources))
     if "mehrstellen_times" in run:

@@ -15,8 +15,10 @@ direct-stencil kernels (``ops.stencil_direct``), on the exchange path
 (``parallel.halo``, ``parallel.plan``) the stream and streamk kernels
 (``ops.stencil_stream``) and the DMA halo kernels (``ops.halo_dma``), and on
 the overlap routes the fused exchange-and-sweep kernels
-(``ops.stencil_dma_fused``, ``ops.stencil_fused_rdma``). Configs outside
-that scope raise "not ported yet" (``core.config.check_ported``).
+(``ops.stencil_dma_fused``, ``ops.stencil_fused_rdma``). Checkpoints are
+the JAX package's format (``utils.checkpoint``), and a long solve runs
+under the resilience supervisor (``resilience``). Configs outside that
+scope raise "not ported yet" (``core.config.check_ported``).
 """
 
 from heat3d_tpu_torch.core.config import (

@@ -2,6 +2,6 @@
 
 import sys
 
-from heat3d_tpu_torch.cli import main
+from heat3d_tpu_torch.cli import run
 
-sys.exit(main())
+sys.exit(run())

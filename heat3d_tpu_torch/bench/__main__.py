@@ -4,9 +4,11 @@ Takes the solver command line's config flags (--grid, --stencil, --bc,
 --dtype, --time-blocking, --mesh, --halo, --halo-order, --halo-plan,
 --device, --steps, ...) plus --bench all|throughput|halo (default all: the
 throughput row, then the halo row), --repeats (throughput runs) and
---iters (halo programs), and prints one JSON row per line. Needs a CUDA
-device. The JAX CLI's --profile-dir and --ledger wait for the port of its
-observability package."""
+--iters (halo programs), and prints one JSON row per line. ``--sweep-state
+FILE`` journals the rows of ``--bench all`` (``resilience.sweepstate``): an
+interrupted sweep resumes at the first missing row. SIGTERM exits with
+code 3. Needs a CUDA device. The JAX CLI's --profile-dir and --ledger wait
+for the port of its observability package."""
 
 from __future__ import annotations
 
@@ -26,6 +28,11 @@ def main(argv=None) -> int:
     p.add_argument("--bench", choices=["all", "throughput", "halo"], default="all")
     p.add_argument("--repeats", type=int, default=3)
     p.add_argument("--iters", type=int, default=30, help="halo timing iterations")
+    p.add_argument(
+        "--sweep-state", default=None, metavar="FILE",
+        help="journal landed rows here (resilience.sweepstate); an "
+        "interrupted --bench all sweep resumes at the first missing row",
+    )
     args = p.parse_args(argv)
     cfg = config_from_args(args)
     if args.bench == "throughput":
@@ -35,9 +42,13 @@ def main(argv=None) -> int:
         print(json.dumps(bench_halo(cfg, iters=args.iters, device=args.device)))
     else:
         run_suite([cfg], steps=args.steps, device=args.device, iters=args.iters,
-                  repeats=args.repeats)
+                  repeats=args.repeats, state_path=args.sweep_state)
     return 0
 
 
 if __name__ == "__main__":
+    # a row stopped by `timeout` (SIGTERM) exits 3 after Python's cleanup
+    from heat3d_tpu_torch.utils.backendprobe import install_sigterm_exit
+
+    install_sigterm_exit()
     sys.exit(main())

@@ -389,28 +389,54 @@ def run_suite(
     device=None,
     iters: int = 10,
     repeats: int = 3,
+    state_path: Optional[str] = None,
 ) -> List[Dict]:
     """A throughput row for each config (best of ``repeats``), and a halo
     row (``iters`` programs) once per distinct exchange shape: (grid, mesh,
     storage dtype, transport, ordering, effective plan mode). The halo
     latency depends on nothing else, so configs that differ only in tb,
     backend or stencil share one halo row. Each row is printed to ``out``
-    (default stdout) as one JSON line as it lands. The JAX suite's journal
-    of landed rows (``state_path``, ``--sweep-state``) waits for the port
-    of the resilience package."""
+    (default stdout) as one JSON line as it lands.
+
+    With ``state_path`` every landed row is journaled in a
+    :class:`~heat3d_tpu_torch.resilience.sweepstate.SweepState` under its
+    ``row_key``, and an interrupted sweep (SIGTERM, backend death) RESUMES
+    AT THE FIRST MISSING ROW on the next invocation: journaled rows are
+    re-emitted from the journal, not re-measured. The fault hook
+    (``HEAT3D_FAULTS=sigterm:row=K``) fires before each measured row, so
+    the resume path is testable on the CPU."""
+    from heat3d_tpu_torch.resilience.faults import FaultPlan
+    from heat3d_tpu_torch.resilience.sweepstate import SweepState, row_key
+
     out = out or sys.stdout
+    state = SweepState(state_path) if state_path else None
+    plan = FaultPlan.from_env()
     results = []
     halo_seen = set()
+    row_index = 0
 
-    def land(row: Dict) -> None:
+    def one_row(key: str, measure) -> None:
+        nonlocal row_index
+        done = state.record(key) if state is not None else None
+        if done is not None and done.get("record") is not None:
+            row = done["record"]
+        else:
+            plan.on_sweep_row(row_index)
+            row_index += 1
+            row = measure()
+            if state is not None:
+                state.mark_done(key, row)
         results.append(row)
         print(json.dumps(row), file=out, flush=True)
 
     for cfg in configs:
-        land(bench_throughput(cfg, steps=steps, repeats=repeats, device=device))
+        one_row(row_key(cfg, "throughput"),
+                lambda cfg=cfg: bench_throughput(cfg, steps=steps, repeats=repeats,
+                                                 device=device))
         key = (cfg.grid.shape, cfg.mesh.shape, cfg.precision.storage, cfg.halo,
                cfg.halo_order, effective_halo_plan(cfg))
         if key not in halo_seen:
             halo_seen.add(key)
-            land(bench_halo(cfg, iters=iters, device=device))
+            one_row(row_key(cfg, "halo"),
+                    lambda cfg=cfg: bench_halo(cfg, iters=iters, device=device))
     return results

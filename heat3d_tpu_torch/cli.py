@@ -14,8 +14,16 @@ a shard of a balanced 3D mesh, as the JAX CLI's default (one shard under
 an explicit ``--device``). ``--device D`` puts every shard on D (``cpu``
 runs the kernels' plain versions; ``cuda:0`` runs a sharded solve on one
 card). ``--dump-slice AXIS INDEX PATH`` saves one global plane as
-``.npy``. Runs on the GPU unless ``--device cpu`` is given.
-Human-readable errors go to stderr with exit code 2.
+``.npy``, ``--dump-vtk PATH`` the final field as legacy VTK.
+``--checkpoint DIR`` saves the final state (``--checkpoint-every K``: also
+every K steps) in the JAX package's checkpoint format and ``--resume``
+continues from it; ``--supervise`` runs under the resilience supervisor
+(``--watchdog``, ``--max-recoveries``, ``--heal-mode``, ``--reexpand``):
+checkpoint generations in DIR, auto-resume, recovery from backend loss,
+and ``--steps`` the target global step, so relaunching a killed command
+finishes its run. SIGTERM exits with code 3 after Python's cleanup. Runs on
+the GPU unless ``--device cpu`` is given. Human-readable errors go to
+stderr with exit code 2.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from heat3d_tpu_torch.core.config import (
     StencilConfig,
 )
 from heat3d_tpu_torch.eqn.cli import parse_eq_params
+from heat3d_tpu_torch.utils.timing import force_sync
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -142,6 +151,53 @@ def build_parser() -> argparse.ArgumentParser:
         "(or 0|1|2), global index along it, output path — the reference "
         "class's visualization dump",
     )
+    p.add_argument(
+        "--dump-vtk", default=None, metavar="PATH",
+        help="after the run, write the final field as legacy binary VTK "
+        "STRUCTURED_POINTS (ParaView/VisIt — the reference class's "
+        "visualization dump). Gathers the full field to the host: meant "
+        "for inspection-sized grids; use --dump-slice for planes of "
+        "large fields",
+    )
+    p.add_argument("--checkpoint", default=None, help="checkpoint directory")
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--resume", action="store_true", help="resume from --checkpoint")
+    p.add_argument(
+        "--supervise", action="store_true",
+        help="run under the resilience supervisor: checkpoint generations "
+        "every --checkpoint-every steps into --checkpoint, watchdog the "
+        "backend, auto-resume from the last good generation (quarantining "
+        "corrupt ones). --steps is then the TARGET GLOBAL step: relaunching "
+        "the same command after a kill finishes the run",
+    )
+    p.add_argument(
+        "--watchdog", type=float, default=None, metavar="SECONDS",
+        help="(with --supervise) per-chunk wall-clock budget; an overrun "
+        "triggers a backend probe and, if it fails, checkpoint-resume "
+        "recovery",
+    )
+    p.add_argument(
+        "--max-recoveries", type=int, default=3,
+        help="(with --supervise) give up after this many survived failures",
+    )
+    p.add_argument(
+        "--heal-mode", choices=["wait", "elastic", "auto"], default=None,
+        help="(with --supervise) what a confirmed backend loss means: "
+        "'wait' = probe until the ORIGINAL backend returns (the "
+        "HEAT3D_HEAL_DEADLINE_S deadline re-raises), 'elastic' = probe the "
+        "DEVICE SET and re-plan the moment any survivors answer: "
+        "re-factorize the mesh over the survivors, re-stitch the newest "
+        "generation onto the degraded mesh, continue; 'auto' = wait "
+        "first, degrade when the heal deadline expires or the backend "
+        "heals smaller. Default $HEAT3D_HEAL_MODE, else wait",
+    )
+    p.add_argument(
+        "--reexpand", action="store_true",
+        help="(with --supervise --heal-mode elastic|auto) opt-in "
+        "re-expand: while degraded, probe at each checkpoint boundary "
+        "and re-factorize back onto the original mesh when full "
+        "capacity returns",
+    )
     p.add_argument("--device", default=None,
                    help="torch device of every shard (default: shard i on "
                    "cuda:i; the current CUDA device for one shard)")
@@ -190,6 +246,8 @@ def config_from_args(args) -> SolverConfig:
             num_steps=args.steps,
             tolerance=args.tol,
             seed=args.seed,
+            checkpoint_path=args.checkpoint,
+            checkpoint_every=args.checkpoint_every,
             residual_every=args.residual_every,
         ),
         time_blocking=args.time_blocking,
@@ -240,21 +298,9 @@ def parse_dump_slice(spec, grid_shape):
     return axis, index, path
 
 
-def _sync(solver) -> None:
-    for d in {s.device for s in solver.mesh.shards}:
-        if d.type == "cuda":
-            torch.cuda.synchronize(d)
-
-
 def _main(argv: Optional[List[str]]) -> int:
-    from heat3d_tpu_torch.models.heat3d import HeatSolver3D, resolved_backend_name
+    from heat3d_tpu_torch.models.heat3d import HeatSolver3D
     from heat3d_tpu_torch.ops import launch_counts
-    from heat3d_tpu_torch.parallel.plan import effective_halo_plan
-    from heat3d_tpu_torch.parallel.step import (
-        resolve_fused_rdma,
-        step_route,
-        superstep_route,
-    )
 
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
@@ -266,15 +312,35 @@ def _main(argv: Optional[List[str]]) -> int:
             "accuracy gates live in tests/test_timeint.py "
             "(docs/INTEGRATORS.md)"
         )
+    if args.supervise:
+        # a bad HEAT3D_HEAL_MODE fails here, in ms, not mid-outage
+        from heat3d_tpu_torch.resilience.elastic import resolve_heal_mode
+
+        args.heal_mode = resolve_heal_mode(args.heal_mode)
     dump_slice = (None if args.dump_slice is None
                   else parse_dump_slice(args.dump_slice, cfg.grid.shape))
+    if args.dump_vtk:
+        # a bad path must fail in ms, not after the run
+        try:
+            with open(args.dump_vtk, "ab"):
+                pass
+        except OSError as e:
+            raise ValueError(f"--dump-vtk path not writable: {e}") from None
     solver = HeatSolver3D(cfg, device=args.device)
     # the solver's config: a non-Euler integrator pins its auto knobs
     cfg = solver.cfg
-    u = solver.init_state(args.init)
+    if args.supervise:
+        return _main_supervised(args, cfg, solver, dump_slice)
+
+    start_step = 0
+    if args.resume and args.checkpoint:
+        u, start_step = solver.load_checkpoint(args.checkpoint)
+        print(f"resumed from {args.checkpoint} at step {start_step}", file=sys.stderr)
+    else:
+        u = solver.init_state(args.init)
     # warm up (kernel build and first launch) outside the timed window
     solver.step_with_residual(solver.zeros_state())
-    _sync(solver)
+    force_sync(solver)
 
     before = launch_counts()
     residual = None
@@ -286,28 +352,133 @@ def _main(argv: Optional[List[str]]) -> int:
         u, done, residual = result.u, result.steps, result.residual
     else:
         total = cfg.run.num_steps
+        every = args.checkpoint_every if args.checkpoint else 0
         done = 0
         while done < total:
-            # to the next residual point or the end; the last update of
-            # each segment is the residual step, so exactly `total` run
-            nxt = total
+            # to the next boundary: a residual point, a checkpoint point or
+            # the end; the last update of the run (and of each residual
+            # segment) is a residual step, so exactly `total` run
+            boundaries = [total]
             if args.residual_every:
-                nxt = min(total, (done // args.residual_every + 1) * args.residual_every)
+                boundaries.append((done // args.residual_every + 1) * args.residual_every)
+            if every:
+                boundaries.append((done // every + 1) * every)
+            nxt = min(boundaries)
             n = nxt - done
-            if n > 1:
-                u = solver.run(u, n - 1)
-            u, r2 = solver.step_with_residual(u)
-            residual = float(np.sqrt(np.float64(float(r2))))
-            if args.residual_every:
-                print(f"step {nxt} residual {residual:.6e}", file=sys.stderr)
+            if nxt == total or (args.residual_every and nxt % args.residual_every == 0):
+                if n > 1:
+                    u = solver.run(u, n - 1)
+                u, r2 = solver.step_with_residual(u)
+                residual = float(np.sqrt(np.float64(float(r2))))
+                if args.residual_every:
+                    print(f"step {start_step + nxt} residual {residual:.6e}",
+                          file=sys.stderr)
+            else:
+                u = solver.run(u, n)
             done = nxt
-    _sync(solver)
+            if every and done % every == 0 and done < total:  # final save below
+                solver.save_checkpoint(args.checkpoint, u, start_step + done)
+    force_sync(solver)
     elapsed = time.perf_counter() - t0
     after = launch_counts()
+    if args.checkpoint:
+        solver.save_checkpoint(args.checkpoint, u, start_step + done)
+    return _finish(args, cfg, solver, u, elapsed, start_step + done, start_step,
+                   residual, dump_slice, {k: after[k] - before[k] for k in after})
 
+
+def _main_supervised(args, cfg, solver, dump_slice) -> int:
+    """The --supervise path: the supervisor owns init/resume, checkpoint
+    cadence and recovery; this wrapper owns the argument checks and the
+    report (the JAX CLI's ``_main_supervised``)."""
+    import os
+
+    from heat3d_tpu_torch.ops import launch_counts
+    from heat3d_tpu_torch.resilience.supervisor import generation_dirs
+    from heat3d_tpu_torch.utils import checkpoint as ckpt
+
+    if not args.checkpoint:
+        raise ValueError("--supervise requires --checkpoint DIR")
+    if os.path.exists(
+        os.path.join(args.checkpoint, ckpt.MANIFEST)
+    ) and not generation_dirs(args.checkpoint):
+        # a plain (flat) checkpoint lives here; the supervisor only scans
+        # gen-* generations, so proceeding would silently restart at step
+        # 0 and orphan the user's progress
+        raise ValueError(
+            f"--checkpoint {args.checkpoint} holds a plain checkpoint, "
+            "not supervised generations — finish it with --resume "
+            "(without --supervise), or point --supervise at a fresh "
+            "directory"
+        )
+    if args.resume:
+        print("--resume is implied by --supervise (auto-resumes from the "
+              "newest good generation)", file=sys.stderr)
+    if cfg.run.tolerance is not None:
+        raise ValueError(
+            "--supervise drives the fixed-step loop; convergence mode "
+            "(--tol) is not supervised yet — drop one of the two flags"
+        )
+    if cfg.run.residual_every:
+        print("warning: --residual-every is not supported under --supervise "
+              "yet; only the final residual is reported", file=sys.stderr)
+    if not args.checkpoint_every:
+        print("warning: --supervise without --checkpoint-every K writes no "
+              "mid-run generations: an outage loses the whole run, not K "
+              "steps", file=sys.stderr)
+    before = launch_counts()
+    t0 = time.perf_counter()
+    result = solver.run_supervised(
+        total_steps=cfg.run.num_steps,
+        ckpt_root=args.checkpoint,
+        checkpoint_every=args.checkpoint_every,
+        watchdog_s=args.watchdog,
+        max_recoveries=args.max_recoveries,
+        init=args.init,
+        heal_mode=args.heal_mode,
+        reexpand=args.reexpand,
+        # the device type this run STARTED on: a probe child that finds no
+        # GPU must never count as a healed card
+        want_platform=solver.device.type,
+    )
+    elapsed = time.perf_counter() - t0
+    after = launch_counts()
+    # heal waits are SLEEP, not work: left out of the throughput
+    # denominator (each recovery's wait is itemized in the record); what
+    # remains includes the kernels' build and any redone steps
+    heal_s = sum(r.heal_wait_s for r in result.recoveries)
+    busy = max(elapsed - heal_s, 1e-9)
+    record = result.to_record()
+    record["timing_note"] = (
+        "seconds excludes heal waits but includes the kernel build and "
+        "redone steps; not comparable to bench rows"
+    )
+    # report through the solver that PRODUCED u: a recovery may have
+    # rebuilt it on another mesh
+    final_solver = result.solver or solver
+    return _finish(args, final_solver.cfg, final_solver, result.u, busy,
+                   result.steps_done, result.start_step, result.residual, dump_slice,
+                   {k: after[k] - before[k] for k in after},
+                   extra_summary={"supervised": record})
+
+
+def _finish(args, cfg, solver, u, elapsed, steps_done, start_step, residual,
+            dump_slice, kernel_launches, extra_summary=None) -> int:
+    """The report shared by the plain and supervised paths: dumps, the JSON
+    summary (``steps`` counts this run's updates, the golden check the
+    total from t=0)."""
+    from heat3d_tpu_torch.models.heat3d import resolved_backend_name
+    from heat3d_tpu_torch.parallel.plan import effective_halo_plan
+    from heat3d_tpu_torch.parallel.step import (
+        resolve_fused_rdma,
+        step_route,
+        superstep_route,
+    )
+
+    steps = steps_done - start_step
     # a rate from a CPU run is not a device metric: reported only on the GPU
     on_gpu = solver.device.type == "cuda"
-    rate = cfg.grid.num_cells * max(done, 1) / elapsed / 1e9 if on_gpu else None
+    rate = cfg.grid.num_cells * max(steps, 1) / elapsed / 1e9 if on_gpu else None
     devices = {s.device for s in solver.mesh.shards}
     summary = {
         "grid": list(cfg.grid.shape),
@@ -329,12 +500,12 @@ def _main(argv: Optional[List[str]]) -> int:
         "time_blocking": cfg.time_blocking,
         "platform": "gpu" if on_gpu else "cpu",
         "device_name": torch.cuda.get_device_name(solver.device) if on_gpu else "cpu",
-        "steps": done,
+        "steps": steps,
         "seconds": elapsed,
         "residual_l2": residual,
         "gcell_updates_per_sec": rate,
         "gcell_updates_per_sec_per_chip": None if rate is None else rate / len(devices),
-        "kernel_launches": {k: after[k] - before[k] for k in after},
+        "kernel_launches": kernel_launches,
     }
     if solver.last_cg_stats is not None:
         # the last implicit-cg solve of the run's fixed-step loop
@@ -343,13 +514,22 @@ def _main(argv: Optional[List[str]]) -> int:
         axis, index, path = dump_slice
         np.save(path, solver.gather_slice(u, axis, index))
         summary["slice_path"] = path
+    if args.dump_vtk:
+        from heat3d_tpu_torch.utils.vtkio import write_structured_points
+
+        write_structured_points(args.dump_vtk, solver.gather(u), spacing=cfg.grid.spacing)
+        summary["vtk_path"] = args.dump_vtk
+    if extra_summary:
+        summary.update(extra_summary)
     if args.golden_check:
         from heat3d_tpu_torch import eqn
         from heat3d_tpu_torch.core import golden
 
+        # steps_done counts from t=0 even on --resume: the oracle advances
+        # the original init by the run's TOTAL step count
         g = golden.run(
             golden.make_init(args.init, cfg.grid.shape, seed=cfg.run.seed),
-            cfg.grid, cfg.stencil, done, taps=eqn.solver_taps(cfg),
+            cfg.grid, cfg.stencil, steps_done, taps=eqn.solver_taps(cfg),
         )
         got = solver.gather(u).astype(np.float64)
         err = float(np.max(np.abs(got - g)))
@@ -366,5 +546,15 @@ def _main(argv: Optional[List[str]]) -> int:
     return 0
 
 
+def run() -> int:
+    """The program's entry (``python -m heat3d_tpu_torch``): SIGTERM (a
+    ``timeout``) exits with code 3 after Python's cleanup, so a supervised
+    run relaunched with the same command resumes from its generations."""
+    from heat3d_tpu_torch.utils.backendprobe import install_sigterm_exit
+
+    install_sigterm_exit()
+    return main()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

@@ -30,13 +30,17 @@ or the backend's plain/conv arm, or the overlap routes (``overlap``,
 (``ops.stencil_dma_fused``, ``ops.stencil_fused_rdma``) and the
 interior/boundary split.
 
-Not ported yet: checkpoints, the supervised/elastic run, a mesh across
-processes.
+State: ``save_checkpoint``/``load_checkpoint`` write and read the JAX
+package's checkpoint format (``utils.checkpoint``; a leapfrog carry's
+second level under ``level-1/``), so a run moves between meshes and
+between the packages; ``run_supervised`` drives the resilience supervisor
+(``resilience.supervisor``). Not ported yet: a mesh across processes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
@@ -61,6 +65,7 @@ from heat3d_tpu_torch.parallel.step import (
     make_step_fn,
 )
 from heat3d_tpu_torch.parallel.topology import build_shard_mesh
+from heat3d_tpu_torch.utils import checkpoint as ckpt
 
 
 def resolved_backend_name(cfg: SolverConfig) -> str:
@@ -209,6 +214,10 @@ class HeatSolver3D:
             cfg = timeint.pin_config(cfg)
             timeint.validate_config(cfg)
         self.cfg = cfg
+        # the placement and taps asked for: a supervised recovery rebuilds
+        # the solver (on a survivor mesh too) with the same ones
+        self._placement = device
+        self._taps_override = taps
         self.mesh = build_shard_mesh(cfg, device)
         self.device = self.mesh.shards[0].device
         self.taps = _solver_taps(cfg) if taps is None else np.asarray(
@@ -406,6 +415,26 @@ class HeatSolver3D:
         us, steps, res = self._on_shards(self._converge, u, int(max_steps), float(tol))
         return RunResult(u=self._wrap(us), steps=steps, residual=res)
 
+    def run_supervised(self, total_steps: int, ckpt_root: str,
+                       checkpoint_every: int = 0, **kwargs):
+        """Run to global step ``total_steps`` under the resilience
+        supervisor (``resilience.supervisor.run_supervised``, whose knobs
+        ``kwargs`` pass on): checkpoint generations every
+        ``checkpoint_every`` steps into ``ckpt_root``, auto-resume from the
+        newest good generation, survive backend loss or hang by waiting for
+        heal and resuming. By default a recovery rebuilds a solver for this
+        config (or, under ``heal_mode='elastic'|'auto'``, a survivor
+        config) with this solver's placement and taps, and the heal probe
+        must find this solver's device type (``want_platform``)."""
+        from heat3d_tpu_torch.resilience.supervisor import run_supervised
+
+        device, taps = self._placement, self._taps_override
+        kwargs.setdefault("make_solver", lambda: HeatSolver3D(self.cfg, device, taps))
+        kwargs.setdefault("make_solver_for", lambda cfg: HeatSolver3D(cfg, device, taps))
+        kwargs.setdefault("base_cfg", self.cfg)
+        kwargs.setdefault("want_platform", self.device.type)
+        return run_supervised(self, total_steps, ckpt_root, checkpoint_every, **kwargs)
+
     # ---- IO --------------------------------------------------------------
 
     def gather(self, u) -> np.ndarray:
@@ -447,3 +476,95 @@ class HeatSolver3D:
                 plane = np.empty([g[a] for a in others], dtype=block.dtype)
             plane[glob[others[0]], glob[others[1]]] = block
         return plane
+
+    def save_checkpoint(self, path: str, u, step: int, stats: Optional[dict] = None) -> None:
+        """Checkpoint the state in the JAX package's format
+        (``utils.checkpoint.save``; ``stats`` gains its timings). A
+        two-level carry (leapfrog) writes level 0 at ``path`` — the
+        manifest's extra records ``levels``/``integrator`` — and level 1 as
+        a full checkpoint under ``<path>/level-1/``."""
+        levels = timeint.carry_levels(self.cfg.integrator)
+        if levels == 1:
+            ckpt.save(path, u, step, extra={"config": repr(self.cfg)}, stats=stats)
+            return
+        ckpt.save(path, u[0], step, stats=stats, extra={
+            "config": repr(self.cfg),
+            "levels": levels,
+            "integrator": self.cfg.integrator,
+        })
+        for lv in range(1, levels):
+            ckpt.save(os.path.join(path, f"level-{lv}"), u[lv], step, stats=stats,
+                      extra={"level": lv, "integrator": self.cfg.integrator})
+
+    def load_checkpoint(self, path: str, stats: Optional[dict] = None):
+        """``(state, step)`` of a checkpoint saved by either package's
+        ``save_checkpoint``, on any mesh with this config's storage shape
+        (``utils.checkpoint.load`` stitches across meshes). The level
+        structure is validated BEFORE any shard read: a ``levels`` count
+        that disagrees with this integrator's carry, a missing level
+        directory, a level step drift or a per-level storage-shape
+        mismatch raises :class:`heat3d_tpu_torch.timeint.MultiLevelCheckpointError`
+        — a ValueError, so the supervisor's resume scan skips the
+        generation in place (the shards are not proven corrupt)."""
+        levels = timeint.carry_levels(self.cfg.integrator)
+        man = ckpt.load_manifest(path)
+        found = int((man.get("extra") or {}).get("levels", 1))
+        if found != levels:
+            raise timeint.MultiLevelCheckpointError(
+                f"checkpoint {path} holds {found} field level(s) but "
+                f"integrator {self.cfg.integrator!r} carries {levels} — "
+                "wrong integrator for this checkpoint (docs/INTEGRATORS.md)"
+            )
+        u, step = self._load_level(path, stats=stats)
+        if levels == 1:
+            return u, step
+        state = [u]
+        for lv in range(1, levels):
+            lp = os.path.join(path, f"level-{lv}")
+            try:
+                ulv, step_lv = self._load_level(
+                    lp, error_cls=timeint.MultiLevelCheckpointError, stats=stats
+                )
+            except ckpt.ShardCorruptError:
+                raise  # proven damage: let the supervisor quarantine
+            except FileNotFoundError as e:
+                raise timeint.MultiLevelCheckpointError(
+                    f"checkpoint {path} is missing level {lv} ({lp}): {e}"
+                ) from e
+            if step_lv != step:
+                raise timeint.MultiLevelCheckpointError(
+                    f"checkpoint {path} level {lv} is at step {step_lv} "
+                    f"but level 0 is at step {step} — torn multi-level save"
+                )
+            state.append(ulv)
+        return tuple(state), step
+
+    def _load_level(self, path: str, error_cls=ValueError, stats=None):
+        shape = tuple(ckpt.load_manifest(path)["global_shape"])
+        if shape != self.cfg.padded_shape:
+            # fail loudly: silently stepping a wrong-shape field would
+            # finish "successfully" with metrics of the CONFIGURED grid.
+            # Padding only ever rounds the grid UP, so saved >= grid on
+            # every dim is consistent with "same grid, other mesh's
+            # padding"; any smaller dim proves a different grid outright
+            same_grid_other_padding = all(
+                s >= g for s, g in zip(shape, self.cfg.grid.shape)
+            )
+            hint = (
+                "the checkpoint was padded for a different mesh "
+                "(cross-mesh resume across bc-paddings is unsupported — "
+                "use a grid divisible by both meshes, or consolidate and "
+                "re-grid)"
+                if same_grid_other_padding
+                else "wrong checkpoint for this run"
+            )
+            raise error_cls(
+                f"checkpoint {path} holds a {shape} field but "
+                f"this config's storage shape is {self.cfg.padded_shape} "
+                f"(grid {self.cfg.grid.shape} on mesh {self.cfg.mesh.shape})"
+                f" — {hint}"
+            )
+        u, step, _ = ckpt.load(path, self.mesh, stats=stats)
+        if u.dtype != self.storage_dtype:
+            u = self._wrap([t.to(self.storage_dtype) for t in self._shards(u)])
+        return u, step

@@ -29,6 +29,14 @@ def cuda_time(fn: Callable[[], object], device=None) -> float:
     return start.elapsed_time(end) / 1e3
 
 
+def force_sync(solver) -> None:
+    """Wait for every stream of every CUDA device the solver's shards use
+    (a shard's work may still run on its own stream); a no-op on the CPU."""
+    for d in {s.device for s in solver.mesh.shards}:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
 def sync_rtt(device=None, samples: int = 5) -> float:
     """Host seconds of one round trip to the device: a one-element launch
     and ``torch.cuda.synchronize()``, the least of ``samples`` (the JAX

@@ -303,7 +303,8 @@ def test_benches_raise_without_cuda(monkeypatch):
 ])
 def test_bench_command_line(monkeypatch, capsys, argv, want):
     got = []
-    monkeypatch.setattr(bench_cli, "run_suite", lambda cfgs, steps, device, iters, repeats:
+    monkeypatch.setattr(bench_cli, "run_suite",
+                        lambda cfgs, steps, device, iters, repeats, state_path:
                         got.append(("suite", iters, repeats)))
     monkeypatch.setattr(bench_cli, "bench_halo", lambda cfg, iters, device:
                         got.append(("halo", iters)) or {"bench": "halo"})

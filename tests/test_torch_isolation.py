@@ -1,5 +1,6 @@
 """The port stands alone: heat3d_tpu_torch and chip_smoke.py import neither
-JAX nor the JAX package, and the port never drops to the CPU on its own."""
+JAX, the JAX package nor ``ml_dtypes`` (the GPU machine has none), and the
+port never drops to the CPU on its own."""
 
 import ast
 import os
@@ -15,7 +16,7 @@ REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(
     p for p in (REPO / "heat3d_tpu_torch").rglob("*.py") if "_build" not in p.parts
 ) + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "heat3d_tpu")
+FORBIDDEN = ("jax", "jaxlib", "heat3d_tpu", "ml_dtypes")
 
 
 def _imported_modules(path: Path):
@@ -42,7 +43,10 @@ def test_scan_sees_the_package():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     for module in ("ops/stencil_direct.py", "ops/stencil_stream.py", "ops/halo_dma.py",
                    "parallel/halo.py", "parallel/plan.py", "parallel/topology.py",
-                   "parallel/step.py", "timeint/leapfrog.py", "timeint/cg.py", "eqn/cli.py"):
+                   "parallel/step.py", "timeint/leapfrog.py", "timeint/cg.py", "eqn/cli.py",
+                   "utils/checkpoint.py", "utils/vtkio.py", "utils/backendprobe.py",
+                   "resilience/retry.py", "resilience/faults.py", "resilience/sweepstate.py",
+                   "resilience/elastic.py", "resilience/supervisor.py", "tune/space.py"):
         assert f"heat3d_tpu_torch/{module}" in names
     assert not _forbidden("heat3d_tpu_torch.ops") and _forbidden("heat3d_tpu.ops")
 
@@ -54,9 +58,12 @@ def test_import_leaves_jax_unloaded():
         "heat3d_tpu_torch.ops.stencil_stream, heat3d_tpu_torch.ops.halo_dma, "
         "heat3d_tpu_torch.parallel.halo, heat3d_tpu_torch.parallel.plan, "
         "heat3d_tpu_torch.parallel.topology, heat3d_tpu_torch.timeint, "
-        "heat3d_tpu_torch.eqn.cli\n"
+        "heat3d_tpu_torch.eqn.cli, heat3d_tpu_torch.resilience, "
+        "heat3d_tpu_torch.resilience.elastic, heat3d_tpu_torch.tune.space, "
+        "heat3d_tpu_torch.utils.checkpoint, heat3d_tpu_torch.utils.vtkio, "
+        "heat3d_tpu_torch.utils.backendprobe\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'heat3d_tpu'))\n"
+        "('jax', 'jaxlib', 'heat3d_tpu', 'ml_dtypes'))\n"
         "print(','.join(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
