@@ -184,6 +184,29 @@ non-zero without one. Phases, each printing its own lines:
    ``HEAT3D_FAULTS=sigterm:step=4`` (exit 3) and relaunched (exit 0), its
    final generation byte-equal to a clean run's; ``--dump-vtk`` at 128^3
    equal to ``gather``; the probe child's ``"cuda"`` and its seconds.
+14. ``obs``, after ``state``, in a temporary directory, every line with the
+   card's name and power limit: the command line with ``--ledger`` and
+   ``--profile`` at the 1024^3 tb=2 headline (20 steps) and on the
+   host-bound (2,2,2) rows, faces-direct tb=1 and ``fused-dma-3d`` at
+   1024^3 and 512^3 (10 steps, every shard on cuda:0, ``_OBS_RUNS``): each
+   ledger linted clean with the taxonomy on and holding run_start, warmup,
+   run_loop, step_cost (platform cuda, the analytic bytes), an engaged
+   profile_capture and run_summary; every kernel the run launched on the
+   device by name; each run's device ms per phase and superstep, its
+   device busy share (the union of device intervals over the shard
+   streams, over the timed window) and its five longest idle gaps with the
+   host range open in each; the headline at least ``_OBS_PHASE_SHARE`` of
+   its device time under a ``heat3d.*`` phase and its stencil phase per
+   superstep within ``_OBS_STENCIL_TOL`` of direct2's CUDA-event time. In
+   this process: the headline's Gcell/s with a ledger against without
+   (within ``_OBS_LEDGER_TOL``), faces-direct tb=1's host and wall time a
+   superstep with the phase ranges against without (``_OBS_RANGE_ROUNDS``
+   rounds of four runs in turns, the median of the rounds' ratios) and one
+   range's host cost; ``obs roofline`` live on the headline (GB/s per
+   phase against the card's rate, GFLOP/s against its fp32 rate) and
+   ``--calibrate`` (the GFLOP/s the 27pt direct kernel achieves at 512^3,
+   stored, never a peak). The bounds of every phase come from
+   ``heat3d_tpu_torch/obs/perf/roofline.py``, the package's one cost model.
 
 ``--only`` runs phases 1 and 2 and the named ones of ``PHASES`` (the
 check after a kernel change, before the whole run) and prints no kernels
@@ -217,10 +240,22 @@ import subprocess
 import sys
 import time
 
-# Peak rates of the card (published, SXM H100 at 700 W unless the name says
-# otherwise): device-memory bytes/s by name fragment, fp32 non-tensor FLOP/s.
-_BANDWIDTH = (("H200", 4.8e12), ("NVL", 3.9e12), ("PCIe", 2.0e12), ("H100", 3.35e12))
-_FP32_FLOPS = 67e12
+# The card's peak rates and every bound of this script (bytes each input
+# read once and each output written once, at the card's memory rate; the
+# operations at its fp32 rate) come from the package's one cost model, so
+# PERF.md's bound column, the ledger's step_cost and the bench rows' cost
+# fields read one yardstick.
+from heat3d_tpu_torch.obs.perf.roofline import (  # noqa: E402
+    BOUND_PASSES as _BOUND_PASSES,
+    bandwidth,
+    bound_ms,
+    flops_per_update,
+    fused_bound,
+    halo_exchange_bytes,
+    kernel_bound,
+    sharded_superstep_bound,
+    superstep_bound,
+)
 
 _SOURCES = {
     "apply_taps_direct": "heat3d_tpu_torch/csrc/stencil_direct.cu",
@@ -302,13 +337,6 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bandwidth(name: str) -> float:
-    for frag, bw in _BANDWIDTH:
-        if frag in name:
-            return bw
-    raise RuntimeError(f"no bandwidth on record for {name!r}")
-
-
 def _taps(kind: str, n: int = 8):
     """The solver's taps for stencil ``kind`` on an n^3 grid."""
     from heat3d_tpu_torch.core.config import GridConfig
@@ -322,109 +350,6 @@ def _bc(periodic: bool):
     from heat3d_tpu_torch.core.config import BoundaryCondition
 
     return BoundaryCondition.PERIODIC if periodic else BoundaryCondition.DIRICHLET
-
-
-def flops_per_update(taps) -> int:
-    """fp32 operations per cell and update of the tap chain, with the plane
-    and row sums counted once (as the plain version caches them): the
-    package's ``chain_ops``, which the bench rows carry too."""
-    from heat3d_tpu_torch.ops.stencil_direct import chain_ops
-
-    return chain_ops(taps)
-
-
-def trapezoid_cells(n: int, k: int) -> int:
-    """Cells one k-update superstep of an n^3 block computes: update j of k
-    covers the extent still carrying r = k-1-j ghost rings (the raw
-    trapezoid of ``streamk_cost_estimate``)."""
-    return sum((n + 2 * r) ** 3 for r in range(k))
-
-
-def bound_ms(bytes_moved: float, ops: float, bw: float):
-    """Least time on the card: the bytes at its memory rate or the
-    operations at its fp32 rate, whichever is larger."""
-    t_bytes = bytes_moved / bw * 1e3
-    t_ops = ops / _FP32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def kernel_bound(name: str, n: int, k: int, itemsize: int, flops: int, bw: float):
-    """Bound of one launch at n^3: the kernel's input read once and its
-    output written once; the updates it computes (the raw trapezoid for
-    streamk)."""
-    if name in ("apply_taps_direct", "apply_taps_direct2"):
-        return bound_ms(2 * n**3 * itemsize, n**3 * k * flops, bw)
-    return bound_ms(((n + 2 * k) ** 3 + n**3) * itemsize,
-                    trapezoid_cells(n, k) * flops, bw)
-
-
-def superstep_bound(route: str, n: int, k: int, itemsize: int, flops: int, bw: float):
-    """Bound of one superstep (or step) of the solve at n^3: the direct
-    kernels read and write the field once; the exchange path also writes
-    the width-k padded copy and reads the field for it (four field
-    passes)."""
-    if route in ("direct", "direct2"):
-        return bound_ms(2 * n**3 * itemsize, n**3 * k * flops, bw)
-    padded = (n + 2 * k) ** 3
-    return bound_ms(2 * (n**3 + padded) * itemsize, trapezoid_cells(n, k) * flops, bw)
-
-
-_BOUND_PASSES = {
-    "faces": "per shard: read u, write u_new (2 field passes), plus each "
-             "ghost face cell read once from its neighbour and written once",
-    "exchange": "per shard: read u, write the width-k padded block, read it, "
-                "write u_new (4 passes), plus each ghost cell read once from "
-                "its neighbour",
-    "fused": "per shard: read u, write u_new (2 field passes), plus each x-face "
-             "slab sent read once and written once into the neighbour's landing "
-             "buffer",
-}
-
-
-def x_sends(mesh, periodic: bool) -> int:
-    """The x-face sends of one fused launch over ``mesh``: one each way
-    between x neighbours (a Dirichlet x domain face sends nothing)."""
-    px, py, pz = mesh
-    return 2 * (px if periodic else px - 1) * py * pz
-
-
-def fused_bound(n: int, mesh, k: int, itemsize: int, flops: int, bw: float,
-                periodic: bool = False):
-    """Bound of one fused launch (the whole step or superstep of the x-slab
-    fused routes) over an n^3 grid on ``mesh``: (ms, "bytes"/"operations",
-    bytes); the operations are the k useful updates."""
-    m = [n // p for p in mesh]
-    moved = (2 * n**3 + 2 * x_sends(mesh, periodic) * k * m[1] * m[2]) * itemsize
-    t, by = bound_ms(moved, n**3 * k * flops, bw)
-    return t, by, moved
-
-
-def sharded_superstep_bound(route: str, n: int, mesh, k: int, itemsize: int,
-                            flops: int, bw: float):
-    """Bound of one superstep (or step) of the sharded solve of an n^3 grid
-    over ``mesh``: (ms, "bytes"/"operations", bytes) from the passes of
-    ``_BOUND_PASSES``; the operations are the k useful updates (the
-    faces-direct and fused routes; the 3D fused route counts as
-    faces-direct, whose bytes it moves) or each shard's raw trapezoid (the
-    exchange path and the overlap split, as ``superstep_bound``)."""
-    if route in ("fused-dma", "fused-dma2", "fused-rdma", "fused-rdma2"):
-        return fused_bound(n, mesh, k, itemsize, flops, bw)
-    m = [n // p for p in mesh]
-    shards = mesh[0] * mesh[1] * mesh[2]
-    cells = m[0] * m[1] * m[2]
-    padded = (m[0] + 2 * k) * (m[1] + 2 * k) * (m[2] + 2 * k)
-    if route.startswith("faces") or route == "fused-dma-3d":
-        faces = 2 * (k * m[1] * m[2] + (m[0] + 2 * k) * k * m[2]
-                     + (m[0] + 2 * k) * (m[1] + 2 * k) * k)
-        moved = shards * (2 * cells + 2 * faces) * itemsize
-        ops = n**3 * k * flops
-    else:
-        moved = shards * (2 * cells + 2 * padded + (padded - cells)) * itemsize
-        raw = cells if k == 1 else sum(
-            (m[0] + 2 * r) * (m[1] + 2 * r) * (m[2] + 2 * r) for r in range(k))
-        ops = shards * raw * flops
-    t, by = bound_ms(moved, ops, bw)
-    return t, by, moved
 
 
 def phase_identify() -> str:
@@ -1658,29 +1583,6 @@ _HALO_ROWS = (
     ((8, 1, 1), "dma", "axis", "monolithic", "float32"),
     ((2, 2, 2), "dma", "axis", "monolithic", "bfloat16"),
 )
-
-
-def halo_exchange_bytes(mesh_shape, local, order: str, itemsize: int,
-                        periodic: bool = False) -> int:
-    """Bytes one width-1 padded-block exchange must move: every shard's
-    field read and written into its block's interior; each ghost slab of a
-    side with a neighbour (or a periodic self-wrap) read and written, of a
-    Dirichlet domain face written; a slab spans the earlier axes' ghosts
-    under axis order, the raw face under pairwise. The pairwise edge zones
-    are written once a plan, not an exchange."""
-    shards = mesh_shape[0] * mesh_shape[1] * mesh_shape[2]
-    cells = local[0] * local[1] * local[2]
-    total = 2 * cells * shards
-    for axis in range(3):
-        slab = 1
-        for a, m in enumerate(local):
-            slab *= 1 if a == axis else (m + 2 if a < axis and order == "axis" else m)
-        p = mesh_shape[axis]
-        for c in range(p):
-            for has_nb in ((c > 0) or (periodic and p > 1), (c < p - 1) or (periodic and p > 1)):
-                moved = 2 if has_nb or (periodic and p == 1) else 1
-                total += moved * slab * shards // p
-    return total * itemsize
 
 
 def _halo_loop_pair(worst: dict, k: int, storage: str) -> int:
@@ -3784,9 +3686,331 @@ def phase_state(smi: str) -> dict:
     return res
 
 
+# the obs phase's runs of the command line, every shard on cuda:0: (tag,
+# grid, mesh, time_blocking, steps, extra flags); the headline first, then
+# the host-bound sharded rows of PERF.md section 5 (1024^3: 512^3 shards)
+# and the same meshes at 512^3
+_OBS_RUNS = (
+    ("headline", 1024, (1, 1, 1), 2, 20, ()),
+    ("faces-direct", 1024, (2, 2, 2), 1, 10, ()),
+    ("fused-dma-3d", 1024, (2, 2, 2), 1, 10, ("--halo", "dma", "--overlap")),
+    ("faces-direct-512", 512, (2, 2, 2), 1, 10, ()),
+    ("fused-dma-3d-512", 512, (2, 2, 2), 1, 10, ("--halo", "dma", "--overlap")),
+)
+# the name each wrapper's CUDA kernel has in a profiler trace (fp32 storage)
+_TRACE_NAMES = {
+    "apply_taps_direct": "direct_kernel<float, 1,",
+    "apply_taps_direct2": "direct_kernel<float, 2,",
+    "apply_taps_stream": "stream_kernel<float, 1,",
+    "apply_taps_streamk": "stream_kernel<float, ",
+    "halo_dma": "halo_push_kernel",
+    "apply_step_fused_dma": "fused_chain_kernel<float, 1,",
+    "apply_superstep_fused_dma": "fused_chain_kernel<float, 2,",
+    "apply_step_fused_rdma": "fused_chain_kernel<float, 1,",
+    "apply_superstep_fused_rdma": "fused_chain_kernel<float, 2,",
+}
+_OBS_PHASE_SHARE = 0.95  # least device share under a heat3d.* phase (headline)
+_OBS_STENCIL_TOL = 0.05  # the stencil phase against direct2's CUDA-event time
+_OBS_D2_WARMUP, _OBS_D2_ITERS = 40, 20  # direct2's CUDA-event time: launches
+_OBS_LEDGER_TOL = 0.01  # the headline with a ledger against it without one
+_OBS_RANGE_ROUNDS = 12  # faces-direct tb=1: rounds of (on, off, off, on) runs
+_OBS_RANGE_CHUNK = 10  # supersteps a run
+
+
+def _obs_cli(root: str, tag: str, grid: int, mesh, tb: int, steps: int, extra) -> dict:
+    """One profiled command-line run with a ledger: its summary, the ledger
+    linted clean (taxonomy on), the events the run must hold, the capture
+    engaged (a capture that failed soft fails here), and the trace's device
+    activity (``obs.perf.timeline.device_activity``)."""
+    from heat3d_tpu_torch.obs.check import check_file
+    from heat3d_tpu_torch.obs.perf.roofline import step_cost_fields
+    from heat3d_tpu_torch.obs.perf.timeline import device_activity, load_trace
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    for k in ("HEAT3D_LEDGER", "HEAT3D_FAULTS", "HEAT3D_NO_DIRECT", "HEAT3D_MEHRSTELLEN"):
+        env.pop(k, None)
+    led = os.path.join(root, f"{tag}.jsonl")
+    prof = os.path.join(root, f"{tag}_prof")
+    argv = [sys.executable, "-m", "heat3d_tpu_torch", "--grid", str(grid), "--steps",
+            str(steps), "--time-blocking", str(tb), "--mesh", *map(str, mesh),
+            "--device", "cuda:0", *extra, "--ledger", led, "--profile", prof]
+    t0 = time.perf_counter()
+    p = subprocess.run(argv, env=env, capture_output=True, text=True, timeout=600, cwd=here)
+    wall = time.perf_counter() - t0
+    _check(p.returncode == 0, f"obs {tag}: the CLI exited {p.returncode}: {p.stderr[-2000:]}")
+    summary = json.loads(p.stdout.strip().splitlines()[-1])
+    defects = check_file(led, taxonomy=True)
+    _check(defects == [], f"obs {tag}: the ledger has defects: {defects[:5]}")
+    evs = [json.loads(line) for line in open(led) if line.strip()]
+    names = [e["event"] for e in evs]
+    for want in ("run_start", "warmup", "run_loop", "step_cost", "profile_capture",
+                 "run_summary", "metrics_summary"):
+        _check(want in names, f"obs {tag}: the ledger lacks {want}: {names}")
+    cost = next(e for e in evs if e["event"] == "step_cost")
+    from heat3d_tpu_torch.core.config import GridConfig, MeshConfig, SolverConfig
+
+    cfg = SolverConfig(grid=GridConfig.cube(grid), mesh=MeshConfig(shape=mesh),
+                       time_blocking=tb, halo="dma" if "dma" in extra else "ppermute",
+                       overlap="--overlap" in extra)
+    want_bytes = step_cost_fields(cfg)["cost_bytes_per_step"]
+    _check(cost["ok"] and cost["platform"] == "cuda"
+           and cost["cost_bytes_per_step"] == want_bytes,
+           f"obs {tag}: step_cost {cost} against the analytic {want_bytes}")
+    cap = next(e for e in evs if e["event"] == "profile_capture")
+    _check(cap["ok"] and os.path.exists(cap.get("artifact", "")),
+           f"obs {tag}: the profile capture degraded: {cap}")
+    loop = next(e for e in evs if e["event"] == "run_loop")
+    act = device_activity(load_trace(cap["artifact"]))
+    launched = {k: v for k, v in summary["kernel_launches"].items() if v}
+    for name in launched:
+        _check(any(_TRACE_NAMES[name] in k for k in act["kernels"]),
+               f"obs {tag}: {name} ({_TRACE_NAMES[name]}) is not in the trace")
+    _check(act["assigned"]["correlation"] > 0,
+           f"obs {tag}: no device event joined its launch: {act['assigned']}")
+    total = sum(act["phase_us"].values())
+    phases = {k: v for k, v in act["phase_us"].items()
+              if k in ("step", "stencil", "halo_exchange", "fused_dma", "residual")}
+    supersteps = -(-steps // tb)
+    kernel_ms = {name: sum(v["us"] for k, v in act["kernels"].items()
+                           if _TRACE_NAMES[name] in k) / 1e3 / supersteps
+                 for name in launched}
+    return {"summary": summary, "activity": act, "cost": cost, "capture": cap,
+            "kernel_ms_per_superstep": kernel_ms, "ranges_per_superstep":
+            act["host_ranges"] / supersteps,
+            "loop_s": loop["elapsed_s"], "wall_s": wall, "route": summary["superstep_route"]
+            or summary["step_route"], "phase_share": sum(phases.values()) / max(total, 1e-9),
+            "phase_ms_per_superstep": {k: v / 1e3 / supersteps
+                                       for k, v in act["phase_us"].items()},
+            "launched": launched, "trace_mb": os.path.getsize(cap["artifact"]) / 1e6}
+
+
+def _obs_bench_pair(cfg, on, off) -> dict:
+    """``bench_throughput`` of ``cfg`` (every shard on cuda:0) in the turns
+    off, on, on, off, ``on()`` before the runs marked on and ``off()`` after
+    them: Gcell/s and ms per superstep of each."""
+    from heat3d_tpu_torch.bench.harness import bench_throughput
+
+    rows = {True: [], False: []}
+    for flag in (False, True, True, False):
+        if flag:
+            on()
+        try:
+            r = bench_throughput(cfg, steps=20, repeats=3, device="cuda:0")
+        finally:
+            if flag:
+                off()
+        rows[flag].append({"gcell": r["gcell_updates_per_sec"], "ms": r["ms_per_launch"]})
+    return rows
+
+
+def _obs_range_cost(cfg, hooks, rounds=_OBS_RANGE_ROUNDS, chunk=_OBS_RANGE_CHUNK) -> dict:
+    """The phase ranges' cost on ``cfg`` (every shard on cuda:0), measured
+    unprofiled: one solver, ``rounds`` rounds of four ``chunk``-superstep
+    runs in the order on, off, off, on (the next round off, on, on, off),
+    the ranges switched between runs (``hooks`` on, none off). Each run
+    gives its host time to issue the chunk (the call's return, before any
+    sync) and its wall time until the card is idle, both in ms a superstep.
+    Returns each side's readings with their median, least and greatest, and
+    the median over rounds of each round's on/off ratio (the same host
+    drift lands on both sides of a round)."""
+    import statistics
+
+    import torch
+
+    from heat3d_tpu_torch.models.heat3d import HeatSolver3D
+    from heat3d_tpu_torch.obs import trace as obs_trace
+
+    solver = HeatSolver3D(cfg, device="cuda:0")
+    u = solver.init_state("hot-cube")
+    u = solver.run(u, chunk)
+    torch.cuda.synchronize()
+    runs = {"host": {True: [], False: []}, "wall": {True: [], False: []}}
+    ratios = {"host": [], "wall": []}
+    try:
+        for r in range(rounds):
+            first = r % 2 == 0
+            per = {"host": {True: [], False: []}, "wall": {True: [], False: []}}
+            for flag in (first, not first, not first, first):
+                obs_trace._HOOKS = hooks if flag else (None, None, None)
+                t0 = time.perf_counter()
+                u = solver.run(u, chunk)
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                for key, dt in (("host", t1 - t0), ("wall", t2 - t0)):
+                    ms = dt / chunk * 1e3
+                    runs[key][flag].append(ms)
+                    per[key][flag].append(ms)
+            for key in ratios:
+                ratios[key].append(sum(per[key][True]) / sum(per[key][False]))
+    finally:
+        obs_trace._HOOKS = hooks
+    del u, solver
+    torch.cuda.empty_cache()
+
+    def side(xs):
+        return {"ms": xs, "median": statistics.median(xs), "min": min(xs), "max": max(xs)}
+
+    return {key: {"on": side(runs[key][True]), "off": side(runs[key][False]),
+                  "on_over_off": statistics.median(ratios[key]),
+                  "on_over_off_range": [min(ratios[key]), max(ratios[key])]}
+            for key in runs}
+
+
+def phase_obs(smi: str, bw: float) -> dict:
+    """Observability on the card: the command line with ``--ledger`` and
+    ``--profile`` (``_OBS_RUNS``) — each ledger lints clean with the
+    taxonomy on and holds its run's events, ``step_cost`` equal to the
+    analytic count, each capture engaged and every kernel the route
+    launched on the device by name; the headline's device time at least
+    ``_OBS_PHASE_SHARE`` under a ``heat3d.*`` phase and its stencil phase
+    per superstep within ``_OBS_STENCIL_TOL`` of direct2's CUDA-event time;
+    each run's device ms per phase and superstep, its device busy share and
+    its five longest idle gaps with the host range open in each. Then, in
+    this process: the headline's Gcell/s with a ledger against without
+    (within ``_OBS_LEDGER_TOL``) and faces-direct tb=1's time a superstep
+    with the phase ranges against without them (``_obs_range_cost``);
+    ``obs roofline`` live on the headline (achieved GB/s per phase against
+    the card's rate, GFLOP/s against its fp32 rate) and ``--calibrate``
+    (what the 27pt chain achieves), beside the card's name and power
+    limit."""
+    import tempfile
+
+    import torch
+
+    from heat3d_tpu_torch import obs, ops
+    from heat3d_tpu_torch.core.config import GridConfig, MeshConfig, SolverConfig
+    from heat3d_tpu_torch.obs import trace as obs_trace
+    from heat3d_tpu_torch.obs.perf import roofline
+    from heat3d_tpu_torch.ops.stencil_direct import apply_taps_direct2
+    from heat3d_tpu_torch.utils.timing import time_fn
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="heat3d_obs_")
+    res = {}
+    try:
+        ops.reset_launch_counts()
+        runs = {}
+        for tag, grid, mesh, tb, steps, extra in _OBS_RUNS:
+            r = runs[tag] = _obs_cli(root, tag, grid, mesh, tb, steps, extra)
+            act = r["activity"]
+            _say("obs_run", card=smi, run=tag, grid=[grid] * 3, mesh=list(mesh),
+                 time_blocking=tb, steps=steps, route=r["route"],
+                 gcell_updates_per_sec=r["summary"]["gcell_updates_per_sec"],
+                 run_loop_s=r["loop_s"], cli_wall_s=r["wall_s"],
+                 phase_ms_per_superstep=r["phase_ms_per_superstep"],
+                 phase_share=r["phase_share"], busy_us=act["busy_us"],
+                 window_us=act["window_us"], busy_share=act["busy_share"],
+                 idle_gaps=act["gaps"], device_events=act["events"],
+                 joined=act["assigned"], kernels_launched=r["launched"],
+                 kernel_ms_per_superstep=r["kernel_ms_per_superstep"],
+                 ranges_per_superstep=r["ranges_per_superstep"],
+                 trace_mb=r["trace_mb"], cost_bytes_per_step=r["cost"]["cost_bytes_per_step"],
+                 capture_overhead_s=r["capture"]["enter_overhead_s"]
+                 + r["capture"]["exit_overhead_s"])
+        head = runs["headline"]
+        _check(head["phase_share"] >= _OBS_PHASE_SHARE,
+               f"obs: {head['phase_share']:.4f} of the headline's device time lies under a "
+               f"heat3d phase (< {_OBS_PHASE_SHARE})")
+        # the stencil phase's device time per superstep: its direct2 launches
+        # (the remainder and residual steps launch direct1 there too)
+        kern = head["activity"]["kernels"]
+        d2 = [v for k, v in kern.items() if _TRACE_NAMES["apply_taps_direct2"] in k]
+        d1_us = sum(v["us"] for k, v in kern.items() if _TRACE_NAMES["apply_taps_direct"] in k)
+        d2_count = sum(v["count"] for v in d2)
+        stencil_ms = (head["activity"]["phase_us"]["stencil"] - d1_us) / 1e3 / d2_count
+        n = 1024
+        u = torch.rand((n, n, n), device="cuda:0")
+        out = torch.empty_like(u)
+        taps = _taps("7pt")
+        # ~0.2 s of warmup launches first: the card sat idle through the
+        # CLI's exit, and one reading of 5 calls after 2 warmups ran 5% slow
+        d2_ms = min(time_fn(lambda: apply_taps_direct2(u, taps, False, 0.0, out=out),
+                            warmup=_OBS_D2_WARMUP, iters=_OBS_D2_ITERS)) * 1e3
+        del u, out
+        torch.cuda.empty_cache()
+        _check(abs(stencil_ms / d2_ms - 1) <= _OBS_STENCIL_TOL,
+               f"obs: the headline's stencil phase {stencil_ms:.3f} ms a superstep against "
+               f"direct2's CUDA-event {d2_ms:.3f} ms")
+        res["headline"] = {"phase_share": head["phase_share"], "stencil_ms": stencil_ms,
+                           "direct2_event_ms": d2_ms,
+                           "busy_share": head["activity"]["busy_share"]}
+        _say("obs_headline", card=smi, **res["headline"], direct2_launches=d2_count)
+
+        # the ledger's cost on the headline, the phase ranges' on faces-direct
+        led = os.path.join(root, "bench.jsonl")
+        headline = SolverConfig(grid=GridConfig.cube(1024), time_blocking=2)
+        pair = _obs_bench_pair(headline, lambda: obs.activate(led), lambda: obs.deactivate())
+        on = sum(r["gcell"] for r in pair[True]) / 2
+        off = sum(r["gcell"] for r in pair[False]) / 2
+        _check(abs(on / off - 1) <= _OBS_LEDGER_TOL,
+               f"obs: the headline with a ledger {on:.2f} Gcell/s against {off:.2f} without")
+        hooks = obs_trace._hooks()
+        faces = SolverConfig(grid=GridConfig.cube(1024), mesh=MeshConfig(shape=_MESH))
+        ranges = _obs_range_cost(faces, hooks)
+        # one range's host cost (unprofiled: NVTX push/pop and a flag read)
+        # against none, times the ranges a faces-direct superstep opens
+        per_range = {}
+        for tag, h in (("on", hooks), ("off", (None, None, None))):
+            obs_trace._HOOKS = h
+            t1 = time.perf_counter()
+            for _ in range(20000):
+                with obs_trace.named_phase("stencil"):
+                    pass
+            per_range[tag] = (time.perf_counter() - t1) / 20000 * 1e6
+        obs_trace._HOOKS = hooks
+        faces_ms = ranges["wall"]["off"]["median"]
+        per_step_us = (per_range["on"] - per_range["off"]) * runs["faces-direct"][
+            "ranges_per_superstep"]
+        res["ledger"] = {"on": pair[True], "off": pair[False], "ratio": on / off}
+        res["ranges"] = {**ranges, "range_us": per_range, "per_superstep_us": per_step_us,
+                         "of_superstep": per_step_us / 1e3 / faces_ms}
+        _say("obs_cost", card=smi, headline_ledger=res["ledger"],
+             faces_direct_phase_ranges=res["ranges"])
+
+        # obs roofline live on the headline, and --calibrate on the card
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = roofline.main(["--grid", "1024", "--time-blocking", "2", "--iters", "5",
+                                "--json"])
+        _check(rc == 0, "obs roofline (live) failed")
+        live = json.loads(buf.getvalue().strip().splitlines()[-1])
+        store = os.path.join(root, "tune_cache.json")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = roofline.main(["--calibrate", "--grid", "512", "--iters", "5", "--cache",
+                                store, "--json"])
+        _check(rc == 0, "obs roofline --calibrate failed")
+        cal = json.loads(buf.getvalue().strip().splitlines()[-1])
+        peak_gbps = bw / 1e9
+        peak_gflops = roofline.FP32_FLOPS / 1e9
+        res["roofline"] = {p["phase"]: {"gbps": p.get("gbps"), "gflops": p.get("gflops"),
+                                        "ms": p["seconds"] * 1e3,
+                                        "of_peak_mem": p["gbps"] / peak_gbps,
+                                        "of_peak_fp32": (p["gflops"] or 0) / peak_gflops}
+                           for p in live["phases"] if "error" not in p}
+        res["calibrated_vector_gflops"] = cal["vector_gflops"]
+        _check(roofline.peak_spec("cuda")["vector_gflops"] == peak_gflops,
+               "obs: the calibrated rate became the roofline's vector peak")
+        _say("obs_roofline", card=smi, platform=live["platform"], peak_mem_gbps=peak_gbps,
+             peak_fp32_gflops=peak_gflops,
+             phases=res["roofline"], calibrated_chip=cal["chip"],
+             calibrated_vector_gflops=cal["vector_gflops"],
+             calibrated_of_fp32_peak=cal["vector_gflops"] * 1e9 / roofline.FP32_FLOPS)
+        launches = ops.launch_counts()
+        for name in ("apply_taps_direct", "apply_taps_direct2"):
+            _check(launches[name] > 0, f"obs: {name} was not launched in this phase")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _say("obs_path", card=smi, kernel_launches=launches, seconds=time.perf_counter() - t0)
+    return res
+
+
 # the phases after the build, in the order they run; ``--only`` picks some
 PHASES = ("compare", "compare_mehrstellen", "compare_bf16", "compare_mesh", "compare_fused",
-          "main_path", "families", "integrators", "state", "kernel_times", "mehrstellen_times",
+          "main_path", "families", "integrators", "state", "obs", "kernel_times",
+          "mehrstellen_times",
           "compute_bf16_times", "dma_times", "halo_bench", "fused_times",
           "shard_kernel_times", "cross_gpu")
 
@@ -3842,6 +4066,8 @@ def main(argv=None) -> int:
         phase_integrators(bw)
     if "state" in run:
         phase_state(smi)
+    if "obs" in run:
+        phase_obs(smi, bw)
     if "kernel_times" in run:
         times.update(phase_kernel_times(bw, worst, resources))
     if "mehrstellen_times" in run:

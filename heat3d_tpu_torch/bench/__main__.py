@@ -7,8 +7,10 @@ throughput row, then the halo row), --repeats (throughput runs) and
 --iters (halo programs), and prints one JSON row per line. ``--sweep-state
 FILE`` journals the rows of ``--bench all`` (``resilience.sweepstate``): an
 interrupted sweep resumes at the first missing row. SIGTERM exits with
-code 3. Needs a CUDA device. The JAX CLI's --profile-dir and --ledger wait
-for the port of its observability package."""
+code 3. Needs a CUDA device. ``--ledger PATH`` (or ``$HEAT3D_LEDGER``)
+mirrors each row into the run ledger (``bench_row``, the measure spans,
+the metrics summary); ``--profile DIR`` (``--profile-dir``) captures a
+``torch.profiler`` trace of the measurement."""
 
 from __future__ import annotations
 
@@ -34,15 +36,38 @@ def main(argv=None) -> int:
         "interrupted --bench all sweep resumes at the first missing row",
     )
     args = p.parse_args(argv)
-    cfg = config_from_args(args)
-    if args.bench == "throughput":
-        print(json.dumps(bench_throughput(cfg, steps=args.steps, repeats=args.repeats,
-                                          device=args.device)))
-    elif args.bench == "halo":
-        print(json.dumps(bench_halo(cfg, iters=args.iters, device=args.device)))
-    else:
-        run_suite([cfg], steps=args.steps, device=args.device, iters=args.iters,
-                  repeats=args.repeats, state_path=args.sweep_state)
+
+    from heat3d_tpu_torch import obs
+    from heat3d_tpu_torch.utils.timing import maybe_profile
+
+    # --ledger comes in through the inherited solver parser; the env
+    # fallback ($HEAT3D_LEDGER) threads ONE ledger through every row's
+    # subprocess. Activated BEFORE config validation, so a row dying on a
+    # bad config still leaves a record.
+    obs.activate(args.ledger, meta={"entry": "bench", "bench": args.bench})
+    try:
+        cfg = config_from_args(args)
+        # the card's activity unless the rows run elsewhere (None: the build's)
+        cuda = None if args.device is None else str(args.device).startswith("cuda")
+        with maybe_profile(args.profile_dir, cuda=cuda):
+            if args.bench == "throughput":
+                print(json.dumps(bench_throughput(cfg, steps=args.steps,
+                                                  repeats=args.repeats,
+                                                  device=args.device)))
+            elif args.bench == "halo":
+                print(json.dumps(bench_halo(cfg, iters=args.iters, device=args.device)))
+            else:
+                run_suite([cfg], steps=args.steps, device=args.device, iters=args.iters,
+                          repeats=args.repeats, state_path=args.sweep_state)
+    except BaseException as e:
+        # the ledger must record HOW the row ended: a SIGTERM'd
+        # (SystemExit) or crashed row closing with rc=0 would read as a
+        # clean run in the post-mortem
+        obs.deactivate(rc=1, error=f"{type(e).__name__}: {str(e)[:200]}")
+        raise
+    obs.get().event("metrics_summary", metrics=obs.REGISTRY.snapshot())
+    obs.export_at_exit()
+    obs.deactivate(rc=0)
     return 0
 
 

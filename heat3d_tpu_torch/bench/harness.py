@@ -39,13 +39,14 @@ from typing import Dict, List, Optional
 
 import torch
 
-from heat3d_tpu_torch import eqn, ops, timeint
+from heat3d_tpu_torch import eqn, obs, ops, timeint
 from heat3d_tpu_torch.core.config import DEFAULT_INTEGRATOR, SolverConfig
 from heat3d_tpu_torch.models.heat3d import HeatSolver3D, resolved_backend_name
-from heat3d_tpu_torch.ops.stencil_direct import chain_ops, mehrstellen_route as _q_ring
+from heat3d_tpu_torch.ops.stencil_direct import chain_ops
 from heat3d_tpu_torch.parallel.plan import effective_halo_plan, make_schedule
 from heat3d_tpu_torch.parallel.step import (
     make_exchanges,
+    mehrstellen_route,
     redundant_flops_frac,
     resolve_fused_rdma,
     step_route,
@@ -127,30 +128,16 @@ def bench_throughput(
     steps, first = calibrate_trip_count(timed, _FLOOR_S, start=steps)
     times = [first] + [timed(steps) for _ in range(repeats - 1)]
     after = ops.launch_counts()
-    return throughput_row(
+    row = throughput_row(
         solver.cfg, steps=steps, steps_requested=steps_requested, times=times,
         devices=devices, shards=len(solver.mesh), sync_rtt_s=sync_rtt(devices[0]),
         kernel_launches={k: after[k] - before[k] for k in after},
     )
-
-
-_DIRECT_ROUTES = ("direct", "direct2", "faces-direct", "faces-direct2")
-
-
-def mehrstellen_route(cfg: SolverConfig) -> bool:
-    """Whether the Mehrstellen route runs for ``cfg`` under the current
-    environment (port of the JAX ``_mehrstellen_route``): the knob on, the
-    solver's taps decomposing, and a compute that implements the route,
-    the plain update (``backend='jnp'``) or the direct kernels' q-ring
-    instance (a direct route at tb 1 or 2). The exchange-path and fused
-    kernels keep the tap chain."""
-    if not _q_ring(eqn.solver_taps(cfg)):
-        return False
-    if resolved_backend_name(cfg) == "jnp":
-        return True
-    tb = cfg.time_blocking
-    route = superstep_route(cfg) if tb > 1 else step_route(cfg)
-    return tb in (1, 2) and route in _DIRECT_ROUTES
+    _ledger_bench_row(row)
+    obs.REGISTRY.histogram(
+        "bench_step_latency_seconds", "bench throughput per-step latency"
+    ).observe(min(times) / steps)
+    return row
 
 
 def throughput_row(
@@ -248,7 +235,38 @@ def throughput_row(
         "cost_redundant_flops_frac": redundant_flops_frac(cfg),
         # every launch of the whole benchmark (warmup and calibration too)
         "kernel_launches": kernel_launches,
+        # the analytic bytes and operations of one update of this config
+        # (obs.perf.roofline, the bound's yardstick), so a row's
+        # achieved-vs-peak is computable from the row alone
+        **_cost_fields("step_cost_fields", cfg),
     }
+
+
+def _cost_fields(name: str, cfg: SolverConfig) -> Dict:
+    """``obs.perf.roofline.<name>(cfg)`` (``step_cost_fields`` or
+    ``halo_cost_fields``); fails soft: null cost fields and the error, never
+    a lost row."""
+    fields = {"cost_flops_per_step": None, "cost_bytes_per_step": None}
+    if name == "halo_cost_fields":
+        fields.pop("cost_flops_per_step")
+    try:
+        from heat3d_tpu_torch.obs.perf import roofline
+
+        fields.update(getattr(roofline, name)(cfg))
+    except Exception as e:  # noqa: BLE001 - telemetry fails soft
+        fields["cost_analysis_error"] = f"{type(e).__name__}: {str(e)[:120]}"
+    return fields
+
+
+def _ledger_bench_row(row: Dict) -> None:
+    """Mirror a measured row into the run ledger. The row's ``ts`` (UTC
+    measurement-time string) collides with the ledger envelope's ``ts``
+    (unix float at write time) — respelled ``ts_`` (the trailing-underscore
+    rule) so a consumer can still join ledger events to rows by
+    timestamp."""
+    obs.get().event(
+        "bench_row", **{("ts_" if k == "ts" else k): v for k, v in row.items()}
+    )
 
 
 def fold_ghosts(u, pad) -> None:
@@ -322,8 +340,16 @@ def bench_halo(
     if k is None:
         k, _ = calibrate_trip_count(timed, _FLOOR_S, start=25)
     times = [timed(k) / k for _ in range(iters)]
-    return halo_row(cfg, k, iters, times, devices, len(mesh), sync_rtt(devices[0]),
-                    exchange_kernel_launches=ops.launch_counts()["halo_dma"] - before)
+    halo_hist = obs.REGISTRY.histogram(
+        "halo_exchange_latency_seconds",
+        "per-exchange halo latency (program mean)",
+    )
+    for t in times:
+        halo_hist.observe(t)
+    row = halo_row(cfg, k, iters, times, devices, len(mesh), sync_rtt(devices[0]),
+                   exchange_kernel_launches=ops.launch_counts()["halo_dma"] - before)
+    _ledger_bench_row(row)
+    return row
 
 
 def halo_row(
@@ -379,6 +405,9 @@ def halo_row(
         "devices": len(devices),
         "shards_per_device": shards // len(devices),
         "exchange_kernel_launches": exchange_kernel_launches,
+        # the bytes one exchange must move (obs.perf.roofline), so the p50
+        # has its own achieved-vs-peak fraction
+        **_cost_fields("halo_cost_fields", cfg),
     }
 
 
@@ -420,12 +449,24 @@ def run_suite(
         done = state.record(key) if state is not None else None
         if done is not None and done.get("record") is not None:
             row = done["record"]
+            # re-emitted from the journal, NOT re-measured: the ledger
+            # must tell the two apart
+            obs.get().event("bench_row_replayed", key=key)
         else:
             plan.on_sweep_row(row_index)
             row_index += 1
-            row = measure()
+            with obs.get().span("bench_row_measure", key=key):
+                row = measure()
             if state is not None:
-                state.mark_done(key, row)
+                # only a row measured on the card retires its journal
+                # entry; one that says it ran elsewhere stays pending
+                if row.get("platform") in (None, "gpu"):
+                    state.mark_done(key, row)
+                else:
+                    obs.get().event("bench_row_pending", key=key,
+                                    platform=row.get("platform"), want_platform="gpu")
+                    print(f"suite: row {key} measured on {row.get('platform')!r}, "
+                          "not 'gpu' — left pending", file=sys.stderr)
         results.append(row)
         print(json.dumps(row), file=out, flush=True)
 

@@ -23,7 +23,10 @@ checkpoint generations in DIR, auto-resume, recovery from backend loss,
 and ``--steps`` the target global step, so relaunching a killed command
 finishes its run. SIGTERM exits with code 3 after Python's cleanup. Runs on
 the GPU unless ``--device cpu`` is given. Human-readable errors go to
-stderr with exit code 2.
+stderr with exit code 2. ``--ledger PATH`` (or ``$HEAT3D_LEDGER``) appends
+the run ledger, ``--profile DIR`` captures a ``torch.profiler`` trace of
+warmup and the timed loop, and ``python -m heat3d_tpu_torch obs ...``
+reads them back (``obs.cli``).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from heat3d_tpu_torch import obs
 from heat3d_tpu_torch.core.config import (
     BoundaryCondition,
     GridConfig,
@@ -47,7 +51,7 @@ from heat3d_tpu_torch.core.config import (
     StencilConfig,
 )
 from heat3d_tpu_torch.eqn.cli import parse_eq_params
-from heat3d_tpu_torch.utils.timing import force_sync
+from heat3d_tpu_torch.utils.timing import force_sync, maybe_profile
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -201,6 +205,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device of every shard (default: shard i on "
                    "cuda:i; the current CUDA device for one shard)")
+    p.add_argument("--profile", "--profile-dir", dest="profile_dir",
+                   default=None, metavar="DIR",
+                   help="capture a torch.profiler trace (Chrome-trace JSON, "
+                   "Perfetto) of the timed region into DIR: CPU activity, "
+                   "and the card's kernels and copies on a GPU run; the "
+                   "artifact path and the capture overhead are recorded "
+                   "into the run ledger as a profile_capture event. "
+                   "--profile-dir is the legacy spelling")
+    p.add_argument(
+        "--ledger", default=None, metavar="PATH",
+        help="append the run ledger (JSONL span/event stream) here; "
+        "defaults to $HEAT3D_LEDGER; inspect with `python -m "
+        "heat3d_tpu_torch obs summary PATH`",
+    )
     return p
 
 
@@ -260,16 +278,32 @@ def config_from_args(args) -> SolverConfig:
 
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    # `obs ...`: the ledger-inspection and perf surface (summary, tail,
+    # check, trace, roofline, timeline, regress, merge), dispatched before
+    # the solver parser ever sees the argv
+    if argv and argv[0] == "obs":
+        from heat3d_tpu_torch.obs.cli import main as obs_main
+
+        return obs_main(argv[1:])
     # `eqn list|show`: the equation registry's inspection surface
     if argv and argv[0] == "eqn":
         from heat3d_tpu_torch.eqn.cli import main as eqn_main
 
         return eqn_main(argv[1:])
     try:
-        return _main(argv)
+        rc = _main(argv)
     except (ValueError, RuntimeError) as e:
         print(f"heat3d_tpu_torch: error: {e}", file=sys.stderr)
+        obs.deactivate(rc=2, error=f"{type(e).__name__}: {str(e)[:200]}")
         return 2
+    except BaseException as e:
+        # the ledger must record HOW the run ended even on crashes and
+        # SIGTERM (SystemExit): close-with-error, then re-raise
+        obs.deactivate(rc=1, error=f"{type(e).__name__}: {str(e)[:200]}")
+        raise
+    obs.export_at_exit()
+    obs.deactivate(rc=rc)
+    return rc
 
 
 def parse_dump_slice(spec, grid_shape):
@@ -300,9 +334,11 @@ def parse_dump_slice(spec, grid_shape):
 
 def _main(argv: Optional[List[str]]) -> int:
     from heat3d_tpu_torch.models.heat3d import HeatSolver3D
-    from heat3d_tpu_torch.ops import launch_counts
 
     args = build_parser().parse_args(argv)
+    # before config validation, so a run dying on a bad config still
+    # leaves a ledger_open and an rc=2 close
+    ledger = obs.activate(args.ledger, meta={"entry": "solve"})
     cfg = config_from_args(args)
     if args.golden_check and cfg.integrator != "explicit-euler":
         # the JAX CLI's exit, before the run here
@@ -317,6 +353,25 @@ def _main(argv: Optional[List[str]]) -> int:
         from heat3d_tpu_torch.resilience.elastic import resolve_heal_mode
 
         args.heal_mode = resolve_heal_mode(args.heal_mode)
+    ledger.event(
+        "run_start",
+        grid=list(cfg.grid.shape),
+        stencil=cfg.stencil.kind,
+        equation=cfg.equation,
+        integrator=cfg.integrator,
+        mesh=list(cfg.mesh.shape),
+        dtype=cfg.precision.storage,
+        backend=cfg.backend,
+        halo=cfg.halo,
+        halo_order=cfg.halo_order,
+        halo_plan=cfg.halo_plan,
+        fused_rdma=cfg.fused_rdma,
+        overlap=cfg.overlap,
+        time_blocking=cfg.time_blocking,
+        steps=cfg.run.num_steps,
+        supervise=bool(args.supervise),
+        heal_mode=args.heal_mode,
+    )
     dump_slice = (None if args.dump_slice is None
                   else parse_dump_slice(args.dump_slice, cfg.grid.shape))
     if args.dump_vtk:
@@ -329,6 +384,15 @@ def _main(argv: Optional[List[str]]) -> int:
     solver = HeatSolver3D(cfg, device=args.device)
     # the solver's config: a non-Euler integrator pins its auto knobs
     cfg = solver.cfg
+    # one step_cost ledger event (the analytic bytes and operations of the
+    # step program) so `obs summary` can print the run's achieved-vs-peak
+    # line; telemetry fails soft, never the run
+    try:
+        from heat3d_tpu_torch.obs.perf.roofline import record_step_cost
+
+        record_step_cost(solver)
+    except Exception as e:  # noqa: BLE001 - telemetry fails soft
+        print(f"warning: step_cost telemetry unavailable: {e}", file=sys.stderr)
     if args.supervise:
         return _main_supervised(args, cfg, solver, dump_slice)
 
@@ -338,11 +402,45 @@ def _main(argv: Optional[List[str]]) -> int:
         print(f"resumed from {args.checkpoint} at step {start_step}", file=sys.stderr)
     else:
         u = solver.init_state(args.init)
+    # the bracket covers warmup + the timed loop (checkpoint and report IO
+    # stay out of the trace); a failed run still closes and flushes it
+    with maybe_profile(args.profile_dir, cuda=solver.device.type == "cuda"):
+        u, elapsed, done, residual, launches = _timed_run(args, cfg, solver, u, start_step)
+    if args.checkpoint:
+        solver.save_checkpoint(args.checkpoint, u, start_step + done)
+    return _finish(args, cfg, solver, u, elapsed, start_step + done, start_step,
+                   residual, dump_slice, launches)
+
+
+def _timed_run(args, cfg, solver, u, start_step):
+    """Warmup + the timed stepping loop: ``(u, elapsed, steps done,
+    residual, kernel launches of the loop)``."""
+    from heat3d_tpu_torch.ops import launch_counts
+
     # warm up (kernel build and first launch) outside the timed window
-    solver.step_with_residual(solver.zeros_state())
-    force_sync(solver)
+    with obs.get().span("warmup"), obs.annotate("warmup"):
+        solver.step_with_residual(solver.zeros_state())
+        force_sync(solver)
 
     before = launch_counts()
+    # One span for the whole timed region ("run_loop", with a `steps`
+    # field): the loop syncs the device only at the END, so per-chunk
+    # sub-spans would record launch time, not execution. The heat3d.run_loop
+    # range marks the same window in a profile (obs/perf/timeline.py).
+    with obs.get().span("run_loop", step_start=start_step) as run_span, \
+            obs.annotate("run_loop"):
+        u, elapsed, done, residual = _loop(args, cfg, solver, u, start_step)
+        run_span.add(steps=done, elapsed_s=elapsed)
+    after = launch_counts()
+    if done:
+        obs.REGISTRY.histogram(
+            "step_latency_seconds",
+            "per-step wall latency (chunk dur / steps)",
+        ).observe(elapsed / done)
+    return u, elapsed, done, residual, {k: after[k] - before[k] for k in after}
+
+
+def _loop(args, cfg, solver, u, start_step):
     residual = None
     t0 = time.perf_counter()
     if cfg.run.tolerance is not None:
@@ -373,18 +471,15 @@ def _main(argv: Optional[List[str]]) -> int:
                 if args.residual_every:
                     print(f"step {start_step + nxt} residual {residual:.6e}",
                           file=sys.stderr)
+                obs.get().event("residual", step=start_step + nxt,
+                                residual_l2=residual)
             else:
                 u = solver.run(u, n)
             done = nxt
             if every and done % every == 0 and done < total:  # final save below
                 solver.save_checkpoint(args.checkpoint, u, start_step + done)
     force_sync(solver)
-    elapsed = time.perf_counter() - t0
-    after = launch_counts()
-    if args.checkpoint:
-        solver.save_checkpoint(args.checkpoint, u, start_step + done)
-    return _finish(args, cfg, solver, u, elapsed, start_step + done, start_step,
-                   residual, dump_slice, {k: after[k] - before[k] for k in after})
+    return u, time.perf_counter() - t0, done, residual
 
 
 def _main_supervised(args, cfg, solver, dump_slice) -> int:
@@ -428,19 +523,20 @@ def _main_supervised(args, cfg, solver, dump_slice) -> int:
               "steps", file=sys.stderr)
     before = launch_counts()
     t0 = time.perf_counter()
-    result = solver.run_supervised(
-        total_steps=cfg.run.num_steps,
-        ckpt_root=args.checkpoint,
-        checkpoint_every=args.checkpoint_every,
-        watchdog_s=args.watchdog,
-        max_recoveries=args.max_recoveries,
-        init=args.init,
-        heal_mode=args.heal_mode,
-        reexpand=args.reexpand,
-        # the device type this run STARTED on: a probe child that finds no
-        # GPU must never count as a healed card
-        want_platform=solver.device.type,
-    )
+    with maybe_profile(args.profile_dir, cuda=solver.device.type == "cuda"):
+        result = solver.run_supervised(
+            total_steps=cfg.run.num_steps,
+            ckpt_root=args.checkpoint,
+            checkpoint_every=args.checkpoint_every,
+            watchdog_s=args.watchdog,
+            max_recoveries=args.max_recoveries,
+            init=args.init,
+            heal_mode=args.heal_mode,
+            reexpand=args.reexpand,
+            # the device type this run STARTED on: a probe child that finds
+            # no GPU must never count as a healed card
+            want_platform=solver.device.type,
+        )
     elapsed = time.perf_counter() - t0
     after = launch_counts()
     # heal waits are SLEEP, not work: left out of the throughput
@@ -542,6 +638,10 @@ def _finish(args, cfg, solver, u, elapsed, steps_done, start_step, residual,
                       and cfg.precision.compute == "float32")
         tol = 1e-5 if fp32_chain else 5e-2
         summary["golden_pass"] = bool(rel < tol)
+    # the ledger's run_summary mirrors the stdout JSON, followed by the
+    # final per-run metrics record
+    obs.get().event("run_summary", **summary)
+    obs.get().event("metrics_summary", metrics=obs.REGISTRY.snapshot())
     print(json.dumps(summary), flush=True)
     return 0
 

@@ -46,7 +46,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from heat3d_tpu_torch import timeint
+from heat3d_tpu_torch import obs, timeint
 from heat3d_tpu_torch.core import golden
 from heat3d_tpu_torch.core.config import DEFAULT_INTEGRATOR, SolverConfig
 from heat3d_tpu_torch.core.decomposition import rank_of_coords
@@ -335,6 +335,14 @@ class HeatSolver3D:
         return self._wrap([t.clone() for t in self._shards(u)])
 
     def _init_level(self, init: Union[str, np.ndarray]):
+        with obs.get().span(
+            "init_state",
+            init=init if isinstance(init, str) else "array",
+            grid=list(self.cfg.grid.shape),
+        ):
+            return self._init_level_shards(init)
+
+    def _init_level_shards(self, init: Union[str, np.ndarray]):
         if isinstance(init, np.ndarray):
             return self._wrap(shards_from_global(init, self.cfg, self.mesh))
         if init == "hot-cube":
@@ -396,10 +404,16 @@ class HeatSolver3D:
         supersteps, then the remainder as single steps). Consumes ``u``.
         Under ``implicit-cg`` each update is a CG solve; the last solve's
         iteration count and relative residual are read once, after the
-        loop, into ``last_cg_stats``."""
+        loop, into ``last_cg_stats`` and the ledger's ``cg_solve`` event."""
         if self.cfg.integrator == "implicit-cg":
             us, iters, relres = self._on_shards(self._multistep, u, int(num_steps))
             self.last_cg_stats = (int(iters), float(relres))
+            obs.get().event(
+                "cg_solve",
+                steps=int(num_steps),
+                cg_iters=self.last_cg_stats[0],
+                cg_relres=self.last_cg_stats[1],
+            )
             return self._wrap(us)
         return self._wrap_state(self._on_shards(self._multistep, u, int(num_steps)))
 

@@ -65,6 +65,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from heat3d_tpu_torch.core.config import BoundaryCondition
+from heat3d_tpu_torch.obs.trace import named_phase
 from heat3d_tpu_torch.parallel.halo import (
     _check_width,
     exchange_halo,
@@ -77,6 +78,10 @@ from heat3d_tpu_torch.parallel.halo import (
     push_axis_slabs,
     push_pairwise_faces,
 )
+
+# the mesh's axis names (``MeshConfig.axis_names``), in the per-axis
+# ``heat3d.halo.<axis>`` ranges
+AXIS_NAMES = ("x", "y", "z")
 
 TRANSPORTS = ("ppermute", "dma")
 HALO_PLANS = ("monolithic", "partitioned")
@@ -299,13 +304,15 @@ class ExchangePlan(_Plan):
         """The padded blocks of the fields ``us`` (rank order), ghosts
         filled: ``(n + 2w)`` per axis. The blocks are the plan's own, valid
         until its next ``apply``. On a sharded or pairwise plan this is
-        :meth:`copy_interior` then :meth:`push_faces`."""
-        if len(self.mesh) == 1 and self.halo_order == "axis":
-            exchange_halo(us[0], self.bc, bc_value, self.width, out=self.pads[0])
+        :meth:`copy_interior` then :meth:`push_faces`. One
+        ``heat3d.halo_exchange`` range (``obs.trace``) holds it all."""
+        with named_phase("halo_exchange"):
+            if len(self.mesh) == 1 and self.halo_order == "axis":
+                exchange_halo(us[0], self.bc, bc_value, self.width, out=self.pads[0])
+                return self.pads
+            self.copy_interior(us, bc_value)
+            self.push_faces(us, bc_value)
             return self.pads
-        self.copy_interior(us, bc_value)
-        self.push_faces(us, bc_value)
-        return self.pads
 
     def copy_interior(self, us: Sequence[torch.Tensor], bc_value: float) -> None:
         """The first part of an exchange: each shard enters it and copies its
@@ -336,14 +343,17 @@ class ExchangePlan(_Plan):
         if self.dma is not None:
             self.dma.epoch += 1
         for axis in range(3):
-            if self.dma is not None and mesh.shape[axis] > 1:
-                from heat3d_tpu_torch.ops.halo_dma import exchange_axis_dma
+            # per-axis range nested under heat3d.halo_exchange: a trace
+            # attributes each axis's copies or DMA launches to it
+            with named_phase(f"halo.{AXIS_NAMES[axis]}"):
+                if self.dma is not None and mesh.shape[axis] > 1:
+                    from heat3d_tpu_torch.ops.halo_dma import exchange_axis_dma
 
-                exchange_axis_dma(self.pads, mesh, axis, w, p, bc_value,
-                                  self.dma, self.sync)
-            else:
-                self._push_axes((axis,), lambda s, axis=axis: push_axis_slabs(
-                    self.pads, mesh, s, axis, w, p, bc_value, self.schedule))
+                    exchange_axis_dma(self.pads, mesh, axis, w, p, bc_value,
+                                      self.dma, self.sync)
+                else:
+                    self._push_axes((axis,), lambda s, axis=axis: push_axis_slabs(
+                        self.pads, mesh, s, axis, w, p, bc_value, self.schedule))
 
 
 class FacesPlan(_Plan):
@@ -368,18 +378,20 @@ class FacesPlan(_Plan):
         another way: they are copied in and the x transfer is skipped; the
         y/z copies carry their corners as usual."""
         mesh, w, p = self.mesh, self.width, self.periodic
-        for s in mesh.shards:
-            self.sync.enter(s)
-        if x_ghosts is not None:
-            for s, (xlo, xhi) in zip(mesh.shards, x_ghosts):
-                with mesh.on(s):
-                    mine = self.faces[s.rank]
-                    mine[0].copy_(xlo.reshape(mine[0].shape))
-                    mine[1].copy_(xhi.reshape(mine[1].shape))
-        for axis in range(0 if x_ghosts is None else 1, 3):
-            self._push_axes((axis,), lambda s, axis=axis: push_axis_faces(
-                us, self.faces, mesh, s, axis, w, p, bc_value))
-        return self.faces
+        with named_phase("halo_exchange"):
+            for s in mesh.shards:
+                self.sync.enter(s)
+            if x_ghosts is not None:
+                for s, (xlo, xhi) in zip(mesh.shards, x_ghosts):
+                    with mesh.on(s):
+                        mine = self.faces[s.rank]
+                        mine[0].copy_(xlo.reshape(mine[0].shape))
+                        mine[1].copy_(xhi.reshape(mine[1].shape))
+            for axis in range(0 if x_ghosts is None else 1, 3):
+                with named_phase(f"halo.{AXIS_NAMES[axis]}"):
+                    self._push_axes((axis,), lambda s, axis=axis: push_axis_faces(
+                        us, self.faces, mesh, s, axis, w, p, bc_value))
+            return self.faces
 
 
 class Exchanges:

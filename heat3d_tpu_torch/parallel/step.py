@@ -49,6 +49,13 @@ a float32 sum of the shards' partial sums in shard order.
 Every function takes and returns torch tensors on the shards' devices,
 and launches each shard's work on that shard's stream (``mesh.on``); the
 solver ties those streams to the caller's (``ShardMesh.fork``/``join``).
+
+Each step or superstep call is one ``heat3d.step`` range
+(``obs.trace.named_phase``) holding one range per phase: ``halo_exchange``
+(the plans' ``apply``, per axis ``halo.<axis>`` inside), ``stencil`` (the
+kernel launches of every shard, with the faces-direct shell patches),
+``fused_dma`` (the fused launch) and ``residual``; one range per phase per
+call, never one per shard launch (:data:`PHASES`, :func:`phase_programs`).
 """
 
 from __future__ import annotations
@@ -63,9 +70,11 @@ import torch
 
 from heat3d_tpu_torch import eqn
 from heat3d_tpu_torch.core.config import BoundaryCondition, SolverConfig
+from heat3d_tpu_torch.obs.trace import named_phase, scoped
 from heat3d_tpu_torch.ops.stencil_direct import (
     apply_taps_direct,
     apply_taps_direct2,
+    mehrstellen_route as _q_ring,
 )
 from heat3d_tpu_torch.ops.stencil_eager import (
     apply_taps_padded,
@@ -83,6 +92,22 @@ Fields = List[torch.Tensor]
 StepFn = Callable[..., Fields]
 # (up, taps, out=None) -> the interior update of a ghost-padded block
 LocalCompute = Callable[..., torch.Tensor]
+
+# The named_phase brackets (obs/trace.py), the profiler trace's per-phase
+# table (obs/perf/timeline.py), the ledger spans and the per-phase programs
+# (phase_programs) share these names: an analytic cost record joins a
+# measured phase on ONE key (obs/perf/roofline.py consumes them).
+PHASE_STEP = "step"
+PHASE_STENCIL = "stencil"
+PHASE_HALO = "halo_exchange"
+PHASE_FUSED = "fused_dma"
+PHASE_RESIDUAL = "residual"
+
+# The canonical phase vocabulary, in roofline-table order: the
+# profile->roofline join iterates it and keys per-phase call counts on the
+# PHASE_* constants (obs/perf/roofline.profile_join_records / _phase_calls);
+# obs/perf/timeline.normalize_phase folds trace ranges onto the same names.
+PHASES = (PHASE_STEP, PHASE_STENCIL, PHASE_HALO, PHASE_FUSED, PHASE_RESIDUAL)
 
 _logged_paths: set = set()
 
@@ -380,14 +405,16 @@ def _local_step_fused_dma_3d(us, outs, taps, cfg: SolverConfig, mesh, ex: Exchan
     recomputed from the faces and patched, as on faces-direct."""
     dtype = _storage_dtype(cfg)
     periodic, bc_value = _periodic(cfg), cfg.stencil.bc_value
-    new, ghosts = fused_dma.apply_step_fused_dma(
-        us, taps, mesh, ex.fused(1, dtype), periodic, bc_value, outs, return_ghosts=True,
-        compute_dtype=_compute_dtype(cfg))
+    with named_phase(PHASE_FUSED):
+        new, ghosts = fused_dma.apply_step_fused_dma(
+            us, taps, mesh, ex.fused(1, dtype), periodic, bc_value, outs,
+            return_ghosts=True, compute_dtype=_compute_dtype(cfg))
     faces = ex.faces(1, dtype).apply(us, bc_value, x_ghosts=ghosts)
-    return _per_shard(
-        mesh, lambda s, out, u, f: _pin_padding(
-            _patch_boundary_shells(out, u, f, taps, cfg, axes=(1, 2)), cfg, s),
-        new, us, faces)
+    with named_phase(PHASE_STENCIL):
+        return _per_shard(
+            mesh, lambda s, out, u, f: _pin_padding(
+                _patch_boundary_shells(out, u, f, taps, cfg, axes=(1, 2)), cfg, s),
+            new, us, faces)
 
 
 # ---- routes ----------------------------------------------------------------
@@ -523,6 +550,25 @@ def superstep_route(cfg: SolverConfig) -> str:
     return "stepk"
 
 
+_DIRECT_ROUTES = ("direct", "direct2", "faces-direct", "faces-direct2")
+
+
+def mehrstellen_route(cfg: SolverConfig) -> bool:
+    """Whether the Mehrstellen route runs for ``cfg`` under the current
+    environment (port of the JAX ``_mehrstellen_route``): the knob on, the
+    solver's taps decomposing, and a compute that implements the route,
+    the plain update (``backend='jnp'``) or the direct kernels' q-ring
+    instance (a direct route at tb 1 or 2). The exchange-path and fused
+    kernels keep the tap chain."""
+    if not _q_ring(eqn.solver_taps(cfg)):
+        return False
+    if cfg.backend == "jnp":
+        return True
+    tb = cfg.time_blocking
+    route = superstep_route(cfg) if tb > 1 else step_route(cfg)
+    return tb in (1, 2) and route in _DIRECT_ROUTES
+
+
 def superstep_cell_updates(cfg: SolverConfig) -> tuple:
     """(raw, effective) cell updates ONE superstep executes on one shard:
     ``effective`` is the k useful sweeps over the block; ``raw`` is the
@@ -587,10 +633,12 @@ def _with_residual(cfg, mesh, step: StepFn) -> StepFn:
     res_dtype = _residual_dtype(cfg)
 
     def step_r(us: Fields, outs: Optional[Fields] = None):
-        new = step(us, outs)
-        parts = _per_shard(mesh, lambda s, a, b: residual_sumsq(a, b, res_dtype),
-                           new, us)
-        return new, _sum_partials(mesh, parts)
+        with named_phase(PHASE_STEP):
+            new = step(us, outs)
+            with named_phase(PHASE_RESIDUAL):
+                parts = _per_shard(mesh, lambda s, a, b: residual_sumsq(a, b, res_dtype),
+                                   new, us)
+                return new, _sum_partials(mesh, parts)
 
     return step_r
 
@@ -630,18 +678,20 @@ def make_step_fn(
         )
 
         def step(us: Fields, outs: Optional[Fields] = None):
-            return fused_rdma.apply_step_fused_rdma(
-                us, taps, mesh, ex.fused(1, dtype, bounds), periodic, bc_value, outs,
-                compute_dtype=cd)
+            with named_phase(PHASE_FUSED):
+                return fused_rdma.apply_step_fused_rdma(
+                    us, taps, mesh, ex.fused(1, dtype, bounds), periodic, bc_value, outs,
+                    compute_dtype=cd)
 
     elif route == "direct":
         _log_step_path_once("step path: single-shard direct kernel (no padded copy)")
 
         def step(us: Fields, outs: Optional[Fields] = None):
-            return _per_shard(
-                mesh, lambda s, u, out: apply_taps_direct(u, taps, periodic, bc_value, out=out,
-                                                          compute_dtype=cd),
-                us, _outs(mesh, outs))
+            with named_phase(PHASE_STENCIL):
+                return _per_shard(
+                    mesh, lambda s, u, out: apply_taps_direct(u, taps, periodic, bc_value,
+                                                              out=out, compute_dtype=cd),
+                    us, _outs(mesh, outs))
 
     elif route == "faces-direct":
         _log_step_path_once(
@@ -651,18 +701,22 @@ def make_step_fn(
 
         def step(us: Fields, outs: Optional[Fields] = None):
             faces = ex.faces(1, dtype).apply(us, bc_value)
-            return _per_shard(
-                mesh, lambda s, u, f, out: _local_step_direct_faces(u, f, taps, cfg, s, out),
-                us, faces, _outs(mesh, outs))
+            # the kernels and the shells they leave wrong, as the JAX step
+            # scopes _local_step_direct_faces
+            with named_phase(PHASE_STENCIL):
+                return _per_shard(
+                    mesh, lambda s, u, f, out: _local_step_direct_faces(u, f, taps, cfg, s, out),
+                    us, faces, _outs(mesh, outs))
 
     elif route == "fused-dma":
         _log_step_path_once("step path: fused DMA-overlap kernel (remote face copies "
                             "under the sweep)")
 
         def step(us: Fields, outs: Optional[Fields] = None):
-            return fused_dma.apply_step_fused_dma(
-                us, taps, mesh, ex.fused(1, dtype), periodic, bc_value, outs,
-                compute_dtype=cd)
+            with named_phase(PHASE_FUSED):
+                return fused_dma.apply_step_fused_dma(
+                    us, taps, mesh, ex.fused(1, dtype), periodic, bc_value, outs,
+                    compute_dtype=cd)
 
     elif route == "fused-dma-3d":
         _log_step_path_once("step path: fused DMA-overlap kernel + y/z shell patches "
@@ -680,10 +734,11 @@ def make_step_fn(
 
         def step(us: Fields, outs: Optional[Fields] = None):
             pads = ex.plan(1, dtype).apply(us, bc_value)
-            return _per_shard(
-                mesh, lambda s, u, up, out: _local_step_overlap(u, up, taps, cfg, compute, s,
-                                                                out),
-                us, pads, _outs(mesh, outs))
+            with named_phase(PHASE_STENCIL):
+                return _per_shard(
+                    mesh, lambda s, u, up, out: _local_step_overlap(u, up, taps, cfg, compute,
+                                                                    s, out),
+                    us, pads, _outs(mesh, outs))
 
     else:
         compute = _compute_for(cfg, compute_padded)
@@ -694,11 +749,13 @@ def make_step_fn(
 
         def step(us: Fields, outs: Optional[Fields] = None):
             pads = ex.plan(1, dtype).apply(us, bc_value)
-            return _per_shard(
-                mesh, lambda s, up, out: _local_step(up, taps, cfg, compute, s, out),
-                pads, _outs(mesh, outs))
+            with named_phase(PHASE_STENCIL):
+                return _per_shard(
+                    mesh, lambda s, up, out: _local_step(up, taps, cfg, compute, s, out),
+                    pads, _outs(mesh, outs))
 
-    return _with_residual(cfg, mesh, step) if with_residual else step
+    # the residual step opens its heat3d.step range around both phases
+    return _with_residual(cfg, mesh, step) if with_residual else scoped(PHASE_STEP, step)
 
 
 def make_superstep_fn(
@@ -735,9 +792,10 @@ def make_superstep_fn(
                             "(width-2 face copies under the sweep)")
 
         def superstep(us: Fields, outs: Optional[Fields] = None):
-            return fused_dma.apply_superstep_fused_dma(
-                us, taps, mesh, ex.fused(2, dtype), periodic, bc_value, outs,
-                compute_dtype=cd)
+            with named_phase(PHASE_FUSED):
+                return fused_dma.apply_superstep_fused_dma(
+                    us, taps, mesh, ex.fused(2, dtype), periodic, bc_value, outs,
+                    compute_dtype=cd)
 
     elif route == "fused-rdma2":
         bounds = _rdma_bounds(ex, cfg, 2, dtype)
@@ -747,18 +805,20 @@ def make_superstep_fn(
         )
 
         def superstep(us: Fields, outs: Optional[Fields] = None):
-            return fused_rdma.apply_superstep_fused_rdma(
-                us, taps, mesh, ex.fused(2, dtype, bounds), periodic, bc_value, outs,
-                compute_dtype=cd)
+            with named_phase(PHASE_FUSED):
+                return fused_rdma.apply_superstep_fused_rdma(
+                    us, taps, mesh, ex.fused(2, dtype, bounds), periodic, bc_value, outs,
+                    compute_dtype=cd)
 
     elif route == "direct2":
         _log_step_path_once("superstep path: single-shard fused direct2 kernel")
 
         def superstep(us: Fields, outs: Optional[Fields] = None):
-            return _per_shard(
-                mesh, lambda s, u, out: apply_taps_direct2(u, taps, periodic, bc_value,
-                                                           out=out, compute_dtype=cd),
-                us, _outs(mesh, outs))
+            with named_phase(PHASE_STENCIL):
+                return _per_shard(
+                    mesh, lambda s, u, out: apply_taps_direct2(u, taps, periodic, bc_value,
+                                                               out=out, compute_dtype=cd),
+                    us, _outs(mesh, outs))
 
     elif route == "faces-direct2":
         _log_step_path_once(
@@ -768,10 +828,11 @@ def make_superstep_fn(
 
         def superstep(us: Fields, outs: Optional[Fields] = None):
             faces = ex.faces(2, dtype).apply(us, bc_value)
-            return _per_shard(
-                mesh,
-                lambda s, u, f, out: _local_superstep_direct_faces(u, f, taps, cfg, s, out),
-                us, faces, _outs(mesh, outs))
+            with named_phase(PHASE_STENCIL):
+                return _per_shard(
+                    mesh,
+                    lambda s, u, f, out: _local_superstep_direct_faces(u, f, taps, cfg, s, out),
+                    us, faces, _outs(mesh, outs))
 
     elif route == "streamk":
         _log_step_path_once(
@@ -781,12 +842,13 @@ def make_superstep_fn(
 
         def superstep(us: Fields, outs: Optional[Fields] = None):
             pads = ex.plan(k, dtype).apply(us, bc_value)
-            return _per_shard(
-                mesh,
-                lambda s, upk, out: apply_taps_streamk(
-                    upk, taps, k, periodic, bc_value, out=out, edges=s.edges,
-                    compute_dtype=cd),
-                pads, _outs(mesh, outs))
+            with named_phase(PHASE_STENCIL):
+                return _per_shard(
+                    mesh,
+                    lambda s, upk, out: apply_taps_streamk(
+                        upk, taps, k, periodic, bc_value, out=out, edges=s.edges,
+                        compute_dtype=cd),
+                    pads, _outs(mesh, outs))
 
     else:
         compute = _compute_for(cfg, compute_padded)
@@ -797,11 +859,12 @@ def make_superstep_fn(
 
         def superstep(us: Fields, outs: Optional[Fields] = None):
             pads = ex.plan(k, dtype).apply(us, bc_value)
-            return _per_shard(
-                mesh, lambda s, upk, out: _local_stepk(upk, taps, cfg, compute, s, out),
-                pads, _outs(mesh, outs))
+            with named_phase(PHASE_STENCIL):
+                return _per_shard(
+                    mesh, lambda s, upk, out: _local_stepk(upk, taps, cfg, compute, s, out),
+                    pads, _outs(mesh, outs))
 
-    return superstep
+    return scoped(PHASE_STEP, superstep)
 
 
 class PingPong:
@@ -924,3 +987,132 @@ def make_converge_fn(
         return us, i, float(np.sqrt(np.float32(r2)))
 
     return run
+
+
+# ---- the per-phase programs -------------------------------------------------
+
+
+def stencil_phase_kind(cfg: SolverConfig) -> Tuple[str, int]:
+    """What the ``stencil`` phase program runs for ``cfg``: ``("direct",
+    k)`` — the direct kernel of k = 1 or 2 updates on every unpadded shard
+    (the direct and faces-direct routes, and the fused routes, whose
+    sweep is the direct kernel's) — or ``("padded", k)`` — the backend's
+    compute of the step's exchange width over each shard's padded block
+    (the streamk kernel at k in ``STREAMK_DEPTHS``, else one update of the
+    stream kernel or the plain arm)."""
+    tb = max(1, cfg.time_blocking)
+    route = superstep_route(cfg) if tb > 1 else step_route(cfg)
+    if route in ("direct", "faces-direct", "fused-dma", "fused-rdma", "fused-dma-3d"):
+        return "direct", 1
+    if route in ("direct2", "faces-direct2", "fused-dma2", "fused-rdma2"):
+        return "direct", 2
+    if route == "streamk":
+        return "padded", tb
+    return "padded", 1
+
+
+def _fused_route(cfg: SolverConfig) -> bool:
+    tb = max(1, cfg.time_blocking)
+    route = superstep_route(cfg) if tb > 1 else step_route(cfg)
+    return route.startswith("fused")
+
+
+def phase_names(cfg: SolverConfig) -> Tuple[str, ...]:
+    """The phases :func:`phase_programs` builds for ``cfg``: every phase
+    but ``fused_dma``, which only a fused route has."""
+    return tuple(p for p in PHASES if p != PHASE_FUSED or _fused_route(cfg))
+
+
+def phase_programs(cfg: SolverConfig, solver) -> dict:
+    """Per phase, a callable ``fn(us)`` over the shards ``us`` (rank order,
+    storage shape) of ``solver``'s mesh that launches that phase alone,
+    with the solver's kernels, plans and streams (the counterpart of the
+    JAX package's compile targets per phase):
+
+    - ``step``: the program this config's hot loop runs — the step at
+      ``time_blocking == 1``, the k-update SUPERSTEP at k > 1. Costs and
+      timings are per CALL (k updates at k > 1;
+      ``obs.perf.roofline.step_cost_fields`` divides by k).
+    - ``halo_exchange``: the width-1 padded-block exchange of the solver's
+      plans (transport ``cfg.halo``), whichever the route.
+    - ``stencil``: the route's kernel alone, no exchange
+      (:func:`stencil_phase_kind`): the direct kernel on each unpadded
+      shard, or the backend's compute over each shard's padded block as
+      one exchange left it.
+    - ``residual``: the float32 sum of squares over the shards and its
+      cross-shard sum.
+    - ``fused_dma``: only on a fused route, where exchange and stencil are
+      ONE launch: the ``step`` program itself.
+
+    The caller ties the shard streams to its own (``mesh.fork``/``join``)
+    around each call; each program writes into buffers of its own, made
+    at its first call. ``obs.perf.roofline.phase_cost`` gives the
+    analytic cost of each."""
+    mesh, ex = solver.mesh, solver._ex
+    taps = solver.taps
+    dtype, cd = _storage_dtype(cfg), _compute_dtype(cfg)
+    periodic, bc_value = _periodic(cfg), cfg.stencil.bc_value
+    tb = max(1, cfg.time_blocking)
+    step = (make_superstep_fn(cfg, mesh, taps, solver._compute, ex) if tb > 1
+            else make_step_fn(cfg, mesh, taps, False, solver._compute, ex))
+    bufs = {}
+
+    def outs_for(name, us):
+        have = bufs.get(name)
+        if have is None or [t.shape for t in have] != [u.shape for u in us]:
+            have = bufs[name] = [torch.empty_like(u) for u in us]
+        return have
+
+    def step_program(us):
+        return step(us, outs_for("step", us))
+
+    def halo_program(us):
+        return ex.plan(1, dtype).apply(us, bc_value)
+
+    kind, kk = stencil_phase_kind(cfg)
+    if kind == "direct":
+        direct = apply_taps_direct if kk == 1 else apply_taps_direct2
+
+        def stencil_program(us):
+            with named_phase(PHASE_STENCIL):
+                return _per_shard(
+                    mesh, lambda s, u, out: direct(u, taps, periodic, bc_value, out=out,
+                                                   compute_dtype=cd),
+                    us, outs_for("stencil", us))
+    else:
+        compute = _compute_for(cfg, solver._compute)
+
+        def stencil_program(us):
+            pads = bufs.get("pads")
+            if pads is None:
+                # one exchange when the program is first called: the phase
+                # times the compute over blocks that hold their ghosts
+                pads = bufs["pads"] = ex.plan(kk, dtype).apply(us, bc_value)
+            outs = outs_for("stencil", us)
+            with named_phase(PHASE_STENCIL):
+                if kk > 1:
+                    return _per_shard(
+                        mesh, lambda s, upk, out: apply_taps_streamk(
+                            upk, taps, kk, periodic, bc_value, out=out, edges=s.edges,
+                            compute_dtype=cd),
+                        pads, outs)
+                return _per_shard(
+                    mesh, lambda s, up, out: _local_step(up, taps, cfg, compute, s, out),
+                    pads, outs)
+
+    res_dtype = _residual_dtype(cfg)
+
+    def residual_program(us):
+        with named_phase(PHASE_RESIDUAL):
+            parts = _per_shard(mesh, lambda s, a: residual_sumsq(a, a, res_dtype), us)
+            return _sum_partials(mesh, parts)
+
+    programs = {
+        PHASE_STEP: step_program,
+        PHASE_STENCIL: stencil_program,
+        PHASE_HALO: halo_program,
+        PHASE_RESIDUAL: residual_program,
+    }
+    if _fused_route(cfg):
+        programs[PHASE_FUSED] = step_program
+    return {p: programs[p] for p in phase_names(cfg)}

@@ -41,6 +41,7 @@ import os
 import time
 from typing import Callable, Optional
 
+from heat3d_tpu_torch import obs
 from heat3d_tpu_torch.resilience.retry import RetryPolicy
 
 log = logging.getLogger("heat3d.elastic")
@@ -145,6 +146,7 @@ def refactor_and_restitch(
     ckpt_root: str,
     *,
     old_mesh,
+    step: int,
     survivors: int,
     direction: str = "degrade",
 ):
@@ -153,13 +155,37 @@ def refactor_and_restitch(
     restitch_s)`` with the supervisor's ``load_latest_generation``
     semantics (``loaded`` None = nothing loadable; the caller applies the
     same refuse-to-restart rules as a normal resume). The caller drops the
-    old solver first: its plans and buffers are bound to the old mesh."""
+    old solver first: its plans and buffers are bound to the old mesh.
+    ONE ``elastic_refactor`` ledger event records old/new mesh, survivor
+    count and re-stitch seconds — the outage-attribution row ``obs
+    summary`` reads."""
     from heat3d_tpu_torch.resilience.supervisor import load_latest_generation
 
     t0 = time.monotonic()
     solver = make_solver_for(new_cfg)
     loaded, quarantined = load_latest_generation(solver, ckpt_root)
     restitch_s = time.monotonic() - t0
+    obs.get().event(
+        "elastic_refactor",
+        direction=direction,
+        old_mesh=list(old_mesh),
+        new_mesh=list(new_cfg.mesh.shape),
+        old_devices=int(
+            old_mesh[0] * old_mesh[1] * old_mesh[2]
+        ),
+        survivors=int(survivors),
+        lost_devices=int(
+            old_mesh[0] * old_mesh[1] * old_mesh[2]
+            - new_cfg.mesh.num_devices
+        ),
+        restitch_s=round(restitch_s, 6),
+        step=int(step),
+        resumed_from=None if loaded is None else int(loaded[1]),
+        quarantined=quarantined,
+    )
+    obs.REGISTRY.counter(
+        "elastic_refactors_total", "survivor-mesh re-factorizations"
+    ).inc(direction=direction)
     log.warning(
         "elastic refactor (%s): mesh %s -> %s (%d survivor(s)), "
         "re-stitch %.3fs",

@@ -1,9 +1,9 @@
 """Deterministic fault injection — make every failure path run on CPU.
 
-A copy of ``heat3d_tpu.resilience.faults`` (pure Python), without its
-``fault_injected`` ledger event and counter (the port has no observability
-package yet): the same spec grammar, fault kinds, hooks and one-shot state
-directory, so ``HEAT3D_FAULTS`` means the same in both packages.
+A copy of ``heat3d_tpu.resilience.faults`` (pure Python), with its
+``fault_injected`` ledger event and counter: the same spec grammar, fault
+kinds, hooks and one-shot state directory, so ``HEAT3D_FAULTS`` means the
+same in both packages.
 
 The resilience machinery (supervised runs, checkpoint quarantine, sweep
 resume) exists because of backend outages that cannot be reproduced on
@@ -181,12 +181,29 @@ class FaultPlan:
             )
         return False
 
-    def _mark_fired(self, fault: _Fault) -> None:
+    def _mark_fired(self, fault: _Fault, **context) -> None:
         self._fired.add(fault.key)
         if self.state_dir:
             marker = os.path.join(self.state_dir, fault.key + ".fired")
             with open(marker, "w") as f:
                 f.write(str(time.time()))
+        # The injection itself must be observable: fault-injection tests
+        # assert the ledger records every fired fault (and the sigterm
+        # fault kills the process right after — the flush-per-event ledger
+        # still lands this line first). `kind_`, not `kind`: the envelope
+        # owns the `kind` key (point|span).
+        from heat3d_tpu_torch import obs
+
+        obs.get().event(
+            "fault_injected",
+            kind_=fault.kind,
+            key=fault.key,
+            params=fault.params,
+            **context,
+        )
+        obs.REGISTRY.counter(
+            "faults_injected_total", "injected faults fired"
+        ).inc(kind=fault.kind)
 
     # ---- instrumentation points -----------------------------------------
 
@@ -196,7 +213,7 @@ class FaultPlan:
             if self._has_fired(f):
                 continue
             if f.kind == "backend-loss" and global_step >= f.params["step"]:
-                self._mark_fired(f)
+                self._mark_fired(f, step=global_step)
                 self._down_probes_left = f.params.get("down", 1)
                 raise InjectedBackendLoss(
                     f"injected backend loss at step {global_step}"
@@ -206,14 +223,14 @@ class FaultPlan:
                 and "step" in f.params
                 and global_step >= f.params["step"]
             ):
-                self._mark_fired(f)
+                self._mark_fired(f, step=global_step)
                 self._arm_partial(f)
                 raise InjectedBackendLoss(
                     f"injected partial device loss at step {global_step} "
                     f"({f.params['keep']} device(s) survive)"
                 )
             if f.kind == "hang" and global_step >= f.params["step"]:
-                self._mark_fired(f)
+                self._mark_fired(f, step=global_step)
                 # sleep PAST the watchdog budget: the supervisor must
                 # classify the overrun itself, like a real wedged chunk
                 time.sleep((watchdog_s or 0.0) + 0.05)
@@ -227,7 +244,7 @@ class FaultPlan:
                 and "step" in f.params
                 and global_step >= f.params["step"]
             ):
-                self._mark_fired(f)
+                self._mark_fired(f, step=global_step)
                 self._sigterm_self()
 
     def on_sweep_row(self, row_index: int):
@@ -239,7 +256,7 @@ class FaultPlan:
                 and row_index >= f.params["row"]
                 and not self._has_fired(f)
             ):
-                self._mark_fired(f)
+                self._mark_fired(f, row=row_index)
                 self._sigterm_self()
 
     def _arm_partial(self, f: _Fault) -> None:
@@ -268,7 +285,9 @@ class FaultPlan:
                 "after" in f.params and elapsed >= f.params["after"]
             )
             if hit_batch or hit_after:
-                self._mark_fired(f)
+                self._mark_fired(
+                    f, batch=batch_index, elapsed_s=round(elapsed, 3)
+                )
                 self._arm_partial(f)
                 raise InjectedBackendLoss(
                     f"injected partial device loss at serve batch "
@@ -284,7 +303,7 @@ class FaultPlan:
                 and self._saves_seen >= f.params.get("save", 1)
                 and not self._has_fired(f)
             ):
-                self._mark_fired(f)
+                self._mark_fired(f, save=self._saves_seen, gen=gen_dir)
                 corrupt_one_shard(gen_dir)
 
     def probe_override(self) -> Optional[str]:

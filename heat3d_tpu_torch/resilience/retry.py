@@ -1,7 +1,7 @@
 """The one retry/backoff implementation.
 
-A copy of ``heat3d_tpu.resilience.retry`` (pure Python), without its
-ledger events and counters (the port has no observability package yet).
+A copy of ``heat3d_tpu.resilience.retry`` (pure Python), with its ledger
+events (``retry_attempt``, ``retry_outcome``) and counters.
 
 Every wait of the port's resilience layer routes through
 :class:`RetryPolicy`: the heal probes of ``backendprobe.wait_for_backend``
@@ -147,23 +147,43 @@ class RetryPolicy:
         """
         import random as _random
 
+        from heat3d_tpu_torch import obs
+
         jrng = rng if rng is not None else _random
         start = clock()
         attempts: List[Attempt] = []
+        ledger = obs.get()
 
         def record(rec: Attempt) -> None:
-            # one observation point for every exit path: the caller's hook
+            # one observation pipeline for every exit path: the caller's
+            # on_attempt hook, the ledger's per-attempt event, the counter
             if on_attempt is not None:
                 on_attempt(rec)
+            ledger.event(
+                "retry_attempt",
+                index=rec.index,
+                ok=rec.ok,
+                error=rec.error,
+                duration_s=round(rec.duration_s, 6),
+                slept_s=round(rec.slept_s, 6),
+            )
+            obs.REGISTRY.counter(
+                "retry_attempts_total", "RetryPolicy attempts"
+            ).inc(ok=str(rec.ok).lower())
 
         def outcome(ok, value, reason):
-            return RetryOutcome(
+            out = RetryOutcome(
                 ok=ok,
                 value=value,
                 stop_reason=reason,
                 elapsed_s=clock() - start,
                 attempts=attempts,
             )
+            ledger.event("retry_outcome", **out.to_record())
+            obs.REGISTRY.counter(
+                "retry_outcomes_total", "RetryPolicy.run results"
+            ).inc(reason=reason)
+            return out
 
         i = 0
         while True:

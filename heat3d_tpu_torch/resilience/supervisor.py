@@ -1,8 +1,10 @@
 """The supervised run loop: checkpoint-gated, watchdogged, self-resuming.
 
-Port of ``heat3d_tpu.resilience.supervisor`` (without its ledger spans,
-events and metrics: the port has no observability package yet). It drives
-``utils.checkpoint`` automatically:
+Port of ``heat3d_tpu.resilience.supervisor``, with its ledger spans,
+events and metrics (``supervised_start``/``supervised_end``, a ``chunk``
+span per checkpoint window, ``heal_wait``, ``recovery``,
+``generation_save``, the degraded-mode events, ``step_latency_seconds``).
+It drives ``utils.checkpoint`` automatically:
 
 - **Checkpoint every K steps** into *generations* —
   ``<root>/gen-<step>/`` directories (``gen-%08d``), each a complete
@@ -51,6 +53,7 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
+from heat3d_tpu_torch import obs
 from heat3d_tpu_torch.resilience.faults import (
     FaultPlan,
     InjectedBackendLoss,
@@ -172,6 +175,14 @@ def save_generation(solver, u, step: int, root: str, keep: int = 2) -> str:
     load path then quarantines (no manifest) and skips."""
     gen = os.path.join(root, f"{GEN_PREFIX}{step:08d}")
     solver.save_checkpoint(gen, u, step)
+    # the generation TRANSITION is the supervisor-level fact (the save
+    # itself is the nested ckpt_save span): tag every later event with the
+    # new generation so a heal/resume session reads end to end
+    obs.get().event("generation_save", step=step, path=gen)
+    obs.get().set_context(generation=step)
+    obs.REGISTRY.counter(
+        "generation_transitions_total", "supervisor generation saves"
+    ).inc()
     gens = generation_dirs(root)
     for _, old in gens[:-keep] if keep > 0 else []:
         if os.path.realpath(old) == os.path.realpath(gen):
@@ -342,10 +353,15 @@ def run_supervised(
         )
     cur_cfg = base_cfg
     degraded = False
+    degraded_t0 = 0.0
     refactors = 0
     recoveries: List[Recovery] = []
     checkpoints = 0
     resumed_from = None
+    ledger = obs.get()
+    step_hist = obs.REGISTRY.histogram(
+        "step_latency_seconds", "per-step wall latency (chunk dur / steps)"
+    )
 
     def alive() -> bool:
         return (probe() if probe is not None
@@ -382,6 +398,16 @@ def run_supervised(
             "refusing to run backwards (raise --steps or point --checkpoint "
             "at a fresh directory)"
         )
+    ledger.set_context(generation=resumed_from)
+    ledger.event(
+        "supervised_start",
+        total_steps=total_steps,
+        start_step=start_step,
+        resumed_from=resumed_from,
+        checkpoint_every=checkpoint_every,
+        ckpt_root=ckpt_root,
+        quarantined=quarantined,
+    )
 
     residual = None
     while done < total_steps:
@@ -394,17 +420,27 @@ def run_supervised(
             nxt = total_steps
         n = nxt - done
         try:
-            plan.on_step(done, watchdog_s=watchdog_s)
-            t0 = time.monotonic()
-            if nxt == total_steps and finish_with_residual:
-                if n > 1:
-                    u = solver.run(u, n - 1)
-                u, r2 = solver.step_with_residual(u)
-                residual = float(np.sqrt(np.float64(float(r2))))
-            else:
-                u = solver.run(u, n)
-            force_sync(solver)
-            chunk_s = time.monotonic() - t0
+            # the chunk span covers fault hooks + the steps + the sync, so
+            # an injected loss lands INSIDE it (status=error) and a healed
+            # session's timeline shows exactly which step window died;
+            # per-step latency (dur/n) feeds the same histogram the obs
+            # CLI reconstructs post-hoc from these spans
+            with ledger.span(
+                "chunk", step_start=done, step_end=nxt, steps=n
+            ) as chunk_span:
+                plan.on_step(done, watchdog_s=watchdog_s)
+                t0 = time.monotonic()
+                if nxt == total_steps and finish_with_residual:
+                    if n > 1:
+                        u = solver.run(u, n - 1)
+                    u, r2 = solver.step_with_residual(u)
+                    residual = float(np.sqrt(np.float64(float(r2))))
+                else:
+                    u = solver.run(u, n)
+                force_sync(solver)
+                chunk_s = time.monotonic() - t0
+                chunk_span.add(steps_s=chunk_s)
+            step_hist.observe(chunk_s / n)
             if watchdog_s is not None and chunk_s > watchdog_s:
                 # the chunk RETURNED but blew its budget: a wedging backend
                 # slow-walks before it stops answering. Probe before
@@ -464,12 +500,20 @@ def run_supervised(
             #   auto    — wait-first: the full platform heal wait runs,
             #             and the DEADLINE (or a backend that healed
             #             smaller) is what triggers the elastic fallback.
-            if mode == "elastic":
-                outcome = policy.run(
-                    lambda: elastic.probe_survivors(plan, device_probe)
+            with ledger.span(
+                "heal_wait", step=failed_step, failure=kind, mode=mode
+            ) as heal_span:
+                if mode == "elastic":
+                    outcome = policy.run(
+                        lambda: elastic.probe_survivors(plan, device_probe)
+                    )
+                else:
+                    outcome = _wait_for_heal(policy, plan, want_platform, probe)
+                heal_span.add(
+                    ok=outcome.ok,
+                    attempts=len(outcome.attempts),
+                    stop_reason=outcome.stop_reason,
                 )
-            else:
-                outcome = _wait_for_heal(policy, plan, want_platform, probe)
             survivors = None
             if mode == "elastic":
                 if not outcome.ok:
@@ -524,13 +568,23 @@ def run_supervised(
                 solver, loaded, quarantined, restitch_s = (
                     elastic.refactor_and_restitch(
                         new_cfg, make_solver_for, ckpt_root,
-                        old_mesh=old_mesh, survivors=survivors,
+                        old_mesh=old_mesh, step=failed_step, survivors=survivors,
                     )
                 )
                 cur_cfg = new_cfg
                 refactors += 1
-                if new_cfg.mesh.num_devices < base_cfg.mesh.num_devices:
+                if (
+                    not degraded
+                    and new_cfg.mesh.num_devices < base_cfg.mesh.num_devices
+                ):
                     degraded = True
+                    degraded_t0 = time.monotonic()
+                    ledger.event(
+                        "degraded_mode_enter",
+                        step=failed_step,
+                        mesh=list(new_cfg.mesh.shape),
+                        survivors=int(survivors),
+                    )
             else:
                 if (
                     make_solver_for is not None
@@ -585,6 +639,30 @@ def run_supervised(
                     recovery_s=round(time.monotonic() - t_fail, 3),
                 )
             )
+            ledger.set_context(
+                generation=done if loaded is not None else None
+            )
+            rec_record = recoveries[-1].to_record()
+            rec_record["kind_"] = rec_record.pop("kind")  # envelope owns kind
+            ledger.event("recovery", **rec_record)
+            if make_solver is not None or new_cfg is not None:
+                # the rebuilt solver may be on a different mesh
+                # (cross-mesh stitch-resume), where its step program — and
+                # therefore its cost — differs from the one recorded at run
+                # start. Re-emit step_cost so post-heal throughput is judged
+                # against the program that is NOW running. Fails soft and
+                # no-ops without a ledger.
+                try:
+                    from heat3d_tpu_torch.obs.perf.roofline import record_step_cost
+
+                    record_step_cost(solver, post_heal=True, step=done)
+                except Exception as rexc:  # noqa: BLE001 - telemetry only
+                    log.warning(
+                        "post-heal step_cost re-record unavailable: %s", rexc
+                    )
+            obs.REGISTRY.counter(
+                "recoveries_total", "survived supervised failures"
+            ).inc(kind=kind)
             log.info(
                 "backend healed (%s); resumed at step %d",
                 outcome.value, done,
@@ -613,8 +691,8 @@ def run_supervised(
                     exp_solver, loaded, quarantined, _rs = (
                         elastic.refactor_and_restitch(
                             base_cfg, make_solver_for, ckpt_root,
-                            old_mesh=cur_cfg.mesh.shape, survivors=survivors,
-                            direction="expand",
+                            old_mesh=cur_cfg.mesh.shape, step=done,
+                            survivors=survivors, direction="expand",
                         )
                     )
                     if loaded is None:
@@ -626,6 +704,14 @@ def run_supervised(
                     cur_cfg = base_cfg
                     refactors += 1
                     degraded = False
+                    ledger.event(
+                        "degraded_mode_exit",
+                        step=done,
+                        mesh=list(base_cfg.mesh.shape),
+                        degraded_s=round(
+                            time.monotonic() - degraded_t0, 3
+                        ),
+                    )
                 except Exception as rexc:  # noqa: BLE001 - stay degraded
                     # a failed expand must not kill a run that is
                     # healthily running degraded — log and keep going;
@@ -635,6 +721,20 @@ def run_supervised(
                         base_cfg.mesh.shape, rexc,
                     )
 
+    ledger.event(
+        "supervised_end",
+        steps_done=done,
+        start_step=start_step,
+        resumed_from=resumed_from,
+        checkpoints_written=checkpoints,
+        recoveries=len(recoveries),
+        degraded=degraded,
+        refactors=refactors,
+        mesh=(
+            None if cur_cfg is None else list(cur_cfg.mesh.shape)
+        ),
+    )
+    ledger.set_context(generation=None)
     return SupervisedResult(
         u=u,
         steps_done=done,

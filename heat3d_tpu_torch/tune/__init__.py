@@ -1,2 +1,3 @@
-"""Autotuning: so far only the mesh factorizations of the search space,
-which the elastic re-plan of a supervised run needs (``tune.space``)."""
+"""Autotuning: so far the mesh factorizations of the search space, which
+the elastic re-plan of a supervised run needs (``tune.space``), and the
+store's calibrated peaks (``tune.cache``)."""

@@ -40,8 +40,21 @@ def _probe(code: str, timeout: Optional[float]) -> Optional[str]:
 
     SIGTERM first (so the child's cleanup runs), SIGKILL only if it ignores
     the grace period. Returns the last line the child printed, or None when
-    it failed, timed out or printed nothing."""
+    it failed, timed out or printed nothing. One ``backend_probe`` ledger
+    span and a ``backend_probes_total`` count per probe."""
+    from heat3d_tpu_torch import obs
+
     budget = probe_timeout() if timeout is None else timeout
+    with obs.get().span("backend_probe", timeout_s=budget) as sp:
+        result = _probe_inner(code, budget)
+        sp.add(ok=result is not None, result=result)
+    obs.REGISTRY.counter("backend_probes_total", "out-of-process probes").inc(
+        result="ok" if result is not None else "down"
+    )
+    return result
+
+
+def _probe_inner(code: str, budget: float) -> Optional[str]:
     try:
         proc = subprocess.Popen(
             [sys.executable, "-c", _SIGTERM_TO_EXIT + code],

@@ -35,6 +35,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from heat3d_tpu_torch import obs
 from heat3d_tpu_torch.core.decomposition import coords_of_rank
 
 MANIFEST = "manifest.json"
@@ -98,7 +99,16 @@ def _maybe_verify(path: str, fn: str, arr: np.ndarray, stats=None) -> None:
     with _timed(stats, "crc_s"):
         got = _crc32_hex(arr)
     if got != want:
+        obs.REGISTRY.counter(
+            "ckpt_verify_total", "shard checksum verifications"
+        ).inc(result="corrupt")
+        obs.get().event(
+            "ckpt_corrupt", path=path, shard=fn, want=want, got=got
+        )
         raise ShardCorruptError(path, fn, want, got)
+    obs.REGISTRY.counter(
+        "ckpt_verify_total", "shard checksum verifications"
+    ).inc(result="ok")
 
 
 def quarantine(path: str, reason: str = "") -> str:
@@ -112,6 +122,10 @@ def quarantine(path: str, reason: str = "") -> str:
         n += 1
         dest = f"{base}.quarantined.{n}"
     os.rename(base, dest)
+    obs.REGISTRY.counter(
+        "ckpt_quarantine_total", "checkpoints renamed out of the load path"
+    ).inc()
+    obs.get().event("ckpt_quarantine", path=path, dest=dest, reason=reason)
     if reason:
         try:
             with open(dest + ".reason" if os.path.isfile(dest)
@@ -190,6 +204,12 @@ def save(path: str, u, step: int, extra: Optional[dict] = None,
     gains ``shards``, ``bytes`` and the seconds of the device-to-host
     copies (``d2h_s``), the file writes (``write_s``) and the checksums
     (``crc_s``)."""
+    with obs.get().span("ckpt_save", path=path, step=int(step)) as _sp:
+        _save(path, u, step, extra, stats, _sp)
+    obs.REGISTRY.counter("ckpt_writes_total", "checkpoint saves").inc()
+
+
+def _save(path, u, step, extra, stats, _sp) -> None:
     shards, origins, shape = _field_layout(u)
     os.makedirs(path, exist_ok=True)
     # every stream of every device the shards are on: a shard's last update
@@ -238,6 +258,7 @@ def save(path: str, u, step: int, extra: Optional[dict] = None,
     with open(tmp, "w") as f:
         json.dump(manifest, f, indent=2)
     os.replace(tmp, os.path.join(path, MANIFEST))
+    _sp.add(shards=len(shards), bytes=nbytes)
     if stats is not None:
         stats["shards"] = stats.get("shards", 0) + len(shards)
         stats["bytes"] = stats.get("bytes", 0) + nbytes
@@ -356,6 +377,13 @@ def load(path: str, mesh, stats: Optional[dict] = None):
     other whose storage shape is the same. ``stats``, when given, gains
     the seconds of the file reads (``read_s``), the checksums (``crc_s``)
     and the host-to-device copies (``h2d_s``), and ``bytes``."""
+    with obs.get().span("ckpt_load", path=path) as _sp:
+        u, step, extra = _load(path, mesh, stats)
+        _sp.add(step=step)
+    return u, step, extra
+
+
+def _load(path: str, mesh, stats: Optional[dict] = None):
     from heat3d_tpu_torch.models.heat3d import ShardedField
 
     manifest = load_manifest(path)

@@ -14,6 +14,8 @@ from typing import Callable, List
 
 import torch
 
+from heat3d_tpu_torch.obs.metrics import percentile  # noqa: F401 - re-export
+
 
 def cuda_time(fn: Callable[[], object], device=None) -> float:
     """Device seconds of ``fn()`` (which launches work on the current
@@ -51,17 +53,13 @@ def sync_rtt(device=None, samples: int = 5) -> float:
         x.add_(1)
         torch.cuda.synchronize(device)
         times.append(time.perf_counter() - t0)
-    return min(times)
+    rtt = min(times)
+    from heat3d_tpu_torch import obs
 
-
-def percentile(values: List[float], q: float) -> float:
-    """Nearest-rank percentile without numpy (tiny lists); raises on an
-    empty list."""
-    if not values:
-        raise ValueError("no values")
-    s = sorted(values)
-    k = min(len(s) - 1, max(0, int(round(q / 100.0 * (len(s) - 1)))))
-    return s[k]
+    obs.REGISTRY.gauge(
+        "sync_rtt_seconds", "measured force_sync host round trip"
+    ).set(rtt, backend="cuda")
+    return rtt
 
 
 def time_fn(
@@ -90,3 +88,31 @@ def calibrate_trip_count(
         per = max(t / n, 1e-9)
         n = min(cap, max(2 * n, int(1.1 * floor_s / per) + 1))
 
+
+
+def maybe_profile(profile_dir, cuda=None):
+    """The single profiler bracket every entry point (solver CLI, bench
+    CLI, supervised runs) wraps its timed region in. Delegates to
+    ``obs.perf.profiling.profile_capture``: ``torch.profiler`` capture
+    plus a ``profile_capture`` ledger event recording the artifact path
+    and the capture overhead — and capture failures degrade to an
+    unprofiled run instead of killing it. A falsy dir is a no-op context.
+    An import failure in the perf package degrades to an unprofiled run
+    (one stderr note) — capture is telemetry and must never kill the entry
+    point wrapping it."""
+    import contextlib
+
+    if not profile_dir:
+        return contextlib.nullcontext()
+    try:
+        from heat3d_tpu_torch.obs.perf.profiling import profile_capture
+    except Exception as e:  # noqa: BLE001 - telemetry fails soft
+        import sys
+
+        print(
+            f"heat3d: profile capture unavailable ({e}); "
+            "run continues unprofiled",
+            file=sys.stderr,
+        )
+        return contextlib.nullcontext()
+    return profile_capture(profile_dir, cuda=cuda)

@@ -59,12 +59,13 @@ LOOPS = [
 CASES = ([("ppermute",) + c for c in LOOPS]
          + [("dma",) + c for c in LOOPS if c[1:3] == ("axis", "monolithic")])
 # the JAX halo row's fields (heat3d_tpu/bench/harness.py bench_halo); the
-# port has no XLA cost analysis, so no cost_bytes_per_step
+# port's cost_bytes_per_step is the analytic count of obs.perf.roofline
 JAX_HALO_FIELDS = (
     "bench", "ts", "platform", "grid", "mesh", "dtype", "halo_order", "halo_plan",
     "plan_messages_per_exchange", "plan_bytes_per_device", "iters",
     "exchanges_per_program", "p50_us", "p95_mean_us", "min_us", "sync_rtt_us",
     "sync_rtt_s", "rtt_dominated", "ici", "halo_bytes_per_device",
+    "cost_bytes_per_step",
 )
 
 
@@ -203,7 +204,11 @@ def _row(halo, order, plan, mesh=(2, 2, 2), times=(3e-5, 1e-5, 2e-5, 5e-5, 4e-5)
 def test_halo_row_passes_provenance_lint(halo, order, plan):
     cfg, row = _row(halo, order, plan)
     assert check_row(row) == []
-    assert set(JAX_HALO_FIELDS) <= set(row) and "cost_bytes_per_step" not in row
+    assert set(JAX_HALO_FIELDS) <= set(row)
+    from heat3d_tpu_torch.obs.perf.roofline import halo_exchange_bytes
+
+    assert row["cost_bytes_per_step"] == halo_exchange_bytes(
+        mesh_shape=(2, 2, 2), local=(16, 16, 16), order=order, itemsize=4)
     json.dumps(row)
     assert row["p95_mean_us"] >= row["p50_us"] >= row["min_us"]
     assert row["p50_us"] == pytest.approx(3e-5 * 1e6)

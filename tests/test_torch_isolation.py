@@ -46,7 +46,13 @@ def test_scan_sees_the_package():
                    "parallel/step.py", "timeint/leapfrog.py", "timeint/cg.py", "eqn/cli.py",
                    "utils/checkpoint.py", "utils/vtkio.py", "utils/backendprobe.py",
                    "resilience/retry.py", "resilience/faults.py", "resilience/sweepstate.py",
-                   "resilience/elastic.py", "resilience/supervisor.py", "tune/space.py"):
+                   "resilience/elastic.py", "resilience/supervisor.py", "tune/space.py",
+                   "tune/cache.py", "obs/ledger.py", "obs/metrics.py", "obs/trace.py",
+                   "obs/cli.py", "obs/tailer.py", "obs/check.py", "obs/comm/report.py",
+                   "obs/perf/profiling.py", "obs/perf/timeline.py",
+                   "obs/perf/roofline.py", "obs/perf/merge.py", "obs/perf/regress.py",
+                   "analysis/ledgerlint.py", "analysis/findings.py",
+                   "analysis/registry.py"):
         assert f"heat3d_tpu_torch/{module}" in names
     assert not _forbidden("heat3d_tpu_torch.ops") and _forbidden("heat3d_tpu.ops")
 
@@ -61,7 +67,14 @@ def test_import_leaves_jax_unloaded():
         "heat3d_tpu_torch.eqn.cli, heat3d_tpu_torch.resilience, "
         "heat3d_tpu_torch.resilience.elastic, heat3d_tpu_torch.tune.space, "
         "heat3d_tpu_torch.utils.checkpoint, heat3d_tpu_torch.utils.vtkio, "
-        "heat3d_tpu_torch.utils.backendprobe\n"
+        "heat3d_tpu_torch.utils.backendprobe, heat3d_tpu_torch.obs, "
+        "heat3d_tpu_torch.obs.cli, heat3d_tpu_torch.obs.tailer, "
+        "heat3d_tpu_torch.obs.check, heat3d_tpu_torch.obs.comm.report, "
+        "heat3d_tpu_torch.obs.perf, heat3d_tpu_torch.obs.perf.timeline, "
+        "heat3d_tpu_torch.obs.perf.roofline, heat3d_tpu_torch.obs.perf.merge, "
+        "heat3d_tpu_torch.obs.perf.regress, heat3d_tpu_torch.analysis, "
+        "heat3d_tpu_torch.analysis.ledgerlint, heat3d_tpu_torch.analysis.registry, "
+        "heat3d_tpu_torch.tune.cache\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'heat3d_tpu', 'ml_dtypes'))\n"
         "print(','.join(bad))\n"

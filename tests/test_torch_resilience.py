@@ -853,3 +853,188 @@ def test_checkpoint_from_shard_streams_equals_gather(tmp_path):
     a = s.gather(s.run(u2, 4))
     b = s.gather(s.run(u, 4))
     np.testing.assert_array_equal(a, b)
+
+
+# ---- the ledger of the supervised run (the JAX obs calls, put back) ---------------
+
+
+@pytest.fixture
+def ledger(tmp_path, monkeypatch):
+    """An active port ledger for the test; its events, read back."""
+    from heat3d_tpu_torch import obs
+
+    monkeypatch.delenv("HEAT3D_LEDGER", raising=False)
+    path = str(tmp_path / "led.jsonl")
+    obs.deactivate()
+    obs.activate(path)
+
+    def events():
+        obs.deactivate()
+        return [json.loads(line) for line in open(path) if line.strip()]
+
+    yield events
+    obs.deactivate()
+
+
+def test_supervised_recovery_rerecords_step_cost(tmp_path, ledger):
+    """A recovery that REBUILDS the solver (make_solver) re-emits the
+    step_cost ledger event tagged post_heal; the reuse path does not."""
+    from heat3d_tpu_torch import obs
+    from heat3d_tpu_torch.obs.check import check_file
+
+    res = run_supervised(tiny_solver(), 8, str(tmp_path / "ck"), checkpoint_every=4,
+                         heal_policy=FAST_HEAL, probe=lambda: "cpu",
+                         faults=FaultPlan(_parse_spec("backend-loss:step=4")),
+                         make_solver=tiny_solver)
+    assert res.steps_done == 8 and len(res.recoveries) == 1
+    evs = ledger()
+    (c,) = [e for e in evs if e.get("event") == "step_cost" and e.get("post_heal")]
+    assert c["ok"] is True and c["step"] == 4 and c["cost_flops_per_step"] > 0
+    from heat3d_tpu_torch.obs.perf.roofline import step_cost_fields
+
+    # the jnp arm's exchange path: field and padded block, each written
+    # and read once (2 * (8^3 + 10^3) * 4 bytes)
+    assert c["platform"] == "cpu" and c["cost_bytes_per_step"] == 2 * (8 ** 3 + 10 ** 3) * 4
+    assert c["cost_bytes_per_step"] == step_cost_fields(_cfg())["cost_bytes_per_step"]
+    assert check_file(str(tmp_path / "led.jsonl"), taxonomy=True) == []
+    led2 = str(tmp_path / "led2.jsonl")
+    obs.activate(led2)
+    run_supervised(tiny_solver(), 8, str(tmp_path / "ck2"), checkpoint_every=4,
+                   heal_policy=FAST_HEAL, probe=lambda: "cpu",
+                   faults=FaultPlan(_parse_spec("backend-loss:step=4")))
+    obs.deactivate()
+    evs2 = [json.loads(line) for line in open(led2) if line.strip()]
+    assert not any(e.get("event") == "step_cost" and e.get("post_heal") for e in evs2)
+
+
+def test_supervised_ledger_reconstructs_the_run(tmp_path, ledger):
+    """The supervised run's ledger holds every chunk (the failed one with
+    status error), the fault, the heal wait and its retry attempts, the
+    generation transitions, the checkpoint spans and the recovery; the
+    summary's step latency equals the run's own histogram."""
+    from heat3d_tpu_torch import obs
+    from heat3d_tpu_torch.obs.check import check_file
+    from heat3d_tpu_torch.obs.cli import step_latencies
+    from heat3d_tpu_torch.obs.metrics import percentile
+
+    obs.REGISTRY.reset()
+    res = _supervise(tiny_solver(), 12, tmp_path / "ck", 4,
+                     FaultPlan(_parse_spec("backend-loss:step=8:down=2")))
+    metrics = obs.REGISTRY.snapshot()
+    evs = ledger()
+    assert res.steps_done == 12 and len(res.recoveries) == 1
+    assert check_file(str(tmp_path / "led.jsonl"), taxonomy=True) == []
+    chunks = [e for e in evs if e["event"] == "chunk"]
+    assert [c["status"] for c in chunks].count("error") == 1 and len(chunks) == 4
+    fault = next(e for e in evs if e["event"] == "fault_injected")
+    assert fault["kind_"] == "backend-loss" and fault["step"] == 8
+    heal = next(e for e in evs if e["event"] == "heal_wait")
+    assert heal["ok"] and heal["failure"] == "backend-loss" and heal["mode"] == "wait"
+    assert len([e for e in evs if e["event"] == "retry_attempt"]) >= 3
+    assert [g["step"] for g in evs if g["event"] == "generation_save"] == [4, 8, 12]
+    recovery = next(e for e in evs if e["event"] == "recovery")
+    assert recovery["resumed_from"] == 8 and recovery["kind_"] == "backend-loss"
+    assert any(e["event"] == "generation_save" and e["step"] == 12 and e["generation"] == 8
+               for e in evs)
+    start = next(e for e in evs if e["event"] == "supervised_start")
+    end = next(e for e in evs if e["event"] == "supervised_end")
+    assert start["total_steps"] == 12 and end["steps_done"] == 12 and end["recoveries"] == 1
+    lats = step_latencies(evs)
+    own = metrics["heat3d_step_latency_seconds"]["values"][""]
+    assert len(lats) == 3
+    for q, key in ((50, "p50"), (95, "p95")):
+        assert abs(percentile(lats, q) - own[key]) <= 0.2 * own[key]
+
+
+def test_elastic_degrade_ledger(tmp_path, ledger):
+    """The ledger of the elastic degrade: one elastic_refactor (4,1,1) ->
+    (2,1,1) with its survivors and re-stitch seconds, one
+    degraded_mode_enter, supervised_end degraded on (2,1,1), and the
+    post-heal step_cost of the survivor mesh."""
+    plan = FaultPlan(_parse_spec("partial-device-loss:step=8:keep=2"))
+    res = _supervise(tiny_solver(_cfg(mesh=(4, 1, 1))), 12, tmp_path / "ck", 4, plan,
+                     heal_mode="elastic")
+    evs = ledger()
+    assert res.degraded and res.mesh_shape == (2, 1, 1)
+    (ref,) = [e for e in evs if e["event"] == "elastic_refactor"]
+    assert ref["old_mesh"] == [4, 1, 1] and ref["new_mesh"] == [2, 1, 1]
+    assert ref["survivors"] == 2 and ref["lost_devices"] == 2 and ref["restitch_s"] >= 0
+    assert ref["direction"] == "degrade" and ref["step"] == 8 and ref["resumed_from"] == 8
+    (enter,) = [e for e in evs if e["event"] == "degraded_mode_enter"]
+    assert enter["mesh"] == [2, 1, 1] and enter["survivors"] == 2
+    end = [e for e in evs if e["event"] == "supervised_end"][-1]
+    assert end["degraded"] is True and end["mesh"] == [2, 1, 1] and end["refactors"] == 1
+    from heat3d_tpu_torch.obs.perf.roofline import step_cost_fields
+
+    (cost,) = [e for e in evs if e["event"] == "step_cost" and e.get("post_heal")]
+    assert cost["ok"] and cost["cost_bytes_per_step"] == step_cost_fields(
+        res.solver.cfg)["cost_bytes_per_step"]
+    assert res.solver.cfg.mesh.shape == (2, 1, 1)
+
+
+def test_reexpand_ledger(tmp_path, ledger):
+    """Re-expand closes the degraded window: the refactors degrade then
+    expand, one degraded_mode_exit with its seconds."""
+    plan = FaultPlan(_parse_spec("partial-device-loss:step=4:keep=2:restore=1"))
+    res = _supervise(tiny_solver(_cfg(mesh=(4, 1, 1))), 12, tmp_path / "ck", 2, plan,
+                     heal_mode="elastic", reexpand=True, device_probe=lambda: 4)
+    evs = ledger()
+    assert not res.degraded and res.refactors == 2
+    refs = [e for e in evs if e["event"] == "elastic_refactor"]
+    assert [r["direction"] for r in refs] == ["degrade", "expand"]
+    assert refs[1]["old_mesh"] == [2, 1, 1] and refs[1]["new_mesh"] == [4, 1, 1]
+    (exit_,) = [e for e in evs if e["event"] == "degraded_mode_exit"]
+    assert exit_["degraded_s"] >= 0 and exit_["mesh"] == [4, 1, 1]
+
+
+def test_obs_summary_elastic_section():
+    """The port's summary section is the JAX one, line for line."""
+    from heat3d_tpu.obs.cli import elastic_lines as jax_lines
+    from heat3d_tpu_torch.obs.cli import elastic_lines
+
+    events = [
+        {"event": "elastic_refactor", "direction": "degrade", "old_mesh": [4, 1, 1],
+         "new_mesh": [2, 1, 1], "survivors": 2, "restitch_s": 0.8, "step": 8},
+        {"event": "degraded_mode_enter", "step": 8, "mesh": [2, 1, 1]},
+    ]
+    lines = elastic_lines(events)
+    assert lines == jax_lines(events) and len(lines) == 3
+    assert "[4, 1, 1] -> [2, 1, 1]" in lines[0] and "still degraded" in lines[2]
+    events.append({"event": "degraded_mode_exit", "step": 12, "mesh": [4, 1, 1],
+                   "degraded_s": 3.5})
+    lines = elastic_lines(events)
+    assert lines == jax_lines(events) and len(lines) == 3 and "EXIT" in lines[2]
+    assert elastic_lines([{"event": "run_start"}]) == []
+
+
+def test_provenance_post_heal_and_weak_scaling_rules(tmp_path):
+    """The JAX provenance lint's post-heal rules hold the port's rows: a
+    port throughput row tagged post_heal passes with the survivor mesh's
+    mesh_shape and fails without it; the weak-scaling rows' rules are the
+    same for both packages' rows."""
+    from heat3d_tpu.analysis.provenance import check_file
+    from heat3d_tpu_torch.bench import harness
+
+    cfg = _cfg(8, (2, 1, 1))
+    row = harness.throughput_row(cfg, steps=4, steps_requested=4, times=[1e-3],
+                                 devices=[torch.device("cpu")], shards=2, sync_rtt_s=1e-6,
+                                 kernel_launches={})
+    p2 = tmp_path / "thr.jsonl"
+    p2.write_text("\n".join(json.dumps(r) for r in [
+        row,
+        {**row, "post_heal": True},                           # 2: no mesh
+        {**row, "post_heal": True, "mesh_shape": [2, 1, 1]},  # 3: ok
+    ]))
+    assert [line for line, _ in check_file(str(p2))] == [2]
+    ws_good = {"bench": "weak_scaling", "ts": row["ts"], "platform": "cpu",
+               "mesh_shape": [2, 1, 1], "gcell_per_sec_per_chip": 0.5, "post_heal": False}
+    ws_heal = {**ws_good, "post_heal": True, "recovery_s": 1.25}
+    rows = [ws_good, ws_heal,
+            {k: v for k, v in ws_good.items() if k != "post_heal"},
+            {**ws_heal, "recovery_s": None},
+            {k: v for k, v in ws_heal.items() if k != "mesh_shape"},
+            {**ws_good, "gcell_per_sec_per_chip": None},
+            {"bench": "weak_scaling", "platform": "cpu"}]
+    p = tmp_path / "ws.jsonl"
+    p.write_text("\n".join(json.dumps(r) for r in rows))
+    assert {line for line, _ in check_file(str(p))} == {3, 4, 5, 6, 7}
