@@ -208,6 +208,21 @@ non-zero without one. Phases, each printing its own lines:
    stored, never a peak). The bounds of every phase come from
    ``heat3d_tpu_torch/obs/perf/roofline.py``, the package's one cost model.
 
+15. ``tune``, after ``obs``, in a temporary directory (store and ledgers;
+   every phase resolves auto knobs against a store of the run's own, never
+   the user's), every line with the card's name and power limit: ``tune
+   run`` at 1024^3 on one shard over backend pallas/jnp x tb 1-4 (the
+   winner pallas tb=2 within 3% of the main path's tb=2 row, ``tune lint``
+   and ``obs check`` clean, the default lattice's enumeration time); the
+   command line with ``--time-blocking 0`` resolved through that store
+   (``tune_cache_hit``, tb 2), under ``HEAT3D_TUNE_DISABLE=1`` and with the
+   entry's kernels digest altered (tb 1), each within 3% of its explicit
+   twin, and no device memory allocated by ``resolve_config``; ``tune
+   run`` on (8,1,1) with every shard on cuda:0 within a budget (its key's
+   ``s8`` leg); ``bench_halo`` under ``HEAT3D_COMM_PROBE=1`` on (2,2,2)
+   (ppermute monolithic and partitioned, dma): one ``comm_probe`` event
+   per link with the schedule's bytes; ``obs adjudicate`` over the rows.
+
 ``--only`` runs phases 1 and 2 and the named ones of ``PHASES`` (the
 check after a kernel change, before the whole run) and prints no kernels
 line. The kernel launch counts are zeroed just before phase 5 and read just after
@@ -1056,6 +1071,8 @@ _FULL_WIDTH = (
     ("7pt", 1, "float32", True), ("27pt", 4, "float32", False),
     ("7pt", 4, "bfloat16", False),
 )
+# the tb=2 headline's Gcell/s of this run's main path (the tune phase's reference)
+_MAIN_PATH_TB2 = []
 # (halo, time_blocking) of the full-width phase's sharded rows: fp32 7pt on
 # a (2,2,2) mesh of 512^3 shards, every shard on cuda:0
 _SHARDED_FULL_WIDTH = (("dma", 1), ("dma", 4), ("ppermute", 1), ("ppermute", 2))
@@ -1092,6 +1109,8 @@ def phase_full_width(bw: float) -> None:
         itemsize = torch.empty((), dtype=getattr(torch, storage)).element_size()
         b_ms, by = superstep_bound(route, n, tb, itemsize, flops_per_update(_taps(kind)), bw)
         _check(sum(row["kernel_launches"].values()) > 0, f"no launches: {row}")
+        if (kind, tb, storage, no_direct) == ("7pt", 2, "float32", False):
+            _MAIN_PATH_TB2.append(row["gcell_updates_per_sec"])
         _say("full_width", grid=row["grid"], stencil=kind, dtype=storage,
              time_blocking=tb, no_direct=no_direct, route=route,
              steps=row["steps"], gcell_updates_per_sec=row["gcell_updates_per_sec"],
@@ -4007,9 +4026,301 @@ def phase_obs(smi: str, bw: float) -> dict:
     return res
 
 
+# the tune phase: its one-shard search, the sharded search's knobs and
+# budget, and the comm probe's bench_halo forms at 1024^3 on (2,2,2)
+_TUNE_KNOBS = ("backend=pallas,jnp", "time_blocking=1,2,3,4")
+_TUNE_SHARDED_KNOBS = ("halo=ppermute,dma", "overlap=0,1", "time_blocking=1,2",
+                       "fused_rdma=off,on", "halo_plan=monolithic,partitioned")
+_TUNE_SHARDED_BUDGET_S = 75
+_TUNE_TOL = 0.03  # the resolved runs against their explicit twins, the winner
+_TUNE_PROBE_FORMS = (("ppermute", "monolithic"), ("ppermute", "partitioned"),
+                     ("dma", "monolithic"))
+# PERF.md section 5's fused rows, printed beside the sharded winner
+_TUNE_FUSED_REF = {"fused-dma2 (8,1,1)": 333.29, "fused-rdma2 (4,1,1)": 351.78}
+
+
+def _tune_cmd(argv) -> tuple:
+    """``tune ...`` in this process: (exit code, stdout)."""
+    from heat3d_tpu_torch.tune.cli import main as tune_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tune_main(list(argv))
+    return rc, buf.getvalue()
+
+
+def _tune_cli_run(led: str, tb: int, extra=()) -> tuple:
+    """The solver command line at 1024^3 (one shard, ``--backend pallas``,
+    20 steps) in this process with a ledger: (summary, ledger events)."""
+    from heat3d_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["--grid", "1024", "--mesh", "1", "1", "1", "--backend", "pallas",
+                       "--steps", "20", "--time-blocking", str(tb), "--ledger", led,
+                       *extra])
+    _check(rc == 0, f"tune: the command line exited {rc} (tb {tb})")
+    evs = [json.loads(line) for line in open(led) if line.strip()]
+    return json.loads(buf.getvalue().strip().splitlines()[-1]), evs
+
+
+def _tune_resolution(root: str, store: str, smi: str) -> dict:
+    """Step 2: the command line with ``--time-blocking 0`` against the
+    search's store (hit: tb 2), under ``HEAT3D_TUNE_DISABLE=1`` (tb 1) and
+    against a copy of the store whose entry's kernels digest is altered
+    (stale: tb 1), each beside its explicit twin in the turns auto,
+    explicit, explicit, auto (the means compared: one 20-step run on the
+    host clock drifts by a few percent between runs); and no device memory
+    allocated by ``resolve_config`` on a hit."""
+    import statistics
+
+    import torch
+
+    from heat3d_tpu_torch.core.config import GridConfig, SolverConfig
+    from heat3d_tpu_torch.tune.cache import cache_key, resolve_config
+
+    res = {}
+    stale_store = os.path.join(root, "stale_cache.json")
+    doc = json.load(open(store))
+    key = cache_key(SolverConfig(grid=GridConfig.cube(1024)))
+    _check(key in doc["entries"], f"tune: no entry {key} in the store: {sorted(doc['entries'])}")
+    doc["entries"][key]["provenance"]["kernels"] = "0" * 16
+    with open(stale_store, "w") as f:
+        json.dump(doc, f)
+    cases = (("hit", store, {}, 2, "tune_cache_hit"),
+             ("disabled", store, {"HEAT3D_TUNE_DISABLE": "1"}, 1, None),
+             ("stale", stale_store, {}, 1, "tune_cache_stale"))
+    for tag, path, env, want_tb, want_event in cases:
+        gcell = {"auto": [], "explicit": []}
+        with _env(HEAT3D_TUNE_CACHE=path, **env):
+            for i, side in enumerate(("auto", "explicit", "explicit", "auto")):
+                summary, evs = _tune_cli_run(os.path.join(root, f"{tag}_{i}.jsonl"),
+                                             0 if side == "auto" else want_tb)
+                gcell[side].append(summary["gcell_updates_per_sec"])
+                if side == "explicit":
+                    continue
+                start = next(e for e in evs if e["event"] == "run_start")
+                tune_evs = [e for e in evs if e["event"].startswith("tune_cache")]
+                _check(start["time_blocking"] == want_tb
+                       and summary["time_blocking"] == want_tb,
+                       f"tune {tag}: run_start tb {start['time_blocking']}, summary tb "
+                       f"{summary['time_blocking']}, want {want_tb}")
+                _check([e["event"] for e in tune_evs] == ([want_event] if want_event else []),
+                       f"tune {tag}: resolution events {tune_evs}")
+                if tag == "hit":
+                    _check(tune_evs[0]["applied"] == {"time_blocking": 2},
+                           f"tune hit: applied {tune_evs[0]['applied']}")
+                if tag == "stale":
+                    _check("kernels" in tune_evs[0]["reason"], f"tune stale: {tune_evs[0]}")
+        auto, twin = statistics.mean(gcell["auto"]), statistics.mean(gcell["explicit"])
+        _check(abs(auto / twin - 1) <= _TUNE_TOL,
+               f"tune {tag}: {gcell['auto']} Gcell/s against the explicit tb={want_tb} "
+               f"runs' {gcell['explicit']}")
+        res[tag] = {"time_blocking": want_tb, "gcell": gcell["auto"],
+                    "explicit_gcell": gcell["explicit"], "ratio": auto / twin,
+                    "events": [{k: e.get(k) for k in ("event", "applied", "reason")}
+                               for e in tune_evs]}
+        _say("tune_resolution", card=smi, case=tag, **res[tag])
+    # a hit's build check builds a solver: no field may be allocated, not
+    # even for a moment (the peak since a reset stays where it was)
+    cfg = SolverConfig(grid=GridConfig.cube(1024), backend="pallas", time_blocking=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with _env(HEAT3D_TUNE_CACHE=store):
+        got = resolve_config(cfg)
+    torch.cuda.synchronize()
+    after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    _check(got.time_blocking == 2 and after == before and peak == before,
+           f"tune: resolve_config gave tb {got.time_blocking}, memory_allocated "
+           f"{before} -> {after}, peak {peak}")
+    res["memory_allocated"] = [before, after, peak]
+    _say("tune_resolution_memory", card=smi, memory_allocated_before=before,
+         memory_allocated_after=after, max_memory_allocated=peak)
+    return res
+
+
+def _tune_probe(root: str, smi: str) -> str:
+    """Step 4: ``bench_halo`` at 1024^3 on (2,2,2) (every shard on cuda:0)
+    under ``HEAT3D_COMM_PROBE=1`` in ``_TUNE_PROBE_FORMS``: one comm_probe
+    event per link of the schedule with its predicted bytes, ``obs
+    summary``'s comm section. Returns the ledger."""
+    import torch
+
+    from heat3d_tpu_torch import obs
+    from heat3d_tpu_torch.bench.harness import bench_halo
+    from heat3d_tpu_torch.core.config import GridConfig, MeshConfig, SolverConfig
+    from heat3d_tpu_torch.obs.cli import main as obs_main
+    from heat3d_tpu_torch.obs.comm.probe import probe_links
+    from heat3d_tpu_torch.parallel.plan import make_schedule
+
+    led = os.path.join(root, "probe.jsonl")
+    for halo, plan in _TUNE_PROBE_FORMS:
+        cfg = SolverConfig(grid=GridConfig.cube(1024), mesh=MeshConfig(shape=_MESH),
+                           halo=halo, halo_plan=plan)
+        links = probe_links(make_schedule(_MESH, 1, plan, "axis"), cfg.local_shape, 4)
+        obs.activate(led, meta={"entry": "chip_smoke_tune"})
+        try:
+            with _env(HEAT3D_COMM_PROBE="1"):
+                row = bench_halo(cfg, iters=5, device="cuda:0")
+        finally:
+            obs.deactivate(rc=0)
+        evs = [json.loads(line) for line in open(led) if line.strip()]
+        probes = [e for e in evs if e["event"] == "comm_probe" and e["halo"] == halo
+                  and e["plan_mode"] == plan]
+        _check(len(probes) == len(links)
+               and [e["bytes_predicted"] for e in probes]
+               == [ln["bytes_predicted"] for ln in links]
+               and [e["scope"] for e in probes] == [ln["scope"] for ln in links],
+               f"tune probe {halo}/{plan}: {len(probes)} comm_probe events for "
+               f"{len(links)} links: {[(e['scope'], e['bytes_predicted']) for e in probes]}")
+        _say("tune_probe", card=smi, halo=halo, halo_plan=plan, p50_us=row["p50_us"],
+             links=[{k: e[k] for k in ("scope", "bytes_predicted", "t_s", "gbps", "senders",
+                                        "gbps_senders", "trips", "rtt_dominated")}
+                    for e in probes])
+        del row
+        torch.cuda.empty_cache()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = obs_main(["summary", led])
+    _check(rc == 0 and "comm links (probe)" in buf.getvalue(),
+           f"tune probe: obs summary rc {rc} without the comm section")
+    return led
+
+
+def phase_tune(smi: str, bw: float) -> dict:
+    """Autotuning on the card, in a temporary directory (store and
+    ledgers), every line with the card's name and power limit: (1) ``tune
+    run`` at 1024^3 on one shard over ``_TUNE_KNOBS`` — each trial, the
+    winner (pallas tb=2, within ``_TUNE_TOL`` of this run's main-path tb=2
+    figure, or of this phase's own tb=2 bench row under ``--only``), its
+    speed-up over the static default, the enumeration time (and the
+    default lattice's at 1024^3), ``tune lint`` clean, ``obs check`` clean
+    with one ``tune_search_start``, one ``tune_trial`` per candidate and one
+    ``tune_winner``; (2) resolution through the command line
+    (``_tune_resolution``); (3) ``tune run`` at 1024^3 on (8,1,1) with every
+    shard on cuda:0 over ``_TUNE_SHARDED_KNOBS`` within a budget — pruned
+    candidates with their reasons, trials, the winner and its key (the
+    ``s8`` leg), beside PERF.md's fused rows: the sharded path's overhead
+    on one card, not a multi-GPU figure; (4) the comm probe
+    (``_tune_probe``); (5) ``obs adjudicate`` over the bench rows of (1) and
+    (4): no stage ``fail``, the slab-width and halo-plan stages ``pass``."""
+    import tempfile
+
+    import torch
+
+    from heat3d_tpu_torch.bench.harness import bench_throughput
+    from heat3d_tpu_torch.core.config import GridConfig, SolverConfig
+    from heat3d_tpu_torch.models.heat3d import HeatSolver3D
+    from heat3d_tpu_torch.obs.check import check_file
+    from heat3d_tpu_torch.obs.comm.adjudicate import main as adjudicate_main
+    from heat3d_tpu_torch.tune.space import DEFAULT_KNOBS, enumerate_candidates
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="heat3d_tune_")
+    store = os.path.join(root, "tune_cache.json")
+    res = {}
+    try:
+        # (1) the one-shard search
+        led1 = os.path.join(root, "search.jsonl")
+        knobs = [a for k in _TUNE_KNOBS for a in ("--knob", k)]
+        rc, out = _tune_cmd(["run", "--grid", "1024", "--mesh", "1", "1", "1", *knobs,
+                             "--steps", "20", "--repeats", "2", "--probe-steps", "4",
+                             "--cache", store, "--ledger", led1, "--json"])
+        _check(rc == 0, f"tune run (one shard) exited {rc}: {out[-2000:]}")
+        search = json.loads(out.strip().splitlines()[-1])
+        win = search["winner"]
+        if _MAIN_PATH_TB2:
+            ref, ref_from = _MAIN_PATH_TB2[-1], "main_path"
+        else:
+            row = bench_throughput(SolverConfig(grid=GridConfig.cube(1024), time_blocking=2),
+                                   steps=20, warmup=1, repeats=3)
+            ref, ref_from = row["gcell_updates_per_sec"], "this phase's bench_throughput"
+            del row
+            torch.cuda.empty_cache()
+        _check(win is not None and win["knobs"] == {"backend": "pallas", "time_blocking": "2"},
+               f"tune run: winner {win}, want pallas tb=2")
+        _check(abs(win["gcell_per_sec_per_chip"] / ref - 1) <= _TUNE_TOL,
+               f"tune run: the winner's {win['gcell_per_sec_per_chip']:.2f} Gcell/s against "
+               f"{ref:.2f} ({ref_from})")
+        # the default lattice at 1024^3 on one shard: its enumeration cost
+        with _env(HEAT3D_TUNE_DISABLE="1"):
+            te = time.perf_counter()
+            lattice = enumerate_candidates(SolverConfig(grid=GridConfig.cube(1024)),
+                                           DEFAULT_KNOBS, make_solver=HeatSolver3D)
+            lattice_s = time.perf_counter() - te
+        _check(rc == 0 and _tune_cmd(["lint", "--cache", store])[0] == 0,
+               "tune lint failed on the search's store")
+        defects = check_file(led1, taxonomy=True)
+        names = [json.loads(line)["event"] for line in open(led1) if line.strip()]
+        _check(defects == [] and names.count("tune_search_start") == 1
+               and names.count("tune_trial") == len(search["trials"])
+               and names.count("tune_winner") == 1,
+               f"tune run: ledger defects {defects[:5]}; events "
+               f"{ {n: names.count(n) for n in set(names) if n.startswith('tune')} }")
+        res["search"] = {"key": search["key"], "winner": win, "reference": ref,
+                         "reference_from": ref_from,
+                         "speedup_vs_default": search["speedup_vs_default"]}
+        _say("tune_search", card=smi, key=search["key"], trials=search["trials"],
+             winner=win, speedup_vs_default=search["speedup_vs_default"],
+             reference_gcell=ref, reference_from=ref_from,
+             winner_over_reference=win["gcell_per_sec_per_chip"] / ref,
+             enumerate_s=search["enumerate_s"], elapsed_s=search["elapsed_s"],
+             default_lattice_candidates=len(lattice),
+             default_lattice_pruned=sum(1 for c in lattice if c.prune),
+             default_lattice_enumerate_s=lattice_s,
+             default_lattice_ms_per_candidate=lattice_s / len(lattice) * 1e3)
+        del lattice
+
+        # (2) resolution through the command line
+        res["resolution"] = _tune_resolution(root, store, smi)
+
+        # (3) the sharded search, every shard on cuda:0
+        led3 = os.path.join(root, "sharded.jsonl")
+        knobs = [a for k in _TUNE_SHARDED_KNOBS for a in ("--knob", k)]
+        rc, out = _tune_cmd(["run", "--grid", "1024", "--mesh", "8", "1", "1", "--device",
+                             "cuda:0", *knobs, "--steps", "20", "--repeats", "2",
+                             "--probe-steps", "4", "--budget-s", str(_TUNE_SHARDED_BUDGET_S),
+                             "--cache", store, "--ledger", led3, "--json"])
+        _check(rc == 0, f"tune run (8,1,1) exited {rc}: {out[-2000:]}")
+        sharded = json.loads(out.strip().splitlines()[-1])
+        _check(sharded["key"].endswith("|s8"), f"tune run (8,1,1): key {sharded['key']}")
+        _check(check_file(led3, taxonomy=True) == [], "tune run (8,1,1): ledger defects")
+        res["sharded"] = {"key": sharded["key"], "winner": sharded["winner"]}
+        _say("tune_sharded", card=smi, key=sharded["key"],
+             note="every shard on cuda:0: the sharded path's overhead on one card, "
+                  "not a multi-GPU figure",
+             pruned=[{"knobs": t["knobs"], "reason": t["reason"]}
+                     for t in sharded["trials"] if t["status"] == "pruned"],
+             trials=[t for t in sharded["trials"] if t["status"] != "pruned"],
+             winner=sharded["winner"], speedup_vs_default=sharded["speedup_vs_default"],
+             perf_md_fused_rows=_TUNE_FUSED_REF, enumerate_s=sharded["enumerate_s"],
+             elapsed_s=sharded["elapsed_s"], budget_s=sharded["budget_s"])
+
+        # (4) the comm probe, (5) adjudication over (1) and (4)
+        led4 = _tune_probe(root, smi)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = adjudicate_main([led1, led4, "--json"])
+        verdict = json.loads(buf.getvalue().strip().splitlines()[-1])
+        stages = {s["stage"]: s for s in verdict["stages"]}
+        _check(rc == 0 and all(s["verdict"] != "fail" for s in stages.values())
+               and stages["slab_width"]["verdict"] == "pass"
+               and stages["halo_plan"]["verdict"] == "pass",
+               f"obs adjudicate: rc {rc}, {[(k, s['verdict']) for k, s in stages.items()]}")
+        res["adjudicate"] = {k: s["verdict"] for k, s in stages.items()}
+        _say("tune_adjudicate", card=smi, verdict=verdict["verdict"], rows=verdict["rows"],
+             stages={k: {"verdict": s["verdict"], "reason": s["reason"],
+                         "winners": s["winners"]} for k, s in stages.items()})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _say("tune_path", card=smi, seconds=time.perf_counter() - t0)
+    return res
+
+
 # the phases after the build, in the order they run; ``--only`` picks some
 PHASES = ("compare", "compare_mehrstellen", "compare_bf16", "compare_mesh", "compare_fused",
-          "main_path", "families", "integrators", "state", "obs", "kernel_times",
+          "main_path", "families", "integrators", "state", "obs", "tune", "kernel_times",
           "mehrstellen_times",
           "compute_bf16_times", "dma_times", "halo_bench", "fused_times",
           "shard_kernel_times", "cross_gpu")
@@ -4041,6 +4352,14 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     run = set(args.only or PHASES)
+    # every phase resolves auto knobs against a store of this run's own
+    # (empty but for what the tune phase writes), never the user's
+    import atexit
+    import tempfile
+
+    store_dir = tempfile.mkdtemp(prefix="heat3d_store_")
+    atexit.register(shutil.rmtree, store_dir, True)
+    os.environ["HEAT3D_TUNE_CACHE"] = os.path.join(store_dir, "tune_cache.json")
 
     t0 = time.perf_counter()
     smi = phase_identify()
@@ -4068,6 +4387,8 @@ def main(argv=None) -> int:
         phase_state(smi)
     if "obs" in run:
         phase_obs(smi, bw)
+    if "tune" in run:
+        phase_tune(smi, bw)
     if "kernel_times" in run:
         times.update(phase_kernel_times(bw, worst, resources))
     if "mehrstellen_times" in run:

@@ -47,6 +47,12 @@ def main(argv=None) -> int:
     obs.activate(args.ledger, meta={"entry": "bench", "bench": args.bench})
     try:
         cfg = config_from_args(args)
+        # the auto knobs resolve here, at the entry point: a row must
+        # record the CONCRETE route, and bench_halo exercises the transport
+        # without building a solver
+        from heat3d_tpu_torch.tune.cache import resolve_config
+
+        cfg = resolve_config(cfg, device=args.device)
         # the card's activity unless the rows run elsewhere (None: the build's)
         cuda = None if args.device is None else str(args.device).startswith("cuda")
         with maybe_profile(args.profile_dir, cuda=cuda):

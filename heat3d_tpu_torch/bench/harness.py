@@ -72,14 +72,16 @@ def _utc_now() -> str:
 
 def _sync_all(devices) -> None:
     for d in devices:
-        torch.cuda.synchronize(d)
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def _timer(devices):
     """``timed(go)`` -> seconds of ``go()``: CUDA events on one device, else
-    the host clock between synchronisations of every device."""
+    the host clock between synchronisations of every device (on the CPU,
+    the host clock alone)."""
     def timed(go) -> float:
-        if len(devices) == 1:
+        if len(devices) == 1 and devices[0].type == "cuda":
             with torch.cuda.device(devices[0]):
                 return cuda_time(go)
         t0 = time.perf_counter()
@@ -102,13 +104,17 @@ def bench_throughput(
     floor, calibrated up; the best run is reported. ``ms_per_launch`` is
     the best run's time over its supersteps and remainder steps (on the
     exchange path each is an exchange plus a kernel launch per shard);
-    ``kernel_launches`` counts each kernel's launches in the benchmark."""
-    if not torch.cuda.is_available():
+    ``kernel_launches`` counts each kernel's launches in the benchmark.
+    Only an explicit ``device='cpu'`` measures the CPU (the kernels' plain
+    versions on the host clock, for the CPU tuner and the tests): that row
+    says ``platform: 'cpu'``, never a device figure."""
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    if not on_cpu and not torch.cuda.is_available():
         raise RuntimeError("bench_throughput measures a CUDA device; none found")
     before = ops.launch_counts()
     solver = HeatSolver3D(cfg, device=device)
     devices = sorted({s.device for s in solver.mesh.shards}, key=str)
-    if devices[0].type != "cuda":
+    if devices[0].type != "cuda" and not on_cpu:
         raise RuntimeError("bench_throughput measures CUDA devices")
     u = solver.init_state("hot-cube")
     for _ in range(warmup):
@@ -130,7 +136,8 @@ def bench_throughput(
     after = ops.launch_counts()
     row = throughput_row(
         solver.cfg, steps=steps, steps_requested=steps_requested, times=times,
-        devices=devices, shards=len(solver.mesh), sync_rtt_s=sync_rtt(devices[0]),
+        devices=devices, shards=len(solver.mesh),
+        sync_rtt_s=0.0 if on_cpu else sync_rtt(devices[0]),
         kernel_launches={k: after[k] - before[k] for k in after},
     )
     _ledger_bench_row(row)
@@ -224,6 +231,9 @@ def throughput_row(
         # one synchronize after an empty launch, the JAX row's sync RTT; the
         # times above come from CUDA events, so it is not subtracted
         "sync_rtt_s": sync_rtt_s,
+        # a run this short is within twice the round trip (the JAX rule):
+        # the tuner never lets such a row win
+        "rtt_dominated": best < 2 * sync_rtt_s,
         "gcell_per_sec": gcells,
         "gcell_per_sec_per_chip": gcells / len(devices),
         "gcell_updates_per_sec": gcells,
@@ -349,6 +359,12 @@ def bench_halo(
     row = halo_row(cfg, k, iters, times, devices, len(mesh), sync_rtt(devices[0]),
                    exchange_kernel_launches=ops.launch_counts()["halo_dma"] - before)
     _ledger_bench_row(row)
+    # opt-in per-link probe (HEAT3D_COMM_PROBE): each (axis, direction,
+    # sub-block) link of this plan timed alone, its comm_probe events
+    # beside this row; env-gated and fail-soft
+    from heat3d_tpu_torch.obs.comm.probe import maybe_probe
+
+    maybe_probe(cfg, device=device)
     return row
 
 

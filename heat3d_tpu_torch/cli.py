@@ -8,7 +8,10 @@ run. ``--equation FAMILY`` with ``--eq-param NAME=VALUE`` picks the
 equation family, ``--integrator`` the time integrator (the leapfrog and
 implicit-CG ones run ``heat3d_tpu_torch.timeint``), and ``python -m
 heat3d_tpu_torch eqn list|show`` inspects the family registry
-(``eqn.cli``). ``--mesh Px Py Pz`` splits the field into shards, by
+(``eqn.cli``). ``--time-blocking 0`` and ``--halo/--halo-plan/--fused-rdma
+auto`` resolve through the tuning cache before the run starts; ``python -m
+heat3d_tpu_torch tune run|show|apply|clear|lint`` searches, shows and
+edits it (``tune.cli``). ``--mesh Px Py Pz`` splits the field into shards, by
 default shard i on ``cuda:i``; without ``--mesh`` every visible GPU takes
 a shard of a balanced 3D mesh, as the JAX CLI's default (one shard under
 an explicit ``--device``). ``--device D`` puts every shard on D (``cpu``
@@ -98,9 +101,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mesh of shards Px Py Pz (one int = 1D slab; default: "
                    "every visible GPU, balanced 3D; 1 1 1 under --device): "
                    "shard i on cuda:i unless --device is given")
-    p.add_argument("--halo", choices=["ppermute", "dma"], default="ppermute",
+    p.add_argument("--halo", choices=["ppermute", "dma", "auto"], default="ppermute",
                    help="ghost-exchange transport between shards: slab copies "
-                   "(ppermute) or the DMA peer-write kernel")
+                   "(ppermute), the DMA peer-write kernel, or 'auto' — "
+                   "resolve through the tuning cache (python -m "
+                   "heat3d_tpu_torch tune) with a ppermute fallback")
     p.add_argument("--halo-order", choices=["axis", "pairwise"],
                    default="axis",
                    help="halo-exchange ordering: 'axis' (x->y->z, "
@@ -112,15 +117,17 @@ def build_parser() -> argparse.ArgumentParser:
                    "with --halo dma the fused DMA-overlap kernel (x-sharded "
                    "meshes; tb 1, and tb 2 on x-slabs), with ppermute "
                    "faces-direct (tb 1) or the interior/boundary split")
-    p.add_argument("--halo-plan", choices=["monolithic", "partitioned"],
+    p.add_argument("--halo-plan", choices=["monolithic", "partitioned", "auto"],
                    default="monolithic",
                    help="exchange-plan mode: each face copied whole, or as "
                    "sub-blocks (value-identical; pins the exchange path, "
-                   "except for --fused-rdma on, whose sends ride it)")
-    p.add_argument("--fused-rdma", choices=["off", "on"], default="off",
+                   "except for --fused-rdma on, whose sends ride it), or "
+                   "'auto' (resolve through the tuning cache)")
+    p.add_argument("--fused-rdma", choices=["off", "on", "auto"], default="off",
                    help="fused in-kernel RDMA step: the x-face pushes inside "
                    "the stencil kernel on the plan's sub-blocks (x-slab "
-                   "meshes, --time-blocking <= 2, --halo ppermute)")
+                   "meshes, --time-blocking <= 2, --halo ppermute); 'auto' "
+                   "resolves through the tuning cache")
     p.add_argument("--dtype", choices=["fp32", "bf16"], default="fp32",
                    help="field storage dtype; residual always accumulates fp32")
     p.add_argument("--compute-dtype", choices=["fp32", "bf16"], default="fp32",
@@ -131,7 +138,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="updates per superstep, k >= 1 (2 = the fused "
                    "two-update direct kernel; 3-4 = one width-k exchange and "
                    "the fused streamk kernel; HEAT3D_NO_DIRECT=1 puts every "
-                   "route on the exchange path)")
+                   "route on the exchange path); k=0 = auto via the tuning "
+                   "cache")
     p.add_argument("--backend", choices=["auto", "pallas", "jnp", "conv"],
                    default="auto",
                    help="padded-block compute of the exchange path: auto/pallas "
@@ -290,6 +298,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         from heat3d_tpu_torch.eqn.cli import main as eqn_main
 
         return eqn_main(argv[1:])
+    # `tune run|show|apply|clear|lint`: the autotuner
+    if argv and argv[0] == "tune":
+        from heat3d_tpu_torch.tune.cli import main as tune_main
+
+        return tune_main(argv[1:])
     try:
         rc = _main(argv)
     except (ValueError, RuntimeError) as e:
@@ -340,6 +353,12 @@ def _main(argv: Optional[List[str]]) -> int:
     # leaves a ledger_open and an rc=2 close
     ledger = obs.activate(args.ledger, meta={"entry": "solve"})
     cfg = config_from_args(args)
+    # the auto knobs resolve through the tuning cache BEFORE run_start, so
+    # the ledger records the route that runs; the hit/miss/stale event
+    # lands just above it (fails soft to the static defaults)
+    from heat3d_tpu_torch.tune.cache import resolve_config
+
+    cfg = resolve_config(cfg, device=args.device)
     if args.golden_check and cfg.integrator != "explicit-euler":
         # the JAX CLI's exit, before the run here
         raise SystemExit(

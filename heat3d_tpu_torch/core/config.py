@@ -433,42 +433,65 @@ class SolverConfig:
 def _unported(what: str) -> ValueError:
     return ValueError(
         f"{what} is not ported yet: the PyTorch/CUDA port runs the "
-        "explicit-Euler solve over any mesh of shards (halo ppermute|dma, "
-        "halo_order axis|pairwise, halo_plan monolithic|partitioned, "
-        "fused_rdma off|on, overlap, "
-        "time_blocking k >= 1, backend auto|pallas|jnp|conv, float32 or "
-        "bfloat16 storage and compute) through its direct, exchange-path "
-        "(stream, streamk), DMA halo and fused exchange-and-sweep kernels, "
-        "and the leapfrog and implicit-cg integrators (where halo='auto' "
-        "and time_blocking=0 pin to ppermute and 1)"
+        "explicit-Euler solve over any mesh of shards (halo ppermute|dma|auto, "
+        "halo_order axis|pairwise, halo_plan monolithic|partitioned|auto, "
+        "fused_rdma off|on|auto, overlap, "
+        "time_blocking k >= 1 or 0 (auto), backend auto|pallas|jnp|conv, "
+        "float32 or bfloat16 storage and compute) through its direct, "
+        "exchange-path (stream, streamk), DMA halo and fused "
+        "exchange-and-sweep kernels, the auto knobs resolved through the "
+        "tuning cache (heat3d_tpu_torch.tune), and the leapfrog and "
+        "implicit-cg integrators (where halo='auto' and time_blocking=0 pin "
+        "to ppermute and 1)"
     )
 
 
 def check_ported(cfg: "SolverConfig") -> None:
     """Reject every config this port cannot run yet, naming the knob.
 
-    The JAX package resolves the ``auto`` knobs (``time_blocking=0``,
-    ``halo``, ``halo_plan`` and ``fused_rdma`` 'auto') through its tuning
-    cache; the port has no tuning cache yet, so under explicit Euler those
-    are rejected too. A non-Euler integrator resolves ``halo='auto'`` and
-    ``time_blocking=0`` without the cache (``timeint.pin_config``: ppermute
-    and 1), so those two pass for it. ``backend='auto'`` needs no cache: it
-    takes the kernels under explicit Euler and the plain chain under the
-    other integrators. Any mesh is ported, with uneven (bc-padded)
-    Dirichlet grids; uneven periodic grids are rejected above, as in the
-    JAX package."""
+    Under explicit Euler the ``auto`` knobs (``time_blocking=0``,
+    ``halo``, ``halo_plan`` and ``fused_rdma`` 'auto', and
+    ``backend='auto'``) are accepted: the entry points (the CLI, the bench,
+    ``HeatSolver3D``) resolve them through the tuning cache
+    (``tune.cache.resolve_config``) before any step or plan factory sees them, and a
+    factory handed one unresolved raises (:func:`require_resolved`). A
+    non-Euler integrator resolves ``halo='auto'`` and ``time_blocking=0``
+    without the cache (``timeint.pin_config``: ppermute and 1); its
+    ``halo_plan`` and ``fused_rdma`` must be concrete, as nothing pins
+    them. Any mesh is ported, with uneven (bc-padded) Dirichlet grids;
+    uneven periodic grids are rejected above, as in the JAX package."""
     pinned = cfg.integrator != DEFAULT_INTEGRATOR
-    if cfg.halo not in ("ppermute", "dma") and not (pinned and cfg.halo == "auto"):
-        raise _unported(f"halo={cfg.halo!r}")
-    if cfg.fused_rdma not in ("off", "on"):
-        raise _unported(f"fused_rdma={cfg.fused_rdma!r}")
-    if cfg.halo_plan not in ("monolithic", "partitioned"):
-        raise _unported(f"halo_plan={cfg.halo_plan!r}")
-    if cfg.time_blocking < 1 and not pinned:
-        raise _unported(f"time_blocking={cfg.time_blocking} (auto)")
+    if pinned and cfg.fused_rdma == "auto":
+        raise _unported(f"fused_rdma={cfg.fused_rdma!r} under {cfg.integrator}")
+    if pinned and cfg.halo_plan == "auto":
+        raise _unported(f"halo_plan={cfg.halo_plan!r} under {cfg.integrator}")
     if cfg.backend not in ("auto", "pallas", "jnp", "conv"):
         raise _unported(f"backend={cfg.backend!r}")
     if cfg.precision.compute not in ("float32", "bfloat16"):
         raise _unported(f"compute dtype {cfg.precision.compute!r}")
     if cfg.precision.storage not in ("float32", "bfloat16"):
         raise _unported(f"storage dtype {cfg.precision.storage!r}")
+
+
+def unresolved_knobs(cfg: "SolverConfig") -> Tuple[str, ...]:
+    """The knobs of ``cfg`` still at an auto sentinel that only the tuning
+    cache resolves: ``halo``, ``halo_plan``, ``fused_rdma`` 'auto',
+    ``time_blocking`` 0. (``backend='auto'`` is the solver's own rule, not
+    a sentinel.)"""
+    bad = [k for k in ("halo", "halo_plan", "fused_rdma") if getattr(cfg, k) == "auto"]
+    if cfg.time_blocking == 0:
+        bad.append("time_blocking")
+    return tuple(bad)
+
+
+def require_resolved(cfg: "SolverConfig", where: str) -> None:
+    """Raise a ValueError naming each unresolved auto knob of ``cfg``: a
+    factory (``where``) must never quietly run a default in its place."""
+    bad = unresolved_knobs(cfg)
+    if bad:
+        vals = ", ".join(f"{k}={getattr(cfg, k)!r}" for k in bad)
+        raise ValueError(
+            f"{where} got the unresolved auto knob(s) {vals}: resolve the "
+            "config first (heat3d_tpu_torch.tune.resolve_config, which "
+            "HeatSolver3D, the command line and the bench call)"
+        )

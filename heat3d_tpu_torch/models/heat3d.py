@@ -34,7 +34,11 @@ State: ``save_checkpoint``/``load_checkpoint`` write and read the JAX
 package's checkpoint format (``utils.checkpoint``; a leapfrog carry's
 second level under ``level-1/``), so a run moves between meshes and
 between the packages; ``run_supervised`` drives the resilience supervisor
-(``resilience.supervisor``). Not ported yet: a mesh across processes.
+(``resilience.supervisor``). Under explicit Euler the auto knobs
+(``backend``, ``halo``, ``halo_plan``, ``fused_rdma`` 'auto',
+``time_blocking=0``) resolve through the tuning cache
+(``tune.cache.resolve_config``) for the solver's placement before anything
+is built. Not ported yet: a mesh across processes.
 """
 
 from __future__ import annotations
@@ -213,6 +217,15 @@ class HeatSolver3D:
             # against the timeint step functions' scope, as in the JAX package
             cfg = timeint.pin_config(cfg)
             timeint.validate_config(cfg)
+        else:
+            # the auto knobs resolve through the tuning cache: the safety
+            # net for library callers (the command line and the bench
+            # resolve at their entry points, so their run_start and rows
+            # record the concrete route); it fails soft to the static
+            # defaults
+            from heat3d_tpu_torch.tune.cache import resolve_config
+
+            cfg = resolve_config(cfg, device=device)
         self.cfg = cfg
         # the placement and taps asked for: a supervised recovery rebuilds
         # the solver (on a survivor mesh too) with the same ones

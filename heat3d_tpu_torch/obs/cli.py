@@ -10,7 +10,8 @@ Subcommands::
     heat3d obs regress RESULTS [...]           # perf-regression gate (obs/perf/regress)
     heat3d obs merge LEDGERS... [...]          # multihost timeline join (obs/perf/merge)
     heat3d obs timeline LEDGERS... [...]       # Chrome-trace export + drift/stragglers (obs/perf/timeline)
-    heat3d obs watch|slo|adjudicate ...        # not ported yet: exit 2
+    heat3d obs adjudicate INPUTS... [...]      # A/B stage verdicts (obs/comm/adjudicate)
+    heat3d obs watch|slo ...                   # not ported yet: exit 2
 
 ``summary`` is the operator's post-mortem view: for each run segment in
 the ledger it prints the invocation, a span-duration table (count, total,
@@ -703,11 +704,10 @@ def cmd_trace(args) -> int:
 
 
 # subcommands whose modules are not ported yet (the live serve-tier view,
-# the SLO verdict, the A/B adjudication): they exit 2 with this note
+# the SLO verdict): they exit 2 with this note
 NOT_PORTED = {
     "watch": "obs/burn.py and obs/perf/slo.py",
     "slo": "obs/perf/slo.py",
-    "adjudicate": "obs/comm/adjudicate.py (it needs the autotuner's tune/decide.py)",
 }
 
 
@@ -727,6 +727,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         "regress": "heat3d_tpu_torch.obs.perf.regress",
         "merge": "heat3d_tpu_torch.obs.perf.merge",
         "timeline": "heat3d_tpu_torch.obs.perf.timeline",
+        "adjudicate": "heat3d_tpu_torch.obs.comm.adjudicate",
     }
     if argv_l and argv_l[0] in NOT_PORTED:
         return not_ported(argv_l[0])
@@ -828,7 +829,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     sub.add_parser(
         "adjudicate", add_help=False,
-        help="A/B stage verdicts (not ported yet: exits 2)",
+        help="A/B stage verdicts (halo_plan, halo_order, slab width, "
+        "fused_rdma) from bench rows / ledgers / merges",
     )
 
     args = p.parse_args(argv_l)

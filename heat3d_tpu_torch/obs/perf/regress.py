@@ -32,8 +32,8 @@ Baseline rules (each one exists because a naive diff lied once):
   row ``ts`` provenance), so an ancient best row that stopped being
   reproducible can age out.
 - **Tune-aware**: the report lists tuning-cache entries that flipped a
-  default knob (``tuned_configs``); empty until the autotuner is ported
-  (:func:`tune_notes`).
+  default knob (``tuned_configs``, :func:`tune_notes`): a tuned route
+  change is a config change, not a silent regression.
 
 Tolerance bands are per-metric percentages: a drop worse than
 ``--fail-pct`` (default 15) fails, worse than ``--warn-pct`` (default 8)
@@ -365,12 +365,47 @@ def filter_window(
 
 def tune_notes() -> List[Dict[str, Any]]:
     """Tuning-store entries whose winning config differs from the static
-    defaults (the report field ``tuned_configs``; informational, never a
-    comparison input). The port's tuning store holds calibrated peaks
-    only: its autotuner (search, entries, resolution) is not ported yet,
-    so no entry can have flipped a default knob and the list stays empty
-    until it is."""
-    return []
+    defaults — a tuned route change is a config change, not a silent
+    regression, and these notes make that visible in the verdict (report
+    field ``tuned_configs``; informational, never a comparison input).
+    Fails soft to an empty list."""
+    import dataclasses
+
+    from heat3d_tpu_torch.core.config import SolverConfig
+
+    # the static defaults ARE SolverConfig's field defaults — derived, so
+    # a future default flip cannot desynchronize this report
+    static = {
+        f.name: f.default
+        for f in dataclasses.fields(SolverConfig)
+        if f.name in ("halo", "overlap", "time_blocking", "halo_order")
+    }
+    notes: List[Dict[str, Any]] = []
+    try:
+        from heat3d_tpu_torch.tune.cache import cache_path, load
+
+        doc = load()
+        for key, e in sorted((doc.get("entries") or {}).items()):
+            if not isinstance(e, dict):
+                continue
+            cfgd = e.get("config") or {}
+            flips = {
+                k: cfgd.get(k)
+                for k, dflt in static.items()
+                if k in cfgd and cfgd.get(k) != dflt
+            }
+            if flips:
+                notes.append(
+                    {
+                        "key": key,
+                        "tuned": flips,
+                        "config": cfgd,
+                        "cache": cache_path(),
+                    }
+                )
+    except Exception:  # noqa: BLE001 - awareness is informational
+        return []
+    return notes
 
 
 def default_history_paths(current: Optional[str] = None) -> List[str]:

@@ -79,6 +79,18 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+@functools.lru_cache(maxsize=None)
+def kernels_digest() -> str:
+    """One hash of every library's build target (:func:`_target`: its
+    source, the shared headers and the flags): the kernels a measurement
+    ran on. The tuning store records it, so a winner measured on other
+    kernels is stale. Needs no compiler."""
+    h = hashlib.sha256()
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        h.update(_target(src.stem).name.encode())
+    return h.hexdigest()[:16]
+
+
 def _build(name: str) -> float:
     """Compile ``csrc/<name>.cu`` unless it is built already; returns the
     wall seconds of the build (0.0 when it was built). The compiler's output

@@ -365,20 +365,59 @@ def exchange_axis_dma(pads, mesh, axis: int, width: int, periodic: bool,
     if cpu:
         exchange_axis_dma_ref(pads, mesh, axis, width, periodic, bc_value)
         return
-    lib = _lib()
     raise_if_timed_out()
     bc = _bc_bits(float(bc_value), pads[0].dtype)
     for lau in state.launches[axis]:
         if sync is not None:
             for r in lau.remote:
                 sync.wait_entered(lau.shards[0], mesh.shards[r])
-        err = lib.heat3d_halo_exchange(ctypes.byref(lau.args), state.epoch, bc, TIMEOUT_NS)
-        if err != 0:
-            raise RuntimeError(
-                f"DMA halo kernel launch failed on {lau.device}: error {err}"
-                + (" (bad arguments)" if err == _BAD_ARGS else ""))
-        exchange_axis_dma.launches += lau.kernel_launches
-        exchange_axis_dma.cells += lau.cells
+        _enqueue(lau, state.epoch, bc)
+
+
+def _enqueue(lau: DmaLaunch, epoch: int, bc: int) -> None:
+    """One device's push and wait launches of ``lau`` at ``epoch``,
+    counted."""
+    err = _lib().heat3d_halo_exchange(ctypes.byref(lau.args), epoch, bc, TIMEOUT_NS)
+    if err != 0:
+        raise RuntimeError(
+            f"DMA halo kernel launch failed on {lau.device}: error {err}"
+            + (" (bad arguments)" if err == _BAD_ARGS else ""))
+    exchange_axis_dma.launches += lau.kernel_launches
+    exchange_axis_dma.cells += lau.cells
+
+
+def link_launches(state: DmaState, pads, axis: int, side: int) -> List[DmaLaunch]:
+    """The launches of ONE link of axis ``axis``'s DMA exchange, from
+    ``state``'s tables over ``pads``: per device, the push items that fill
+    the receivers' ``side`` ghost slabs (side 0, the low ghosts: each
+    shard's high face to its high neighbour; side 1 the reverse; a domain
+    face's bc fill likewise) and the waits on those flag words only; on
+    CUDA prepared as the plan's are. ``obs.comm.probe`` times a link alone
+    with :func:`push_link_dma`."""
+    k = 1 - side  # item 2i+k of a launch fills its receiver's side 1-k
+    out = []
+    for lau in state.launches[axis]:
+        owed = {state.flags[s.rank].data_ptr() + (2 * axis + side) * _FLAG_BYTES
+                for s in lau.shards}
+        sub = DmaLaunch(lau.device, lau.shards, lau.items[k::2],
+                        [w for w in lau.waits if w.flag in owed], lau.remote,
+                        lau.P, lau.E, lau.cells // 2)
+        if lau.args is not None:
+            _prepare(sub, state, axis, pads[0].element_size())
+        out.append(sub)
+    return out
+
+
+def push_link_dma(state: DmaState, launches: List[DmaLaunch], bc_value: float,
+                  dtype: torch.dtype) -> None:
+    """One exchange of the link ``launches`` (:func:`link_launches`, CUDA
+    blocks) at a new epoch: per device one push and one wait launch, as
+    :func:`exchange_axis_dma` launches them, counted alike."""
+    raise_if_timed_out()
+    state.epoch += 1
+    bc = _bc_bits(float(bc_value), dtype)
+    for lau in launches:
+        _enqueue(lau, state.epoch, bc)
 
 
 def _ghost_slab_cells(padded_shape, axis: int, width: int) -> int:

@@ -402,6 +402,11 @@ class Exchanges:
 
     def __init__(self, mesh, bc: BoundaryCondition, transport: str = "ppermute",
                  mode: str = "monolithic", halo_order: str = "axis"):
+        for knob, value in (("halo", transport), ("halo_plan", mode)):
+            if value == "auto":
+                raise ValueError(
+                    f"the exchange plans got the unresolved auto knob {knob}='auto': "
+                    "resolve the config first (heat3d_tpu_torch.tune.resolve_config)")
         self.mesh = mesh
         self.bc = bc
         self.transport = transport

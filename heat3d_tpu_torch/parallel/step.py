@@ -69,7 +69,7 @@ import numpy as np
 import torch
 
 from heat3d_tpu_torch import eqn
-from heat3d_tpu_torch.core.config import BoundaryCondition, SolverConfig
+from heat3d_tpu_torch.core.config import BoundaryCondition, SolverConfig, require_resolved
 from heat3d_tpu_torch.obs.trace import named_phase, scoped
 from heat3d_tpu_torch.ops.stencil_direct import (
     apply_taps_direct,
@@ -147,6 +147,7 @@ def _single(cfg: SolverConfig) -> bool:
 def make_exchanges(cfg: SolverConfig, mesh) -> Exchanges:
     """The exchange plans of one solver (transport ``cfg.halo``, the
     effective plan mode, ordering ``cfg.halo_order``)."""
+    require_resolved(cfg, "make_exchanges")
     return Exchanges(mesh, cfg.stencil.bc, cfg.halo, effective_halo_plan(cfg),
                      cfg.halo_order)
 
@@ -663,6 +664,7 @@ def make_step_fn(
     one update of every shard of ``mesh`` on :func:`step_route`'s route.
     ``taps`` default to the config's (``eqn.solver_taps``);
     ``compute_padded`` to the config's backend."""
+    require_resolved(cfg, "make_step_fn")
     taps = _solver_taps(cfg) if taps is None else taps
     periodic = _periodic(cfg)
     bc_value = cfg.stencil.bc_value
@@ -767,6 +769,7 @@ def make_superstep_fn(
 ) -> StepFn:
     """``(us, outs=None) -> us_after_k_updates``, k = ``cfg.time_blocking``
     >= 2, on :func:`superstep_route`'s route."""
+    require_resolved(cfg, "make_superstep_fn")
     k = cfg.time_blocking
     if k < 2:
         raise ValueError(f"a superstep needs time_blocking >= 2, got {k}")
@@ -922,6 +925,7 @@ def make_multistep_fn(
     loop advances in ``num_steps // k`` supersteps, then ``num_steps % k``
     single steps through the step function; both loops ping-pong between
     the same two buffers per shard."""
+    require_resolved(cfg, "make_multistep_fn")
     taps = _solver_taps(cfg) if taps is None else taps
     pp = pingpong or PingPong()
     ex = exchanges or make_exchanges(cfg, mesh)

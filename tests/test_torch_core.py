@@ -84,16 +84,16 @@ def test_decomposition_equal():
 @pytest.mark.parametrize(
     "kw,needle",
     [
-        (dict(halo="auto"), "halo='auto'"),
-        (dict(halo="dma", overlap=True, mesh=config.MeshConfig(shape=(2, 1, 1)),
-              time_blocking=0), "time_blocking=0 (auto)"),
         (dict(precision=config.Precision(storage="float16")), "storage dtype"),
-        (dict(fused_rdma="auto"), "fused_rdma='auto'"),
-        (dict(halo_plan="auto"), "halo_plan='auto'"),
+        # nothing pins these two under a non-Euler integrator (explicit
+        # Euler resolves them through the tuning cache)
+        (dict(fused_rdma="auto", integrator="implicit-cg"), "fused_rdma='auto'"),
+        (dict(halo_plan="auto", integrator="implicit-cg"), "halo_plan='auto'"),
         (dict(backend="fft"), "backend='fft'"),
-        (dict(time_blocking=0), "time_blocking=0 (auto)"),
         (dict(precision=config.Precision(compute="float16")), "compute dtype"),
     ],
+    ids=["kw2-storage dtype", "kw3-fused_rdma='auto'", "kw4-halo_plan='auto'",
+         "kw5-backend='fft'", "kw7-compute dtype"],
 )
 def test_config_rejects_unported(kw, needle):
     with pytest.raises(ValueError) as ei:
@@ -112,15 +112,19 @@ _INTEGRATOR_KW = {
                                   dict(halo="auto", time_blocking=0, backend="auto")],
                          ids=["halo", "tb", "all"])
 @pytest.mark.parametrize("integrator", sorted(_INTEGRATOR_KW))
-def test_integrator_auto_knobs_accepted_and_pinned(integrator, auto):
-    """halo='auto' and time_blocking=0 stay refused under explicit Euler
-    (no tuning cache) and pass under the other integrators, whose solver
-    pins them (timeint.pin_config: ppermute, 1, and the plain chain)."""
+def test_integrator_auto_knobs_accepted_and_pinned(integrator, auto, tmp_path, monkeypatch):
+    """halo='auto' and time_blocking=0 resolve through the tuning cache
+    under explicit Euler (an empty store: the static fallback, ppermute and
+    1, backend left 'auto') and pin under the other integrators, whose
+    solver never consults the cache (timeint.pin_config: ppermute, 1, and
+    the plain chain)."""
     from heat3d_tpu_torch.models.heat3d import HeatSolver3D
 
+    monkeypatch.setenv("HEAT3D_TUNE_CACHE", str(tmp_path / "tune_cache.json"))
     grid = config.GridConfig.cube(8, dt=0.01)
-    with pytest.raises(ValueError, match="not ported yet"):
-        config.SolverConfig(grid=grid, **auto)
+    explicit = HeatSolver3D(config.SolverConfig(grid=grid, **auto), device="cpu")
+    assert (explicit.cfg.halo, explicit.cfg.time_blocking, explicit.cfg.backend) == (
+        "ppermute", 1, "auto")
     cfg = config.SolverConfig(grid=grid, **auto, **_INTEGRATOR_KW[integrator])
     solver = HeatSolver3D(cfg, device="cpu")
     assert (solver.cfg.halo, solver.cfg.time_blocking, solver.cfg.backend) == (

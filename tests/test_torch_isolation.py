@@ -47,7 +47,8 @@ def test_scan_sees_the_package():
                    "utils/checkpoint.py", "utils/vtkio.py", "utils/backendprobe.py",
                    "resilience/retry.py", "resilience/faults.py", "resilience/sweepstate.py",
                    "resilience/elastic.py", "resilience/supervisor.py", "tune/space.py",
-                   "tune/cache.py", "obs/ledger.py", "obs/metrics.py", "obs/trace.py",
+                   "tune/cache.py", "tune/decide.py", "tune/measure.py", "tune/cli.py",
+                   "obs/comm/adjudicate.py", "obs/comm/probe.py", "obs/ledger.py", "obs/metrics.py", "obs/trace.py",
                    "obs/cli.py", "obs/tailer.py", "obs/check.py", "obs/comm/report.py",
                    "obs/perf/profiling.py", "obs/perf/timeline.py",
                    "obs/perf/roofline.py", "obs/perf/merge.py", "obs/perf/regress.py",
@@ -74,7 +75,9 @@ def test_import_leaves_jax_unloaded():
         "heat3d_tpu_torch.obs.perf.roofline, heat3d_tpu_torch.obs.perf.merge, "
         "heat3d_tpu_torch.obs.perf.regress, heat3d_tpu_torch.analysis, "
         "heat3d_tpu_torch.analysis.ledgerlint, heat3d_tpu_torch.analysis.registry, "
-        "heat3d_tpu_torch.tune.cache\n"
+        "heat3d_tpu_torch.tune.cache, heat3d_tpu_torch.tune.decide, "
+        "heat3d_tpu_torch.tune.measure, heat3d_tpu_torch.tune.cli, "
+        "heat3d_tpu_torch.obs.comm.adjudicate, heat3d_tpu_torch.obs.comm.probe\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'heat3d_tpu', 'ml_dtypes'))\n"
         "print(','.join(bad))\n"
