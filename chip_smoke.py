@@ -250,6 +250,28 @@ non-zero without one. Phases, each printing its own lines:
    (``parallel.wire.totals``); one rank per GPU when two are visible (else
    a line says why not).
 
+17. ``serve``, after ``multiprocess``, in a temporary directory, every
+   line with the card's name and power limit (``phase_serve``): the
+   ``serve --requests`` command over 168 seeded records in five buckets
+   (``_serve_records``: 128 x 128^3 7pt fp32, two batches of 64; 16 x
+   256^3 27pt tb=2; 8 coefficient-field, 8 advection-diffusion and 8 bf16
+   members at 128^3) at ``HEAT3D_SERVE_MAX_BATCH``'s default of 64: per
+   bucket members, padded size, seconds, Gcell/s, request latency
+   p50/p95/max and peak device memory; each bucket's first batch rebuilt
+   as the queue builds it, two of its members alone (B=1) bitwise to it,
+   the same two through ``bind='baked'`` and solo ``HeatSolver3D``
+   (backend jnp) with their ``max_abs_err`` (0.0 expected); every heat
+   member of A and E and the two checked members of B against the fp64
+   golden computed on the card (held to ``core.golden.step`` first), the
+   coefficient-field members against
+   ``reference_varcoef_step``; bucket A's first batch on (2,2,2) and at
+   ``batch_mesh=2`` bitwise to (1,1,1); no hand-written kernel launched
+   while serving; ``serve --bench`` (64 members, 128^3) beside the solo
+   jnp and direct-kernel rows; ``tune run --batch-members 16`` (a jnp
+   winner under ``b2^4``, resolved by an ``EnsembleSolver``); every
+   refused flag exiting 2. It adds no kernel: the kernels line is as
+   before.
+
 ``--only`` runs phases 1 and 2 and the named ones of ``PHASES`` (the
 check after a kernel change, before the whole run) and prints no kernels
 line. The kernel launch counts are zeroed just before phase 5 and read just after
@@ -4626,12 +4648,480 @@ def phase_tune(smi: str, bw: float) -> dict:
     return res
 
 
+# ---- serving (the batched ensemble behind the request queue) ---------------
+
+# bucket -> (requests, what varies); the grids serving users run on one card
+_SERVE_BUCKETS = ("A", "B", "C", "D", "E")
+_SERVE_INITS = ("hot-cube", "gaussian", "random")
+_SERVE_COEF = ("uniform", "layered", "checker", "lognormal")
+# the golden gate of the command line: fp32 chain 1e-5, bf16 anywhere 5e-2
+_SERVE_GOLDEN_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+_SERVE_REFUSED = (["--async"], ["--workers", "2"], ["--no-aot"], ["--verdict"],
+                  ["--loadgen", "mix.json"], ["--duration", "5"], ["--monitor"],
+                  ["--abort-on-burn"], ["--slo", "slo.json"])
+
+
+def _serve_records(seed: int = 0) -> list:
+    """The 168 requests of the serve phase, (bucket, record) in a seeded
+    shuffled submission order: A 128 x 128^3 7pt fp32 tb=1 (alpha 0.2-1.0,
+    bc 0/1, 50-200 steps, three inits); B 16 x 256^3 27pt tb=2 (20-60
+    steps); C 8 x 128^3 coefficient fields (four names x two seeds); D 8 x
+    128^3 advection-diffusion (vx 0.5-2.0); E 8 x 128^3 bf16 storage
+    (10-40 steps)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def alpha():
+        return round(float(rng.uniform(0.2, 1.0)), 4)
+
+    recs = []
+    for i in range(128):
+        recs.append(("A", {"grid": 128, "steps": int(rng.integers(50, 201)), "alpha": alpha(),
+                           "bc_value": float(i % 2), "init": _SERVE_INITS[i % 3], "seed": i}))
+    for i in range(16):
+        recs.append(("B", {"grid": 256, "stencil": "27pt", "time_blocking": 2,
+                           "steps": int(rng.integers(20, 61)), "alpha": alpha(),
+                           "init": _SERVE_INITS[i % 3], "seed": 200 + i}))
+    for i in range(8):
+        recs.append(("C", {"grid": 128, "coef_field": [_SERVE_COEF[i % 4], i // 4],
+                           "steps": int(rng.integers(40, 81)), "bc_value": float(i % 2),
+                           "init": _SERVE_INITS[i % 3], "seed": 300 + i}))
+    for i in range(8):
+        recs.append(("D", {"grid": 128, "equation": "advection-diffusion",
+                           "eq_params": {"vx": round(float(rng.uniform(0.5, 2.0)), 4)},
+                           "steps": int(rng.integers(50, 101)), "init": _SERVE_INITS[i % 3],
+                           "seed": 400 + i}))
+    for i in range(8):
+        # bf16 storage drifts ~8e-4 (relative) a step at 128^3 against the
+        # fp64 golden, bc 1 (the CLI's own 5e-2 gate holds to ~60 steps):
+        # E's budgets stay where the gate is known to hold
+        recs.append(("E", {"grid": 128, "dtype": "bf16", "steps": int(rng.integers(10, 41)),
+                           "alpha": alpha(), "bc_value": float(i % 2),
+                           "init": _SERVE_INITS[i % 3], "seed": 500 + i}))
+    order = rng.permutation(len(recs))
+    return [recs[i] for i in order]
+
+
+def _golden_batch(u0, taps, bcv, budgets):
+    """The fp64 golden (``core.golden.step``: ghost pad, then ``out += w *
+    slice`` over the nonzero taps in their order) of a batch of Dirichlet
+    members on the card: u0 (B, n, n, n) float64, per-member taps (B of
+    3x3x3) and boundary values, each member frozen at its budget."""
+    import numpy as np
+    import torch
+
+    from heat3d_tpu_torch.core.stencils import nonzero_taps
+
+    B, n = u0.shape[0], u0.shape[1:]
+    offs = [d for d, _ in nonzero_taps(taps[0])]
+    W = torch.tensor([[t[di + 1, dj + 1, dk + 1] for di, dj, dk in offs] for t in taps],
+                     dtype=torch.float64, device=u0.device)
+    bc = torch.tensor(bcv, dtype=torch.float64, device=u0.device).reshape(B, 1, 1, 1)
+    left = torch.tensor(np.asarray(budgets), device=u0.device)
+    up = torch.empty((B,) + tuple(m + 2 for m in n), dtype=torch.float64, device=u0.device)
+    u = u0
+    for i in range(int(max(budgets))):
+        up[:] = bc
+        up[:, 1:-1, 1:-1, 1:-1] = u
+        out = torch.zeros_like(u)
+        for j, (di, dj, dk) in enumerate(offs):
+            out += W[:, j].reshape(B, 1, 1, 1) * up[:, 1 + di:1 + di + n[0],
+                                                     1 + dj:1 + dj + n[1], 1 + dk:1 + dk + n[2]]
+        u = torch.where((left > i).reshape(B, 1, 1, 1), out, u)
+    return u
+
+
+def _varcoef_golden_batch(u0, a, dts, bcv, budgets):
+    """``timeint.coeffield.reference_varcoef_step`` (Dirichlet) in fp64 on
+    the card over a batch of members, each frozen at its budget."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    B, n = u0.shape[0], u0.shape[1:]
+    f = torch.tensor(dts, dtype=torch.float64, device=u0.device).reshape(B, 1, 1, 1)
+    bc = torch.tensor(bcv, dtype=torch.float64, device=u0.device).reshape(B, 1, 1, 1)
+    left = torch.tensor(np.asarray(budgets), device=u0.device)
+    apd = F.pad(a, (1, 1, 1, 1, 1, 1))
+    up = torch.empty_like(apd)
+
+    def slab(arr, axis, off):
+        sl = [slice(None)]
+        for ax in range(3):
+            o = off if ax == axis else 0
+            sl.append(slice(1 + o, 1 + o + n[ax]))
+        return arr[tuple(sl)]
+
+    u = u0
+    for i in range(int(max(budgets))):
+        up[:] = bc
+        up[:, 1:-1, 1:-1, 1:-1] = u
+        uc, ac = slab(up, 0, 0), slab(apd, 0, 0)
+        acc = uc.clone()
+        for axis in range(3):
+            u_p, u_m = slab(up, axis, 1), slab(up, axis, -1)
+            a_p, a_m = slab(apd, axis, 1), slab(apd, axis, -1)
+            acc += f * (0.5 * (ac + a_p) * (u_p - uc) - 0.5 * (a_m + ac) * (uc - u_m))
+        u = torch.where((left > i).reshape(B, 1, 1, 1), acc, u)
+    return u
+
+
+def _serve_golden(bucket, base, members, fields) -> float:
+    """The largest golden relative error (max |u - g| / max |g|, the
+    command line's) over ``members``, whose served fields are ``fields``;
+    fails past the gate."""
+    import numpy as np
+    import torch
+
+    from heat3d_tpu_torch.core import golden
+    from heat3d_tpu_torch.serve.scenario import ScenarioBatch
+
+    batch = ScenarioBatch(base, members)
+    u0 = torch.from_numpy(np.stack([
+        golden.make_init(m.init, base.grid.shape, seed=m.seed) for m in members
+    ]).astype(np.float64)).cuda()
+    budgets = [batch.member_steps(i) for i in range(len(members))]
+    bcv = [m.bc_value for m in members]
+    if batch.has_coef_fields:
+        a = torch.from_numpy(np.stack([batch.member_coef_field(i)
+                                       for i in range(len(members))])).cuda()
+        g = _varcoef_golden_batch(u0, a, [batch.member_dt(i) for i in range(len(members))],
+                                  bcv, budgets)
+    else:
+        g = _golden_batch(u0, [batch.member_taps(i) for i in range(len(members))], bcv,
+                          budgets)
+    g = g.cpu().numpy()
+    tol = _SERVE_GOLDEN_TOL[base.precision.storage]
+    worst = 0.0
+    for i in range(len(members)):
+        rel = float(np.max(np.abs(fields[i] - g[i]))) / max(float(np.max(np.abs(g[i]))), 1e-300)
+        _check(rel < tol, f"serve golden: bucket {bucket} member {i}: rel err {rel} >= {tol}")
+        worst = max(worst, rel)
+    return worst
+
+
+def _serve_golden_self_check() -> dict:
+    """The card's fp64 goldens against their NumPy originals on one member
+    of 128^3 (``core.golden.step`` 3 steps, ``reference_varcoef_step`` 2)."""
+    import numpy as np
+    import torch
+
+    from heat3d_tpu_torch.core import golden
+    from heat3d_tpu_torch.core.stencils import STENCILS, stencil_taps
+    from heat3d_tpu_torch.timeint.coeffield import make_coef_field, reference_varcoef_step
+    from heat3d_tpu_torch.core.config import BoundaryCondition
+
+    n = (128,) * 3
+    u = golden.make_init("random", n, seed=7).astype(np.float64)
+    taps = stencil_taps(STENCILS["7pt"], 0.7, 0.1, (1.0, 1.0, 1.0))
+    want = u
+    for _ in range(3):
+        want = golden.step(want, taps, BoundaryCondition.DIRICHLET, 1.0)
+    got = _golden_batch(torch.from_numpy(u[None]).cuda(), [taps], [1.0], [3])[0].cpu().numpy()
+    a = make_coef_field("lognormal", n, seed=1)
+    want_v = reference_varcoef_step(reference_varcoef_step(u, a, 0.1, (1.0, 1.0, 1.0), False,
+                                                           1.0), a, 0.1, (1.0, 1.0, 1.0),
+                                    False, 1.0)
+    got_v = _varcoef_golden_batch(torch.from_numpy(u[None]).cuda(),
+                                  torch.from_numpy(a[None]).cuda(), [0.1], [1.0],
+                                  [2])[0].cpu().numpy()
+    res = {"heat_max_abs_diff": float(np.max(np.abs(got - want))),
+           "varcoef_max_abs_diff": float(np.max(np.abs(got_v - want_v)))}
+    _check(max(res.values()) <= 1e-12, f"serve: the card's fp64 golden vs NumPy's: {res}")
+    return res
+
+
+def _bucket_summary(led: str, labels: dict) -> dict:
+    """Per bucket label: members, padded sizes, seconds (the ``serve_batch``
+    spans: init, run and gather, and each part), Gcell/s of the live
+    members' updates over those seconds and over the run's alone, request
+    latency p50/p95/max (the drain-final ``serve_metrics_summary``) and the
+    batches' peak device memory."""
+    evs = [json.loads(line) for line in open(led) if line.strip()]
+    summ = [e for e in evs if e.get("event") == "serve_metrics_summary"]
+    _check(len(summ) == 1, f"serve: {len(summ)} serve_metrics_summary events")
+    out = {}
+    for key, label in labels.items():
+        spans = [e for e in evs if e.get("event") == "serve_batch" and e.get("kind") == "span"
+                 and e.get("bucket") == key]
+        starts = [e for e in evs if e.get("event") == "serve_batch_start"
+                  and e.get("bucket") == key]
+        lat = summ[0]["buckets"][key]
+        secs = sum(e["dur_s"] for e in spans)
+        out[label] = {
+            "requests": sum(e["members"] for e in starts),
+            "batches": [{"members": e["members"], "padded": e["padded"]} for e in starts],
+            "seconds": secs,
+            "init_s": sum(e["init_s"] for e in spans),
+            "run_s": sum(e["run_s"] for e in spans),
+            "gather_s": sum(e["gather_s"] for e in spans),
+            "gcell_per_sec": sum(e["cell_updates"] for e in spans) / secs / 1e9,
+            "run_gcell_per_sec": sum(e["cell_updates"] for e in spans)
+            / sum(e["run_s"] for e in spans) / 1e9,
+            "latency_p50_s": lat["p50_s"], "latency_p95_s": lat["p95_s"],
+            "latency_max_s": lat["max_s"],
+            "peak_mem_gib": max(e["device_peak_bytes"] for e in spans) / 2**30,
+        }
+    return out
+
+
+def phase_serve(smi: str) -> dict:
+    """Serving on the card (part one: the synchronous queue over the
+    batched ensemble), in a temporary directory, every line with the card's
+    name and power limit: (1) the ``serve --requests --residuals`` command
+    (its ``main``, in this process, so the kernel launch counts and the
+    device memory are this run's) over the 168 records of :func:`_serve_records`
+    at ``HEAT3D_SERVE_MAX_BATCH``'s default of 64, with a ledger: per bucket
+    members, padded sizes, seconds, Gcell/s, request latency p50/p95/max
+    and peak device memory; (2) per bucket the first packed batch rebuilt
+    as the queue builds it (``pad_batch``, traced) with its field
+    statistics equal to the command's lines, and two members rerun alone
+    (B=1) bitwise equal to it; the same two through ``bind='baked'`` and
+    solo ``HeatSolver3D`` (backend jnp), whose ``max_abs_err`` against the
+    traced result should be 0.0; (3) every heat member of A and E at its
+    budget against the fp64 golden on the card (rel < 1e-5 fp32, 5e-2
+    bf16; the golden itself held to ``core.golden.step`` first), the two
+    checked members of B (27pt tb=2, the superstep's per-member ghost
+    rings) the same way, the C members against ``reference_varcoef_step``
+    in fp64; (4) bucket A's
+    first batch on a (2,2,2) spatial mesh and at ``batch_mesh=2`` (every
+    shard on cuda:0), each bitwise equal to (1,1,1); (5) no hand-written
+    kernel launched by (1)-(4), as on the JAX package's route; (6) ``serve
+    --bench --members 64 --grid 128 --steps 50`` beside the solo
+    ``--backend jnp`` and direct-kernel rows at 128^3 (no claim); (7)
+    ``tune run --batch-members 16 --grid 128`` over tb 1/2: a ``jnp``
+    winner under a ``b2^4`` key that an ``EnsembleSolver`` with
+    ``time_blocking=0`` resolves through; (8) every refused flag exits 2."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from heat3d_tpu_torch import cli, ops
+    from heat3d_tpu_torch.bench.harness import bench_throughput
+    from heat3d_tpu_torch.core.config import GridConfig, MeshConfig, SolverConfig
+    from heat3d_tpu_torch.models.heat3d import HeatSolver3D
+    from heat3d_tpu_torch.serve.cli import _base_from_record, _scenario_from_record
+    from heat3d_tpu_torch.serve.ensemble import EnsembleSolver
+    from heat3d_tpu_torch.serve.queue import DEFAULT_MAX_BATCH, _padded_size, pad_batch
+    from heat3d_tpu_torch.serve.scenario import ScenarioBatch, request_bucket_key
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="heat3d_serve_")
+    res = {}
+    try:
+        _check(os.environ.get("HEAT3D_SERVE_MAX_BATCH") is None,
+               "serve: HEAT3D_SERVE_MAX_BATCH is set; the phase runs at its default")
+        recs = _serve_records()
+        path = os.path.join(root, "requests.jsonl")
+        with open(path, "w") as f:
+            for _, rec in recs:
+                f.write(json.dumps(rec) + "\n")
+        labels, groups = {}, {}
+        for rid, (label, rec) in enumerate(recs):
+            base, sc = _base_from_record(rec), _scenario_from_record(rec)
+            labels[str(request_bucket_key(base, sc))] = label
+            groups.setdefault(label, []).append((rid, base, sc))
+        _check(sorted(set(labels.values())) == list(_SERVE_BUCKETS),
+               f"serve: buckets {labels}")
+
+        # (1) the command
+        before = ops.launch_counts()
+        led = os.path.join(root, "serve.jsonl")
+        buf = io.StringIO()
+        tc = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["serve", "--requests", path, "--residuals", "--ledger", led])
+        cmd_s = time.perf_counter() - tc
+        lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+        _check(rc == 0 and [x["request_id"] for x in lines] == list(range(len(recs))),
+               f"serve --requests: rc {rc}, {len(lines)} of {len(recs)} lines in order")
+        for x, (_, rec) in zip(lines, recs):
+            _check(x["steps"] == rec["steps"] and np.isfinite(x["field_mean"])
+                   and np.isfinite(x["residual_sumsq"]), f"serve: line {x}")
+        buckets = _bucket_summary(led, labels)
+        for label in _SERVE_BUCKETS:
+            want = [_padded_size(len(groups[label][i:i + DEFAULT_MAX_BATCH]),
+                                 DEFAULT_MAX_BATCH, 1)
+                    for i in range(0, len(groups[label]), DEFAULT_MAX_BATCH)]
+            _check([b["padded"] for b in buckets[label]["batches"]] == want,
+                   f"serve: bucket {label} batches {buckets[label]['batches']}")
+            _say("serve_bucket", card=smi, bucket=label, **buckets[label])
+        res["buckets"] = buckets
+
+        # (2) packing, baked, solo; (3) goldens
+        golden = {"self_check": _serve_golden_self_check()}
+        a_first = None
+        for label in _SERVE_BUCKETS:
+            group = groups[label]
+            chunks = [group[i:i + DEFAULT_MAX_BATCH]
+                      for i in range(0, len(group), DEFAULT_MAX_BATCH)]
+            worst_golden = 0.0
+            for c, chunk in enumerate(chunks):
+                base = chunk[0][1]
+                members = [sc for _, _, sc in chunk]
+                padded = _padded_size(len(members), DEFAULT_MAX_BATCH, 1)
+                batch = pad_batch(base, members, padded)
+                es = EnsembleSolver(batch, device="cuda:0")
+                fields = es.gather(es.run(es.init_state()))[:len(members)]
+                del es
+                for i, (rid, _, _) in enumerate(chunk):
+                    f64 = np.asarray(fields[i], np.float64)
+                    _check(float(np.mean(f64)) == lines[rid]["field_mean"]
+                           and float(np.max(f64)) == lines[rid]["field_max"],
+                           f"serve: bucket {label} request {rid}: the rebuilt batch's "
+                           f"statistics differ from the command's line")
+                if label in ("A", "C", "E"):
+                    worst_golden = max(worst_golden,
+                                       _serve_golden(label, base, members, fields))
+                if c:
+                    continue
+                if label == "A":
+                    a_first = (base, members, fields)
+                pick = (0, len(members) - 1)
+                alone_ok = []
+                for i in pick:
+                    one = EnsembleSolver(ScenarioBatch(base, [members[i]]), device="cuda:0")
+                    alone = one.gather(one.run(one.init_state()))[0]
+                    _check(np.array_equal(alone, fields[i]),
+                           f"serve: bucket {label} member {i} alone != packed "
+                           f"(max {np.abs(alone - fields[i]).max()})")
+                    alone_ok.append(True)
+                two = ScenarioBatch(base, [members[i] for i in pick])
+                if two.has_coef_fields:
+                    baked = solo = "not run: coefficient fields need bind='traced'"
+                else:
+                    bk = EnsembleSolver(two, bind="baked", device="cuda:0")
+                    got_b = bk.gather(bk.run(bk.init_state()))
+                    baked = max(float(np.max(np.abs(got_b[j] - fields[i])))
+                                for j, i in enumerate(pick))
+                    solo = 0.0
+                    for j, i in enumerate(pick):
+                        s = HeatSolver3D(two.member_config(j), device="cuda:0")
+                        got_s = s.gather(s.run(s.init_state(members[i].init),
+                                               two.member_steps(j)))
+                        solo = max(solo, float(np.max(np.abs(got_s - fields[i]))))
+                    del bk, s
+                if label == "B":
+                    golden[label] = _serve_golden(label, base, [members[i] for i in pick],
+                                                  [fields[i] for i in pick])
+                    _say("serve_golden", card=smi, bucket=label, members=len(pick),
+                         worst_rel_err=golden[label],
+                         gate=_SERVE_GOLDEN_TOL[base.precision.storage])
+                _say("serve_packing", card=smi, bucket=label, padded=padded,
+                     members_checked=[chunk[i][0] for i in pick], alone_bitwise=alone_ok,
+                     baked_max_abs_err=baked, solo_jnp_max_abs_err=solo,
+                     expected_baked_and_solo=0.0)
+                res.setdefault("packing", {})[label] = {"baked": baked, "solo": solo}
+            if label in ("A", "C", "E"):
+                golden[label] = worst_golden
+                _say("serve_golden", card=smi, bucket=label, members=len(group),
+                     worst_rel_err=worst_golden,
+                     gate=_SERVE_GOLDEN_TOL[group[0][1].precision.storage])
+            torch.cuda.empty_cache()
+        res["golden"] = golden
+
+        # (4) meshes on one card
+        base, members, fields = a_first
+        padded = _padded_size(len(members), DEFAULT_MAX_BATCH, 1)
+        mesh = {}
+        for what, shape, bm in (("mesh_222", (2, 2, 2), 1), ("batch_mesh_2", (1, 1, 1), 2)):
+            cfg = dataclasses.replace(base, mesh=MeshConfig(shape=shape))
+            tm = time.perf_counter()
+            es = EnsembleSolver(pad_batch(cfg, members, padded), batch_mesh=bm,
+                                device="cuda:0")
+            got = es.gather(es.run(es.init_state()))[:len(members)]
+            del es
+            _check(np.array_equal(got, fields), f"serve: bucket A {what} != (1,1,1)")
+            mesh[what] = {"bitwise": True, "seconds": time.perf_counter() - tm}
+        _say("serve_mesh", card=smi, bucket="A", members=len(members), padded=padded, **mesh)
+        res["mesh"] = mesh
+
+        # (5) no hand-written kernel on the serving path
+        after = ops.launch_counts()
+        launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        _check(not launched, f"serve: hand-written kernels launched: {launched}")
+        _say("serve_launches", card=smi, kernel_launches={k: 0 for k in after},
+             command_seconds=cmd_s)
+        del a_first, fields
+        torch.cuda.empty_cache()
+
+        # (6) throughput beside the solo rows
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["serve", "--bench", "--members", "64", "--grid", "128",
+                           "--steps", "50"])
+        _check(rc == 0, f"serve --bench exited {rc}")
+        row = json.loads(buf.getvalue().strip().splitlines()[-1])
+        _check(row["members_per_step"] == 64 and not any(row["kernel_launches"].values()),
+               f"serve --bench row: {row}")
+        jnp_row = bench_throughput(SolverConfig(grid=GridConfig.cube(128), backend="jnp"),
+                                   steps=50, warmup=1, repeats=3)
+        direct_row = bench_throughput(SolverConfig(grid=GridConfig.cube(128)), steps=50,
+                                      warmup=1, repeats=3)
+        _check(direct_row["step_route"] == "direct", f"solo 128^3 route {direct_row}")
+        res["bench"] = {"ensemble_gcell": row["gcell_per_sec"],
+                        "per_member_gcell": row["gcell_per_sec"] / 64,
+                        "solo_jnp_gcell": jnp_row["gcell_per_sec"],
+                        "solo_direct_gcell": direct_row["gcell_per_sec"]}
+        _say("serve_bench", card=smi, members=64, grid=[128] * 3, steps=row["steps"],
+             seconds_best=row["seconds_best"], **res["bench"],
+             ensemble_ms_per_step=row["seconds_best"] / row["steps"] * 1e3,
+             solo_jnp_ms_per_step=jnp_row["seconds_best"] / jnp_row["steps"] * 1e3,
+             solo_direct_ms_per_step=direct_row["seconds_best"] / direct_row["steps"] * 1e3,
+             note="no claim: the ensemble runs the eager plain chain, as JAX's jnp route")
+        del jnp_row, direct_row
+        torch.cuda.empty_cache()
+
+        # (7) the tuner's ensemble search and its resolution
+        store = os.environ["HEAT3D_TUNE_CACHE"]
+        rc, out = _tune_cmd(["run", "--batch-members", "16", "--grid", "128", "--mesh",
+                             "1", "1", "1", "--knob", "time_blocking=1,2", "--steps", "20",
+                             "--repeats", "2", "--probe-steps", "0", "--json"])
+        _check(rc == 0, f"tune run --batch-members 16 exited {rc}: {out[-2000:]}")
+        search = json.loads(out.strip().splitlines()[-1])
+        from heat3d_tpu_torch.tune import cache as tcache
+
+        entry = tcache.load(store)["entries"].get(search["key"])
+        _check("|b2^4" in search["key"] and entry and entry["config"]["backend"] == "jnp",
+               f"tune --batch-members 16: key {search['key']}, entry {entry}")
+        from heat3d_tpu_torch.serve.scenario import Scenario
+
+        auto = SolverConfig(grid=GridConfig.cube(128), time_blocking=0)
+        es = EnsembleSolver(ScenarioBatch(auto, [Scenario(seed=m) for m in range(16)]))
+        _check(es.cfg.time_blocking == entry["config"]["time_blocking"]
+               and es.cfg.backend == "jnp",
+               f"EnsembleSolver time_blocking=0 resolved to {es.cfg.time_blocking} "
+               f"({es.cfg.backend}), entry {entry['config']}")
+        del es
+        res["tune"] = {"key": search["key"], "winner": search["winner"]}
+        _say("serve_tune", card=smi, key=search["key"], trials=search["trials"],
+             winner=search["winner"], resolved_time_blocking=entry["config"]["time_blocking"],
+             elapsed_s=search["elapsed_s"])
+
+        # (8) the refused flags
+        codes = {}
+        for argv in _SERVE_REFUSED:
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                codes[argv[0]] = cli.main(["serve", "--smoke", *argv])
+            _check(codes[argv[0]] == 2 and "not ported yet" in err.getvalue(),
+                   f"serve {argv}: exit {codes[argv[0]]}: {err.getvalue()}")
+        _say("serve_refusals", card=smi, exit_codes=codes)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _say("serve_path", card=smi, seconds=time.perf_counter() - t0)
+    return res
+
+
 # the phases after the build, in the order they run; ``--only`` picks some
 PHASES = ("compare", "compare_mehrstellen", "compare_bf16", "compare_mesh", "compare_fused",
           "main_path", "families", "integrators", "state", "obs", "tune", "kernel_times",
           "mehrstellen_times",
           "compute_bf16_times", "dma_times", "halo_bench", "fused_times",
-          "shard_kernel_times", "cross_gpu", "multiprocess")
+          "shard_kernel_times", "cross_gpu", "multiprocess", "serve")
 
 
 def _args(argv):
@@ -4715,6 +5205,8 @@ def main(argv=None) -> int:
         phase_cross_gpu(worst)
     if "multiprocess" in run:
         phase_multiprocess(smi)
+    if "serve" in run:
+        phase_serve(smi)
     _say("done", seconds=time.perf_counter() - t0, phases=[p for p in PHASES if p in run])
     if args.only is None:
         kernels = [

@@ -11,7 +11,10 @@ heat3d_tpu_torch eqn list|show`` inspects the family registry
 (``eqn.cli``). ``--time-blocking 0`` and ``--halo/--halo-plan/--fused-rdma
 auto`` resolve through the tuning cache before the run starts; ``python -m
 heat3d_tpu_torch tune run|show|apply|clear|lint`` searches, shows and
-edits it (``tune.cli``). ``--mesh Px Py Pz`` splits the field into shards, by
+edits it (``tune.cli``; ``--batch-members B`` searches the ensemble
+workload). ``python -m heat3d_tpu_torch serve --smoke|--requests
+FILE|--bench`` runs the batched scenario engine (``serve.cli``).
+``--mesh Px Py Pz`` splits the field into shards, by
 default shard i on ``cuda:i``; without ``--mesh`` every visible GPU takes
 a shard of a balanced 3D mesh, as the JAX CLI's default (one shard under
 an explicit ``--device``). ``--device D`` puts every shard on D (``cpu``
@@ -324,6 +327,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         from heat3d_tpu_torch.tune.cli import main as tune_main
 
         return tune_main(argv[1:])
+    # `serve --smoke|--requests|--bench`: the batched scenario engine
+    if argv and argv[0] == "serve":
+        from heat3d_tpu_torch.serve.cli import main as serve_main
+
+        return serve_main(argv[1:])
     try:
         rc = _main(argv)
     except (ValueError, RuntimeError) as e:

@@ -89,6 +89,7 @@ def apply_taps_padded(
     if mehrstellen:
         coeffs = decompose_mehrstellen(taps)
         if coeffs is not None:
+            coeffs = [compute_weight(c, compute_dtype) for c in coeffs]
             return _apply_mehrstellen_padded(upc, coeffs).to(out_dtype)
     flat = flat_taps(taps)
     if not flat:
@@ -109,17 +110,21 @@ def _apply_mehrstellen_padded(upc: torch.Tensor, coeffs) -> torch.Tensor:
       psum = (px + py) + pz        face sums of the padded block
       out  = (a*u0 + b*S) + d*psum
 
-    ``coeffs`` are ``decompose_mehrstellen``'s (a, b, d), embedded as
-    :func:`compute_weight` like the tap weights (3.0 is exact in both)."""
-    nx, ny, nz = upc.shape[0] - 2, upc.shape[1] - 2, upc.shape[2] - 2
-    a, b, d = (compute_weight(c, upc.dtype) for c in coeffs)
-    z131 = (upc[:, :, 0:nz] + upc[:, :, 2 : nz + 2]) + 3.0 * upc[:, :, 1 : nz + 1]
-    y131 = (z131[:, 0:ny] + z131[:, 2 : ny + 2]) + 3.0 * z131[:, 1 : ny + 1]
-    s = (y131[0:nx] + y131[2 : nx + 2]) + 3.0 * y131[1 : nx + 1]
-    c = upc[1 : nx + 1, 1 : ny + 1, 1 : nz + 1]
-    px = upc[0:nx, 1 : ny + 1, 1 : nz + 1] + upc[2 : nx + 2, 1 : ny + 1, 1 : nz + 1]
-    py = upc[1 : nx + 1, 0:ny, 1 : nz + 1] + upc[1 : nx + 1, 2 : ny + 2, 1 : nz + 1]
-    pz = upc[1 : nx + 1, 1 : ny + 1, 0:nz] + upc[1 : nx + 1, 1 : ny + 1, 2 : nz + 2]
+    ``coeffs`` are (a, b, d) as the update multiplies by them: the solo
+    apply's :func:`compute_weight` floats (3.0 is exact in both dtypes), or
+    the ensemble's per-member (B, 1, 1, 1) compute-dtype tensors. The axes
+    are ``upc``'s last three, so a batch of members (B, nx+2, ny+2, nz+2)
+    runs the same ops."""
+    nx, ny, nz = upc.shape[-3] - 2, upc.shape[-2] - 2, upc.shape[-1] - 2
+    a, b, d = coeffs
+    z131 = (upc[..., 0:nz] + upc[..., 2 : nz + 2]) + 3.0 * upc[..., 1 : nz + 1]
+    y131 = (z131[..., 0:ny, :] + z131[..., 2 : ny + 2, :]) + 3.0 * z131[..., 1 : ny + 1, :]
+    s = ((y131[..., 0:nx, :, :] + y131[..., 2 : nx + 2, :, :])
+         + 3.0 * y131[..., 1 : nx + 1, :, :])
+    c = upc[..., 1 : nx + 1, 1 : ny + 1, 1 : nz + 1]
+    px = upc[..., 0:nx, 1 : ny + 1, 1 : nz + 1] + upc[..., 2 : nx + 2, 1 : ny + 1, 1 : nz + 1]
+    py = upc[..., 1 : nx + 1, 0:ny, 1 : nz + 1] + upc[..., 1 : nx + 1, 2 : ny + 2, 1 : nz + 1]
+    pz = upc[..., 1 : nx + 1, 1 : ny + 1, 0:nz] + upc[..., 1 : nx + 1, 1 : ny + 1, 2 : nz + 2]
     psum = (px + py) + pz
     return (a * c + b * s) + d * psum
 
@@ -127,25 +132,27 @@ def _apply_mehrstellen_padded(upc: torch.Tensor, coeffs) -> torch.Tensor:
 def _chain_accumulate(upc: torch.Tensor, flat, scalar) -> torch.Tensor:
     """THE shifted-slice emission of the tap chain over a ghost-padded
     compute-dtype tensor ``upc``; the plane/row caches are the x/y
-    factoring reuse that accumulate_taps' emission order assumes."""
-    nx, ny, nz = upc.shape[0] - 2, upc.shape[1] - 2, upc.shape[2] - 2
+    factoring reuse that accumulate_taps' emission order assumes. The axes
+    are ``upc``'s last three: a batch of members (B, nx+2, ny+2, nz+2)
+    runs the same ops, with ``scalar`` giving (B, 1, 1, 1) weights."""
+    nx, ny, nz = upc.shape[-3] - 2, upc.shape[-2] - 2, upc.shape[-1] - 2
     cache = {}
 
-    def plane(di):  # (nx, ny+2, nz+2)
+    def plane(di):  # (..., nx, ny+2, nz+2)
         if di == "xsum":
             if "p" not in cache:
-                cache["p"] = upc[0:nx] + upc[2 : 2 + nx]
+                cache["p"] = upc[..., 0:nx, :, :] + upc[..., 2 : 2 + nx, :, :]
             return cache["p"]
-        return upc[1 + di : 1 + di + nx]
+        return upc[..., 1 + di : 1 + di + nx, :, :]
 
     def term(di, dj, dk):
         src = plane(di)
         if dj == "ysum":
             key = ("ys", di)
-            if key not in cache:  # (nx, ny, nz+2)
-                cache[key] = src[:, 0:ny] + src[:, 2 : 2 + ny]
-            return cache[key][:, :, 1 + dk : 1 + dk + nz]
-        return src[:, 1 + dj : 1 + dj + ny, 1 + dk : 1 + dk + nz]
+            if key not in cache:  # (..., nx, ny, nz+2)
+                cache[key] = src[..., 0:ny, :] + src[..., 2 : 2 + ny, :]
+            return cache[key][..., 1 + dk : 1 + dk + nz]
+        return src[..., 1 + dj : 1 + dj + ny, 1 + dk : 1 + dk + nz]
 
     return accumulate_taps(flat, term, scalar)
 
@@ -178,7 +185,9 @@ def pin_outside(
     set to ``bc_value`` rounded to ``arr``'s dtype. ``edges`` (x_lo, x_hi,
     y_lo, y_hi, z_lo, z_hi; default all True) limits the pins to the sides
     whose flag is set: a shard pins only beyond the domain faces it
-    touches."""
+    touches. The axes are ``arr``'s last three: a batch of members
+    (B, nx, ny, nz) takes ``bc_value`` as a (B, 1, 1, 1) tensor of their
+    values in ``arr``'s dtype."""
     edges = (True,) * 6 if edges is None else edges
     mask = None
     for axis, (g, n) in enumerate(zip(global_indices, extents)):
@@ -191,6 +200,8 @@ def pin_outside(
             m = m & (g < n)
         m = m.reshape(shape)
         mask = m if mask is None else mask & m
+    if isinstance(bc_value, torch.Tensor):
+        return torch.where(mask, arr, bc_value)
     bc = torch.full((), bc_value, dtype=arr.dtype, device=arr.device)
     return torch.where(mask, arr, bc)
 
@@ -206,3 +217,74 @@ def residual_sumsq(
     differs from XLA's, so the two agree to fp32 rounding, not bitwise."""
     d = u_new.to(residual_dtype) - u_old.to(residual_dtype)
     return torch.sum(d * d, dtype=residual_dtype)
+
+
+# ---- the parametric chain (the batched ensemble, ``serve.ensemble``) ------
+
+
+def emission_positions(flat):
+    """Representative (di, dj, dk) tap offsets, one per chain term, in the
+    exact ``scalar()`` consumption order of ``accumulate_taps`` over ``flat``
+    under the current factoring env (port of
+    ``stencil_jnp.emission_positions``). A factored term (``"xsum"`` /
+    ``"ysum"``) is represented by its +1-side tap: the factoring fires only
+    when the +-1 patterns carry equal weights, so the +1 weight is the
+    shared one. This maps a member's 3x3x3 taps onto the parametric chain's
+    weight vector."""
+    from heat3d_tpu_torch.core.stencils import _CountToken
+
+    tok = _CountToken()
+    out = []
+
+    def term(di, dj, dk):
+        out.append((1 if di == "xsum" else di, 1 if dj == "ysum" else dj, dk))
+        return tok
+
+    accumulate_taps(flat, term, lambda w: tok)
+    return tuple(out)
+
+
+def member_weights(member_taps, positions, compute_dtype: torch.dtype = torch.float32,
+                   device=None) -> torch.Tensor:
+    """The (B, T) compute-dtype weight tensor of the parametric chain: row m
+    holds member m's taps at ``positions`` (:func:`emission_positions`),
+    each rounded on the host as :func:`compute_weight` rounds a baked
+    weight, so a member's chain multiplies by the same values as its solo
+    apply."""
+    rows = [
+        [compute_weight(t[di + 1, dj + 1, dk + 1], compute_dtype) for di, dj, dk in positions]
+        for t in member_taps
+    ]
+    return torch.tensor(rows, dtype=torch.float32, device=device).to(compute_dtype)
+
+
+def _per_member(v: torch.Tensor) -> torch.Tensor:
+    """A (B,) or () weight as a tensor that broadcasts over (B, nx, ny, nz)
+    (or (nx, ny, nz))."""
+    return v.reshape(v.shape + (1, 1, 1))
+
+
+def apply_taps_padded_params(
+    up: torch.Tensor, flat, weights: torch.Tensor,
+    compute_dtype: torch.dtype = torch.float32, out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """The parametric tap apply (port of
+    ``stencil_jnp.apply_taps_padded_params``): the emission of
+    :func:`apply_taps_padded` with the weights as a tensor instead of
+    embedded constants. ``up`` is (B, nx+2, ny+2, nz+2) (or one
+    (nx+2, ny+2, nz+2) block); ``weights`` is (B, T) (or (T,)), already in
+    ``compute_dtype`` (:func:`member_weights`): the i-th chain term of member
+    m multiplies by ``weights[m, i]``, in :func:`emission_positions` order.
+    ``flat`` is the nominal flat-tap structure the members share. Each
+    multiply and add is one rounded operation, as on the solo path, so a
+    member's result does not depend on the batch it is packed in."""
+    out_dtype = out_dtype or up.dtype
+    upc = up.to(compute_dtype)
+    counter = [0]
+
+    def scalar(_w):
+        i = counter[0]
+        counter[0] += 1
+        return _per_member(weights[..., i])
+
+    return _chain_accumulate(upc, flat, scalar).to(out_dtype)

@@ -28,6 +28,10 @@ self-wrap).
   The edge and corner zones of a pairwise block hold ``bc_value``
   (:func:`fill_pairwise_edges`), under periodic bc too: the JAX function
   pads each ghost face with ``bc_value`` over the extents of earlier axes.
+- Blocks with a leading batch extent (the ensemble's members): the slab
+  indices address a block's last three dims, so :func:`push_axis_slabs`
+  runs on (B, ...) blocks as it is, with ``bc_value`` a (B, 1, 1, 1)
+  tensor of the members' values (one process, monolithic).
 
 Across processes (``parallel.topology.ShardMesh.is_local``) a copy into a
 neighbour on another process goes over the plan's wire (the ``wire``
@@ -67,8 +71,10 @@ def padded_shape(shape, width: int):
 def axis_slab(axis: int, lo: int, hi: int, local_shape, width: int):
     """Index of the padded-block slab [lo, hi) along ``axis``, spanning the
     padded extent of earlier axes and the interior of later ones: what
-    axis ``axis`` of the axis-ordered exchange reads and writes."""
-    return tuple(
+    axis ``axis`` of the axis-ordered exchange reads and writes. It indexes
+    a block's last three dims (leading ``...``), so a batch of blocks
+    (B, ...) takes the same slab of every member."""
+    return (Ellipsis,) + tuple(
         slice(lo, hi) if a == axis
         else slice(None) if a < axis
         else slice(width, width + n)
@@ -77,7 +83,8 @@ def axis_slab(axis: int, lo: int, hi: int, local_shape, width: int):
 
 
 def interior(local_shape, width: int):
-    return tuple(slice(width, width + n) for n in local_shape)
+    """Index of a padded block's interior, over its last three dims."""
+    return (Ellipsis,) + tuple(slice(width, width + n) for n in local_shape)
 
 
 def _check_width(shape, width: int) -> None:
@@ -121,7 +128,8 @@ def exchange_halo(
 
 def _self_axis(pad, local_shape, axis, w, periodic, bc_value) -> None:
     """Axis ``axis`` of a block with no neighbour along it: the self-wrap
-    (periodic) or the bc fill of both ghost slabs."""
+    (periodic) or the bc fill of both ghost slabs (``bc_value`` a float, or
+    a tensor that broadcasts over a batch of blocks)."""
     n = local_shape[axis]
     lo_ghost = axis_slab(axis, 0, w, local_shape, w)
     hi_ghost = axis_slab(axis, n + w, n + 2 * w, local_shape, w)
@@ -160,7 +168,10 @@ def push_axis_slabs(pads: Sequence[torch.Tensor], mesh, shard, axis: int,
     slab into its high neighbour's low ghost slab; at a Dirichlet domain
     face its own ghost slab is filled with ``bc_value``; on an axis of mesh
     size 1, the self-wrap. The face slabs carry the ghosts of earlier axes,
-    so those must have landed. ``schedule`` (a ``parallel.plan.Schedule``,
+    so those must have landed. Blocks with a leading batch extent take
+    ``bc_value`` as a (B, 1, 1, 1) tensor of the members' values (one
+    process, monolithic: the batched exchange of ``serve.ensemble``).
+    ``schedule`` (a ``parallel.plan.Schedule``,
     default monolithic) splits each copy between shards into sub-blocks;
     a neighbour on another process gets them through ``wire``."""
     local, w = mesh.local_shape, width
@@ -232,7 +243,7 @@ def raw_slab(axis: int, lo: int, hi: int, local_shape, width: int):
     """Index of the padded-block slab [lo, hi) along ``axis`` over the
     interior of every other axis: a ghost slab of the pairwise exchange."""
     inner = list(interior(local_shape, width))
-    inner[axis] = slice(lo, hi)
+    inner[1 + axis] = slice(lo, hi)
     return tuple(inner)
 
 

@@ -40,6 +40,10 @@ each device's launch orders itself after the device's shard streams and
 they after it (the "entered" events order pushes into blocks on other
 devices).
 
+:class:`BatchedExchangePlan` is the axis-ordered ppermute exchange of a
+batch of fields (the ensemble's members), blocks with a leading batch
+extent and per-member boundary values, in one process.
+
 :class:`FacesPlan` is the same for ``exchange_halo_faces`` (the
 faces-direct step): six ghost face buffers per shard and no padded block.
 Its ``x_ghosts`` seeding takes the x faces from the fused kernel's landed
@@ -89,6 +93,7 @@ from heat3d_tpu_torch.obs.trace import named_phase
 from heat3d_tpu_torch.ops import peer
 from heat3d_tpu_torch.parallel.halo import (
     _check_width,
+    exchange_axis_slabs,
     exchange_halo,
     face_shapes,
     fill_pairwise_edges,
@@ -448,6 +453,48 @@ class ExchangePlan(_Plan):
                         self.pads, mesh, s, axis, w, p, bc_value, sched, wire),
                         lambda s, axis=axis: recv_axis_slabs(
                             wire, self.pads, mesh, s, axis, w, p, sched))
+
+
+class BatchedExchangePlan:
+    """The axis-ordered ppermute exchange of a batch of fields (the
+    ensemble's members, ``serve.ensemble``) over one mesh of shards: per
+    shard a padded block with a leading batch extent, ``(B, n + 2w)``,
+    allocated once and reused by every apply. The ghosts of member m are
+    those of a width-``width`` :class:`ExchangePlan` apply of member m
+    alone with its own boundary value (byte-equal), but the fills come from
+    a (B, 1, 1, 1) storage-dtype tensor, so no member's value is read on
+    the host. One process; every copy on the current stream, in shard
+    order (no shard streams, so no events); faces ship whole (a
+    partitioned plan's sub-blocks carry the same bytes)."""
+
+    def __init__(self, mesh, bc: BoundaryCondition, width: int, dtype: torch.dtype,
+                 batch: int):
+        if mesh.multiprocess:
+            raise ValueError("the batched exchange runs in one process")
+        _check_width(mesh.local_shape, width)
+        self.mesh = mesh
+        self.bc = bc
+        self.width = width
+        self.dtype = dtype
+        self.batch = batch
+        want = (batch,) + padded_shape(mesh.local_shape, width)
+        self.pads: List[torch.Tensor] = [
+            torch.empty(want, dtype=dtype, device=s.device) for s in mesh.local_shards
+        ]
+
+    def apply(self, us: Sequence[torch.Tensor], bcv: torch.Tensor) -> List[torch.Tensor]:
+        """The padded blocks of the batched fields ``us`` (rank order, each
+        (B, nx, ny, nz)), ghosts filled, valid until the next apply."""
+        mesh, w = self.mesh, self.width
+        periodic = self.bc is BoundaryCondition.PERIODIC
+        inner = interior(mesh.local_shape, w)
+        with named_phase("halo_exchange"):
+            for u, pad in zip(us, self.pads):
+                pad[inner] = u
+            for axis in range(3):
+                with named_phase(f"halo.{AXIS_NAMES[axis]}"):
+                    exchange_axis_slabs(self.pads, mesh, axis, w, periodic, bcv)
+            return self.pads
 
 
 class FacesPlan(_Plan):

@@ -182,16 +182,19 @@ def _pin_padding(u: torch.Tensor, cfg: SolverConfig, shard, bc_value=None) -> to
     (global index >= grid extent) to bc_value after an update, in place:
     real cells next to the true boundary then read bc_value from their
     padded neighbours, exactly the Dirichlet ghost, and padded cells add
-    nothing to the residual."""
+    nothing to the residual. The block is ``u``'s last three dims: a batch
+    of members (B, nx, ny, nz) takes a (B, 1, 1, 1) tensor of their
+    values."""
     if not cfg.is_padded:
         return u
     if bc_value is None:
         bc_value = cfg.stencil.bc_value
+    lead = u.dim() - 3
     for axis, (g, n, o) in enumerate(zip(cfg.grid.shape, cfg.local_shape, shard.origin)):
         start = max(0, g - o)
         if g != cfg.padded_shape[axis] and start < n:
-            idx = [slice(None)] * 3
-            idx[axis] = slice(start, None)
+            idx = [slice(None)] * u.dim()
+            idx[lead + axis] = slice(start, None)
             u[tuple(idx)] = bc_value
     return u
 

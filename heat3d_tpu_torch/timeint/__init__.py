@@ -18,8 +18,8 @@ ghost blocks of the solver's ``parallel.plan`` exchange, with the ppermute
 transport: the kernel routes fuse the single-level explicit update only.
 A field is a list of shard tensors in rank order (``parallel.topology``);
 the leapfrog carry is a pair of such lists. The spatially-varying
-coefficient fields of ``heat3d_tpu.timeint.coeffield`` (a serve surface)
-are not ported yet.
+coefficient fields (:mod:`heat3d_tpu_torch.timeint.coeffield`) are a serve
+surface: the ensemble runs their flux-form update, no integrator here does.
 """
 
 from __future__ import annotations

@@ -22,8 +22,10 @@ key. ``--device`` places every trial's shards (``cpu`` for the tests: the
 kernels' plain versions on the host clock; ``cuda:0`` for a sharded search
 on one card); without it they run on the card, shard i on ``cuda:i``.
 ``apply`` prints the winner as a solver/bench flag line. ``show`` marks an
-entry of the JAX package (a shared store) ``jax``. ``--batch-members``
-above 1 (the JAX package's ensemble search) exits 2: not ported yet.
+entry of the JAX package (a shared store) ``jax``. ``--batch-members B``
+above 1 searches the ensemble workload (B-member batches through
+``serve.bench``, single-tenant routes pruned) and keys the winner, and
+``apply``'s lookup, at the ``b2^k`` batch bucket.
 """
 
 from __future__ import annotations
@@ -120,23 +122,11 @@ def _fmt_knobs(knobs) -> str:
     return " ".join(f"{k}={v}" for k, v in sorted(knobs.items()))
 
 
-def _ensemble_refused(args) -> bool:
-    if (getattr(args, "batch_members", 1) or 1) > 1:
-        from heat3d_tpu_torch.tune.measure import ENSEMBLE_NOT_PORTED
-
-        print(f"tune: --batch-members {args.batch_members}: "
-              f"{ENSEMBLE_NOT_PORTED}", file=sys.stderr)
-        return True
-    return False
-
-
 def cmd_run(args) -> int:
     from heat3d_tpu_torch import obs
     from heat3d_tpu_torch.tune import measure as tmeasure
     from heat3d_tpu_torch.tune.decide import format_decision
 
-    if _ensemble_refused(args):
-        return 2
     obs.activate(args.ledger, meta={"entry": "tune"})
     try:
         base = _base_config(args)
@@ -150,6 +140,7 @@ def cmd_run(args) -> int:
             min_win_pct=args.min_win,
             write_cache=not args.no_cache_write,
             cache_path=args.cache,
+            batch_members=args.batch_members,
             device=args.device,
         )
     except BaseException as e:
@@ -293,12 +284,14 @@ def cmd_show(args) -> int:
 
 
 def _context_key(args) -> str:
-    return tcache.cache_key(_base_config(args), device=args.device)
+    return tcache.cache_key(
+        _base_config(args),
+        batch_size=getattr(args, "batch_members", 1) or 1,
+        device=args.device,
+    )
 
 
 def cmd_apply(args) -> int:
-    if _ensemble_refused(args):
-        return 2
     entries = tcache.load(args.cache).get("entries") or {}
     key = args.key or _context_key(args)
     e = entries.get(key)
@@ -399,8 +392,11 @@ def _add_context_args(p) -> None:
                    "every shard on one card, the key's s leg); default "
                    "shard i on cuda:i")
     p.add_argument("--batch-members", type=int, default=1,
-                   help="the JAX package's ensemble search (B-member "
-                   "batches): not ported yet, exits 2 above 1")
+                   help="search the ENSEMBLE workload (B-member batches) "
+                   "instead of solo: trials run serve/bench batches, single-"
+                   "tenant routes are pruned, and the winner lands at (and "
+                   "apply looks up) the b2^k batch-bucketed cache key the "
+                   "serving queue's bucket solvers resolve through")
 
 
 def main(argv: Optional[List[str]] = None) -> int:

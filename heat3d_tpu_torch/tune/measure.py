@@ -29,8 +29,13 @@ JAX package:
 
 A trial that crashes is recorded as ``status: error`` and the search
 continues — one broken route must cost one candidate, not the session.
-The ensemble search of the JAX package (``batch_members`` > 1, a serve
-bench per trial) is not ported: it raises.
+
+``batch_members`` > 1 searches the ensemble workload instead: every trial
+measures a B-member batch through the serving bench
+(``serve.bench.bench_ensemble_throughput``), the single-tenant routes are
+pruned with their reasons (:func:`_ensemble_incompatible`), and the winner
+lands at the ``b2^round(log2 B)`` batch-bucketed key the ensemble's bucket
+solvers resolve through.
 """
 
 from __future__ import annotations
@@ -48,10 +53,6 @@ from heat3d_tpu_torch.tune import space as tspace
 
 METRIC = "gcell_per_sec_per_chip"
 DEFAULT_DOMINATED_FRAC = 0.6
-ENSEMBLE_NOT_PORTED = (
-    "the ensemble search (batch_members > 1) is not ported yet "
-    "(serve: ROADMAP item 11)"
-)
 
 
 @dataclasses.dataclass
@@ -118,6 +119,45 @@ def _on_card(device) -> bool:
     return torch.cuda.is_available()
 
 
+def _ensemble_incompatible(overrides: Dict[str, Any]) -> Optional[str]:
+    """Why a candidate cannot serve as a batch-bucket (ensemble) config, or
+    None. The ensemble runs the plain chain on the axis-ordered ppermute
+    exchange (``serve.ensemble`` pins exactly this): the kernel routes, the
+    DMA transport, pairwise ordering and the split-step overlap are
+    single-tenant knobs that would fail ``EnsembleSolver`` construction, so
+    they are pruned with a reason instead of spending budget on certain
+    ``status: error`` trials."""
+    if overrides.get("backend") in ("pallas", "conv"):
+        return f"ensemble: backend={overrides['backend']} is single-tenant"
+    if overrides.get("halo") == "dma":
+        return "ensemble: halo='dma' is single-tenant"
+    if overrides.get("halo_order") == "pairwise":
+        return "ensemble: halo_order='pairwise' is single-tenant"
+    if overrides.get("overlap"):
+        return "ensemble: overlap=True is single-tenant"
+    return None
+
+
+def _ensemble_bench(batch_members: int, device=None):
+    """A ``bench_throughput``-shaped callable measuring the candidate as a
+    B-member ensemble batch on ``device`` (``serve.bench``): the
+    measurement behind ``tune run --batch-members``."""
+    from heat3d_tpu_torch.serve.bench import bench_ensemble_throughput
+    from heat3d_tpu_torch.serve.scenario import Scenario, ScenarioBatch
+
+    def bench(cfg, steps, warmup, repeats):
+        members = [
+            Scenario(alpha=0.3 + 0.4 * (m + 1) / batch_members, seed=m, steps=steps)
+            for m in range(batch_members)
+        ]
+        return bench_ensemble_throughput(
+            ScenarioBatch(cfg, members), steps=steps, warmup=warmup,
+            repeats=repeats, device=device,
+        )
+
+    return bench
+
+
 def run_search(
     base: SolverConfig,
     space: Optional[Dict[str, Sequence[Any]]] = None,
@@ -135,16 +175,17 @@ def run_search(
     """Search the knob lattice around ``base`` with every trial placed on
     ``device`` (the solver's ``device=``) and, by default, cache the winner
     under :func:`~heat3d_tpu_torch.tune.cache.cache_key` for that
-    placement."""
+    placement. ``batch_members`` > 1 searches the ensemble workload (see
+    the module docstring)."""
     from heat3d_tpu_torch.bench import harness
-
-    if batch_members > 1:
-        raise NotImplementedError(ENSEMBLE_NOT_PORTED)
 
     def bench_throughput(cfg, steps, warmup, repeats):
         return harness.bench_throughput(
             cfg, steps=steps, warmup=warmup, repeats=repeats, device=device
         )
+
+    if batch_members > 1:
+        bench_throughput = _ensemble_bench(batch_members, device)
 
     # a base carrying auto sentinels (halo='auto', time_blocking=0) would
     # otherwise be measured under the static fallback but CACHED verbatim
@@ -170,6 +211,12 @@ def run_search(
         candidates = tspace.enumerate_candidates(
             base, space, make_solver=lambda c: HeatSolver3D(c, device=device)
         )
+        if batch_members > 1:
+            candidates = [
+                dataclasses.replace(c, prune=_ensemble_incompatible(c.overrides))
+                if c.prune is None else c
+                for c in candidates
+            ]
         enumerate_s = time.perf_counter() - t_enum
         obs.get().event(
             "tune_search_start",
@@ -280,7 +327,7 @@ def run_search(
                 )
                 result.cache_written = tcache.store_entry(
                     key,
-                    _winner_config(base, winner),
+                    _winner_config(base, winner, ensemble=batch_members > 1),
                     winner.metric,
                     default_metric=(
                         default_trial.metric if default_clean else None
@@ -296,10 +343,14 @@ def run_search(
             os.environ[tcache.ENV_DISABLE] = prev_disable
 
 
-def _winner_config(base: SolverConfig, winner: Trial) -> SolverConfig:
+def _winner_config(base: SolverConfig, winner: Trial, ensemble: bool = False) -> SolverConfig:
     """The winner's SolverConfig with the backend concretized (entries
-    store the route that executes, not 'auto')."""
+    store the route that executes, not 'auto'). An ensemble (batch-bucket)
+    winner ran the plain chain whatever the solo rule would pick: its
+    concrete route is 'jnp' (``serve.ensemble`` pins it)."""
     cfg = tspace.apply_knobs(base, winner.overrides)
+    if ensemble:
+        return dataclasses.replace(cfg, backend="jnp")
     return dataclasses.replace(cfg, backend=_concrete_backend(cfg))
 
 

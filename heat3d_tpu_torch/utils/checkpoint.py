@@ -43,7 +43,6 @@ import numpy as np
 import torch
 
 from heat3d_tpu_torch import obs
-from heat3d_tpu_torch.core.decomposition import coords_of_rank
 
 MANIFEST = "manifest.json"
 CRC_SUFFIX = ".crc32"
@@ -190,13 +189,15 @@ def _field_layout(u):
     """(shards, their origins in storage, the storage shape, the origins of
     every shard of the mesh) of the port's field: a ``ShardedField``
     (shards in rank order, equal local shapes; across processes this
-    process's, ``ranks`` naming them), or one tensor."""
+    process's, ``ranks`` naming them), an ensemble's ``BatchedField``
+    (its (Pb, Px, Py, Pz) mesh, rank order row-major as in 3-D), or one
+    tensor."""
     if isinstance(u, torch.Tensor):
         return [u], [(0,) * u.dim()], tuple(u.shape), [(0,) * u.dim()]
     shards, mesh_shape = list(u.shards), tuple(u.mesh_shape)
     local = tuple(shards[0].shape)
     every = [
-        tuple(c * n for c, n in zip(coords_of_rank(r, mesh_shape), local))
+        tuple(int(c) * n for c, n in zip(np.unravel_index(r, mesh_shape), local))
         for r in range(int(np.prod(mesh_shape)))
     ]
     ranks = getattr(u, "ranks", None) or range(len(shards))

@@ -54,7 +54,9 @@ def test_scan_sees_the_package():
                    "obs/perf/profiling.py", "obs/perf/timeline.py",
                    "obs/perf/roofline.py", "obs/perf/merge.py", "obs/perf/regress.py",
                    "analysis/ledgerlint.py", "analysis/findings.py",
-                   "analysis/registry.py"):
+                   "analysis/registry.py", "serve/__init__.py", "serve/scenario.py",
+                   "serve/ensemble.py", "serve/queue.py", "serve/bench.py", "serve/cli.py",
+                   "timeint/coeffield.py"):
         assert f"heat3d_tpu_torch/{module}" in names
     assert not _forbidden("heat3d_tpu_torch.ops") and _forbidden("heat3d_tpu.ops")
 
@@ -78,7 +80,10 @@ def test_import_leaves_jax_unloaded():
         "heat3d_tpu_torch.analysis.ledgerlint, heat3d_tpu_torch.analysis.registry, "
         "heat3d_tpu_torch.tune.cache, heat3d_tpu_torch.tune.decide, "
         "heat3d_tpu_torch.tune.measure, heat3d_tpu_torch.tune.cli, "
-        "heat3d_tpu_torch.obs.comm.adjudicate, heat3d_tpu_torch.obs.comm.probe\n"
+        "heat3d_tpu_torch.obs.comm.adjudicate, heat3d_tpu_torch.obs.comm.probe, "
+        "heat3d_tpu_torch.serve, heat3d_tpu_torch.serve.ensemble, "
+        "heat3d_tpu_torch.serve.queue, heat3d_tpu_torch.serve.bench, "
+        "heat3d_tpu_torch.serve.cli, heat3d_tpu_torch.timeint.coeffield\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'heat3d_tpu', 'ml_dtypes'))\n"
         "print(','.join(bad))\n"
@@ -98,6 +103,11 @@ def test_default_device_raises_without_cuda(monkeypatch):
         HeatSolver3D(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         HeatSolver3D(cfg, device="cuda")
+    from heat3d_tpu_torch.serve import EnsembleSolver, Scenario, ScenarioBatch
+
+    batch = ScenarioBatch(SolverConfig(grid=GridConfig.cube(8), backend="jnp"), [Scenario()])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EnsembleSolver(batch)
 
 
 def test_wrappers_refuse_non_cuda_non_cpu_tensors():

@@ -749,14 +749,80 @@ def test_search_disables_the_cache_for_its_trials(monkeypatch):
     assert seen == ["1"] and tcache.ENV_DISABLE not in os.environ
 
 
-def test_ensemble_search_is_not_ported(capsys):
+_ENSEMBLE_SPACE = {
+    "backend": ("jnp", "pallas", "conv"), "halo": ("ppermute", "dma"),
+    "halo_order": ("axis", "pairwise"), "overlap": (False, True), "time_blocking": (1, 2),
+}
+
+
+def test_ensemble_search_prunes_single_tenant_routes_as_jax(monkeypatch):
+    """``batch_members`` > 1: both searches prune the same candidates with
+    the same ``ensemble:`` reasons, apart from the platform difference: off
+    the TPU the JAX package prunes its ``pallas`` and ``dma`` candidates
+    as TPU-only before the ensemble rule sees them, and the port (which
+    builds them on the CPU) prunes them by the ensemble rule. The rule
+    itself is the JAX one on every candidate."""
+    from heat3d_tpu.tune import measure as jmeasure
     from heat3d_tpu_torch.tune import measure as tmeasure
+
+    seen = []
+
+    def fake(batch_members, device=None):
+        def bench(cfg, steps, warmup, repeats):
+            seen.append(batch_members)
+            return _row(1.0)
+        return bench
+
+    monkeypatch.setattr(tmeasure, "_ensemble_bench", fake)
+    monkeypatch.setattr(jmeasure, "_ensemble_bench", lambda b: fake(b))
+    mine = tmeasure.run_search(_cfg(12, backend="jnp"), space=_ENSEMBLE_SPACE, steps=2,
+                               repeats=1, probe_steps=0, write_cache=False,
+                               batch_members=4, device="cpu")
+    ref = jmeasure.run_search(
+        jconfig.SolverConfig(grid=jconfig.GridConfig.cube(12), backend="jnp"),
+        space=_ENSEMBLE_SPACE, steps=2, repeats=1, probe_steps=0, write_cache=False,
+        batch_members=4)
+    assert [t.knobs for t in mine.trials] == [t.knobs for t in ref.trials]
+    pruned = 0
+    for a, b in zip(mine.trials, ref.trials):
+        assert tmeasure._ensemble_incompatible(a.overrides) == \
+            jmeasure._ensemble_incompatible(b.overrides)
+        if (b.reason or "").startswith("ensemble:"):
+            assert (a.status, a.reason) == (b.status, b.reason)
+            pruned += 1
+        elif (a.reason or "").startswith("ensemble:"):
+            assert "TPU" in b.reason and (
+                a.knobs["halo"] == "dma" or a.knobs["backend"] == "pallas")
+    assert pruned and set(seen) == {4}
+    assert mine.key.endswith("|b2^2") and ref.key.endswith("|b2^2")
+
+
+def test_ensemble_search_caches_the_batch_bucket_winner(capsys):
+    """``tune run --batch-members 4`` on the CPU measures B-member batches,
+    stores a ``jnp`` winner at the ``b2^2`` key, ``tune apply`` finds it,
+    and an ensemble of 4 members with ``time_blocking=0`` resolves through
+    it."""
+    import os
+
+    from heat3d_tpu_torch.serve.ensemble import EnsembleSolver
+    from heat3d_tpu_torch.serve.scenario import Scenario, ScenarioBatch
     from heat3d_tpu_torch.tune.cli import main as tune_main
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tmeasure.run_search(_cfg(12), batch_members=4, device="cpu")
-    assert tune_main(["run", "--grid", "12", "--batch-members", "4", "--device", "cpu"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    assert tune_main(["run", "--grid", "12", "--batch-members", "4", "--device", "cpu",
+                      "--knob", "time_blocking=1,2", "--steps", "2", "--repeats", "1",
+                      "--json"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["key"].endswith("|b2^2") and res["cache_written"]
+    entry = tcache.load()["entries"][res["key"]]
+    assert entry["config"]["backend"] == "jnp"
+    assert tune_main(["apply", "--grid", "12", "--batch-members", "4",
+                      "--device", "cpu"]) == 0
+    assert "--backend jnp" in capsys.readouterr().out
+    base = _cfg(12, time_blocking=0)
+    es = EnsembleSolver(ScenarioBatch(base, [Scenario(seed=m) for m in range(4)]),
+                        device="cpu")
+    assert es.cfg.time_blocking == entry["config"]["time_blocking"]
+    assert os.environ.get(tcache.ENV_DISABLE) is None
 
 
 def test_tune_apply_emits_flag_line(capsys):
