@@ -268,9 +268,25 @@ non-zero without one. Phases, each printing its own lines:
    ``batch_mesh=2`` bitwise to (1,1,1); no hand-written kernel launched
    while serving; ``serve --bench`` (64 members, 128^3) beside the solo
    jnp and direct-kernel rows; ``tune run --batch-members 16`` (a jnp
-   winner under ``b2^4``, resolved by an ``EnsembleSolver``); every
-   refused flag exiting 2. It adds no kernel: the kernels line is as
-   before.
+   winner under ``b2^4``, resolved by an ``EnsembleSolver``). It adds no
+   kernel: the kernels line is as before.
+
+18. ``serve_async``, after ``serve``, in a temporary directory, every line
+   with the card's name and power limit (``phase_serve_async``): ``serve
+   --requests --async --residuals --workers 2`` over the C, D and E
+   records of ``_serve_records`` and 32 of A's, every result line equal to
+   the synchronous command's over the same records (queue latency aside),
+   with seconds per bucket async against sync, each bucket's warm-up stall,
+   the workers' overlap and peak device memory; a 30 s seeded soak
+   (``serve --loadgen --monitor``: ``tenant-a`` 128^3 7pt fp32, 100 steps,
+   weight 3; ``flood`` 64^3 27pt tb=2, 50 steps, a burst x8 for 2 s every
+   10 s; 6 Hz; max batch 8, 16 open a stream, 2 workers) with a partial
+   device loss injected at batch 3 through ``HEAT3D_FAULTS``: verdict
+   ``ok``, no stall after warmup, a requeue, degraded seconds, shed
+   counted, order kept, the sustained member Gcell/s and per-bucket
+   p50/p95/p99; the same mix under an impossible SLO with
+   ``--abort-on-burn`` ending early with rc 1; ``obs slo`` and ``obs watch
+   --once`` over the soak's ledger; no hand-written kernel launched.
 
 ``--only`` runs phases 1 and 2 and the named ones of ``PHASES`` (the
 check after a kernel change, before the whole run) and prints no kernels
@@ -4656,9 +4672,6 @@ _SERVE_INITS = ("hot-cube", "gaussian", "random")
 _SERVE_COEF = ("uniform", "layered", "checker", "lognormal")
 # the golden gate of the command line: fp32 chain 1e-5, bf16 anywhere 5e-2
 _SERVE_GOLDEN_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
-_SERVE_REFUSED = (["--async"], ["--workers", "2"], ["--no-aot"], ["--verdict"],
-                  ["--loadgen", "mix.json"], ["--duration", "5"], ["--monitor"],
-                  ["--abort-on-burn"], ["--slo", "slo.json"])
 
 
 def _serve_records(seed: int = 0) -> list:
@@ -4892,7 +4905,7 @@ def phase_serve(smi: str) -> dict:
     ``--backend jnp`` and direct-kernel rows at 128^3 (no claim); (7)
     ``tune run --batch-members 16 --grid 128`` over tb 1/2: a ``jnp``
     winner under a ``b2^4`` key that an ``EnsembleSolver`` with
-    ``time_blocking=0`` resolves through; (8) every refused flag exits 2."""
+    ``time_blocking=0`` resolves through."""
     import dataclasses
     import tempfile
 
@@ -5101,18 +5114,260 @@ def phase_serve(smi: str) -> dict:
              winner=search["winner"], resolved_time_blocking=entry["config"]["time_blocking"],
              elapsed_s=search["elapsed_s"])
 
-        # (8) the refused flags
-        codes = {}
-        for argv in _SERVE_REFUSED:
-            err = io.StringIO()
-            with contextlib.redirect_stderr(err):
-                codes[argv[0]] = cli.main(["serve", "--smoke", *argv])
-            _check(codes[argv[0]] == 2 and "not ported yet" in err.getvalue(),
-                   f"serve {argv}: exit {codes[argv[0]]}: {err.getvalue()}")
-        _say("serve_refusals", card=smi, exit_codes=codes)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     _say("serve_path", card=smi, seconds=time.perf_counter() - t0)
+    return res
+
+
+# ---- serving, part two (the async engine, its warm-up, the soak, SLOs) ------
+
+_ASYNC_A = 32  # bucket A's records in the async command, beside C, D and E
+
+
+def _serve_async_records() -> list:
+    """C, D and E of :func:`_serve_records` and the first 32 of A, in the
+    order they have there."""
+    recs, a = [], 0
+    for label, rec in _serve_records():
+        if label == "B" or (label == "A" and a >= _ASYNC_A):
+            continue
+        a += label == "A"
+        recs.append((label, rec))
+    return recs
+
+
+def _soak_mix(duration_s: float = 30.0) -> dict:
+    """The soak's seeded mix: ``tenant-a`` (weight 3) 128^3 7pt fp32, 100
+    steps, four alphas and inits; ``flood`` (weight 1) 64^3 27pt tb=2, 50
+    steps, a burst x8 for 2 s every 10 s; 6 Hz in all; max batch 8, 16
+    open a stream, 2 workers."""
+    inits = ("hot-cube", "gaussian", "random", "hot-cube")
+    return {
+        "duration_s": duration_s, "seed": 19, "rate_hz": 6.0,
+        "engine": {"max_batch": 8, "max_per_stream": 16, "workers": 2},
+        "monitor": {"interval_s": 0.5, "fast_window_s": 5, "slow_window_s": 15},
+        "streams": [
+            {"name": "tenant-a", "weight": 3, "scenarios": [
+                {"grid": 128, "steps": 100, "alpha": alpha, "init": init, "seed": k}
+                for k, (alpha, init) in enumerate(zip((0.3, 0.5, 0.7, 0.9), inits))]},
+            {"name": "flood", "weight": 1,
+             "burst": {"every_s": 10, "len_s": 2, "multiplier": 8},
+             "scenarios": [{"grid": 64, "stencil": "27pt", "time_blocking": 2,
+                            "steps": 50, "alpha": 0.4, "seed": 100}]},
+        ],
+    }
+
+
+def _serve_cmd(argv) -> tuple:
+    """``python -m heat3d_tpu_torch serve ARGV`` in this process: (rc, the
+    JSON lines of its stdout, wall seconds)."""
+    from heat3d_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["serve", *argv])
+    lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+    return rc, lines, time.perf_counter() - t0
+
+
+def _ledger(path: str) -> list:
+    return [json.loads(line) for line in open(path) if line.strip()]
+
+
+def _batch_concurrency(spans: list) -> dict:
+    """The batches' overlap from their ``serve_batch`` spans: the sum of
+    their seconds over the seconds in which at least one ran (1.0: one at
+    a time; 2.0: two workers always both busy)."""
+    iv = sorted((e["ts"] - e["dur_s"], e["ts"]) for e in spans)
+    union, end = 0.0, None
+    for a, b in iv:
+        if end is None or a > end:
+            union += b - a
+            end = b
+        elif b > end:
+            union += b - end
+            end = b
+    busy = sum(b - a for a, b in iv)
+    return {"batch_seconds": busy, "busy_window_s": union,
+            "concurrency": busy / union if union else 0.0}
+
+
+def phase_serve_async(smi: str) -> dict:
+    """Serving part two on the card, in a temporary directory (the warm-up
+    store namespace there too), every line with the card's name and power
+    limit: (1) ``serve --requests --async --residuals --workers 2`` against
+    the synchronous command over :func:`_serve_async_records`, every line
+    equal but its queue latency; seconds per bucket, warm-up stall per
+    bucket, the batches' concurrency, peak device memory; (2) the 30 s soak
+    of :func:`_soak_mix` under ``--monitor`` with ``partial-device-loss`` at
+    batch 3: verdict ``ok``, no stall after warmup, a requeue, degraded
+    seconds, accounting and order kept, no burn alert; (3) the same mix
+    under an impossible SLO with ``--abort-on-burn``: rc 1, ended early;
+    (4) ``obs slo`` and ``obs watch --once`` over (2)'s ledger, rc 0; (5) no
+    hand-written kernel launched by (1)-(4)."""
+    import tempfile
+
+    import torch
+
+    from heat3d_tpu_torch import ops
+    from heat3d_tpu_torch.obs.cli import main as obs_main
+    from heat3d_tpu_torch.obs.perf import slo as slo_mod
+    from heat3d_tpu_torch.serve import loadgen
+    from heat3d_tpu_torch.serve.cli import _base_from_record, _scenario_from_record
+    from heat3d_tpu_torch.serve.scenario import request_bucket_key, solver_bucket_key
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="heat3d_serve_async_")
+    saved = {k: os.environ.pop(k, None) for k in ("HEAT3D_AOT_CACHE", "HEAT3D_FAULTS")}
+    os.environ["HEAT3D_AOT_CACHE"] = os.path.join(root, "aot")
+    before = ops.launch_counts()
+    res = {}
+    try:
+        # (1) async against sync over the same records
+        recs = _serve_async_records()
+        path = os.path.join(root, "requests.jsonl")
+        with open(path, "w") as f:
+            for _, rec in recs:
+                f.write(json.dumps(rec) + "\n")
+        labels = {str(request_bucket_key(_base_from_record(r), _scenario_from_record(r))): lab
+                  for lab, r in recs}
+        runs = {}
+        for mode, extra in (("sync", []), ("async", ["--async", "--workers", "2", "--verdict"])):
+            led = os.path.join(root, f"{mode}.jsonl")
+            torch.cuda.reset_peak_memory_stats()
+            rc, lines, secs = _serve_cmd(["--requests", path, "--residuals", "--ledger", led,
+                                          *extra])
+            verdict = lines.pop()["serve_verdict"] if mode == "async" else None
+            _check(rc == 0 and sorted(x["request_id"] for x in lines) == list(range(len(recs))),
+                   f"serve --requests ({mode}): rc {rc}, {len(lines)} of {len(recs)} lines")
+            evs = _ledger(led)
+            spans = [e for e in evs if e.get("event") == "serve_batch" and e.get("kind") == "span"]
+            stalls = [e for e in evs if e.get("event") == "compile_stall"]
+            runs[mode] = {
+                "lines": {x["request_id"]: x for x in lines}, "seconds": secs,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "verdict": verdict,
+                "buckets": {lab: sum(e["dur_s"] for e in spans if e["bucket"] == key)
+                            for key, lab in labels.items()},
+                "stalls": {lab: sum(e["seconds"] for e in stalls if e["bucket"] == key)
+                           for key, lab in labels.items()},
+                "overlap": _batch_concurrency(spans),
+            }
+        for rid in range(len(recs)):
+            a, b = runs["async"]["lines"][rid], runs["sync"]["lines"][rid]
+            diff = sorted(k for k in set(a) | set(b)
+                          if k != "queue_latency_s" and a.get(k) != b.get(k))
+            _check(not diff, f"serve --async request {rid}: {diff} differ from sync: {a} {b}")
+        eng = runs["async"]["verdict"]["engine"]
+        _check(eng["aot"]["misses"] == len(labels) and eng["aot"]["stalls"] == len(labels)
+               and eng["failed"] == 0,
+               f"serve --async: warm-up {eng['aot']}, failed {eng['failed']}")
+        res["requests"] = {
+            "records": len(recs), "bitwise": True,
+            "seconds": {m: runs[m]["seconds"] for m in runs},
+            "per_bucket": {lab: {"sync_s": runs["sync"]["buckets"][lab],
+                                 "async_s": runs["async"]["buckets"][lab],
+                                 "warmup_stall_s": runs["async"]["stalls"][lab]}
+                           for lab in sorted(set(labels.values()))},
+            "overlap": runs["async"]["overlap"], "sync_overlap": runs["sync"]["overlap"],
+            "peak_gib": {m: runs[m]["peak_gib"] for m in runs},
+            "max_in_flight": eng["max_in_flight"],
+        }
+        _say("serve_async_requests", card=smi, **res["requests"])
+
+        # (2) the soak, with a partial device loss at batch 3, monitored
+        mix_path = os.path.join(root, "mix.json")
+        with open(mix_path, "w") as f:
+            json.dump(_soak_mix(), f)
+        led = os.path.join(root, "soak.jsonl")
+        row_path = os.path.join(root, "soak_row.jsonl")
+        os.environ["HEAT3D_FAULTS"] = "partial-device-loss:batch=3:keep=1"
+        try:
+            rc, lines, secs = _serve_cmd(["--loadgen", mix_path, "--verdict", "--monitor",
+                                          "--ledger", led, "--row", row_path])
+        finally:
+            os.environ.pop("HEAT3D_FAULTS", None)
+        v = lines[-1]["soak_verdict"]
+        _check(rc == 0 and v["ok"] and v["slo"] == "pass" and v["accounting_ok"]
+               and v["order_ok"] and v["failed"] == 0 and v["compile_stall_after_warmup"] == 0
+               and v["requeues"] >= 1 and v["degraded_s"] > 0 and not v["partial"]
+               and v["monitor"]["alerts"] == 0,
+               f"serve --loadgen: rc {rc}, verdict {v}")
+        names = {str(solver_bucket_key(_base_from_record(st["scenarios"][0]))): st["name"]
+                 for st in _soak_mix()["streams"]}
+        row = json.loads(open(row_path).read().strip())
+        res["soak"] = {
+            "seconds": secs, "duration_s": v["duration_s"], "arrivals": v["arrivals"],
+            "submitted": v["submitted"], "admitted": v["admitted"], "shed": v["shed"],
+            "shed_by_stream": v["shed_by_stream"], "delivered": v["delivered"],
+            "batches": v["batches"], "requeues": v["requeues"], "degraded_s": v["degraded_s"],
+            "scale_events": v["scale_events"], "warmup_s": v["warmup_s"],
+            "compile_stall_after_warmup": v["compile_stall_after_warmup"],
+            "aot": v["aot"], "sustained_member_gcell_per_s": v["sustained_member_gcell_per_s"],
+            "per_bucket": {names.get(k, k): pb for k, pb in v["per_bucket"].items()},
+            "slo": v["slo"], "monitor_final": v["monitor"]["final"],
+            "row_platform": row["platform"], "row_devices": row["devices"],
+        }
+        _say("serve_soak", card=smi, **res["soak"])
+
+        # (3) an impossible SLO under --abort-on-burn ends the soak early
+        mix = _soak_mix()
+        mix["slo"] = {"objectives": [{"name": "impossible-p50", "kind": "serve_latency",
+                                      "percentile": 50, "max_s": 1e-9}]}
+        abort_path = os.path.join(root, "abort.json")
+        with open(abort_path, "w") as f:
+            json.dump(mix, f)
+        abort_led = os.path.join(root, "abort.jsonl")
+        rc, lines, secs = _serve_cmd(["--loadgen", abort_path, "--verdict", "--monitor",
+                                      "--abort-on-burn", "--ledger", abort_led])
+        va = lines[-1]["soak_verdict"]
+        alerts = [e for e in _ledger(abort_led) if e.get("event") == "slo_burn_alert"]
+        _check(rc == 1 and va["aborted"] and va["partial"] and va["abort_reason"] == "slo_burn"
+               and va["duration_s"] < mix["duration_s"] and alerts,
+               f"serve --loadgen --abort-on-burn: rc {rc}, verdict {va}")
+        res["abort"] = {"rc": rc, "seconds": secs, "duration_s": va["duration_s"],
+                        "submitted": va["submitted"], "arrivals": va["arrivals"],
+                        "alerts": len(alerts)}
+        _say("serve_soak_abort", card=smi, **res["abort"])
+
+        # (4) obs slo and obs watch --once over the soak's ledger
+        spec_path = os.path.join(root, "soak_slo.json")
+        with open(spec_path, "w") as f:
+            json.dump(loadgen.DEFAULT_SOAK_SLO, f)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc_slo = obs_main(["slo", led, "--spec", spec_path, "--json"])
+        report = json.loads(buf.getvalue())
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc_watch = obs_main(["watch", led, "--once", "--spec", spec_path, "--json"])
+        status = json.loads(buf.getvalue().strip().splitlines()[-1])
+        degraded = [o for o in report["objectives"] if o["kind"] == "serve_degraded"]
+        _check(rc_slo == 0 and report["verdict"] in ("pass", "warn") and rc_watch == 0
+               and degraded and degraded[0]["status"] != "no_data"
+               and status["burn"]["alerting"] == [],
+               f"obs slo rc {rc_slo} {report['verdict']}; obs watch rc {rc_watch}")
+        _check(slo_mod.load_spec(spec_path)["objectives"] == loadgen.DEFAULT_SOAK_SLO[
+            "objectives"], "obs slo read another spec")
+        res["obs"] = {"slo_rc": rc_slo, "slo_verdict": report["verdict"],
+                      "watch_rc": rc_watch, "watch_events": status["events_seen"],
+                      "degraded_value_s": degraded[0]["value"]}
+        _say("serve_async_obs", card=smi, **res["obs"])
+
+        # (5) no hand-written kernel on the serving path
+        after = ops.launch_counts()
+        launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        _check(not launched, f"serve_async: hand-written kernels launched: {launched}")
+        _say("serve_async_launches", card=smi, kernel_launches={k: 0 for k in after})
+    finally:
+        for k, val in saved.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+        shutil.rmtree(root, ignore_errors=True)
+    _say("serve_async_path", card=smi, seconds=time.perf_counter() - t0)
     return res
 
 
@@ -5121,7 +5376,7 @@ PHASES = ("compare", "compare_mehrstellen", "compare_bf16", "compare_mesh", "com
           "main_path", "families", "integrators", "state", "obs", "tune", "kernel_times",
           "mehrstellen_times",
           "compute_bf16_times", "dma_times", "halo_bench", "fused_times",
-          "shard_kernel_times", "cross_gpu", "multiprocess", "serve")
+          "shard_kernel_times", "cross_gpu", "multiprocess", "serve", "serve_async")
 
 
 def _args(argv):
@@ -5207,6 +5462,8 @@ def main(argv=None) -> int:
         phase_multiprocess(smi)
     if "serve" in run:
         phase_serve(smi)
+    if "serve_async" in run:
+        phase_serve_async(smi)
     _say("done", seconds=time.perf_counter() - t0, phases=[p for p in PHASES if p in run])
     if args.only is None:
         kernels = [

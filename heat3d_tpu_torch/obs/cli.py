@@ -11,7 +11,8 @@ Subcommands::
     heat3d obs merge LEDGERS... [...]          # multihost timeline join (obs/perf/merge)
     heat3d obs timeline LEDGERS... [...]       # Chrome-trace export + drift/stragglers (obs/perf/timeline)
     heat3d obs adjudicate INPUTS... [...]      # A/B stage verdicts (obs/comm/adjudicate)
-    heat3d obs watch|slo ...                   # not ported yet: exit 2
+    heat3d obs watch LEDGER [--once] [...]     # live SLO burn view (obs/burn)
+    heat3d obs slo LEDGER [--spec S] [...]     # service-level objectives (obs/perf/slo)
 
 ``summary`` is the operator's post-mortem view: for each run segment in
 the ledger it prints the invocation, a span-duration table (count, total,
@@ -703,18 +704,107 @@ def cmd_trace(args) -> int:
     return 0
 
 
-# subcommands whose modules are not ported yet (the live serve-tier view,
-# the SLO verdict): they exit 2 with this note
-NOT_PORTED = {
-    "watch": "obs/burn.py and obs/perf/slo.py",
-    "slo": "obs/perf/slo.py",
-}
+def _watch_block(status: Dict[str, Any]) -> List[str]:
+    lines = [
+        f"-- watch @ {_fmt_ts(status.get('t_end'))} "
+        f"({status['events_seen']} events, window {status['window_s']:g}s)",
+        f"   arrivals {status['arrival_hz']}/s  "
+        f"deliveries {status['delivery_hz']}/s  "
+        f"queue depth {status.get('queue_depth')}",
+    ]
+    for bucket, st in sorted((status.get("buckets") or {}).items()):
+        lines.append(
+            f"   {bucket}: n={st.get('count')} "
+            f"p50 {_fmt_s(st.get('p50_s'))} p95 {_fmt_s(st.get('p95_s'))} "
+            f"p99 {_fmt_s(st.get('p99_s'))}"
+        )
+    if status.get("degraded") or status.get("degraded_s"):
+        lines.append(
+            f"   degraded: {bool(status.get('degraded'))} "
+            f"(cumulative {_fmt_s(status.get('degraded_s'))})"
+        )
+    burn = status.get("burn") or {}
+    for o in burn.get("objectives", []):
+        fast, slow = o["fast"], o["slow"]
+        mark = " ALERT" if o.get("alerting") else ""
+        f_burn = "-" if fast["burn"] is None else f"{fast['burn']:.2f}"
+        s_burn = "-" if slow["burn"] is None else f"{slow['burn']:.2f}"
+        lines.append(
+            f"   burn {o['name']}: fast({fast['window_s']:g}s) {f_burn}  "
+            f"slow({slow['window_s']:g}s) {s_burn}{mark}"
+        )
+    if status.get("flags"):
+        lines.append(
+            "   flags: "
+            + "  ".join(f"{k}={v}" for k, v in sorted(status["flags"].items()))
+        )
+    return lines
 
 
-def not_ported(cmd: str) -> int:
-    print(f"heat3d obs {cmd}: not ported yet (heat3d_tpu_torch has no "
-          f"counterpart of the JAX package's {NOT_PORTED[cmd]})", file=sys.stderr)
-    return 2
+def cmd_watch(args) -> int:
+    """``obs watch LEDGER``: the live terminal view — tail the growing
+    ledger through the streaming burn-rate evaluator and print a status
+    block per tick. ``--once`` does a single pass (post-hoc replay of
+    whatever the ledger holds now) and exits; rc is 1 when any objective
+    is alerting at the end, 0 otherwise, 2 on an unreadable spec."""
+    from heat3d_tpu_torch.obs.burn import BurnEvaluator
+    from heat3d_tpu_torch.obs.perf.slo import load_spec
+    from heat3d_tpu_torch.obs.tailer import LedgerTailer
+
+    try:
+        spec = load_spec(args.spec)
+    except (OSError, ValueError) as e:
+        print(f"watch: {e}", file=sys.stderr)
+        return 2
+    be = BurnEvaluator(spec)
+    tailer = LedgerTailer(args.ledger)
+    deadline = (
+        time.monotonic() + args.duration if args.duration > 0 else None
+    )
+    status: Dict[str, Any] = {}
+    comm_events: List[Dict[str, Any]] = []
+    try:
+        while True:
+            batch = tailer.poll()
+            be.consume(batch)
+            # comm observatory: accumulate the probe rows seen so far and
+            # render the per-link table under the burn block (fail-soft,
+            # like the summary section)
+            comm_events.extend(
+                r
+                for r in batch
+                if isinstance(r, dict) and r.get("event") == "comm_probe"
+            )
+            status = be.status()
+            if args.as_json:
+                if comm_events:
+                    try:
+                        from heat3d_tpu_torch.obs.comm.report import comm_link_stats
+
+                        status["comm"] = comm_link_stats(comm_events)
+                    except Exception:  # noqa: BLE001 - fails soft
+                        pass
+                print(json.dumps(status))
+            else:
+                lines = _watch_block(status)
+                if comm_events:
+                    try:
+                        from heat3d_tpu_torch.obs.comm.report import comm_lines
+
+                        lines += comm_lines(comm_events)
+                    except Exception:  # noqa: BLE001 - fails soft
+                        pass
+                for line in lines:
+                    print(line)
+            sys.stdout.flush()
+            if args.once or (
+                deadline is not None and time.monotonic() >= deadline
+            ):
+                break
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        pass
+    return 1 if (status.get("burn") or {}).get("alerting") else 0
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -727,10 +817,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         "regress": "heat3d_tpu_torch.obs.perf.regress",
         "merge": "heat3d_tpu_torch.obs.perf.merge",
         "timeline": "heat3d_tpu_torch.obs.perf.timeline",
+        "slo": "heat3d_tpu_torch.obs.perf.slo",
         "adjudicate": "heat3d_tpu_torch.obs.comm.adjudicate",
     }
-    if argv_l and argv_l[0] in NOT_PORTED:
-        return not_ported(argv_l[0])
     if argv_l and argv_l[0] in owned:
         import importlib
 
@@ -799,10 +888,27 @@ def main(argv: Optional[List[str]] = None) -> int:
     tr.add_argument("--json", action="store_true", dest="as_json")
     tr.set_defaults(fn=cmd_trace)
 
-    sub.add_parser(
-        "watch", add_help=False,
-        help="live serve-tier view (not ported yet: exits 2)",
+    w = sub.add_parser(
+        "watch",
+        help="live serve-tier view: rates, queue depth, windowed bucket "
+        "percentiles, SLO burn rate per objective, anomaly flags",
     )
+    w.add_argument("ledger")
+    w.add_argument(
+        "--spec", default=None,
+        help="SLO spec JSON (default: $HEAT3D_SLO_SPEC or built-in)",
+    )
+    w.add_argument("--interval", type=float, default=2.0)
+    w.add_argument(
+        "--duration", type=float, default=0.0,
+        help="stop watching after this many seconds (0 = until ^C)",
+    )
+    w.add_argument(
+        "--once", action="store_true",
+        help="one evaluation pass over the current ledger, then exit",
+    )
+    w.add_argument("--json", action="store_true", dest="as_json")
+    w.set_defaults(fn=cmd_watch)
 
     # listed for --help discoverability; dispatched above before parsing
     sub.add_parser(
@@ -825,7 +931,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     sub.add_parser(
         "slo", add_help=False,
-        help="service-level objectives (not ported yet: exits 2)",
+        help="service-level objectives: per-bucket serve latency, step "
+        "time, halo share, degraded budget -> pass/warn/breach",
     )
     sub.add_parser(
         "adjudicate", add_help=False,

@@ -2,7 +2,7 @@
 regress?
 
 The base obs package (ledger / metrics / trace) makes runs *explainable*;
-this layer makes them *judged*. Five instruments:
+this layer makes them *judged*. Six instruments:
 
 - :mod:`~heat3d_tpu_torch.obs.perf.profiling` — ``--profile DIR``
   ``torch.profiler`` capture on every entry point, with the artifact path
@@ -28,7 +28,10 @@ this layer makes them *judged*. Five instruments:
   --from-profile``), and step-time drift / straggler detection
   (``obs_anomaly`` events).
 
-The JAX package's ``obs slo`` (``obs/perf/slo.py``) is not ported yet.
+- :mod:`~heat3d_tpu_torch.obs.perf.slo` — ``obs slo``: declarative
+  service-level objectives (serve latency per bucket, step time, halo
+  share, the degraded-serving budget) judged from a ledger into a
+  burn-rate verdict; rc 1 only on a breach.
 
 Failure posture (inherited from obs): perf telemetry never kills the run
 it observes — profiling and cost errors degrade to a ledger note.

@@ -1,8 +1,7 @@
-"""``python -m heat3d_tpu_torch serve`` — the synchronous solver-as-a-service
-front end.
+"""``python -m heat3d_tpu_torch serve`` — the solver-as-a-service front end.
 
-Port of ``heat3d_tpu.serve.cli`` (its synchronous modes, record parsing,
-result lines and smoke requests)::
+Port of ``heat3d_tpu.serve.cli`` (every mode, record parsing, result
+lines, smoke requests, verdict lines and rc semantics)::
 
     serve --smoke [--device cpu]          # tiny 3-request, 2-bucket batch
     serve --requests FILE.jsonl           # submit scenarios, stream results
@@ -22,14 +21,23 @@ Ledger events (``serve_submit`` / ``serve_batch_start`` / ``serve_batch``
 / ``serve_result`` / ``serve_metrics_summary``) and queue metrics land in
 the run ledger and metrics registry as at every other entry point.
 ``--device`` places every shard (``cpu``: the plain chain on the host;
-default: the card). ``--row FILE`` appends the ``--bench`` row to FILE.
+default: the card). ``--row FILE`` appends the ``--bench`` (or
+``--loadgen``) row to FILE.
 
-The always-on modes exit 2 with a "not ported yet" line naming the JAX
-package's modules they need: ``--async``, ``--workers``, ``--no-aot``,
-``--verdict`` (``serve/engine/``, ``serve/aot.py``); ``--loadgen``,
-``--duration``, ``--monitor``, ``--abort-on-burn`` (``serve/loadgen.py``,
-``obs/burn.py``); ``--slo`` and ``$HEAT3D_SLO_SPEC``
-(``obs/perf/slo.py``).
+The always-on modes::
+
+    serve --requests FILE --async [--workers N] [--no-aot] [--verdict]
+    serve --loadgen MIX.json [--duration S] [--monitor] [--abort-on-burn]
+    serve ... --slo SPEC.json               # or $HEAT3D_SLO_SPEC
+
+``--async`` serves through the engine (``serve/engine/``; its warm-up,
+``serve/aot.py``; ``--no-aot`` skips it and the first request pays the
+first-use stall); a record's ``stream`` tags its delivery order.
+``--loadgen`` replays a seeded open-loop mix against the engine
+(``serve/loadgen.py``; ``--monitor`` judges burn rate live through
+``obs/burn.py``, ``--abort-on-burn`` ends a condemned soak early).
+``--slo`` judges the drain or the soak (``obs/perf/slo.py``): an
+objective breach exits 1 even when every result delivered.
 """
 
 from __future__ import annotations
@@ -46,20 +54,6 @@ from heat3d_tpu_torch import obs
 from heat3d_tpu_torch.utils.logging import get_logger
 
 log = get_logger("heat3d.serve")
-
-# flag (as its argparse dest) -> the JAX package's modules it needs
-NOT_PORTED = {
-    "async_": ("--async", "serve/engine/ and serve/aot.py"),
-    "workers": ("--workers", "serve/engine/ and serve/aot.py"),
-    "no_aot": ("--no-aot", "serve/engine/ and serve/aot.py"),
-    "verdict": ("--verdict", "serve/engine/ and serve/aot.py"),
-    "loadgen": ("--loadgen", "serve/loadgen.py and obs/burn.py"),
-    "duration": ("--duration", "serve/loadgen.py and obs/burn.py"),
-    "monitor": ("--monitor", "serve/loadgen.py and obs/burn.py"),
-    "abort_on_burn": ("--abort-on-burn", "serve/loadgen.py and obs/burn.py"),
-    "slo": ("--slo", "obs/perf/slo.py"),
-}
-
 
 def _base_from_record(rec: dict):
     from heat3d_tpu_torch.core.config import (
@@ -180,7 +174,8 @@ def _parser() -> argparse.ArgumentParser:
                    help="measure one ensemble throughput row "
                    "(batch_shape/members_per_step provenance) and print it")
     p.add_argument("--row", default=None, metavar="FILE.jsonl",
-                   help="(--bench) also append the row to this JSONL file")
+                   help="(--bench, --loadgen) also append the row (the "
+                   "soak's: bench=soak) to this JSONL file")
     p.add_argument("--members", type=int, default=4,
                    help="(--bench) ensemble members")
     p.add_argument("--grid", type=int, default=32,
@@ -207,48 +202,53 @@ def _parser() -> argparse.ArgumentParser:
                    help="torch device of every shard (cpu: the plain chain "
                    "on the host; cuda:0: every shard on one card); default "
                    "shard i on cuda:i")
-    # the always-on modes of the JAX front end: refused (NOT_PORTED)
-    p.add_argument("--async", dest="async_", action="store_true",
-                   help="(not ported yet) the async engine")
-    p.add_argument("--workers", type=int, default=None,
-                   help="(not ported yet) async engine workers")
-    p.add_argument("--no-aot", action="store_true",
-                   help="(not ported yet) async engine without its cache")
-    p.add_argument("--verdict", action="store_true",
-                   help="(not ported yet) the async engine's verdict line")
     p.add_argument("--loadgen", default=None, metavar="SPEC.json",
-                   help="(not ported yet) the sustained-traffic soak")
+                   help="sustained-traffic soak: replay a seeded open-"
+                   "loop scenario-mix spec against the async engine "
+                   "(Poisson arrivals, ramps, bursts, per-stream "
+                   "admission control; serve/loadgen.py); with "
+                   "--verdict the soak verdict prints to stdout, exit 0 "
+                   "only when it passes")
     p.add_argument("--duration", type=float, default=None,
-                   help="(not ported yet) the soak's duration")
+                   help="(--loadgen) override the spec's duration_s")
     p.add_argument("--monitor", action="store_true",
-                   help="(not ported yet) live SLO burn-rate monitoring")
+                   help="(--loadgen) live SLO burn-rate monitoring: a "
+                   "thread tails the run's own ledger during the soak, "
+                   "re-judging the SLO spec over sliding fast/slow "
+                   "windows (obs/burn.py) and landing slo_burn_alert "
+                   "events on each objective's rising edge; needs "
+                   "--ledger/$HEAT3D_LEDGER")
     p.add_argument("--abort-on-burn", action="store_true",
-                   help="(not ported yet) end the soak on an SLO burn")
+                   help="(--loadgen, implies --monitor) end the replay "
+                   "early when any objective alerts on both windows: "
+                   "exit 1 with a partial verdict")
+    p.add_argument("--async", dest="async_", action="store_true",
+                   help="serve through the always-on async engine "
+                   "(serve/engine): submissions are accepted while "
+                   "batches are in flight, buckets execute on worker "
+                   "threads on streams of their own, each bucket warmed "
+                   "before its first batch (serve/aot.py)")
+    p.add_argument("--workers", type=int, default=None,
+                   help="(--async) concurrent batch-execution slots "
+                   "(default $HEAT3D_SERVE_WORKERS or 2)")
+    p.add_argument("--no-aot", action="store_true",
+                   help="(--async) skip the warm-up: the first request of "
+                   "a bucket pays its first-use stall, unmeasured")
+    p.add_argument("--verdict", action="store_true",
+                   help="(--async/--loadgen) print a one-line JSON verdict "
+                   "to stdout after the results: delivery counts, engine "
+                   "stats, warm-up hit/miss/stall figures")
     p.add_argument("--slo", default=None, metavar="SPEC.json",
-                   help="(not ported yet) evaluate service-level objectives")
+                   help="evaluate service-level objectives against this "
+                   "drain (default $HEAT3D_SLO_SPEC when set; "
+                   "obs/perf/slo.py) — verdict prints to stderr, an "
+                   "objective BREACH exits 1 even when every result "
+                   "delivered")
     return p
-
-
-def _refused(args) -> Optional[str]:
-    """The "not ported yet" line of the first refused flag (or of
-    ``$HEAT3D_SLO_SPEC``) the command asks for, or None."""
-    for dest, (flag, modules) in NOT_PORTED.items():
-        if getattr(args, dest) not in (None, False):
-            break
-    else:
-        if not os.environ.get("HEAT3D_SLO_SPEC"):
-            return None
-        flag, modules = "$HEAT3D_SLO_SPEC", NOT_PORTED["slo"][1]
-    return (f"heat3d serve: {flag}: not ported yet (heat3d_tpu_torch has no "
-            f"counterpart of the JAX package's {modules})")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = _parser().parse_args(argv)
-    msg = _refused(args)
-    if msg is not None:
-        print(msg, file=sys.stderr)
-        return 2
     obs.activate(args.ledger, meta={"entry": "serve"})
     try:
         rc = _main(args)
@@ -268,6 +268,13 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 
 def _main(args) -> int:
+    if args.loadgen:
+        if args.requests or args.smoke or args.bench:
+            raise ValueError(
+                "--loadgen is its own mode — it cannot combine with "
+                "--requests/--smoke/--bench"
+            )
+        return _serve_loadgen(args)
     if args.bench:
         from heat3d_tpu_torch.core.config import GridConfig, SolverConfig
         from heat3d_tpu_torch.serve.bench import bench_ensemble_throughput
@@ -321,20 +328,190 @@ def _main(args) -> int:
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-    n = _serve_sync(args, records)
+
+    # SLO spec validates BEFORE the drain: a typo'd objective file must
+    # not surface only after the batches already executed
+    slo_spec = None
+    if args.slo or os.environ.get("HEAT3D_SLO_SPEC"):
+        from heat3d_tpu_torch.obs.perf import slo as slo_mod
+
+        try:
+            slo_spec = slo_mod.load_spec(args.slo)
+        except OSError as e:
+            # the same clean rc-2 exit every other bad input takes (the
+            # outer handler catches ValueError)
+            raise ValueError(f"--slo: {e}") from None
+
+    if args.async_:
+        summary, n, engine_stats = _serve_async(args, records)
+    else:
+        summary, n, engine_stats = _serve_sync(args, records)
+    rc = 0
     if n != len(records):
         print(
             f"heat3d serve: delivered {n} of {len(records)} requests",
             file=sys.stderr,
         )
-        return 1
-    log.info("serve: %d result(s) streamed", n)
-    return 0
+        rc = 1
+    else:
+        log.info("serve: %d result(s) streamed", n)
+    if args.verdict:
+        # the machine verdict line (stdout, AFTER the result stream):
+        # delivery counts + engine/warm-up figures. The sync path has no
+        # engine: the key is
+        # OMITTED (not null) so consumers of the documented async shape
+        # fail loudly on the wrong mode instead of dereferencing null.
+        verdict = {
+            "requests": len(records),
+            "delivered": n,
+            "ok": rc == 0,
+        }
+        if engine_stats is not None:
+            verdict["engine"] = engine_stats
+        print(json.dumps({"serve_verdict": verdict}), flush=True)
+
+    # SLO wiring (docs/SERVING.md "SLOs"): judge THIS drain against the
+    # declarative objectives — evaluated from the front-end's own summary
+    # (the same dict the drain-final serve_metrics_summary event carried;
+    # queue and async engine produce the identical shape), so the verdict
+    # is live, not a ledger re-read. Verdict goes to stderr (stdout is
+    # the result stream); a breach is rc 1.
+    if slo_spec is not None:
+        from heat3d_tpu_torch.obs.perf import slo as slo_mod
+
+        report = slo_mod.evaluate(
+            [], slo_spec, serve_summary={
+                **summary,
+                "source": "live engine" if args.async_ else "live queue",
+            },
+        )
+        slo_mod.record_verdict(report)
+        slo_mod.print_report(report, out=sys.stderr)
+        # only serve-side objectives (latency, degraded budget) are
+        # judgeable from a drain (the queue has no step spans or device
+        # profile) — say so, so a mixed spec's step/halo ceilings don't
+        # read as enforced here
+        other = [
+            o["name"]
+            for o in report["objectives"]
+            if o["kind"] not in ("serve_latency", "serve_degraded")
+        ]
+        if other:
+            print(
+                f"heat3d serve: note: {', '.join(other)} not evaluable "
+                "at drain time — run `heat3d obs slo <ledger>` post-hoc",
+                file=sys.stderr,
+            )
+        if report["verdict"] == "breach":
+            return 1
+    return rc
 
 
-def _serve_sync(args, records) -> int:
-    """The submit-then-drain path (``ScenarioQueue``); returns the number
-    of results streamed."""
+def _serve_loadgen(args) -> int:
+    """The sustained-traffic soak (serve/loadgen.py): seeded open-loop
+    replay against the async engine, SLO-judged, machine-verdicted.
+    rc 0 only when the soak's own checks pass AND no SLO objective
+    breached; rc 1 otherwise (the test-pinned contract)."""
+    from heat3d_tpu_torch.obs.perf import slo as slo_mod
+    from heat3d_tpu_torch.serve import loadgen
+
+    with open(args.loadgen) as f:
+        try:
+            mix = json.load(f)
+        except json.JSONDecodeError as e:
+            raise ValueError(
+                f"{args.loadgen}: unparseable loadgen spec: {e}"
+            ) from None
+    if not isinstance(mix, dict):
+        raise ValueError(f"{args.loadgen}: loadgen spec must be an object")
+    if args.duration is not None:
+        mix["duration_s"] = args.duration
+
+    # SLO resolution, validated BEFORE the soak burns its duration:
+    # --slo / $HEAT3D_SLO_SPEC file > the mix's inline "slo" block > the
+    # soak default (generous latency, a real degraded budget)
+    if args.slo or os.environ.get("HEAT3D_SLO_SPEC"):
+        try:
+            slo_spec = slo_mod.load_spec(args.slo)
+        except OSError as e:
+            raise ValueError(f"--slo: {e}") from None
+    elif isinstance(mix.get("slo"), dict):
+        slo_spec = slo_mod.validate_spec(
+            dict(mix["slo"]), origin=f"{args.loadgen}: slo"
+        )
+    else:
+        slo_spec = dict(loadgen.DEFAULT_SOAK_SLO)
+
+    # live-monitor resolution: the mix's "monitor" block tunes windows /
+    # threshold / cadence; the FLAGS enable it (a committed spec should
+    # not silently grow a monitoring thread). --abort-on-burn implies
+    # --monitor. Monitoring without a ledger is a config error (rc 2,
+    # validated before the soak burns its duration).
+    monitor_cfg = None
+    if args.monitor or args.abort_on_burn:
+        if not obs.get().active:
+            raise ValueError(
+                "--monitor needs a run ledger (--ledger or "
+                "$HEAT3D_LEDGER) — the live evaluator tails the run's "
+                "own event stream"
+            )
+        mblock = mix.get("monitor")
+        mblock = mblock if isinstance(mblock, dict) else {}
+        monitor_cfg = {
+            "spec": slo_spec,
+            "abort_on_burn": bool(args.abort_on_burn),
+            "interval_s": mblock.get("interval_s"),
+            "fast_window_s": mblock.get("fast_window_s"),
+            "slow_window_s": mblock.get("slow_window_s"),
+            "threshold": mblock.get("threshold"),
+        }
+
+    verdict = loadgen.run_soak(
+        mix, _base_from_record, _scenario_from_record,
+        monitor=monitor_cfg, device=args.device,
+    )
+    report = slo_mod.evaluate(
+        [], slo_spec,
+        serve_summary={**verdict["summary"], "source": "soak"},
+    )
+    slo_mod.record_verdict(report)
+    slo_mod.print_report(report, out=sys.stderr)
+    ok = verdict["ok"] and report["verdict"] != "breach"
+    if args.row:
+        row = loadgen.soak_row(verdict, report["verdict"], device=args.device)
+        with open(args.row, "a") as f:
+            f.write(json.dumps(row) + "\n")
+        log.info("soak row appended to %s", args.row)
+    if args.verdict:
+        out = {k: v for k, v in verdict.items() if k != "summary"}
+        out["slo"] = report["verdict"]
+        out["ok"] = ok
+        print(json.dumps({"soak_verdict": out}), flush=True)
+    if verdict.get("aborted"):
+        mon_info = verdict.get("monitor") or {}
+        print(
+            "heat3d serve: soak ABORTED early on SLO burn "
+            f"(alerted: {', '.join(mon_info.get('alerted', [])) or '?'}; "
+            f"replayed {verdict['submitted']} of {verdict['arrivals']} "
+            "arrivals) — partial verdict above",
+            file=sys.stderr,
+        )
+    elif not verdict["ok"]:
+        print(
+            "heat3d serve: soak failed its own checks "
+            f"(accounting_ok={verdict['accounting_ok']}, "
+            f"order_ok={verdict['order_ok']}, "
+            f"failed={verdict['failed']}, "
+            f"compile_stall_after_warmup="
+            f"{verdict['compile_stall_after_warmup']})",
+            file=sys.stderr,
+        )
+    return 0 if ok else 1
+
+
+def _serve_sync(args, records):
+    """The submit-then-drain path (``ScenarioQueue``): returns its summary,
+    the number of results streamed and no engine stats."""
     from heat3d_tpu_torch.serve.queue import ScenarioQueue
 
     queue = ScenarioQueue(
@@ -351,7 +528,51 @@ def _serve_sync(args, records) -> int:
     for r in queue.drain():
         print(json.dumps(_result_line(r, args.out)), flush=True)
         n += 1
-    return n
+    return queue.metrics_summary(), n, None
+
+
+def _serve_async(args, records):
+    """The always-on path (serve/engine): submissions land on the live
+    engine, the result stream follows per-stream submission order, and a
+    failed bucket costs only its own requests (the shortfall is the rc-1
+    'delivered n of m' path, with the errors on stderr). The CLI knows
+    its whole request set up front, so it defers dispatch until every
+    submission landed (``autostart=False``): one optimally-packed batch
+    per bucket, and DETERMINISTIC padded sizes — the same packing as the
+    synchronous queue, so every result is the same."""
+    from heat3d_tpu_torch.serve.engine import AsyncServeEngine
+
+    engine = AsyncServeEngine(
+        max_batch=args.max_batch,
+        batch_mesh=args.batch_mesh,
+        snapshot_every=args.snapshot_every,
+        with_residuals=args.residuals,
+        workers=args.workers,
+        aot=False if args.no_aot else None,
+        autostart=False,
+        device=args.device,
+    )
+    n = 0
+    try:
+        for rec in records:
+            engine.submit(
+                _base_from_record(rec),
+                _scenario_from_record(rec),
+                # `or ""`: a JSON null stream means "no stream", not a
+                # stream literally named "None"
+                stream=str(rec.get("stream") or ""),
+            )
+        try:
+            for r in engine.drain():
+                print(json.dumps(_result_line(r, args.out)), flush=True)
+                n += 1
+        except RuntimeError as e:
+            # failed bucket(s): everything deliverable already streamed —
+            # the shortfall surfaces as 'delivered n of m' + rc 1
+            print(f"heat3d serve: {e}", file=sys.stderr)
+    finally:
+        engine.shutdown()
+    return engine.metrics_summary(), n, engine.stats()
 
 
 if __name__ == "__main__":

@@ -260,12 +260,15 @@ def run_packed_batch(
     test-maintained coincidence. ``times``, when given, gains the host
     seconds of the init (``init_s``), of the run to its last update on
     the device (``run_s``; snapshots' gathers included) and of the final
-    gather and residual probe (``gather_s``)."""
-    from heat3d_tpu_torch.utils.timing import force_sync
+    gather and residual probe (``gather_s``). Each wait is on the streams
+    this solver's work ran on (``utils.timing.stream_sync``), never the
+    whole card: the async engine's bucket workers run batches side by side
+    on streams of their own."""
+    from heat3d_tpu_torch.utils.timing import stream_sync
 
     t0 = time.monotonic()
     u = solver.init_state()
-    force_sync(solver)
+    stream_sync(solver)
     t1 = time.monotonic()
     snapshots: Optional[List[np.ndarray]] = None
     if snapshot_every > 0:
@@ -280,7 +283,7 @@ def run_packed_batch(
             snapshots.append(solver.gather(u))
     else:
         u = solver.run(u, budgets)
-    force_sync(solver)
+    stream_sync(solver)
     t2 = time.monotonic()
     # the last snapshot already gathered the final state — don't pay a
     # second full-batch device-to-host transfer for it
@@ -373,6 +376,19 @@ class ServeStats:
         self.depth_max = 0
         self.batches = 0
         self.delivered = 0
+        # degraded-mode accounting (the async engine's backend-loss
+        # requeue): a requeue opens a degraded window, the requeued chunk
+        # resolving closes it; cumulative seconds + the live flag ride the
+        # serve_metrics_summary the SLO layer judges (`serve_degraded`
+        # objective: degraded-seconds budget)
+        self.requeues = 0
+        # refcounted: each DISTINCT degraded chunk holds one reference;
+        # the window closes only when the last one resolves — chunk A's
+        # quick recovery must not stop the clock while chunk B is still
+        # backing off
+        self._degraded_open = 0
+        self._degraded_since: Optional[float] = None
+        self._degraded_s_total = 0.0
         self._depth_gauge = obs.REGISTRY.gauge(
             "serve_queue_depth", "pending scenario requests"
         )
@@ -411,6 +427,44 @@ class ServeStats:
                 st["clipped"] = True
             self.delivered += 1
 
+    def mark_degraded(self, new: bool = True) -> None:
+        """A backend-loss requeue happened: count it, and — when this is
+        the chunk's FIRST requeue (``new``) — take one reference on the
+        degraded window (a chunk re-requeued on a later attempt already
+        holds its reference)."""
+        with self._lock:
+            self.requeues += 1
+            if new:
+                self._degraded_open += 1
+            if self._degraded_since is None:
+                self._degraded_since = time.monotonic()
+        obs.REGISTRY.counter(
+            "serve_requeues_total", "backend-loss batch requeues"
+        ).inc()
+
+    def clear_degraded(self) -> None:
+        """Drop one degraded-chunk reference — the engine calls this when
+        a REQUEUED chunk resolves (success or final failure). The window
+        closes (cumulative seconds retained for the SLO budget) only when
+        the LAST open chunk resolves."""
+        with self._lock:
+            if self._degraded_open > 0:
+                self._degraded_open -= 1
+            if self._degraded_open == 0 and self._degraded_since is not None:
+                self._degraded_s_total += (
+                    time.monotonic() - self._degraded_since
+                )
+                self._degraded_since = None
+
+    def degraded_seconds(self) -> float:
+        with self._lock:
+            live = (
+                0.0
+                if self._degraded_since is None
+                else time.monotonic() - self._degraded_since
+            )
+            return self._degraded_s_total + live
+
     def summary(self, pending: int) -> Dict[str, object]:
         """The ``serve_metrics_summary`` payload: per-bucket latency
         count/p50/p95/max, depth high-water mark, batch/delivery
@@ -419,6 +473,12 @@ class ServeStats:
         from heat3d_tpu_torch.obs.metrics import percentile
 
         with self._lock:
+            live_degraded = self._degraded_since is not None
+            degraded_s = self._degraded_s_total + (
+                0.0
+                if self._degraded_since is None
+                else time.monotonic() - self._degraded_since
+            )
             buckets = {}
             for bucket, st in sorted(self._bucket_stats.items()):
                 rec = {
@@ -438,13 +498,13 @@ class ServeStats:
                 "batches": self.batches,
                 "delivered": self.delivered,
                 "pending": pending,
-                # the degraded-mode keys the SLO layer reads: always
-                # present, and nothing here requeues (the async engine's
-                # backend-loss requeue is not ported), so a synchronous
-                # drain is never degraded
-                "degraded": False,
-                "degraded_s": 0.0,
-                "requeues": 0,
+                # degraded-mode serving provenance: ALWAYS present (0.0
+                # on a healthy drain) so the SLO serve_degraded
+                # objective reads a value, never no_data, from any
+                # summary this code produced
+                "degraded": live_degraded,
+                "degraded_s": round(degraded_s, 6),
+                "requeues": self.requeues,
             }
 
 
@@ -619,7 +679,7 @@ class ScenarioQueue:
         queue-latency count/p50/p95/max, the pending-depth high-water
         mark, and batch/delivery counters — the dict the drain-final
         ``serve_metrics_summary`` ledger event carries and ``heat3d serve
-        --slo`` evaluates live (obs/perf/slo.py; not ported yet)."""
+        --slo`` evaluates live (obs/perf/slo.py)."""
         return self._stats.summary(pending=len(self._pending))
 
     def serve_batches(self) -> Iterator[List[ServeResult]]:

@@ -39,6 +39,44 @@ def force_sync(solver) -> None:
             torch.cuda.synchronize(d)
 
 
+def solver_streams(solver) -> list:
+    """The CUDA streams a solver's work runs on, in order: the calling
+    thread's current stream on each CUDA device of its shards (a one-shard
+    mesh launches there), then each shard's own stream (a mesh of several
+    shards; ``parallel.topology.ShardMesh``). An ensemble's shards are
+    those of its groups. Empty on the CPU."""
+    meshes = getattr(solver, "groups", None) or [solver.mesh]
+    out: list = []
+    for mesh in meshes:
+        for s in mesh.local_shards:
+            if s.device.type == "cuda":
+                cur = torch.cuda.current_stream(s.device)
+                if cur not in out:
+                    out.append(cur)
+    for mesh in meshes:
+        for s in mesh.local_shards:
+            st = getattr(s, "stream", None)
+            if st is not None and st not in out:
+                out.append(st)
+    return out
+
+
+def stream_sync(solver) -> None:
+    """Wait for the solver's own work and nothing else: an event recorded
+    on each of :func:`solver_streams`, then each waited on from the host.
+    Work that other threads launched on other streams of the same card
+    (the serve engine's other bucket workers) is not waited for, as
+    :func:`force_sync`'s device-wide synchronize would. A no-op on the
+    CPU."""
+    events = []
+    for st in solver_streams(solver):
+        ev = torch.cuda.Event()
+        ev.record(st)
+        events.append(ev)
+    for ev in events:
+        ev.synchronize()
+
+
 def sync_rtt(device=None, samples: int = 5) -> float:
     """Host seconds of one round trip to the device: a one-element launch
     and ``torch.cuda.synchronize()``, the least of ``samples`` (the JAX

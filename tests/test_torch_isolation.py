@@ -56,6 +56,8 @@ def test_scan_sees_the_package():
                    "analysis/ledgerlint.py", "analysis/findings.py",
                    "analysis/registry.py", "serve/__init__.py", "serve/scenario.py",
                    "serve/ensemble.py", "serve/queue.py", "serve/bench.py", "serve/cli.py",
+                   "serve/engine/__init__.py", "serve/engine/core.py", "serve/aot.py",
+                   "serve/loadgen.py", "obs/burn.py", "obs/perf/slo.py",
                    "timeint/coeffield.py"):
         assert f"heat3d_tpu_torch/{module}" in names
     assert not _forbidden("heat3d_tpu_torch.ops") and _forbidden("heat3d_tpu.ops")
@@ -83,7 +85,10 @@ def test_import_leaves_jax_unloaded():
         "heat3d_tpu_torch.obs.comm.adjudicate, heat3d_tpu_torch.obs.comm.probe, "
         "heat3d_tpu_torch.serve, heat3d_tpu_torch.serve.ensemble, "
         "heat3d_tpu_torch.serve.queue, heat3d_tpu_torch.serve.bench, "
-        "heat3d_tpu_torch.serve.cli, heat3d_tpu_torch.timeint.coeffield\n"
+        "heat3d_tpu_torch.serve.cli, heat3d_tpu_torch.timeint.coeffield, "
+        "heat3d_tpu_torch.serve.engine, heat3d_tpu_torch.serve.aot, "
+        "heat3d_tpu_torch.serve.loadgen, heat3d_tpu_torch.obs.burn, "
+        "heat3d_tpu_torch.obs.perf.slo\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'heat3d_tpu', 'ml_dtypes'))\n"
         "print(','.join(bad))\n"
@@ -108,6 +113,15 @@ def test_default_device_raises_without_cuda(monkeypatch):
     batch = ScenarioBatch(SolverConfig(grid=GridConfig.cube(8), backend="jnp"), [Scenario()])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         EnsembleSolver(batch)
+    # the engine does not drop to the CPU either: the chunk fails, visibly
+    from heat3d_tpu_torch.serve.engine import AsyncServeEngine
+
+    eng = AsyncServeEngine(autostart=False, aot=False)
+    eng.submit(batch.base, Scenario())
+    with pytest.raises(RuntimeError, match="failed"):
+        list(eng.drain(timeout=60))
+    eng.shutdown()
+    assert "no CUDA device" in eng.failures[0]["error"]
 
 
 def test_wrappers_refuse_non_cuda_non_cpu_tensors():

@@ -451,14 +451,6 @@ def test_tailer_is_incremental_and_buffers_partial_lines(tmp_path):
     assert [r["event"] for r in t.poll()] == ["a"]
 
 
-@pytest.mark.parametrize("cmd", ["watch", "slo"])
-def test_unported_subcommands_exit_2(cmd, capsys):
-    from heat3d_tpu_torch.obs.cli import main as obs_main
-
-    assert obs_main([cmd, "x"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
-
-
 # ---- the instrumented modules ---------------------------------------------------------
 
 

@@ -18,7 +18,9 @@ to the JAX package's ``heat3d_tpu.serve``.
   default budgets, a failing bucket, solver reuse); the command line's
   ``--smoke`` and ``--requests`` against ``python -m heat3d_tpu serve`` in
   a ``JAX_PLATFORMS=cpu`` child; the ``--bench`` row through the JAX
-  provenance lint; every refused flag exiting 2.
+  provenance lint. The always-on modes (``--async``, ``--loadgen``,
+  ``--slo``) are held in ``tests/test_torch_serve_async.py`` and
+  ``tests/test_torch_serve_soak.py``.
 """
 
 import dataclasses
@@ -635,22 +637,6 @@ def test_serve_bench_row_passes_the_jax_provenance_lint(tmp_path, capsys):
                          "--row", str(rows)], capsys)
     assert lines[0]["members_per_step"] == 2 and check_row(lines[0]) == []
     assert json.loads(rows.read_text())["members_per_step"] == 2
-
-
-@pytest.mark.parametrize("argv", [
-    ["--async"], ["--workers", "2"], ["--no-aot"], ["--verdict"],
-    ["--loadgen", "mix.json"], ["--duration", "5"], ["--monitor"], ["--abort-on-burn"],
-    ["--slo", "slo.json"], ["HEAT3D_SLO_SPEC"],
-], ids=lambda a: a[0].lstrip("-"))
-def test_refused_flags_exit_2(argv, monkeypatch, capsys):
-    from heat3d_tpu_torch.cli import main
-
-    if argv == ["HEAT3D_SLO_SPEC"]:
-        monkeypatch.setenv("HEAT3D_SLO_SPEC", "slo.json")
-        argv = []
-    assert main(["serve", "--smoke", "--device", "cpu", *argv]) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "heat3d_tpu_torch has no counterpart" in err
 
 
 def test_serve_cli_null_request_value_exits_clean(tmp_path, capsys):
