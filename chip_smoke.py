@@ -288,6 +288,26 @@ non-zero without one. Phases, each printing its own lines:
    ``--abort-on-burn`` ending early with rc 1; ``obs slo`` and ``obs watch
    --once`` over the soak's ledger; no hand-written kernel launched.
 
+19. ``lint``, last, every line with the card's name and power limit
+   (``phase_lint``): ``python -m heat3d_tpu_torch lint --all --json`` as a
+   child on ``cuda:0`` (the five source checkers and the kernel tier's
+   seven families over the judged matrix of ``analysis/kernel/cases.py``,
+   68 cases of rows 1–12 at 37x41x43 a shard): rc 0, no error, every
+   case with each family's verdict, the seeded racy kernel flagged by
+   racecheck (or, where ``compute-sanitizer`` refuses the card, every
+   sanitizer verdict "not certified" and a ``lint_refused`` line with the
+   tool's words); one ``lint_resources`` line per kernel instance (shared
+   memory, registers, blocks per SM, spills); then the coverage (NaN
+   sentinels, guard bands) and remote (rank stamps) families at the main
+   path's full width in this process (1024^3 on one shard, (2,2,2) of
+   512^3, (8,1,1) of 128x1024^2), clean; then the provenance lint and
+   ``bench.report`` over every row this run's bench calls wrote
+   (``_BENCH_ROWS``): no defect, every row in the printed tables.
+
+The golden checks of phase 5 run the fp64 oracle through ``impl='auto'``,
+the OpenMP stepper (``native/``, asserted built); ``golden_native`` times
+it beside NumPy at 128^3 (7pt and 27pt, 20 steps, within 1e-13).
+
 ``--only`` runs phases 1 and 2 and the named ones of ``PHASES`` (the
 check after a kernel change, before the whole run) and prints no kernels
 line. The kernel launch counts are zeroed just before phase 5 and read just after
@@ -1103,7 +1123,39 @@ def _env(**kw):
                 os.environ[k] = v
 
 
+def _golden_native() -> None:
+    """The fp64 oracle itself: the OpenMP stepper (``native``) must build on
+    the card's host, and at 128^3 it is timed beside NumPy on the same
+    field (one 7pt and one 27pt case, 20 steps), the two within 1e-13."""
+    import numpy as np
+
+    from heat3d_tpu_torch import native
+    from heat3d_tpu_torch.core import golden
+    from heat3d_tpu_torch.core.config import GridConfig, StencilConfig
+
+    _check(native.available(), f"native stepper did not build: {native.build_error()}")
+    grid = GridConfig.cube(128)
+    u0 = golden.make_init("hot-cube", (128, 128, 128)).astype(np.float64)
+    for kind in ("7pt", "27pt"):
+        st = StencilConfig(kind=kind)
+        t0 = time.perf_counter()
+        a = golden.run(u0, grid, st, 20, impl="native")
+        t1 = time.perf_counter()
+        b = golden.run(u0, grid, st, 20, impl="numpy")
+        t2 = time.perf_counter()
+        err = float(np.abs(a - b).max())
+        _check(err <= 1e-13 * max(1.0, float(np.abs(b).max())),
+               f"native golden {kind} differs from NumPy by {err}")
+        _say("golden_native", grid=128, stencil=kind, steps=20, native_s=t1 - t0,
+             numpy_s=t2 - t1, numpy_over_native=(t2 - t1) / (t1 - t0),
+             bitwise=a.tobytes() == b.tobytes(), max_abs_diff=err,
+             threads=os.cpu_count())
+
+
 def phase_golden() -> None:
+    # the CLI's --golden-check runs golden.run(impl='auto'): the native
+    # stepper, asserted available here
+    _golden_native()
     for kind in ("7pt", "27pt"):
         for tb, no_direct, want in _GOLDEN:
             with _no_direct(no_direct):
@@ -1138,6 +1190,9 @@ _FULL_WIDTH = (
 )
 # the tb=2 headline's Gcell/s of this run's main path (the tune phase's reference)
 _MAIN_PATH_TB2 = []
+# every bench row the full-width and halo phases wrote (the lint phase runs
+# the provenance lint and bench.report over them)
+_BENCH_ROWS = []
 # (halo, time_blocking) of the full-width phase's sharded rows: fp32 7pt on
 # a (2,2,2) mesh of 512^3 shards, every shard on cuda:0
 _SHARDED_FULL_WIDTH = (("dma", 1), ("dma", 4), ("ppermute", 1), ("ppermute", 2))
@@ -1184,6 +1239,7 @@ def phase_full_width(bw: float) -> None:
              bound_ms_per_superstep=b_ms, bound_by=by,
              bound_gcell_updates_per_sec=n**3 * tb / (b_ms / 1e3) / 1e9,
              kernel_launches=row["kernel_launches"], seconds_all=row["seconds_all"])
+        _BENCH_ROWS.append(dict(row))
         del row
         torch.cuda.empty_cache()
 
@@ -1208,6 +1264,7 @@ def phase_full_width(bw: float) -> None:
              bound_passes=_BOUND_PASSES["faces" if route.startswith("faces") else "exchange"],
              bound_gcell_updates_per_sec=n**3 * tb / (b_ms / 1e3) / 1e9,
              kernel_launches=row["kernel_launches"], seconds_all=row["seconds_all"])
+        _BENCH_ROWS.append(dict(row))
         del row
         torch.cuda.empty_cache()
 
@@ -1236,6 +1293,7 @@ def phase_full_width(bw: float) -> None:
              bound_passes=_BOUND_PASSES[passes],
              bound_gcell_updates_per_sec=n**3 * tb / (b_ms / 1e3) / 1e9,
              kernel_launches=row["kernel_launches"], seconds_all=row["seconds_all"])
+        _BENCH_ROWS.append(dict(row))
         del row
         torch.cuda.empty_cache()
 
@@ -1799,6 +1857,7 @@ def phase_halo_bench(bw: float, worst: dict) -> None:
              exchange_kernel_launches=row["exchange_kernel_launches"],
              sync_rtt_us=row["sync_rtt_us"], rtt_dominated=row["rtt_dominated"],
              device_name=row["device_name"], shards_per_device=row["shards_per_device"])
+        _BENCH_ROWS.append(dict(row))
         del row
         torch.cuda.empty_cache()
     _say("halo_bench", halo_dma_launches=halo_dma.launch_counts()["halo_dma"] - launches)
@@ -3213,6 +3272,7 @@ def _full_width_bf16(bw: float) -> None:
              bound_by=by, bound_gcell_updates_per_sec=n**3 * tb / (b_ms / 1e3) / 1e9,
              compute_bf16_launches=took, kernel_launches=row["kernel_launches"],
              seconds_all=row["seconds_all"])
+        _BENCH_ROWS.append(dict(row))
         del row
         torch.cuda.empty_cache()
 
@@ -3481,6 +3541,7 @@ def phase_families(bw: float, worst: dict, n: int = 1024, golden_n: int = 128) -
              bound_gcell_updates_per_sec=n**3 * tb / (b_ms / 1e3) / 1e9,
              instance=_instance_name(code), kernel=name, launches=launches,
              generic_launches=generic, seconds_all=row["seconds_all"])
+        _BENCH_ROWS.append(dict(row))
         del row
         torch.cuda.empty_cache()
     for equation, params, kind, tb, mesh, name in _FAMILY_ROWS:
@@ -4524,6 +4585,7 @@ def _tune_probe(root: str, smi: str) -> str:
              links=[{k: e[k] for k in ("scope", "bytes_predicted", "t_s", "gbps", "senders",
                                         "gbps_senders", "trips", "rtt_dominated")}
                     for e in probes])
+        _BENCH_ROWS.append(dict(row))
         del row
         torch.cuda.empty_cache()
     buf = io.StringIO()
@@ -5371,12 +5433,123 @@ def phase_serve_async(smi: str) -> dict:
     return res
 
 
+# the lint phase: each sanitizer child's bound (the four tools run at once)
+_LINT_CHILD_S = 420
+
+
+def _lint_rows(smi: str) -> dict:
+    """The provenance lint and bench.report over the rows this run's bench
+    calls wrote (``_BENCH_ROWS``): no defect, every row in the tables."""
+    import tempfile
+
+    from heat3d_tpu_torch.analysis import provenance
+    from heat3d_tpu_torch.bench import report
+
+    if not _BENCH_ROWS:
+        _say("lint_rows", card=smi, rows=0, note="no bench phase ran")
+        return {"rows": 0}
+    with tempfile.TemporaryDirectory(prefix="heat3d_rows_") as d:
+        path = os.path.join(d, "rows.jsonl")
+        with open(path, "w") as f:
+            for r in _BENCH_ROWS:
+                f.write(json.dumps(r) + "\n")
+        bad = provenance.check_file_findings(path)
+        _check(not bad, f"provenance lint over this run's rows: {[b.message for b in bad][:5]}")
+        loaded = report.load_results(path)
+        table = report.render(loaded)
+    _check(len(loaded) == len(_BENCH_ROWS), f"report read {len(loaded)} of "
+           f"{len(_BENCH_ROWS)} rows")
+    print(table, flush=True)
+    kinds = {k: sum(r["bench"] == k for r in _BENCH_ROWS) for k in ("throughput", "halo")}
+    _say("lint_rows", card=smi, rows=len(_BENCH_ROWS), **kinds, provenance_defects=0,
+         report_lines=len(table.splitlines()))
+    return {"rows": len(_BENCH_ROWS), **kinds}
+
+
+def phase_lint(smi: str) -> dict:
+    """``python -m heat3d_tpu_torch lint --all --json`` as a child on
+    cuda:0: rc 0, no error, every judged case with each family's verdict,
+    the seeded racy kernel flagged; the resources table and each tool's
+    counts and seconds printed. Then the coverage and remote families at
+    the main path's full-width shapes (no sanitizer) in this process, and
+    the provenance lint and bench.report over this run's bench rows."""
+    from collections import Counter
+
+    import torch
+
+    from heat3d_tpu_torch.analysis.kernel import KERNEL_CHECKERS, run_kernel_checkers
+    from heat3d_tpu_torch.analysis.kernel.cases import judged_cases
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    env = dict(os.environ, HEAT3D_KERNEL_LINT_TIMEOUT_S=str(_LINT_CHILD_S),
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, "-m", "heat3d_tpu_torch", "lint", "--all", "--json",
+                          "--device", "cuda:0"], cwd=root, env=env, capture_output=True,
+                         text=True, timeout=3 * _LINT_CHILD_S)
+    child_s = time.perf_counter() - t0
+    _check(out.returncode == 0, f"lint --all exited {out.returncode}: "
+           f"{out.stdout[-3000:]} {out.stderr[-2000:]}")
+    payload = json.loads(out.stdout)
+    _check(payload["counts"]["error"] == 0, f"lint --all errors: {payload['findings']}")
+    tier = payload["kernel_tier"]
+    keys = [c.key for c in judged_cases()]
+    multi = {c.key for c in judged_cases() if c.multi}
+    _check(tier["cases"] == keys, f"judged cases {tier['cases']} != {keys}")
+    for name in KERNEL_CHECKERS:
+        want = multi if name == "kernel-remote" else set(keys)
+        got = tier["verdicts"].get(name, {})
+        _check(set(got) == want, f"{name}: verdicts for {sorted(got)} != {sorted(want)}")
+    # the seeded racy kernel must be flagged wherever racecheck runs; where
+    # the tool refuses the card, every racecheck verdict (the seeded one
+    # too) is "not certified", and the line below says so
+    seeded = tier.get("seeded", {})
+    _check(seeded.get("flagged") is True
+           or (seeded.get("certified") is False and "kernel-races" in tier.get("refused", {})),
+           f"racecheck did not flag the seeded racy kernel: {seeded}")
+    for name, words in tier.get("refused", {}).items():
+        _say("lint_refused", card=smi, checker=name, sanitizer=tier.get("sanitizer"),
+             words=words)
+    for row in tier["resources"]:
+        _say("lint_resources", card=smi, **{k: row[k] for k in (
+            "family", "depth", "instance", "storage", "compute", "smem_bytes", "registers",
+            "blocks_per_sm", "spill_stores", "spill_loads")}, cases=len(row["cases"]))
+    uncertified = [f for f in payload["findings"] if f["code"] == "ANL1005"
+                   and f["checker"] not in tier.get("refused", {})]
+    for f in uncertified:
+        _say("lint_not_certified", card=smi, checker=f["checker"], symbol=f["symbol"],
+             message=f["message"][:400])
+    _say("lint", card=smi, rc=out.returncode, counts=payload["counts"],
+         suppressed=payload["suppressed"], cases=len(keys),
+         verdicts={n: dict(Counter(v.values())) for n, v in tier["verdicts"].items()},
+         seconds=tier["seconds"], children=tier.get("children"),
+         seeded=tier["seeded"], smem_optin=tier.get("smem_optin"),
+         sanitizer=tier.get("sanitizer"), child_seconds=child_s)
+    # the main path's full-width shapes, without the sanitizer
+    t1 = time.perf_counter()
+    full: dict = {}
+    found = run_kernel_checkers(root, ["kernel-coverage", "kernel-remote"], device="cuda:0",
+                                scale="full", report=full)
+    _check(not [f for f in found if f.severity == "error"],
+           f"full-width coverage/remote: {[f.message for f in found]}")
+    full_keys = {c.key for c in judged_cases("full")}
+    _check(set(full["verdicts"]["kernel-coverage"]) == full_keys,
+           f"full-width coverage ran {sorted(full['verdicts']['kernel-coverage'])}")
+    _say("lint_full_width", card=smi, cases=sorted(full_keys),
+         verdicts={n: dict(Counter(v.values())) for n, v in full["verdicts"].items()},
+         seconds=full["seconds"], wall_s=time.perf_counter() - t1)
+    torch.cuda.empty_cache()
+    rows = _lint_rows(smi)
+    _say("lint_path", card=smi, seconds=time.perf_counter() - t0)
+    return {"counts": payload["counts"], "rows": rows}
+
+
 # the phases after the build, in the order they run; ``--only`` picks some
 PHASES = ("compare", "compare_mehrstellen", "compare_bf16", "compare_mesh", "compare_fused",
           "main_path", "families", "integrators", "state", "obs", "tune", "kernel_times",
           "mehrstellen_times",
           "compute_bf16_times", "dma_times", "halo_bench", "fused_times",
-          "shard_kernel_times", "cross_gpu", "multiprocess", "serve", "serve_async")
+          "shard_kernel_times", "cross_gpu", "multiprocess", "serve", "serve_async", "lint")
 
 
 def _args(argv):
@@ -5464,6 +5637,8 @@ def main(argv=None) -> int:
         phase_serve(smi)
     if "serve_async" in run:
         phase_serve_async(smi)
+    if "lint" in run:
+        phase_lint(smi)
     _say("done", seconds=time.perf_counter() - t0, phases=[p for p in PHASES if p in run])
     if args.only is None:
         kernels = [

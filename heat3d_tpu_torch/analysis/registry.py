@@ -1,12 +1,30 @@
-"""The canonical ledger-event registry the ledger lint consumes.
+"""Canonical registries the port's checkers (and the data lints) consume.
 
-A copy of ``LEDGER_EVENTS`` from the JAX package's
-``analysis/registry.py``: every event/span name either package may emit,
-with its kind, so one ledger lint (``obs check --taxonomy``) holds both
-packages' ledgers to one vocabulary. The ledger data lint flags unknown
-names in actual ledger files against it, and a registered kind that
-disagrees with the record's. The source checkers of that module (the
-environment-knob and fail-soft registries) are not ported.
+Three vocabularies drift silently as the port grows unless one module
+holds them, the port's counterpart of the JAX package's
+``analysis/registry.py``:
+
+- :data:`LEDGER_EVENTS` — every event/span name either package may emit,
+  with its kind, so one ledger lint (``obs check --taxonomy``) holds both
+  packages' ledgers to one vocabulary. The taxonomy checker
+  (:mod:`~heat3d_tpu_torch.analysis.taxonomy`) fails the lint when the
+  port emits an unregistered name or the wrong kind, and when a
+  registered name has no row in the port's
+  ``heat3d_tpu_torch/docs/OBSERVABILITY.md``. Events only the JAX package
+  emits are marked ``reference`` (their emission is not the port's to
+  check; :data:`REFERENCE_EVENTS`).
+- :data:`ENV_VARS` — every ``HEAT3D_*`` name the port reads: an
+  environment variable (``kind: env``) or a compile-time macro the
+  wrappers pass to ``nvcc`` (``kind: define``). Referenced but
+  unregistered fails, registered but undocumented fails, registered but
+  referenced nowhere warns (a stale entry).
+- :data:`FAIL_SOFT_CONTRACT` — the telemetry functions production code
+  calls unconditionally, which may never raise an environmental failure
+  into the run they observe (:mod:`~heat3d_tpu_torch.analysis.failsoft`).
+
+Adding an event or a knob is a three-line change by design: emit or read
+it, register it here, add its row to the port's docs — and the lint holds
+the three together from then on.
 """
 
 from __future__ import annotations
@@ -279,3 +297,209 @@ LEDGER_EVENTS: Dict[str, Dict[str, Any]] = {
                                 "equal to post-hoc obs slo on the same "
                                 "ledger)"},
 }
+
+# Events of the shared vocabulary that only the JAX package emits:
+# registered so the ledger lint reads the JAX package's ledgers, documented
+# in the port's taxonomy table, and exempt from the taxonomy checker's
+# "emitted somewhere in the port" leg. The IR tier has no counterpart (the
+# port builds no traced programs); the port's warm-up writes no executable
+# (aot_export); its plans belong to their solver, with no process-wide plan
+# cache keyed by plan key (exchange_plan_built, plan_cache_hit,
+# fused_rdma_dispatch: the JAX package's plan_for events).
+REFERENCE_EVENTS = frozenset({
+    "ir_lint_start", "ir_lint_verdict", "aot_export",
+    "exchange_plan_built", "plan_cache_hit", "fused_rdma_dispatch",
+})
+
+# Wrapper functions whose first argument is an event name (the taxonomy
+# checker treats `_event_once("tune_cache_miss", ...)` like
+# `.event("tune_cache_miss", ...)`); `_write` carries (name, kind).
+EVENT_WRAPPERS = ("_event_once",)
+
+
+# ---- HEAT3D_* registry -------------------------------------------------------
+# name -> {kind: env|define, module: primary reader (under
+# heat3d_tpu_torch/), desc}. The taxonomy checker scans heat3d_tpu_torch/
+# and chip_smoke.py for HEAT3D_* tokens and fails on any not registered
+# here; heat3d_tpu_torch/docs/OBSERVABILITY.md must carry every row.
+
+ENV_VARS: Dict[str, Dict[str, str]] = {
+    "HEAT3D_LEDGER": {"kind": "env", "module": "obs/ledger.py",
+                      "desc": "run-ledger path (--ledger fallback)"},
+    "HEAT3D_LEDGER_MAX_MB": {"kind": "env", "module": "obs/ledger.py",
+                             "desc": "size-capped ledger rollover past this "
+                                     "many MB (unset/0 = never; fail-soft)"},
+    "HEAT3D_METRICS": {"kind": "env", "module": "obs/metrics.py",
+                       "desc": "metrics snapshot path (.prom = textfile)"},
+    "HEAT3D_PEAK_MEM_GBPS": {"kind": "env", "module": "obs/perf/roofline.py",
+                             "desc": "memory-rate override of the cost model"},
+    "HEAT3D_PEAK_GFLOPS": {"kind": "env", "module": "obs/perf/roofline.py",
+                           "desc": "fp32-rate override of the cost model"},
+    "HEAT3D_CKPT_VERIFY": {"kind": "env", "module": "utils/checkpoint.py",
+                           "desc": "0 skips shard CRC verification on load"},
+    "HEAT3D_COMM_PROBE": {"kind": "env", "module": "obs/comm/probe.py",
+                          "desc": "1 times each halo link alone after "
+                                  "bench_halo rows (comm_probe events)"},
+    "HEAT3D_COMM_PROBE_ITERS": {"kind": "env", "module": "obs/comm/probe.py",
+                                "desc": "timed samples per probed link "
+                                        "(default 5)"},
+    "HEAT3D_PROBE_TIMEOUT": {"kind": "env", "module": "utils/backendprobe.py",
+                             "desc": "backend-probe child budget seconds "
+                                     "(default 60)"},
+    "HEAT3D_COORDINATOR": {"kind": "env", "module": "parallel/distributed.py",
+                           "desc": "process-group address HOST:PORT "
+                                   "(--coordinator fallback)"},
+    "HEAT3D_NUM_PROCESSES": {"kind": "env", "module": "parallel/distributed.py",
+                             "desc": "process count (--num-processes "
+                                     "fallback)"},
+    "HEAT3D_PROCESS_ID": {"kind": "env", "module": "parallel/distributed.py",
+                          "desc": "this process's rank (--process-id "
+                                  "fallback)"},
+    "HEAT3D_AUTO_DISTRIBUTED": {"kind": "env", "module": "parallel/distributed.py",
+                                "desc": "1 = torchrun's env:// rendezvous"},
+    "HEAT3D_DIST_TIMEOUT_S": {"kind": "env", "module": "parallel/distributed.py",
+                              "desc": "bound of every collective and of a "
+                                      "cross-process device wait, seconds "
+                                      "(default 300)"},
+    "HEAT3D_WIRE": {"kind": "env", "module": "parallel/wire.py",
+                    "desc": "faces between processes: auto | peer (CUDA "
+                            "IPC on one host) | host (gloo, host-staged)"},
+    "HEAT3D_FACTOR_7PT": {"kind": "env", "module": "ops/stencil_stream.py",
+                          "desc": "0 disables 7pt x-reflection factoring "
+                                  "(1 forces the generic instance)"},
+    "HEAT3D_FACTOR_Y": {"kind": "env", "module": "ops/stencil_stream.py",
+                        "desc": "0 disables y-reflection factoring (27pt "
+                                "then takes the generic instance)"},
+    "HEAT3D_MEHRSTELLEN": {"kind": "env", "module": "ops/stencil_direct.py",
+                           "desc": "1 takes the Mehrstellen q-ring instance "
+                                   "of the direct kernels (27pt)"},
+    "HEAT3D_CHAIN_7PT": {"kind": "define", "module": "ops/stencil_stream.py",
+                         "desc": "nvcc -D string literal: the 7pt "
+                                 "compile-time tap chain (CHAINS)"},
+    "HEAT3D_CHAIN_27PT": {"kind": "define", "module": "ops/stencil_stream.py",
+                          "desc": "nvcc -D string literal: the 27pt "
+                                  "compile-time tap chain (CHAINS)"},
+    "HEAT3D_NO_DIRECT": {"kind": "env", "module": "parallel/step.py",
+                         "desc": "1 puts tb 1/2 on the exchange path"},
+    "HEAT3D_EQN_LEGACY": {"kind": "env", "module": "eqn/__init__.py",
+                          "desc": "1 routes the heat family through the "
+                                  "pre-spec tap derivation (parity arm)"},
+    "HEAT3D_NO_PLAN": {"kind": "env", "module": "parallel/plan.py",
+                       "desc": "1 bypasses the exchange-plan layer "
+                               "(partitioned runs monolithic)"},
+    "HEAT3D_FUSED_RDMA": {"kind": "env", "module": "parallel/step.py",
+                          "desc": "overrides the fused_rdma knob: 1/on "
+                                  "forces the fused RDMA route, anything "
+                                  "else stands it down"},
+    "HEAT3D_PLAN_PART_MIN_BYTES": {"kind": "env", "module": "parallel/plan.py",
+                                   "desc": "partition floor in bytes "
+                                           "(default 1 MiB; 0 = genuine "
+                                           "sub-blocks)"},
+    "HEAT3D_DIRECT_INTERPRET": {"kind": "env", "module": "resilience/sweepstate.py",
+                                "desc": "the JAX package's interpreter knob, "
+                                        "kept in a sweep row's identity; "
+                                        "no effect on the port"},
+    "HEAT3D_DIRECT_FORCE": {"kind": "env", "module": "resilience/sweepstate.py",
+                            "desc": "the JAX package's compile-only knob, "
+                                    "kept in a sweep row's identity; no "
+                                    "effect on the port"},
+    "HEAT3D_FAULTS": {"kind": "env", "module": "resilience/faults.py",
+                      "desc": "deterministic fault-injection plan"},
+    "HEAT3D_FAULT_STATE": {"kind": "env", "module": "resilience/faults.py",
+                           "desc": "fault-injection state file (fire-once)"},
+    "HEAT3D_HEAL_MODE": {"kind": "env", "module": "resilience/elastic.py",
+                         "desc": "supervised heal mode default "
+                                 "(wait|elastic|auto)"},
+    "HEAT3D_HEAL_DEADLINE_S": {"kind": "env", "module": "resilience/elastic.py",
+                               "desc": "heal-wait deadline seconds "
+                                       "(default 1800)"},
+    "HEAT3D_CG_MAX_ITERS": {"kind": "env", "module": "timeint/cg.py",
+                            "desc": "implicit-cg trips per solve (default "
+                                    "64, always run, keep-masked)"},
+    "HEAT3D_CG_TOL": {"kind": "env", "module": "timeint/cg.py",
+                      "desc": "implicit-cg relative-residual stop "
+                              "(default 1e-6)"},
+    "HEAT3D_TUNE_CACHE": {"kind": "env", "module": "tune/cache.py",
+                          "desc": "tuning-store path"},
+    "HEAT3D_TUNE_DISABLE": {"kind": "env", "module": "tune/cache.py",
+                            "desc": "1 skips store lookup (the search "
+                                    "driver sets it)"},
+    "HEAT3D_SERVE_QUEUE": {"kind": "env", "module": "serve/queue.py",
+                           "desc": "pending-request depth cap (default "
+                                   "1024)"},
+    "HEAT3D_SERVE_MAX_BATCH": {"kind": "env", "module": "serve/queue.py",
+                               "desc": "members per packed batch cap "
+                                       "(default 64)"},
+    "HEAT3D_SERVE_MAX_PER_STREAM": {"kind": "env", "module": "serve/engine/core.py",
+                                    "desc": "per-stream open-request cap "
+                                            "(default: the depth cap)"},
+    "HEAT3D_SERVE_WORKERS": {"kind": "env", "module": "serve/engine/core.py",
+                             "desc": "async engine bucket workers "
+                                     "(default 2)"},
+    "HEAT3D_LOADGEN_SEED": {"kind": "env", "module": "serve/loadgen.py",
+                            "desc": "default soak schedule seed (the "
+                                    "spec's seed wins)"},
+    "HEAT3D_AOT_CACHE": {"kind": "env", "module": "serve/aot.py",
+                         "desc": "the JAX executable-store directory; the "
+                                 "port keys its in-process warm-up on it "
+                                 "and writes nothing there"},
+    "HEAT3D_SLO_SPEC": {"kind": "env", "module": "obs/perf/slo.py",
+                        "desc": "SLO spec path (obs slo / serve --slo "
+                                "default)"},
+    "HEAT3D_SLO_WARN_RATIO": {"kind": "env", "module": "obs/perf/slo.py",
+                              "desc": "warn at this fraction of an SLO "
+                                      "ceiling (default 0.9)"},
+    "HEAT3D_BURN_FAST_S": {"kind": "env", "module": "obs/burn.py",
+                           "desc": "burn-rate fast window seconds "
+                                   "(default 60)"},
+    "HEAT3D_BURN_SLOW_S": {"kind": "env", "module": "obs/burn.py",
+                           "desc": "burn-rate slow window seconds "
+                                   "(default 300)"},
+    "HEAT3D_BURN_THRESHOLD": {"kind": "env", "module": "obs/burn.py",
+                              "desc": "burn multiple both windows must "
+                                      "reach to alert (default 1.0)"},
+    "HEAT3D_KERNEL_LINT_TIMEOUT_S": {"kind": "env",
+                                     "module": "analysis/kernel/sanitize.py",
+                                     "desc": "bound of one sanitizer child, "
+                                             "seconds (default 600)"},
+}
+
+
+# ---- fail-soft contract ------------------------------------------------------
+# The telemetry functions production code calls unconditionally; the
+# posture (docs/OBSERVABILITY.md "Failure posture") is that none of them
+# can propagate an environmental failure (IO, serialization) into the run
+# it observes. Module path -> qualnames under contract.
+
+FAIL_SOFT_CONTRACT: Dict[str, tuple] = {
+    "heat3d_tpu_torch/obs/ledger.py": (
+        "activate",
+        "get",
+        "deactivate",
+        "Ledger.event",
+        "Ledger.span",
+        "Ledger.set_context",
+        "Ledger.close",
+        "NullLedger.event",
+        "NullLedger.span",
+    ),
+    "heat3d_tpu_torch/obs/metrics.py": (
+        "export_at_exit",
+    ),
+    "heat3d_tpu_torch/obs/trace.py": (
+        "named_phase",
+        "annotate",
+    ),
+    "heat3d_tpu_torch/obs/perf/profiling.py": (
+        "profile_capture",
+        "_ProfileCapture.__enter__",
+        "_ProfileCapture.__exit__",
+    ),
+    "heat3d_tpu_torch/obs/perf/slo.py": (
+        "record_verdict",
+    ),
+}
+
+# Modules whose functions participate in fail-soft call-graph resolution
+# (the contract functions may call helpers here; risk propagates through).
+FAIL_SOFT_MODULES = tuple(FAIL_SOFT_CONTRACT)

@@ -13,7 +13,9 @@ auto`` resolve through the tuning cache before the run starts; ``python -m
 heat3d_tpu_torch tune run|show|apply|clear|lint`` searches, shows and
 edits it (``tune.cli``; ``--batch-members B`` searches the ensemble
 workload). ``python -m heat3d_tpu_torch serve --smoke|--requests
-FILE|--bench`` runs the batched scenario engine (``serve.cli``).
+FILE|--bench`` runs the batched scenario engine (``serve.cli``), and
+``python -m heat3d_tpu_torch lint [--kernel|--all]`` the port's checkers
+(``analysis.cli``).
 ``--mesh Px Py Pz`` splits the field into shards, by
 default shard i on ``cuda:i``; without ``--mesh`` every visible GPU takes
 a shard of a balanced 3D mesh, as the JAX CLI's default (one shard under
@@ -327,6 +329,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         from heat3d_tpu_torch.tune.cli import main as tune_main
 
         return tune_main(argv[1:])
+    # `lint`: the static-analysis surface (heat3d_tpu_torch/docs/ANALYSIS.md):
+    # the source checkers and the kernel tier, rc 1 only on error severity
+    if argv and argv[0] == "lint":
+        from heat3d_tpu_torch.analysis.cli import main as lint_main
+
+        return lint_main(argv[1:])
     # `serve --smoke|--requests|--bench`: the batched scenario engine
     if argv and argv[0] == "serve":
         from heat3d_tpu_torch.serve.cli import main as serve_main

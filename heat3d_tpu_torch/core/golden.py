@@ -1,8 +1,9 @@
 """NumPy golden reference model — the correctness oracle.
 
-A copy of ``heat3d_tpu.core.golden`` (without the optional native stepper):
-the same fp64 stepper and the same counter-based initializers, so the port
-and the JAX package start from byte-equal fields.
+A copy of ``heat3d_tpu.core.golden``: the same fp64 steppers (NumPy, and
+the OpenMP one of ``heat3d_tpu_torch.native``) and the same counter-based
+initializers, so the port and the JAX package start from byte-equal fields
+and hold their results to the same oracle.
 
 Reference parity: BASELINE.json config 1 ("128^3 grid, 7-point Jacobi heat
 diffusion, single-rank CPU reference") and SURVEY.md §2 C10. The reference
@@ -56,8 +57,12 @@ def run(
 ) -> np.ndarray:
     """num_steps golden updates; float64 throughout.
 
-    impl: 'numpy' or 'auto' (the same here: the reference package's
-    OpenMP 'native' stepper is not ported, and 'auto' is NumPy).
+    impl: 'numpy' (pure NumPy, always available), 'native' (the OpenMP C++
+    stepper in heat3d_tpu_torch.native — the compiled-host-code analogue
+    of the reference's serial path, ~100x faster at large grids; raises
+    with the compiler's error when it does not build), or 'auto' (native
+    when built, else numpy). Both produce identical float64 math;
+    tests/test_torch_native.py holds them to tight agreement.
 
     ``taps`` overrides the derived heat taps — the declarative equation
     families (heat3d_tpu.eqn) pass their spec-compiled taps through here,
@@ -71,9 +76,23 @@ def run(
             grid.effective_dt(),
             grid.spacing,
         )
-    if impl not in ("auto", "numpy"):
-        # the reference's OpenMP 'native' stepper is not ported
+    if impl not in ("auto", "numpy", "native"):
         raise ValueError(f"unknown impl {impl!r}")
+    if impl in ("auto", "native"):
+        from heat3d_tpu_torch import native
+
+        if native.available():
+            return native.run(
+                u0,
+                taps,
+                num_steps,
+                periodic=stencil.bc is BoundaryCondition.PERIODIC,
+                bc_value=stencil.bc_value,
+            )
+        if impl == "native":
+            raise RuntimeError(
+                f"native stepper unavailable: {native.build_error()}"
+            )
     u = u0.astype(np.float64)
     for _ in range(num_steps):
         u = step(u, taps, stencil.bc, stencil.bc_value)

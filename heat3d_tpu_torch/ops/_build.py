@@ -7,7 +7,10 @@ package (listed in ``.gitignore``), named by a hash of the source, the
 shared headers (``csrc/*.cuh``) and the flags, so an edited source or
 header rebuilds and concurrent processes never load a half-written file.
 A source may take flags of its own from its wrapper (``source_flags``: the
-stream, direct and fused kernels' chain table).
+stream, direct and fused kernels' chain table). Sources outside ``csrc/``
+(:data:`EXTRA_SOURCES`: the kernel tier's seeded hazard) build the same
+way on request and stay out of :func:`build_all`'s default and the
+kernels digest.
 """
 
 from __future__ import annotations
@@ -27,6 +30,10 @@ from typing import Dict
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
+# sources built on request only, by name: not kernels of the solver
+EXTRA_SOURCES = {
+    "seeded_race": PACKAGE_DIR / "analysis" / "kernel" / "seeded.cu",
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -68,10 +75,16 @@ def source_flags(name: str) -> tuple:
     return ()
 
 
+def source(name: str) -> Path:
+    """The CUDA source of library ``name``: ``csrc/<name>.cu`` or an
+    :data:`EXTRA_SOURCES` entry."""
+    return EXTRA_SOURCES.get(name, CSRC_DIR / f"{name}.cu")
+
+
 def _target(name: str) -> Path:
     # the source and every header beside it: an edited shared header must
     # rebuild each library that includes it
-    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    h = hashlib.sha256(source(name).read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.name.encode())
         h.update(header.read_bytes())
@@ -105,7 +118,7 @@ def _build(name: str) -> float:
     t0 = time.perf_counter()
     proc = subprocess.run(
         [nvcc_path(), *NVCC_FLAGS, *source_flags(name), "-o", str(tmp),
-         str(CSRC_DIR / f"{name}.cu")],
+         str(source(name))],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, check=False,
     )
     so.with_suffix(".log").write_text(proc.stdout)

@@ -480,7 +480,11 @@ def resolve_config(
             # stays on this rank
             _RESOLVING_ALONE = True
             try:
-                mine = _resolve_here(cfg, path, batch_size, device)
+                # the lint's chain (the build check's HeatSolver3D ->
+                # resolve_config -> broadcast) is cut at run time: the
+                # solvers build their plans on first use and resolve
+                # nothing under _RESOLVING_ALONE
+                mine = _resolve_here(cfg, path, batch_size, device)  # heat3d-lint: ok=collective-divergence reaches no collective
             finally:
                 _RESOLVING_ALONE = False
         return distributed.broadcast_object(mine)
