@@ -669,13 +669,23 @@ def _cases():
             + [("apply_taps_streamk", k) for k in STREAMK_DEPTHS])
 
 
+def _max_err(got, want) -> float:
+    """max |got - want| over the cells that differ (equal infinities differ
+    by 0, a NaN against a number by inf)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    d = torch.where(g == w, torch.zeros_like(g), (g - w).abs())
+    return float(d.nan_to_num(nan=float("inf")).max())
+
+
 def _hold(worst: dict, name: str, got, want, what: str) -> None:
     """Fail unless kernel output ``got`` equals plain output ``want``
     bitwise; fold |got - want| into ``worst[name]``."""
     import torch
 
     torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
+    err = _max_err(got, want)
     worst[name] = max(worst[name], err)
     _check(torch.equal(got, want), f"{name} != plain {what}: max err {err}")
 
@@ -743,6 +753,38 @@ def phase_compare(worst: dict) -> None:
 _DIRECT_SHAPES = ((1, 1, 1), (2, 3, 5), (4, 45, 130), (5, 77, 125), (6, 39, 127),
                   (1024, 257, 131))
 _DIRECT_FORCED_CHUNK = ((40, 70, 65), 3)
+# ragged shapes of the Mehrstellen two-update instance's 28 x 28 tiles and
+# its rows owned in runs of four: y and z of one tile exactly and one more,
+# of one run, of two tiles and one, a run short of the 32-row frame
+_QR_SHAPES = ((5, 28, 28), (4, 29, 29), (6, 4, 33), (3, 57, 57), (7, 31, 64), (2, 30, 35))
+
+
+def _special_field(shape, seed):
+    """A normal field with the edges of the bf16 format in it: float32 and
+    bf16 subnormals scattered and in a block whose outputs stay subnormal,
+    values whose products underflow to subnormals, signed zeros, and, in
+    two x slabs nine planes apart (periodic wrap included), +inf with the
+    largest finite values (whose sums overflow) and their negatives: no two
+    infinities of opposite sign within reach of each other over four
+    updates, so no NaN (tests/test_torch_kernels.py takes it from here)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal(shape).astype(np.float32)
+    cells = rng.random(shape)
+    tiny = cells < 0.15
+    u[tiny] = rng.choice(np.float32([1e-39, -1e-39, 3e-41, -3e-41, 1e-45]), size=int(tiny.sum()))
+    u[(cells >= 0.15) & (cells < 0.2)] = np.float32(1.2e-37)
+    u[(cells >= 0.2) & (cells < 0.25)] = np.float32(0.0)
+    u[(cells >= 0.25) & (cells < 0.3)] = np.float32(-0.0)
+    u[10:13, :20, :40] = rng.choice(np.float32([1e-39, 3e-41, 2e-39]), size=(3, 20, 40))
+    hot = np.zeros(shape, dtype=bool)
+    hot[3:7] = rng.random((4,) + tuple(shape[1:])) < 0.05
+    u[hot] = rng.choice(np.float32([np.inf, 3.0e38, 2.9e38]), size=int(hot.sum()))
+    cold = np.zeros(shape, dtype=bool)
+    cold[16:20] = rng.random((4,) + tuple(shape[1:])) < 0.05
+    u[cold] = rng.choice(np.float32([-np.inf, -3.0e38]), size=int(cold.sum()))
+    return u
 
 
 def _generic_counts() -> dict:
@@ -2232,7 +2274,10 @@ def phase_compare_bf16(worst: dict) -> None:
     instance on the default chain) at 128^3, fused over (4,1,1) too; the
     fused one- and two-update kernels over (8,1,1), the RDMA ones over
     (4,1,1) with the plan's sub-blocks (floor 0 and the default), and
-    (8,77,125) over (2,1,1) in one and three send ranges."""
+    (8,77,125) over (2,1,1) in one and three send ranges; the Mehrstellen
+    instances at the two-update instance's ragged shapes (``_QR_SHAPES``);
+    and every instance on a field of subnormals, signed zeros, infinities
+    and overflowing values (``_compare_bf16_special``)."""
     import numpy as np
     import torch
 
@@ -2243,7 +2288,18 @@ def phase_compare_bf16(worst: dict) -> None:
 
     t0 = time.perf_counter()
     bf = torch.bfloat16
-    cases = {"direct_ragged": 0, "kernels": 0, "mehrstellen": 0, "generic": 0, "fused": 0}
+    cases = {"direct_ragged": 0, "kernels": 0, "mehrstellen": 0, "generic": 0, "fused": 0,
+             "special_values": 0}
+    for shape in _QR_SHAPES:
+        base = np.random.default_rng(17).standard_normal(shape).astype(np.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            u = torch.from_numpy(base).cuda().to(dtype)
+            with _env(HEAT3D_MEHRSTELLEN="1"):
+                for periodic, bcv in _BCS:
+                    cases["mehrstellen"] += _hold_mehrstellen_bf16(
+                        worst, u, periodic, bcv,
+                        f"bf16 compute at {shape} {dtype} periodic={periodic} bc={bcv}")
+    cases["special_values"] += _compare_bf16_special(worst)
     shapes = [(shape, None) for shape in _DIRECT_SHAPES[:5]] + [_DIRECT_FORCED_CHUNK]
     for shape, chunk in shapes:
         base = np.random.default_rng(18).standard_normal(shape).astype(np.float32)
@@ -2379,6 +2435,61 @@ def phase_compare_bf16(worst: dict) -> None:
     torch.cuda.empty_cache()
     _say("compare_bf16", cases=cases, bitwise=True, max_abs_err=worst,
          compute_bf16_launches=_bf16_counts(), seconds=time.perf_counter() - t0)
+
+
+def _compare_bf16_special(worst: dict) -> int:
+    """Every bf16-compute instance bitwise against its plain version on
+    ``_special_field`` (subnormal operands and results, signed zeros,
+    infinities, sums that overflow; no NaN in any plain output): the
+    direct kernels, the stream kernel and streamk k = 2..4 (7pt/27pt x
+    fp32/bf16 storage x ``_BCS``), the Mehrstellen instances, and the four
+    fused kernels over (8,1,1) / (4,1,1) at 128 x 64 x 96. The native bf16
+    add and multiply keep subnormals and overflow as the float-then-round
+    plain version does."""
+    import torch
+
+    bf = torch.bfloat16
+    n = 0
+    base = _special_field((37, 45, 131), 14)
+    for dtype in (torch.float32, torch.bfloat16):
+        u = torch.from_numpy(base).cuda().to(dtype)
+        for kind in ("7pt", "27pt"):
+            taps = _taps(kind)
+            for periodic, bcv in _BCS:
+                for name, k in _cases():
+                    kern, plain = _kernel_pair(name, k, cd=bf)
+                    x = _kernel_input(name, u, periodic, bcv, k)
+                    want = plain(x, taps, periodic, bcv)
+                    _check(not bool(want.isnan().any()), f"{name} special field: NaN in plain")
+                    _hold_bf16(worst, name, lambda: kern(x, taps, periodic, bcv), want,
+                               f"bf16 compute special values k={k} {dtype} {kind} "
+                               f"periodic={periodic} bc={bcv}")
+                    n += 1
+        with _env(HEAT3D_MEHRSTELLEN="1"):
+            for periodic, bcv in _BCS:
+                n += _hold_mehrstellen_bf16(worst, u, periodic, bcv,
+                                            f"bf16 compute special values {dtype} "
+                                            f"periodic={periodic} bc={bcv}")
+    base = torch.from_numpy(_special_field((128, 64, 96), 15)).cuda()
+    for mesh_shape in ((8, 1, 1), (4, 1, 1)):
+        mesh = _card_mesh(mesh_shape, tuple(g // p for g, p in zip((128, 64, 96), mesh_shape)))
+        names = [nm for nm in _FUSED if nm.endswith("dma") == (mesh_shape == (8, 1, 1))]
+        us = _split(base, mesh)
+        for kind, (periodic, bcv) in itertools.product(("7pt", "27pt"),
+                                                       ((False, 0.3), (True, 0.0))):
+            taps = _taps(kind)
+            for name in names:
+                kern, plain = _fused_pair(name, cd=bf)
+                state = _fused_state(mesh, name, torch.float32, periodic)
+                _hold_bf16(worst, name, lambda: kern(us, taps, mesh, state, periodic, bcv),
+                           plain(us, taps, mesh, None, periodic, bcv),
+                           f"bf16 compute special values on {mesh_shape} {kind} "
+                           f"periodic={periodic}")
+                n += 1
+        del us
+    del base
+    torch.cuda.empty_cache()
+    return n
 
 
 def _hold_mehrstellen_bf16(worst: dict, u, periodic, bcv, what, chunk=None) -> int:
@@ -2898,9 +3009,10 @@ _MEHR_CHAIN_ROUTES = ((4, "streamk", (1, 1, 1), {}),
 
 def phase_compare_mehrstellen(worst: dict) -> None:
     """Under ``HEAT3D_MEHRSTELLEN=1``: both Mehrstellen instances bitwise
-    against their plain versions at the direct kernels' ragged shapes, a
-    forced 3-plane x-chunk, 128^3 and 1024^3 (fp32/bf16 x Dirichlet bc 0
-    and 0.3/periodic); the (2,2,2) faces-direct solve against the (1,1,1)
+    against their plain versions at the direct kernels' ragged shapes and
+    the two-update instance's (``_QR_SHAPES``), a forced 3-plane x-chunk,
+    128^3 and 1024^3 (fp32/bf16 x Dirichlet bc 0 and 0.3/periodic); the
+    (2,2,2) faces-direct solve against the (1,1,1)
     solve at 128^3 (tb 1 and 2, fp32/bf16, Dirichlet 0.3/periodic), every
     shard on cuda:0; and the routes that keep the chain (27pt tb=4 streamk,
     fused-dma2 over (8,1,1)) equal to their knob-off solves, no Mehrstellen
@@ -2909,7 +3021,7 @@ def phase_compare_mehrstellen(worst: dict) -> None:
 
     t0 = time.perf_counter()
     cases = 0
-    shapes = ([(shape, None) for shape in _DIRECT_SHAPES] + [_DIRECT_FORCED_CHUNK]
+    shapes = ([(shape, None) for shape in _DIRECT_SHAPES + _QR_SHAPES] + [_DIRECT_FORCED_CHUNK]
               + [((128,) * 3, None), ((1024,) * 3, None)])
     gen = torch.Generator(device="cuda").manual_seed(10)
     with _env(HEAT3D_MEHRSTELLEN="1"):
@@ -3297,7 +3409,7 @@ def phase_compute_bf16_times(bw: float, worst: dict, resources: dict) -> dict:
 
     n = 1024
     f32, bf = torch.float32, torch.bfloat16
-    fields = ("blocks_per_sm", "registers", "spill_stores", "spill_loads")
+    fields = ("smem_bytes", "blocks_per_sm", "registers", "spill_stores", "spill_loads")
     res = {}
 
     def ab(run32, runbf):
@@ -3376,21 +3488,35 @@ def phase_compute_bf16_times(bw: float, worst: dict, resources: dict) -> dict:
 
 def phase_main_path(bw: float) -> dict:
     """Phases 5 and 6 between zeroed and read launch counts; fails unless
-    every kernel was launched there, none on a generic instance. Returns
-    the launch counts."""
+    every kernel was launched there, none on a generic instance. Prints the
+    1024^3-equivalent launches of every kernel and of its bf16-compute
+    instance (the output cells of the bf16 goldens and rows). Returns the
+    launch counts."""
     from heat3d_tpu_torch import ops
 
+    def all_cells():
+        return {**ops.cell_counts(), **_mehrstellen_counts(cells=True)}
+
+    def bf16_part(run):
+        # every stencil launch of the bf16 goldens and rows is a
+        # bf16-compute one: their output cells are the bf16 instances'
+        before = all_cells()
+        run()
+        for name, n in all_cells().items():
+            bf16_cells[name] = bf16_cells.get(name, 0) + n - before[name]
+
     ops.reset_launch_counts()
+    bf16_cells = {}
     phase_golden()
     _golden_mehrstellen()
-    _golden_bf16()
+    bf16_part(_golden_bf16)
     phase_full_width(bw)
     _full_width_mehrstellen(bw)
-    _full_width_bf16(bw)
+    bf16_part(lambda: _full_width_bf16(bw))
     launches = {**ops.launch_counts(), **_mehrstellen_counts()}
     generic = _generic_counts()
     bf16 = _bf16_counts()
-    cells = {**ops.cell_counts(), **_mehrstellen_counts(cells=True)}
+    cells = all_cells()
     for name in KERNELS + tuple(_MEHR):
         _check(launches[name] > 0, f"{name} was not launched on the main path")
     for name in COMPUTE_KERNELS:
@@ -3405,7 +3531,9 @@ def phase_main_path(bw: float) -> dict:
          mehrstellen_instance_launches=_mehrstellen_counts(),
          compute_bf16_instance_launches=bf16,
          generic_instance_launches=generic, output_cells=cells,
-         launches_1024_equivalent=equiv, launches_1024_equivalent_unit=unit)
+         launches_1024_equivalent=equiv, launches_1024_equivalent_unit=unit,
+         compute_bf16_launches_1024_equivalent={
+             name: bf16_cells[name] / unit[name] for name in COMPUTE_KERNELS})
     return launches
 
 

@@ -15,6 +15,7 @@
 #pragma once
 
 #include <atomic>
+#include <type_traits>
 #include <utility>
 
 #include "stencil_common.cuh"
@@ -104,10 +105,20 @@ constexpr int SBY = 8;   // blockDim.y: warps along y
 constexpr int SNT = SBZ * SBY;
 constexpr int MIN_BLOCKS = 4;  // launch bounds: <= 64 registers a thread
 
-template <int K>
+// The Mehrstellen route's two-update instance owns rows in runs of LA and
+// one column a thread (the QR design of stencil_direct.cuh): a 32 x 32
+// frame, no level slot, no z131 slot, and a float exchange of the warps'
+// first and last rows instead.
+template <int K, int S>
+__host__ __device__ constexpr bool row_runs() {
+  return S == SPEC_MEHR && K == 2;
+}
+
+// The frame of an instance with K updates and spec S.
+template <int K, int S = SPEC_GENERIC>
 struct Geom {
   static constexpr int LA = K == 1 ? 5 : 4;  // frame rows a thread owns
-  static constexpr int MB = 2;               // frame columns a thread owns
+  static constexpr int MB = row_runs<K, S>() ? 1 : 2;  // frame columns
   static constexpr int P = LA * MB;
   static constexpr int FH = SBY * LA;  // frame rows (y)
   static constexpr int FW = SBZ * MB;  // frame columns (z, contiguous)
@@ -117,35 +128,31 @@ struct Geom {
 
 // Row stride of an input slot: bf16 rows hold one element more in front
 // (the parity shift of the aligned pair copies) and stay an even length.
-template <class T, int K>
+template <class T, int K, int S = SPEC_GENERIC>
 __host__ __device__ constexpr int in_stride() {
-  return Geom<K>::FW + (sizeof(T) == 2 ? 2 : 0);
-}
-
-// Float planes of shared memory beside the chain's slots: at K = 2 the
-// Mehrstellen route's second z131 slot (level 1's, so its z131 never waits
-// for level 0's readers) and the level-1 q planes of the two planes before
-// the fresh one (level 0's ride in registers).
-template <int K, int S>
-__host__ __device__ constexpr int q_planes() {
-  return S == SPEC_MEHR ? 3 * (K - 1) : 0;
+  return Geom<K, S>::FW + (sizeof(T) == 2 ? 2 : 0);
 }
 
 // Shared memory of an instance with `slots` input slots.
 template <class T, int K, int S>
 __host__ __device__ constexpr int smem_with(int slots) {
-  using G = Geom<K>;
-  return slots * G::FH * in_stride<T, K>() * (int)sizeof(T) +
-         (K - 1) * G::FH * G::FW * (int)sizeof(T) +
-         (uses_fslot<S>() ? G::FH * G::FW * (int)sizeof(float) : 0) +
-         q_planes<K, S>() * G::FH * G::FW * (int)sizeof(float);
+  using G = Geom<K, S>;
+  return slots * G::FH * in_stride<T, K, S>() * (int)sizeof(T) +
+         (row_runs<K, S>()
+              ? 2 * SBY * G::FW * (int)sizeof(float)
+              : (K - 1) * G::FH * G::FW * (int)sizeof(T) +
+                    (uses_fslot<S>() ? G::FH * G::FW * (int)sizeof(float)
+                                     : 0));
 }
 
-// Input slots: planes i-1 and i under use and planes i+1 (and i+2) in
-// flight. The second plane ahead is taken where four blocks still fit an
-// SM (56 KB each); fp32 K=4 27pt keeps one.
+// Input slots: planes i-1 and i under use and the next planes in flight.
+// The fourth slot is taken where four blocks still fit an SM (56 KB each);
+// fp32 K=4 27pt keeps three. The QR route reads plane i only and keeps
+// five planes in flight (24 KB fp32; six slots measured 4% faster than
+// four, eight no faster: scripts/torch_direct_probe.py, PERF.md section 6).
 template <class T, int K, int S>
 __host__ __device__ constexpr int in_slots() {
+  if (row_runs<K, S>()) return 6;
   return smem_with<T, K, S>(4) <= 56 * 1024 ? 4 : 3;
 }
 
@@ -180,12 +187,42 @@ __device__ __forceinline__ void cp_async_wait() {
 #endif
 }
 
+// Under bf16 compute an fp32-storage plane is rounded to bf16 once, as it
+// lands: after cp.async.wait_group each thread rounds, in place, the slot
+// positions it copied itself (rows ty + 8 l, columns tx + 32 m: every
+// position of a float slot, the ghosts it stored included), before the
+// barrier that publishes the plane, two columns a conversion. Every other
+// instance reads its slots as they are.
+template <class T, class M>
+__host__ __device__ constexpr bool rounds_landed() {
+  return sizeof(T) == 4 && !std::is_same<M, F32Math>::value;
+}
+
+template <class T, class M, class G>
+__device__ __forceinline__ void round_landed(T* slot) {
+  if constexpr (rounds_landed<T, M>()) {
+    float* s = slot + threadIdx.y * G::FW + threadIdx.x;
+#pragma unroll
+    for (int l = 0; l < G::LA; ++l) {
+#pragma unroll
+      for (int m = 0; m < G::MB; m += 2) {
+        float* a = s + SBY * l * G::FW + SBZ * m;
+        if (m + 1 < G::MB) {
+          const __nv_bfloat162 h = __floats2bfloat162_rn(a[0], a[SBZ]);
+          a[0] = __bfloat162float(h.x);
+          a[SBZ] = __bfloat162float(h.y);
+        } else {
+          a[0] = __bfloat162float(__float2bfloat16_rn(a[0]));
+        }
+      }
+    }
+  }
+}
+
 // A plane of a slot as this thread reads it: element (ty + 8 l + da,
 // tx + 32 m + db) of the frame. SHIFT: a bf16 input slot, whose rows next
-// to the thread's rows sit `nb` elements further on. M: the input slots'
-// field values are read as policy M reads them (rounded to bf16 from float
-// storage under bf16 compute); the other slots hold values the update made.
-template <class T, int SW, bool SHIFT, class M = F32Math>
+// to the thread's rows sit `nb` elements further on.
+template <class T, int SW, bool SHIFT>
 struct View {
   const T* c;
   int nb;
@@ -194,7 +231,7 @@ struct View {
     if constexpr (SHIFT) {
       if (da != 0) o += nb;
     }
-    return M::template read<T>(to_f(c[o]));
+    return to_f(c[o]);
   }
 };
 

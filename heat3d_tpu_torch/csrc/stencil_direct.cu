@@ -15,19 +15,34 @@
 //     Mehrstellen q-ring route of the JAX kernels (HEAT3D_MEHRSTELLEN, taps
 //     a*delta + b*S + d*F; a, b, d are the first three weights): each
 //     plane's [1,3,1] (x) [1,3,1] sum q is formed once per level, when the
-//     plane is fresh (z along the warp's lanes by shuffles, y through a
-//     float z131 slot per level), and carried to the outputs that read it
-//     (in registers; at H = 2 the level-1 q planes in two float planes of
-//     shared memory, each thread at its own positions); an output is
+//     plane is fresh, and carried to the outputs that read it; an output is
 //     (a u0 + b ((q[x-1] + q[x+1]) + 3 q[x])) + d psum, 19 fp32 ops a cell
-//     and update. At H = 2 the level-1 q comes from the rounded, pinned
-//     intermediate, as the second update would read it. These instances
-//     carry more registers than the chains: fp32 and H = 2 run three
-//     blocks an SM (80 registers, no spills), bf16 H = 1 four. M is the
-//     arithmetic policy (stencil_common.cuh): F32Math, or Bf16Math for
-//     bf16 compute (each read of a float field and each multiply and add
-//     rounded to bf16), an instance of its own for each chain and the
-//     Mehrstellen route;
+//     and update. At H = 1 (the first design) the z sums are shuffles, the
+//     y sums go through a float z131 slot and level 0's q planes ride in
+//     registers: three blocks an SM (80 registers; bf16 storage four). At
+//     H = 2 (the QR design, stencil_direct.cuh) warp ty owns frame rows
+//     4 ty .. 4 ty + 3 and lane tx column tx of a 32 x 32 frame (28 x 28
+//     output tiles): a level's fresh plane comes with the rows above and
+//     below the warp's (from the input slot, or for level 1 through a 2 KB
+//     exchange of the warps' edge rows), z sums are shuffles, and every
+//     other neighbour an output reads, q, the z sums and the planes x-1 and
+//     x+1, lives in registers: each level keeps a ring of three planes
+//     that rotates by name (the step loop runs three steps an iteration).
+//     Two barriers a plane, about 8.5 shared accesses and shuffles a cell
+//     against ~28 of the first design; 128 registers, two blocks an SM
+//     (at 80 registers it spills and runs 1.7x slower), six input slots.
+//     M is the arithmetic policy (stencil_common.cuh): F32Math, or Bf16Math
+//     for bf16 compute (native bf16x2 add and multiply; an fp32-storage
+//     field value rounded to bf16 once, as its plane lands), an instance of
+//     its own for each chain and the Mehrstellen route. The chains' bf16
+//     compute of an fp32 field at H = 2 is the PAIR design
+//     (stencil_direct.cuh): the landing packs the thread's columns tx and
+//     tx + 32, rounded, into one bf16x2 word of a packed plane (rows of
+//     words -1 .. 32, lanes 0 and 31 keeping the copies of columns 32 and
+//     31 their neighbours read), and the whole chain runs on those words
+//     with the weights in both halves: one add.rn.bf16x2 / mul.rn.bf16x2
+//     and one shared load for two cells, per-half pins, the two halves
+//     stored apart (50 KB shared, four blocks an SM);
 //   * direct1_generic / direct2_generic<T>: any other chain (other taps,
 //     HEAT3D_FACTOR_7PT=1, HEAT3D_FACTOR_Y=0), interpreted per cell from the
 //     Program in shared memory (stencil_common.cuh) over 3-slot float rings
@@ -74,18 +89,25 @@
 //
 // Measured (chip_smoke.py on "NVIDIA H100 80GB HBM3, 700.00 W"; PERF.md
 // section 6), ms per launch at 1024^3 fp32 7pt against the bytes bound of
-// 2.56: direct1 5.16 (5 blocks per SM, 46 registers), direct2 5.42 (4
-// blocks, 60 registers), no spills; 27pt 4.96 / 8.95, 7pt bf16 4.13 / 7.26
-// (bound 1.28); the Mehrstellen instances 4.61 / 8.47 fp32 (27pt chain of
-// the same call 4.90 / 8.92) and 5.70 / 10.60 bf16 (5.78 / 10.47). The
-// first design, now the generic instance, took 10.64 / 20.66. direct2
-// still trails streamk K=2 (4.69), the same sweep on a padded block: the
-// loader's ghost logic and 64 registers are suspects, not measured. In bf16
-// compute (chip_smoke.py compute_bf16_times, same card, the fp32-compute
-// instance of the same call in brackets): 7pt fp32 storage 6.55 [5.05] /
-// 11.93 [5.42], bf16 storage 5.67 [4.08] / 11.12 [7.09], Mehrstellen 9.37
-// [4.58] / 17.80 [8.24], with the same blocks per SM and registers: each
-// rounding to bf16 is a conversion and a shift beside every fp32 op.
+// 2.56: direct1 5.13 (5 blocks per SM, 46 registers), direct2 5.45 (4
+// blocks, 60 registers), no spills; 27pt 5.00 / 9.11, 7pt bf16 4.11 / 7.16
+// (bound 1.28); the Mehrstellen instances 4.66 / 6.31 fp32 (the 27pt chain
+// of the same call 5.00 / 9.11; the first design's two-update instance
+// took 8.24-8.44). On the way to the QR design (scripts/torch_direct_probe.py
+// --variants): rings copied a step 8.60-8.96, rotated by name at two blocks
+// an SM 7.55, with a loader of fixed source rows 6.31-6.57; level 1
+// pipelined a step behind level 0 (one barrier a plane) 6.74-7.03, not
+// kept. The first design, now the generic instance, took 10.64 / 20.66.
+// The QR route's main loop issues about 110 instructions a frame cell
+// (--variants --sass), at ~60% of the issue rate: latency-bound at 16
+// warps an SM. In bf16 compute (chip_smoke.py compute_bf16_times, same
+// card, the fp32-compute instance of the same call in brackets): 7pt fp32
+// storage 5.04 [5.13] / 5.18 [5.46] (the first Bf16Math policy 6.55 /
+// 11.93: a conversion beside every fp32 op; direct2 with a word a column,
+// 6.10 [5.45]: of its 0.65 ms over fp32 the native bf16 ops took ~0.45,
+// the landing rounding ~0.27, each replaced by its fp32 counterpart in a
+// probe variant); Mehrstellen 5.02 [4.62] / 7.90 [6.46] (9.37 / 17.80
+// before).
 //
 // Launches go on the caller's stream, allocate nothing, and return
 // cudaGetLastError().
@@ -98,13 +120,32 @@ constexpr int MAX_H = 2;
 
 // Blocks per SM the launch bounds set the register budget for: four (64
 // registers) for the chains and the bf16 one-update Mehrstellen instance;
-// three (80) for the fp32 one-update and both two-update Mehrstellen
-// instances, which carry q planes beside the chain's registers (at 64
-// they spill; scripts/torch_direct_probe.py, PERF.md section 6).
+// three (80) for the fp32 one-update Mehrstellen instance, which carries q
+// planes beside the chain's registers (at 64 it spills;
+// scripts/torch_direct_probe.py, PERF.md section 6); two (128) for the
+// two-update Mehrstellen instances, whose two rings of planes live in
+// registers (at 80 they spill 104-144 bytes and run 1.7x slower).
+// Dynamic shared memory of instance (T, H, S, M): the chains' and the
+// Mehrstellen route's (stencil_chain.cuh smem_bytes), or under PAIR the
+// float input slots, then lvl and xsp in packed rows and three packed
+// input planes.
+template <class T, int H, int S, class M>
+__host__ __device__ constexpr int direct_smem() {
+  using D = Direct<T, H, S, M, FieldPlanes<T>, true>;
+  if constexpr (D::PAIR) {
+    return D::NS * D::FH * D::SWI * (int)sizeof(T) +
+           ((H - 1) + (D::XS ? 1 : 0) + 3) * D::FH * D::PW * (int)sizeof(float);
+  } else {
+    return smem_bytes<T, H, S>();
+  }
+}
+
 template <class T, int H, int S>
 struct Bounds {
-  static constexpr int min_blocks =
-      S == SPEC_MEHR && (H == 2 || sizeof(T) == 4) ? 3 : MIN_BLOCKS;
+  static constexpr int min_blocks = row_runs<H, S>() ? 2
+                                    : S == SPEC_MEHR && sizeof(T) == 4
+                                        ? 3
+                                        : MIN_BLOCKS;
 };
 
 // ---------------------------------------------------------------------------
@@ -117,14 +158,17 @@ __global__ void __launch_bounds__(SNT, (Bounds<T, H, S>::min_blocks))
                   Weights w) {
   static_assert(centre_x_only<S>(),
                 "chain reads x-1/x+1 planes off the cell: generic instance");
-  using G = Geom<H>;
+  using G = Geom<H, S>;
+  using D = Direct<T, H, S, M, FieldPlanes<T>, true>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Direct<T, H, S, M, FieldPlanes<T>> st;
+  D st;
   st.src = FieldPlanes<T>{u, (int64_t)ny * nz, nx, periodic};
   st.out = out;
   st.in_slot = reinterpret_cast<T*>(smem_raw);
-  st.lvl = st.in_slot + in_slots<T, H, S>() * G::FH * in_stride<T, H>();
-  st.xsp = reinterpret_cast<float*>(st.lvl + (H - 1) * G::FH * G::FW);
+  st.lvl = st.in_slot + D::NS * G::FH * D::SWI;
+  st.xsp = reinterpret_cast<float*>(
+      st.lvl + (row_runs<H, S>() ? 0 : (H - 1) * G::FH * D::CW));
+  st.pk = st.xsp + (D::XS ? G::FH * D::CW : 0);
   st.ny = ny;
   st.nz = nz;
   st.xs0 = blockIdx.z * xchunk;
@@ -277,9 +321,9 @@ __global__ void __launch_bounds__(NTHREADS)
 // One instance: its kernel, dynamic shared memory, tile and launch.
 template <class T, int H, int S, class M>
 struct Spec {
-  static constexpr int bytes = smem_bytes<T, H, S>();
-  static constexpr int ty = Geom<H>::TY;
-  static constexpr int tz = Geom<H>::TZ;
+  static constexpr int bytes = direct_smem<T, H, S, M>();
+  static constexpr int ty = Geom<H, S>::TY;
+  static constexpr int tz = Geom<H, S>::TZ;
   static dim3 block() { return dim3(SBZ, SBY); }
   static void* fn() { return (void*)direct_kernel<T, H, S, M>; }
   static cudaError_t prepare() {

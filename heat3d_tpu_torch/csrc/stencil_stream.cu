@@ -151,7 +151,7 @@ struct Stream {
   static constexpr bool SHIFT = sizeof(T) == 2;
   static constexpr int NS = in_slots<T, K, S>();  // input slots
   static constexpr int D = NS - 2;                // planes loaded ahead
-  using InView = View<T, SWI, SHIFT, M>;
+  using InView = View<T, SWI, SHIFT>;
   using LvView = View<T, FW, false>;
   using XsView = View<float, FW, false>;
 
@@ -343,6 +343,7 @@ struct Stream {
     }
     for (int i = 0; i < n_in; ++i) {
       cp_async_wait<D - 1>();
+      round_landed<T, M, G>(in_slot + (i % NS) * FH * SWI);
       __syncthreads();  // plane i landed; the slot of plane i+D is free
       if (i + D < n_in) {
         load_plane<T, K>(in_slot + ((i + D) % NS) * FH * SWI, up,

@@ -24,10 +24,26 @@ on an H100: the first call after a kernel change, before ``chip_smoke.py``.
 builds only the direct source and runs only the 27pt parts (the
 Mehrstellen checks, and both instances' 1024^3 times and sweep): the probe
 of a variant of the Mehrstellen instance.
+
+    python3 scripts/torch_direct_probe.py \\
+        --variants '[["base", []], ["v1", ["-DNAME=1"]]]' [--all] [--sass]
+
+builds the direct source once per variant (a name and extra ``nvcc`` flags,
+e.g. ``-D`` switches a source under study reads), prints its two-update
+instances' registers and spills, and times at 1024^3 (27pt, Dirichlet bc
+0) the Mehrstellen two-update instance in fp32 and bf16 compute beside the
+27pt chain instance, each held bitwise to its plain version; ``--all``
+adds the 27pt chain in bf16 compute and the 7pt direct2 in fp32 and bf16
+compute; ``--sass`` adds the opcode
+histogram of the Mehrstellen two-update instance's main loop (the longest
+backward branch of ``cuobjdump -sass``: what a step issues). One JSON line
+per variant; compare variants only within one call.
 """
 
+import collections
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -159,15 +175,93 @@ def mehrstellen(ms, bad) -> int:
     return n
 
 
+# direct_kernel<float, 2, SPEC_MEHR, F32Math>, by its mangled name
+MEHR2_F32 = "direct_kernelIfLi2ELi3ENS_7F32Math"
+
+
+def loop_histogram(so: str, fragment: str) -> dict:
+    """Opcode counts of the longest loop of the kernel whose mangled name
+    holds ``fragment``, from ``cuobjdump -sass``."""
+    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", so],
+                          capture_output=True, text=True, timeout=600).stdout
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        if fragment not in part.split("\n", 1)[0]:
+            continue
+        ins = []
+        for line in part.split("\n"):
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if m:
+                ins.append((int(m.group(1), 16),
+                            re.sub(r"^@!?U?P[T0-9]+\s+", "", m.group(2).strip())))
+        index = {a: i for i, (a, _) in enumerate(ins)}
+        loops = []
+        for i, (a, text) in enumerate(ins):
+            m = re.match(r"BRA\s+0x([0-9a-f]+)", text)
+            if m and int(m.group(1), 16) <= a:  # a backward branch
+                start = index[int(m.group(1), 16)]
+                loops.append((i - start, start, i))
+        if not loops:
+            return {}
+        n, start, end = max(loops)
+        hist = collections.Counter(t.split()[0] for _, t in ins[start:end + 1])
+        return {"loop_instructions": n + 1, "opcodes": dict(hist.most_common())}
+    return {}
+
+
+def variants(spec, every: bool, sass: bool) -> int:
+    """The ``--variants`` probe (see the module docstring)."""
+    n = 1024
+    u = torch.rand((n, n, n), device="cuda")
+    out = torch.empty_like(u)
+    base_flags = _build.source_flags
+    cases = [("mehr2_f32", "1", torch.float32, "27pt"),
+             ("mehr2_bf16c", "1", torch.bfloat16, "27pt"),
+             ("chain27_2", "0", torch.float32, "27pt")]
+    if every:
+        cases += [("chain27_2_bf16c", "0", torch.bfloat16, "27pt"),
+                  ("d2_7pt_f32", "0", torch.float32, "7pt"),
+                  ("d2_7pt_bf16c", "0", torch.bfloat16, "7pt")]
+    bad = 0
+    for name, extra in spec:
+        _build.source_flags = (lambda nm, e=tuple(extra):
+                               base_flags(nm) + (e if nm == "stencil_direct" else ()))
+        _build.load.cache_clear()
+        sd._lib.cache_clear()
+        sd._launch_xchunk.cache_clear()
+        t0 = time.perf_counter()
+        _build.build_all(["stencil_direct"])
+        row = {"flags": extra, "build_s": time.perf_counter() - t0,
+               "ptxas": {k[-60:]: v for k, v in _build.ptxas_report("stencil_direct").items()
+                         if "Li2ELi3E" in k}}
+        for key, knob, cd, kind in cases:
+            os.environ["HEAT3D_MEHRSTELLEN"] = knob
+            taps = taps_of(kind, n)
+            ms = min(time_fn(lambda: sd.apply_taps_direct2(u, taps, out=out, compute_dtype=cd),
+                             warmup=2, iters=10)) * 1e3
+            same = torch.equal(out, sd.apply_taps_direct2_ref(u, taps, False, 0.0, cd))
+            bad += not same
+            row[key] = {"ms": ms, "bitwise": same}
+        if sass:
+            row["sass"] = loop_histogram(str(_build._target("stencil_direct")), MEHR2_F32)
+        say(**{name: row})
+    _build.source_flags = base_flags
+    os.environ.pop("HEAT3D_MEHRSTELLEN", None)
+    return 1 if bad else 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_direct_probe: no CUDA device", file=sys.stderr)
         return 1
-    only = "--mehrstellen-only" in sys.argv[1:]
+    args = sys.argv[1:]
+    only = "--mehrstellen-only" in args
     t0 = time.perf_counter()
     say(nvidia_smi=subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip())
+    if "--variants" in args:
+        return variants(json.loads(args[args.index("--variants") + 1]), "--all" in args,
+                        "--sass" in args)
     say(build_seconds=_build.build_all(["stencil_direct"] if only
                                        else ["stencil_direct", "stencil_stream"]))
     say(ptxas={k: v for k, v in _build.ptxas_report("stencil_direct").items()})

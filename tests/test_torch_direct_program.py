@@ -176,6 +176,10 @@ def test_reset_zeroes_every_counter():
     ((512, 512, 512), (38, 62), 660, 32),      # capped at _MIN_XCHUNK planes
     ((40, 70, 65), (38, 62), 660, 20),         # short x: two chunks of >= 20
     ((7, 5, 9), (28, 60), 528, 7),             # one tile, one chunk
+    # the Mehrstellen two-update instance: 28 x 28 tiles, two blocks an SM
+    ((1024, 1024, 1024), (28, 28), 264, 256),  # 1369 tiles: 4 chunks
+    ((128, 128, 128), (28, 28), 264, 32),      # 25 tiles: capped at 32 planes
+    ((33, 28, 140), (28, 28), 264, 17),        # 5 tiles: two chunks
 ])
 def test_wave_xchunk_aims_for_waves_of_resident_blocks(shape, tiles, resident, want):
     """The compile-time instances cut x into chunks until the launch holds

@@ -7,6 +7,10 @@ operation, with ``__fmul_rn``/``__fadd_rn`` (built with ``--fmad=false``),
 and round to bf16 with the same round-to-nearest-even as ``Tensor.to``.
 """
 
+import itertools
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -129,14 +133,18 @@ def test_direct_instances_fit_and_raise_without_fallback(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("shape", [(1, 1, 1), (2, 3, 5), (3, 9, 67), (5, 77, 125),
-                                   (6, 39, 127), (33, 17, 129), (40, 70, 65), (70, 45, 131)])
+                                   (6, 39, 127), (33, 17, 129), (40, 70, 65), (70, 45, 131),
+                                   (5, 28, 60), (4, 29, 61), (6, 4, 33), (3, 57, 121),
+                                   (7, 31, 64)])
 def test_mehrstellen_instance_equals_plain_version(cuda, monkeypatch, shape, dtype):
     """Under ``HEAT3D_MEHRSTELLEN`` the 27pt direct launches take the
     compile-time Mehrstellen instance (counted in ``mehrstellen_launches``)
     and equal its plain version bitwise, Dirichlet bc 0 and 0.3 and
     periodic, at halo 1 and 2: extents below 2H+1, odd nz, y and z no
     multiple of the tiles, and several x-chunks (the wrapper's, and forced
-    to 3 planes)."""
+    to 3 planes); for the two-update instance's rows owned in runs of four,
+    y extents of exactly one tile (28) and one more, of one run (4), of two
+    tiles and one, and of a run short of the frame (31)."""
     monkeypatch.setenv("HEAT3D_MEHRSTELLEN", "1")
     base = np.random.default_rng(13).standard_normal(shape).astype(np.float32)
     u = torch.from_numpy(base).to(cuda).to(dtype)
@@ -158,15 +166,22 @@ def test_mehrstellen_instance_equals_plain_version(cuda, monkeypatch, shape, dty
 
 
 def test_mehrstellen_instance_fits_and_raises_without_fallback(cuda, monkeypatch):
-    """The Mehrstellen instances fit three blocks of 256 threads an SM (their
-    launch bounds: the bf16 one-update instance four); forced on taps that
-    do not decompose the launch raises, and a 7pt solve under the knob
-    keeps its chain instance."""
+    """The Mehrstellen instances fit their launch bounds' blocks of 256
+    threads an SM: the one-update instance three (bf16 storage four), the
+    two-update one two (its two rings of planes live in registers); their
+    tiles are the chains' 38 x 62 and the two-update frame's 28 x 28;
+    forced on taps that do not decompose the launch raises, and a 7pt
+    solve under the knob keeps its chain instance."""
+    lib = sd._lib()
+    tiles = [(lib.heat3d_direct_tile_y(h, sd.MEHRSTELLEN),
+              lib.heat3d_direct_tile_z(h, sd.MEHRSTELLEN)) for h in (1, 2)]
+    assert tiles == [(38, 62), (28, 28)]
     for halo in (1, 2):
         for dtype in (torch.float32, torch.bfloat16):
-            r = sd.instance_resources(halo, sd.MEHRSTELLEN, dtype)
-            want = 4 if (halo, dtype) == (1, torch.bfloat16) else 3
-            assert r["blocks_per_sm"] >= want, (halo, dtype, r)
+            for compute in (torch.float32, torch.bfloat16):
+                r = sd.instance_resources(halo, sd.MEHRSTELLEN, dtype, compute)
+                want = 2 if halo == 2 else 4 if dtype == torch.bfloat16 else 3
+                assert r["blocks_per_sm"] >= want, (halo, dtype, compute, r)
     monkeypatch.setenv("HEAT3D_MEHRSTELLEN", "1")
     u = torch.rand((8, 8, 8), device=cuda)
     sd.reset_launch_counts()
@@ -680,6 +695,19 @@ BF16_KERNELS = ["direct1", "direct2", "direct1_mehrstellen", "direct2_mehrstelle
                 "stream1", "streamk2", "streamk3", "streamk4"]
 
 
+def _special_field(shape, seed):
+    """``chip_smoke.py``'s field of the bf16 format's edges: subnormals,
+    signed zeros, infinities and values whose sums overflow, with no NaN
+    in any plain output."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    return chip_smoke._special_field(shape, seed)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("kernel", BF16_KERNELS)
 def test_compute_bf16_instances_equal_plain_versions(cuda, monkeypatch, kernel, dtype):
@@ -687,16 +715,18 @@ def test_compute_bf16_instances_equal_plain_versions(cuda, monkeypatch, kernel, 
     torch.bfloat16``: the ``Bf16Math`` policy) against its plain version in
     bf16 compute, bitwise, 7pt and 27pt (the Mehrstellen instances 27pt
     under ``HEAT3D_MEHRSTELLEN=1``), Dirichlet bc 0 and 0.3 and periodic,
-    at a ragged shape and with the generic instance forced on the same
-    chain (the chains only); each launch counted as one bf16-compute
-    launch."""
+    at a ragged shape, on a normal field and on one holding subnormals,
+    signed zeros, infinities and overflowing values (``_special_field``),
+    and with the generic instance forced on the same chain (the chains
+    only); each launch counted as one bf16-compute launch."""
     bf = torch.bfloat16
     mehr = kernel.endswith("mehrstellen")
     monkeypatch.setenv("HEAT3D_MEHRSTELLEN", "1" if mehr else "0")
     shape = (37, 45, 131)
-    u = torch.from_numpy(np.random.default_rng(12).standard_normal(shape)
-                         .astype(np.float32)).to(cuda).to(dtype)
-    for kind in (("27pt",) if mehr else ("7pt", "27pt")):
+    normal = np.random.default_rng(12).standard_normal(shape).astype(np.float32)
+    for base, kind in itertools.product(
+            (normal, _special_field(shape, 14)), ("27pt",) if mehr else ("7pt", "27pt")):
+        u = torch.from_numpy(base).to(cuda).to(dtype)
         taps = _taps(kind)
         for periodic, bcv in ((False, 0.0), (False, 0.3), (True, 0.0)):
             bc = BoundaryCondition.PERIODIC if periodic else BoundaryCondition.DIRICHLET
@@ -727,6 +757,7 @@ def test_compute_bf16_instances_equal_plain_versions(cuda, monkeypatch, kernel, 
                 before = counts()[name]
                 got = run()
                 torch.cuda.synchronize()
+                assert not plain.isnan().any()
                 assert torch.equal(got, plain), (kernel, kind, periodic, bcv)
                 assert counts()[name] == before + 1
 

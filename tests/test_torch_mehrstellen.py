@@ -133,7 +133,11 @@ def test_plain_update_is_the_canonical_order_bitwise(shape, grid):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: d[0])
-@pytest.mark.parametrize("shape", [(8, 8, 8), (5, 9, 13)])
+@pytest.mark.parametrize("shape", [(8, 8, 8), (5, 9, 13),
+                                   # the two-update instance's 28 x 28 tile and
+                                   # its runs of four rows: one tile and one
+                                   # more, one run, a run short of the frame
+                                   (3, 28, 28), (4, 29, 29), (5, 4, 31), (2, 31, 30)])
 @pytest.mark.parametrize("tb", [1, 2])
 def test_direct_matches_pallas_interpret_under_knob(knob, tb, shape, dtype):
     storage, tdtype, jdtype = dtype
