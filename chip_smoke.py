@@ -15,8 +15,9 @@ non-zero without one. Phases, each printing its own lines:
    instance's (halo 1 and 2 x the same instances and the Mehrstellen
    q-ring instance) and fused instance's (the one- and two-update
    kernels' 7pt, 27pt and generic instances) shared memory, registers,
-   spills and resident blocks per SM, each compile-time instance in fp32
-   and in bf16 compute (the ``Bf16Math`` policy; keys end ``_bf16c``);
+   spills and resident blocks per SM, each compile-time instance and the
+   direct kernels' generic sweep (``direct_generic<T,H,M>``) in fp32 and in
+   bf16 compute (the ``Bf16Math`` policy; keys end ``_bf16c``);
 3. hold each kernel against its plain PyTorch version on the card, bitwise,
    for 7pt/27pt x Dirichlet (bc 0 and 0.3)/periodic x fp32/bf16 storage at
    ragged shapes, 128^3 (the golden phase's grid) and 256^3: the direct
@@ -86,8 +87,9 @@ non-zero without one. Phases, each printing its own lines:
    halo exchange's time at each width, and the library call's time
    (F.conv3d, no TF32) over the same input as the tb=1 and the stream
    kernel, held to them within a stated rounding bound; the direct kernels'
-   generic instance forced on the 7pt chain beside them (the first
-   design), and direct1/direct2 in their 27pt fp32 and 7pt bf16 instances
+   generic instance forced on the 7pt chain and on the advection-diffusion
+   vx=2 program beside them (each launch bitwise, with its bound), and
+   direct1/direct2 in their 27pt fp32 and 7pt bf16 instances
    at 1024^3 with registers, spills and blocks per SM; the stream kernel
    and streamk K=4 in their 27pt fp32 and 7pt bf16 instances at 1024^3
    (bitwise, timed beside their bounds), and the ratios stream1 / direct1,
@@ -142,18 +144,18 @@ non-zero without one. Phases, each printing its own lines:
 
 11. ``families``, after the main path, the explicit equation families at
    1024^3 fp32 (``_FAMILY_ROWS``: ``aniso-diffusion`` tb 2 and 1,
-   ``advection-diffusion`` vx=2 tb 1 on (1,1,1) and faces-direct on
-   (2,2,2), ``reaction-diffusion`` rate 0.5 27pt tb 2 and 7pt tb 4): each
-   row's kernel on a random field (the (2,2,2) row: on each shard) held
-   bitwise to its plain version for the three boundary settings, the
-   (2,2,2) advection step (kernel and the shells at asymmetric taps) held
-   bitwise to the (1,1,1) step; then, with the launch counts zeroed, each
-   row through ``bench_throughput`` (Gcell/s, ms per superstep beside its
-   bound, the instance its launches took: a family whose emission program
-   is no ``CHAINS`` entry, as advection's unfactored x pair, takes the
-   generic instance) and each family's 128^3 ``--golden-check`` through
-   the command line (gate 1e-5); the counts read after must show the
-   direct, direct2 and streamk kernels;
+   ``advection-diffusion`` vx=2 tb 1 on (1,1,1) and faces-direct on (2,2,2)
+   and tb 2 on (1,1,1), ``reaction-diffusion`` rate 0.5 27pt tb 2 and 7pt
+   tb 4): each row's kernel on a random field (the (2,2,2) row: on each
+   shard) held bitwise to its plain version for the three boundary
+   settings, the (2,2,2) advection step (kernel and the shells at
+   asymmetric taps) held bitwise to the (1,1,1) step; then, with the launch
+   counts zeroed, each row through ``bench_throughput`` (Gcell/s, ms per
+   superstep beside its bound, the instance its launches took: a family
+   whose emission program is no ``CHAINS`` entry, as advection's unfactored
+   x pair, takes the generic instance) and each family's 128^3
+   ``--golden-check`` through the command line (gate 1e-5); the counts read
+   after must show the direct, direct2 and streamk kernels;
 12. ``integrators``, with the launch counts zeroed before and read after
    (the integrators run the plain chain over the ppermute exchange, as the
    JAX package pins them, so no kernel may launch): ``wave`` + leapfrog
@@ -500,9 +502,19 @@ def _ptxas(source: str, kernel: str, prefix: str) -> dict:
 
 
 def _direct_ptxas() -> dict:
-    """Registers and spills (bytes) of each compile-time direct instance,
-    keyed ``h<halo>_<chain>_<dtype>`` (+ ``BF16C``)."""
-    return _ptxas("stencil_direct", "direct_kernel", "h")
+    """Registers and spills (bytes) of each direct instance, keyed
+    ``h<halo>_<instance>_<dtype>`` (+ ``BF16C``): the compile-time ones by
+    chain, the generic sweep ``direct_generic<T,H,M>`` as ``generic``."""
+    import re
+
+    from heat3d_tpu_torch.ops import _build
+
+    out = _ptxas("stencil_direct", "direct_kernel", "h")
+    for entry, r in _build.ptxas_report("stencil_direct").items():
+        m = re.search(r"direct_genericI(f|13__nv_bfloat16)Li(\d)E", entry)
+        if m:
+            out[f"h{m.group(2)}_generic_{_DTYPE_NAMES[m.group(1)]}{_compute_tag(entry)}"] = r
+    return out
 
 
 def _stream_ptxas() -> dict:
@@ -528,16 +540,17 @@ def _fused_ptxas() -> dict:
     return out
 
 
-def _computes(code: int):
+def _computes(code: int, generic_policies: bool = False):
     """(compute dtype, key suffix) of the instances of ``code``: both
-    policies for a compile-time instance; the generic instance serves both
-    compute dtypes with one kernel, reported once."""
+    policies for a compile-time instance and for the direct kernels'
+    generic one (``generic_policies``); the stream and fused generic
+    instances serve both compute dtypes with one kernel, reported once."""
     import torch
 
     from heat3d_tpu_torch.ops.stencil_stream import GENERIC
 
     both = ((torch.float32, ""), (torch.bfloat16, BF16C))
-    return both if code != GENERIC else both[:1]
+    return both if code != GENERIC or generic_policies else both[:1]
 
 
 def phase_build() -> dict:
@@ -578,13 +591,13 @@ def phase_build() -> dict:
     for h in (1, 2):
         for code in (ss.GENERIC, *ss.CHAINS, sd.MEHRSTELLEN):
             for dtype in (torch.float32, torch.bfloat16):
-                for cd, tag in _computes(code):
+                for cd, tag in _computes(code, generic_policies=True):
                     key = f"h{h}_{_instance_name(code)}_{str(dtype)[6:]}{tag}"
                     direct[key] = {**sd.instance_resources(h, code, dtype, cd),
                                    **{f: ptxas.get(key, {}).get(f) for f in spills[1:]}}
                     _check(direct[key]["blocks_per_sm"] > 0,
                            f"direct instance {key} fits no SM: {direct[key]}")
-    _check(len(ptxas) == 24, f"compiler report of the direct instances: {sorted(ptxas)}")
+    _check(len(ptxas) == 32, f"compiler report of the direct instances: {sorted(ptxas)}")
     _say("build", direct_instances=direct)
     resources.update(direct)
     ptxas = _fused_ptxas()
@@ -1504,8 +1517,9 @@ def phase_kernel_times(bw: float, worst: dict, resources: dict) -> dict:
             if name.startswith("apply_taps_stream"):
                 times[n][key]["blocks_per_sm"] = resources[f"k{k}_7pt_float32"]["blocks_per_sm"]
             else:
-                times[n][key].update(_direct_generic_ms(worst, name, k, u, taps, out))
+                times[n][key].update(_direct_generic_ms(worst, name, k, u, taps, out, bw))
                 times[n][key].update(resources[f"h{k}_7pt_float32"])
+                times[n][key]["generic_resources"] = resources[f"h{k}_generic_float32"]
         extra = {}
         if n == 1024:
             # yardstick, never called by the port: one cuDNN convolution
@@ -1535,6 +1549,9 @@ def phase_kernel_times(bw: float, worst: dict, resources: dict) -> dict:
          variants=_direct_variant_times(bw, worst, resources),
          generic_over_compiled={name: t[name]["generic_ms"] / t[name]["ms"]
                                 for name in ("apply_taps_direct", "apply_taps_direct2")},
+         generic_advection_over_compiled={
+             name: t[name]["generic_advection_ms"] / t[name]["ms"]
+             for name in ("apply_taps_direct", "apply_taps_direct2")},
          max_abs_err={n: worst[n] for n in ("apply_taps_direct", "apply_taps_direct2")})
     variants = _stream_variant_times(bw, worst, resources)
     d1, d2 = t["apply_taps_direct"]["ms"], t["apply_taps_direct2"]["ms"]
@@ -1550,17 +1567,31 @@ def phase_kernel_times(bw: float, worst: dict, resources: dict) -> dict:
     return t
 
 
-def _direct_generic_ms(worst: dict, name: str, halo: int, u, taps, out) -> dict:
-    """The generic (interpreted) direct instance forced on ``taps``' chain:
-    its ms per launch on ``u``, the last launch held bitwise to the plain
-    version. ``out`` is overwritten."""
+def _advection_taps(n: int):
+    """The registry's advection-diffusion taps at vx=2 on an n^3 grid (7pt):
+    a program of six terms, no ``CHAINS`` entry."""
+    from heat3d_tpu_torch import eqn
+
+    return eqn.solver_taps(_family_cfg(n, "advection-diffusion", (("vx", 2.0),), "7pt", 1))
+
+
+def _direct_generic_ms(worst: dict, name: str, halo: int, u, taps, out, bw: float) -> dict:
+    """The generic direct instance forced on ``taps``' chain and on the
+    advection-diffusion vx=2 program (``_advection_taps``, which the solver
+    runs on it) over ``u``: ms per launch beside its bound, the last launch
+    of each held bitwise to the plain version. ``out`` is overwritten."""
     from heat3d_tpu_torch.ops import stencil_direct as sd
 
-    ms = _time_ms(lambda: sd.launch_instance(halo, 0, u, taps, out=out), iters=10)
+    n = u.shape[0]
     _, plain = _kernel_pair(name, halo)
-    _hold(worst, name, out, plain(u, taps, False, 0.0),
-          f"generic instance at {tuple(u.shape)} {u.dtype}")
-    return {"generic_ms": ms}
+    res = {}
+    for key, t in (("generic", taps), ("generic_advection", _advection_taps(n))):
+        ms = _time_ms(lambda: sd.launch_instance(halo, 0, u, t, out=out), iters=10)
+        _hold(worst, name, out, plain(u, t, False, 0.0),
+              f"{key} instance at {tuple(u.shape)} {u.dtype}")
+        b_ms, _ = kernel_bound(name, n, halo, u.element_size(), flops_per_update(t), bw)
+        res.update({f"{key}_ms": ms, f"{key}_bound_ms": b_ms})
+    return res
 
 
 def _direct_variant_times(bw: float, worst: dict, resources: dict) -> dict:
@@ -3544,6 +3575,7 @@ _FAMILY_ROWS = (
     ("aniso-diffusion", (), "7pt", 1, (1, 1, 1), "apply_taps_direct"),
     ("advection-diffusion", (("vx", 2.0),), "7pt", 1, (1, 1, 1), "apply_taps_direct"),
     ("advection-diffusion", (("vx", 2.0),), "7pt", 1, _MESH, "apply_taps_direct"),
+    ("advection-diffusion", (("vx", 2.0),), "7pt", 2, (1, 1, 1), "apply_taps_direct2"),
     ("reaction-diffusion", (("rate", 0.5),), "27pt", 2, (1, 1, 1), "apply_taps_direct2"),
     ("reaction-diffusion", (("rate", 0.5),), "7pt", 4, (1, 1, 1), "apply_taps_streamk"),
 )
@@ -5777,7 +5809,9 @@ def main(argv=None) -> int:
                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
              **({"compute_bf16_ms": bf16_times[name]["compute_bf16"]["ms"]}
                 if name in COMPUTE_KERNELS else {}),
-             **({"instance": times[name]["kernel"]} if "kernel" in times[name] else {})}
+             **({"instance": times[name]["kernel"]} if "kernel" in times[name] else {}),
+             **{key: times[name][key] for key in ("generic_ms", "generic_advection_ms")
+                if key in times[name]}}
             for name in KERNELS + tuple(_MEHR)
         ]
         print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,7 @@ and 2 (rows 1–2; the Mehrstellen instances 1m/2m under
 kernels over (4,1,1) with the partitioned plan's send ranges (rows 11–12):
 7pt and 27pt, each compile-time instance also in bf16 compute, bf16
 storage, and the generic instance forced as ``chip_smoke.py`` forces it
-(``HEAT3D_FACTOR_7PT=1``). Extents are odd (37×41×43 a shard), so every
+(``HEAT3D_FACTOR_7PT=1``; the direct kernels' also in bf16 compute). Extents are odd (37×41×43 a shard), so every
 kernel runs its tails. ``judged_cases("full")`` is the same kernels at the
 main path's shapes: 1024³ on one shard, (2,2,2) of 512³, (8,1,1) of
 128×1024².
@@ -100,7 +100,9 @@ _MEHR = (("HEAT3D_MEHRSTELLEN", "1"),)
 def _variants(mehrstellen: bool = False):
     """(tag, stencil, storage, compute, env, periodic) of one kernel's
     instances: each chain in fp32 and bf16 compute, bf16 storage, the
-    generic instance forced; the Mehrstellen pair where it applies."""
+    generic instance forced; the direct kernels' Mehrstellen pair and their
+    generic instance in bf16 compute (an instance of its own, as the
+    chains'; ``mehrstellen``)."""
     out = [("7pt", "7pt", "float32", "float32", (), False),
            ("27pt", "27pt", "float32", "float32", (), True),
            ("7pt-bf16c", "7pt", "float32", "bfloat16", (), False),
@@ -109,7 +111,8 @@ def _variants(mehrstellen: bool = False):
            ("generic", "7pt", "float32", "float32", _GENERIC, False)]
     if mehrstellen:
         out += [("mehr", "27pt", "float32", "float32", _MEHR, False),
-                ("mehr-bf16c", "27pt", "float32", "bfloat16", _MEHR, True)]
+                ("mehr-bf16c", "27pt", "float32", "bfloat16", _MEHR, True),
+                ("generic-bf16c", "7pt", "float32", "bfloat16", _GENERIC, True)]
     return out
 
 

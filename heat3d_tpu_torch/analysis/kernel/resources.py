@@ -37,10 +37,10 @@ _T = r"(f|13__nv_bfloat16)"
 
 
 def _generic_pattern(family: str, depth: int) -> str:
-    """The mangled-name pattern of a family's interpreted (generic) kernel
-    at ``depth``; its storage type is the first group."""
+    """The mangled-name pattern of a family's generic kernel at ``depth``;
+    its storage type is the first group."""
     if family == "direct":
-        return rf"direct{depth}_genericI{_T}E"
+        return rf"direct_genericI{_T}Li{depth}E"
     if family == "stream":
         return rf"stream1_genericI{_T}E" if depth == 1 else rf"streamk_genericI{_T}Li{depth}E"
     return rf"fused_kernelI{_T}Li{depth}E"
@@ -64,14 +64,16 @@ def _code(case) -> int:
 
 def _spills(family: str, depth: int, code: int, dtype: str, bf16c: bool) -> Optional[dict]:
     """Registers and spill bytes of one instance from the compiler's
-    report (the generic instance serves both compute dtypes)."""
+    report (the stream and fused generic instances serve both compute
+    dtypes; the direct one has an instance of each policy)."""
     from heat3d_tpu_torch.ops import _build
 
     lib, kernel = _TEMPLATES[family]
     for entry, r in _build.ptxas_report(lib).items():
         if code == 0:
             m = re.search(_generic_pattern(family, depth), entry)
-            if m and _DTYPE_MANGLED[m.group(1)] == dtype:
+            if (m and _DTYPE_MANGLED[m.group(1)] == dtype
+                    and (family != "direct" or ("Bf16Math" in entry) == bf16c)):
                 return r
             continue
         m = re.search(kernel + rf"I{_T}Li(\d)ELi(\d)E", entry)

@@ -58,7 +58,8 @@ __host__ __device__ constexpr int tap(int i, int f) {
 
 template <int S>
 __host__ __device__ constexpr bool uses_xsum() {
-  if constexpr (S == SPEC_MEHR) {
+  if constexpr (S == SPEC_MEHR || S == SPEC_GENERIC) {
+    // the generic sweep keeps an x-sum slot of its own (stencil_direct.cu)
     return false;
   } else {
     for (int i = 0; i < chain_len<S>(); ++i) {
@@ -150,8 +151,14 @@ __host__ __device__ constexpr int smem_with(int slots) {
 // fp32 K=4 27pt keeps three. The QR route reads plane i only and keeps
 // five planes in flight (24 KB fp32; six slots measured 4% faster than
 // four, eight no faster: scripts/torch_direct_probe.py, PERF.md section 6).
+// The generic direct sweep copies plane i into a float ring as it lands
+// and refills its one slot with plane i+1 at once (stencil_direct.cu):
+// two or three slots cost its two-update instance a block an SM and ran
+// 35% slower (scripts/torch_direct_probe.py --generic --variants, PERF.md
+// section 6).
 template <class T, int K, int S>
 __host__ __device__ constexpr int in_slots() {
+  if (S == SPEC_GENERIC) return 1;
   if (row_runs<K, S>()) return 6;
   return smem_with<T, K, S>(4) <= 56 * 1024 ? 4 : 3;
 }

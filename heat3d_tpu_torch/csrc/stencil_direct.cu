@@ -43,11 +43,36 @@
 //     with the weights in both halves: one add.rn.bf16x2 / mul.rn.bf16x2
 //     and one shared load for two cells, per-half pins, the two halves
 //     stored apart (50 KB shared, four blocks an SM);
-//   * direct1_generic / direct2_generic<T>: any other chain (other taps,
-//     HEAT3D_FACTOR_7PT=1, HEAT3D_FACTOR_Y=0), interpreted per cell from the
-//     Program in shared memory (stencil_common.cuh) over 3-slot float rings
-//     of ghost-framed planes loaded synchronously: the first design. The
-//     compute dtype rides in the program (Program::bf16).
+//   * direct_generic<T, H, M>: any other chain (other taps, advection's
+//     unequal x pair, a zero centre, HEAT3D_FACTOR_7PT=1, HEAT3D_FACTOR_Y=0),
+//     of 1 to 27 terms, on the same block (Direct: geometry, masks, the
+//     loader that builds the ghosts). Such a chain may read the planes x-1
+//     and x+1 away from the cell, so every level keeps its planes in a
+//     float ring of four slots in shared memory (plane m in slot m & 3, the
+//     x-sum of plane q in slot (q + 2) & 3); an input plane lands by
+//     cp.async in one input slot and is copied into level 0's ring as M
+//     reads a T, its slot refilled at once. The host folds each term
+//     (src, row, dk) into a slot shift and an offset (GenericArgs, a
+//     kernel argument): a term is an add and a mask on the constant bank,
+//     then one or two shared loads at immediate offsets, __fmul_rn and
+//     __fadd_rn for each of the thread's positions, in a loop unrolled to
+//     27 terms with a branch on the term count that is uniform across the
+//     launch; no switch on src, no division, the compute dtype a template
+//     policy. Two barriers a plane at H = 1, three at H = 2. It replaces the
+//     first design's interpreted kernels (a per-cell program walk over
+//     synchronously loaded rings; 10.217 / 20.371 ms). Measured (PERF.md
+//     section 6, 1024^3 fp32, the 7pt chain forced): 4.40-4.72 ms at H = 1
+//     (four blocks an SM; the 7pt chain instance 5.14-5.24 in the same calls),
+//     9.52-9.79 at H = 2 (three blocks an SM). At H = 2 each level's chain
+//     costs about 3 ms over a 2.6 ms skeleton of loads, copies and barriers,
+//     about what a chain costs a frame position at H = 1
+//     (scripts/torch_direct_probe.py --generic --variants with switches since
+//     removed: without level 1's chain 5.53, without the output's 6.02,
+//     without both 2.63): it runs at under half the issue and shared-memory
+//     rates, and four blocks an SM (a 24-row frame), a 40-row frame at two
+//     blocks, two or three input slots, the next term's loads issued before
+//     this term's arithmetic (copied, or into a buffer of the term's parity),
+//     and no third barrier each left it at 9.4-13.1.
 //
 // Bound: device-memory bytes. One sweep reads the field once and writes it
 // once (8 B/cell in fp32, 4 B/cell in bf16) for 13 (7pt) to 26 (27pt,
@@ -97,7 +122,8 @@
 // --variants): rings copied a step 8.60-8.96, rotated by name at two blocks
 // an SM 7.55, with a loader of fixed source rows 6.31-6.57; level 1
 // pipelined a step behind level 0 (one barrier a plane) 6.74-7.03, not
-// kept. The first design, now the generic instance, took 10.64 / 20.66.
+// kept. The generic instance forced on the 7pt chain: see PERF.md
+// section 6, rows 1 and 2 (the first design took 10.217 / 20.371).
 // The QR route's main loop issues about 110 instructions a frame cell
 // (--variants --sass), at ~60% of the issue rate: latency-bound at 16
 // warps an SM. In bf16 compute (chip_smoke.py compute_bf16_times, same
@@ -180,139 +206,232 @@ __global__ void __launch_bounds__(SNT, (Bounds<T, H, S>::min_blocks))
 }
 
 // ---------------------------------------------------------------------------
-// Generic instances: the interpreted emission program (stencil_common.cuh)
-// over 3-slot float rings, (TY, TZ) tiles of stencil_common.cuh.
+// The generic instance: any emission program, folded at launch.
 
-// Load global plane gx into a ghost-framed (TY+2H, TZ+2H) float slot.
-template <class T, int H>
-__device__ void load_framed(float* dst, const T* __restrict__ u, int gx,
-                            int y0, int z0, int nx, int ny, int nz,
-                            bool periodic, float bc) {
-  constexpr int FY = TY + 2 * H;
-  constexpr int FZ = TZ + 2 * H;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const bool x_in = gx >= 0 && gx < nx;
-  const int x = periodic ? wrap(gx, nx) : gx;
-  for (int idx = tid; idx < FY * FZ; idx += NTHREADS) {
-    const int a = idx / FZ;
-    const int b = idx - a * FZ;
-    const int gy = y0 - H + a;
-    const int gz = z0 - H + b;
-    float v;
-    if (periodic) {
-      v = to_f(u[((int64_t)x * ny + wrap(gy, ny)) * nz + wrap(gz, nz)]);
-    } else if (x_in && gy >= 0 && gy < ny && gz >= 0 && gz < nz) {
-      v = to_f(u[((int64_t)x * ny + gy) * nz + gz]);
-    } else {
-      v = bc;
+// A program as the generic sweep runs it (fold): term i reads, at the
+// cell's position in slot (q + 3 + s[i]) & 3 of its level's ring (the
+// slot of plane q - 1 + s for s = 0..2, of the x-sum plane for s = 3),
+// the element o[i] away, and with y[i] also the one 2 FW further on (the
+// rows y-1 and y+1 of a row sum); w[i] is its weight in the compute dtype.
+struct GenericArgs {
+  int n;
+  int xsum;  // some term reads the x-sum plane
+  int s[MAX_TERMS];
+  int o[MAX_TERMS];
+  int y[MAX_TERMS];
+  float w[MAX_TERMS];
+};
+
+// The terms of a program are ones the sweep can fold.
+bool foldable(const Program& p) {
+  for (int i = 0; i < p.n; ++i) {
+    const Term t = p.t[i];
+    if (t.src < 0 || t.src > 3 || t.row < 0 || t.row > 3 || t.dk < -1 ||
+        t.dk > 1) {
+      return false;
     }
-    dst[idx] = v;
   }
+  return true;
 }
 
-template <class T>
-__global__ void __launch_bounds__(NTHREADS)
-    direct1_generic(const T* __restrict__ u, T* __restrict__ out, int nx,
-                    int ny, int nz, int xchunk, int periodic, float bc,
-                    Program prog) {
-  constexpr int FZ = TZ + 2;
-  constexpr int PS = (TY + 2) * FZ;
-  __shared__ float ring[3 * PS];
-  __shared__ Program sp;
-  copy_program(&sp, prog);
-  const int z0 = blockIdx.x * TZ;
-  const int y0 = blockIdx.y * TY;
-  const int xs = blockIdx.z * xchunk;
-  const int xe = min(nx, xs + xchunk);
-  // planes xs-1 .. xe: slot i%3 holds plane xs-1+i; output plane xs+i-2
-  for (int i = 0; i < xe - xs + 2; ++i) {
-    load_framed<T, 1>(ring + (i % 3) * PS, u, xs - 1 + i, y0, z0, nx, ny,
-                      nz, periodic, bc);
-    __syncthreads();
-    if (i >= 2) {
-      const float* pm = ring + ((i - 2) % 3) * PS;
-      const float* p0 = ring + ((i - 1) % 3) * PS;
-      const float* pp = ring + (i % 3) * PS;
-      const int64_t ox = xs + i - 2;
-      for (int ty = threadIdx.y; ty < TY; ty += BY) {
-        const int gy = y0 + ty;
-        const int gz = z0 + threadIdx.x;
-        if (gy < ny && gz < nz) {
-          const float r =
-              apply_program(sp, pm, p0, pp, ty + 1, threadIdx.x + 1, FZ);
-          out[(ox * ny + gy) * nz + gz] = from_f<T>(r);
-        }
-      }
-    }
-    __syncthreads();
+// Each term (src, row, dk) of p as a slot shift and an offset in a ring
+// slot of row stride fw.
+GenericArgs fold(const Program& p, int fw) {
+  GenericArgs a{};
+  a.n = p.n;
+  for (int i = 0; i < p.n; ++i) {
+    const Term t = p.t[i];
+    a.s[i] = t.src;
+    a.y[i] = t.row == 3;
+    a.o[i] = (t.row == 3 ? -1 : t.row - 1) * fw + t.dk;
+    a.w[i] = t.w;
+    a.xsum |= t.src == 3;
   }
+  return a;
 }
 
-template <class T>
-__global__ void __launch_bounds__(NTHREADS)
-    direct2_generic(const T* __restrict__ u, T* __restrict__ out, int nx,
-                    int ny, int nz, int xchunk, int periodic, float bc,
-                    Program prog) {
-  constexpr int FAZ = TZ + 4;
-  constexpr int PA = (TY + 4) * FAZ;
-  constexpr int FBZ = TZ + 2;
-  constexpr int PB = (TY + 2) * FBZ;
-  __shared__ float ring_a[3 * PA];  // input planes, two-cell frame
-  __shared__ float ring_b[3 * PB];  // intermediate planes, one-cell frame
-  __shared__ Program sp;
-  copy_program(&sp, prog);
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int z0 = blockIdx.x * TZ;
-  const int y0 = blockIdx.y * TY;
-  const int xs = blockIdx.z * xchunk;
-  const int xe = min(nx, xs + xchunk);
-  // slot i%3 of ring_a holds input plane xs-2+i; from i >= 2 intermediate
-  // plane j = i-2 (global xs-1+j) goes to slot j%3 of ring_b; from i >= 4
-  // output plane xs+i-4 is emitted from intermediates i-4 .. i-2.
-  for (int i = 0; i < xe - xs + 4; ++i) {
-    load_framed<T, 2>(ring_a + (i % 3) * PA, u, xs - 2 + i, y0, z0, nx, ny,
-                      nz, periodic, bc);
-    __syncthreads();
-    if (i >= 2) {
-      const float* pm = ring_a + ((i - 2) % 3) * PA;
-      const float* p0 = ring_a + ((i - 1) % 3) * PA;
-      const float* pp = ring_a + (i % 3) * PA;
-      float* dst = ring_b + ((i - 2) % 3) * PB;
-      const int gm = xs - 3 + i;
-      const bool x_ghost = gm < 0 || gm >= nx;
-      for (int idx = tid; idx < PB; idx += NTHREADS) {
-        const int a = idx / FBZ;
-        const int b = idx - a * FBZ;
-        const int gy = y0 - 1 + a;
-        const int gz = z0 - 1 + b;
-        float v;
-        if (!periodic &&
-            (x_ghost || gy < 0 || gy >= ny || gz < 0 || gz >= nz)) {
-          v = bc;
+// The sweep of the generic instance: the chains' block (Direct: geometry,
+// masks, loader, views) with every level's planes in shared memory. Each
+// level has a float ring of four slots: its plane m in slot m & 3, and
+// the x-sum of plane q (planes q-1 and q+1) in slot (q + 2) & 3, the one
+// the next plane overwrites. An input plane lands in the one input slot,
+// is copied into level 0's ring as M reads a T (rounded there under bf16
+// compute of an fp32 field) and its slot refilled with the next plane at
+// once; at H = 2 level 1's planes, rounded through T and pinned to bc
+// outside a Dirichlet domain, go to level 1's ring. Each thread forms the
+// x-sums at its own positions from the planes it wrote itself.
+template <class T, int H, class M>
+struct GenericSweep : Direct<T, H, SPEC_GENERIC, M, FieldPlanes<T>> {
+  using B = Direct<T, H, SPEC_GENERIC, M, FieldPlanes<T>>;
+  static constexpr int LA = B::LA, MB = B::MB, P = B::P, FW = B::FW;
+  static constexpr int PS = B::FH * FW;  // floats of a ring slot
+
+  float* rings;  // H rings of four slots
+
+  // Offset of the thread's position p from its first one in a slot.
+  __host__ __device__ static constexpr int pos(int p) {
+    return SBY * (p / MB) * FW + SBZ * (p % MB);
+  }
+
+  // The thread's first position in slot k & 3 of level L's ring.
+  __device__ __forceinline__ float* slot(int L, int k) const {
+    return rings + (4 * L + (k & 3)) * PS + this->tid_base(FW);
+  }
+
+  // acc: the chain of level L's plane q at the thread's positions.
+  __device__ __forceinline__ void eval(int L, int q, const GenericArgs& a,
+                                       float (&acc)[P]) const {
+    const float* lb = rings + 4 * L * PS + this->tid_base(FW);
+    const int qr = q + 3;
+#pragma unroll
+    for (int i = 0; i < MAX_TERMS; ++i) {
+      if (i < a.n) {  // uniform across the launch
+        const float* t = lb + ((qr + a.s[i]) & 3) * PS + a.o[i];
+        if (a.y[i]) {
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            term(acc[p], i, a.w[i], M::add(t[pos(p)], t[pos(p) + 2 * FW]));
+          }
         } else {
-          v = to_f(from_f<T>(
-              apply_program(sp, pm, p0, pp, a + 1, b + 1, FAZ)));
-        }
-        dst[idx] = v;
-      }
-    }
-    __syncthreads();
-    if (i >= 4) {
-      const float* pm = ring_b + ((i - 4) % 3) * PB;
-      const float* p0 = ring_b + ((i - 3) % 3) * PB;
-      const float* pp = ring_b + ((i - 2) % 3) * PB;
-      const int64_t ox = xs + i - 4;
-      for (int ty = threadIdx.y; ty < TY; ty += BY) {
-        const int gy = y0 + ty;
-        const int gz = z0 + threadIdx.x;
-        if (gy < ny && gz < nz) {
-          const float r =
-              apply_program(sp, pm, p0, pp, ty + 1, threadIdx.x + 1, FBZ);
-          out[(ox * ny + gy) * nz + gz] = from_f<T>(r);
+#pragma unroll
+          for (int p = 0; p < P; ++p) term(acc[p], i, a.w[i], t[pos(p)]);
         }
       }
     }
   }
+
+  // Term i of a cell: w v, the first term not added to 0.
+  __device__ __forceinline__ static void term(float& acc, int i, float w,
+                                              float v) {
+    const float m = M::mul(w, v);
+    acc = i == 0 ? m : M::add(acc, m);
+  }
+
+  // Store value v of plane m at position p of level L's slot m & 3 and,
+  // when `xs`, the x-sum of plane m - 1 (planes m - 2 and m) in slot
+  // (m + 1) & 3; the thread wrote plane m - 2 there itself.
+  __device__ __forceinline__ void put(int L, int m, int p, float v,
+                                      bool xs) const {
+    slot(L, m)[pos(p)] = v;
+    if (xs) slot(L, m + 1)[pos(p)] = M::add(slot(L, m - 2)[pos(p)], v);
+  }
+
+  // Input plane i from its slot into level 0's ring.
+  __device__ __forceinline__ void land(int i, const GenericArgs& a) const {
+    const auto cur = this->in_view(i);
+    const bool xs = a.xsum && i >= 2;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      put(0, i, p, M::template read<T>(cur.at(p / MB, p % MB, 0, 0)), xs);
+    }
+  }
+
+  // H = 2, step i: level 1's plane m = i - 1 into its ring.
+  __device__ __forceinline__ void level1(int i, const GenericArgs& a) const {
+    const int m = i - 1;
+    float acc[P];
+    eval(0, m, a, acc);
+    const bool x_out = this->src.is_bc(this->plane_x(m));
+    const bool xs = a.xsum && i >= 4;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const bool in = ((this->rowin >> (p / MB)) & 1) &&
+                      ((this->colin >> (p % MB)) & 1);
+      const bool pin = !this->periodic && (x_out || !in);
+      put(1, m, p, pin ? this->bc : to_f(from_f<T>(acc[p])), xs);
+    }
+  }
+
+  // Output plane q of level L at the thread's positions of the tile.
+  __device__ __forceinline__ void emit(int L, int q,
+                                       const GenericArgs& a) const {
+    float acc[P];
+    eval(L, q, a, acc);
+    const int64_t row0 = (int64_t)this->plane_x(q) * this->ny + this->y0 +
+                         (int)threadIdx.y - H;
+    const int64_t o0 = row0 * this->nz + this->z0 + (int)threadIdx.x - H;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int l = p / MB, m = p % MB;
+      if (((this->rowout >> l) & 1) && ((this->colout >> m) & 1)) {
+        this->out[o0 + (SBY * l * this->nz + SBZ * m)] = from_f<T>(acc[p]);
+      }
+    }
+  }
+
+  // Start input plane i + 1 (if any) into the input slot.
+  __device__ __forceinline__ void next(int i, int n_in) {
+    if (i + 1 < n_in) this->load_plane(i + 1);
+    cp_async_commit();
+  }
+
+  // Output planes [xs0, xe). Step i lands input plane i; level 1's plane
+  // i - 1 (H = 2) and the output plane i - H follow.
+  __device__ __forceinline__ void run(int xe, const GenericArgs& a) {
+    const int n_in = xe - this->xs0 + 2 * H;
+    this->init_masks();
+    this->load_plane(0);
+    cp_async_commit();
+    for (int i = 0; i < n_in; ++i) {
+      cp_async_wait<0>();
+      __syncthreads();  // plane i landed; the slots step i writes are read
+      land(i, a);
+      // an fp32 thread copies and reads its own positions of the input
+      // slot; bf16 pairs are other threads' positions
+      if constexpr (sizeof(T) == 4) next(i, n_in);
+      __syncthreads();  // level 0's planes and x-sum out
+      if constexpr (sizeof(T) != 4) next(i, n_in);
+      if constexpr (H == 1) {
+        if (i >= 2) emit(0, i - 1, a);
+      } else {
+        if (i >= 2) {  // uniform
+          level1(i, a);
+          __syncthreads();  // level 1's planes and x-sum out
+        }
+        if (i >= 4) emit(1, i - 2, a);
+      }
+    }
+  }
+};
+
+// Dynamic shared memory of the generic instance (T, H): the input slot,
+// the H rings, and a row and a column beyond the last ring that the
+// positions outside a level's planes read (the input slot lies before the
+// first ring).
+template <class T, int H>
+__host__ __device__ constexpr int generic_smem() {
+  using G = Geom<H>;
+  return G::FH * in_stride<T, H>() * (int)sizeof(T) +
+         (4 * H * G::FH * G::FW + G::FW + 4) * (int)sizeof(float);
+}
+
+// Launch bounds: four blocks an SM (64 registers) at H = 1, three (80)
+// at H = 2, as many as the shared memory holds.
+template <int H>
+__host__ __device__ constexpr int generic_min_blocks() {
+  return H == 1 ? 4 : 3;
+}
+
+template <class T, int H, class M>
+__global__ void __launch_bounds__(SNT, (generic_min_blocks<H>()))
+    direct_generic(const T* __restrict__ u, T* __restrict__ out, int nx, int ny,
+                   int nz, int xchunk, int periodic, float bc, GenericArgs a) {
+  using G = Geom<H>;
+  using D = GenericSweep<T, H, M>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  D st;
+  st.src = FieldPlanes<T>{u, (int64_t)ny * nz, nx, periodic};
+  st.out = out;
+  st.in_slot = reinterpret_cast<T*>(smem_raw);
+  st.rings = reinterpret_cast<float*>(st.in_slot + G::FH * D::SWI);
+  st.ny = ny;
+  st.nz = nz;
+  st.xs0 = blockIdx.z * xchunk;
+  st.y0 = blockIdx.y * G::TY;
+  st.z0 = blockIdx.x * G::TZ;
+  st.periodic = periodic;
+  st.bc = M::template read<T>(bc);
+  st.run(min(nx, st.xs0 + xchunk), a);
 }
 
 // ---------------------------------------------------------------------------
@@ -343,40 +462,30 @@ struct Spec {
   }
 };
 
-template <class T, int H>
+template <class T, int H, class M>
 struct Generic {
-  static constexpr int bytes = 0;
-  static constexpr int ty = TY;
-  static constexpr int tz = TZ;
-  static dim3 block() { return dim3(BZ, BY); }
-  static void* fn() {
-    if constexpr (H == 1) {
-      return (void*)direct1_generic<T>;
-    } else {
-      return (void*)direct2_generic<T>;
-    }
+  static constexpr int bytes = generic_smem<T, H>();
+  static constexpr int ty = Geom<H>::TY;
+  static constexpr int tz = Geom<H>::TZ;
+  static dim3 block() { return dim3(SBZ, SBY); }
+  static void* fn() { return (void*)direct_generic<T, H, M>; }
+  static cudaError_t prepare() {
+    static std::atomic<unsigned long long> done{0};
+    return set_smem_once(done, direct_generic<T, H, M>, bytes);
   }
-  static cudaError_t prepare() { return cudaSuccess; }
   static cudaError_t launch(dim3 grid, const void* u, void* out, int nx,
                             int ny, int nz, int xchunk, int periodic,
                             float bc, const Program& prog,
                             cudaStream_t stream) {
-    if constexpr (H == 1) {
-      direct1_generic<T><<<grid, block(), 0, stream>>>(
-          static_cast<const T*>(u), static_cast<T*>(out), nx, ny, nz, xchunk,
-          periodic, bc, prog);
-    } else {
-      direct2_generic<T><<<grid, block(), 0, stream>>>(
-          static_cast<const T*>(u), static_cast<T*>(out), nx, ny, nz, xchunk,
-          periodic, bc, prog);
-    }
+    direct_generic<T, H, M><<<grid, block(), bytes, stream>>>(
+        static_cast<const T*>(u), static_cast<T*>(out), nx, ny, nz, xchunk,
+        periodic, bc, fold(prog, Geom<H>::FW));
     return cudaGetLastError();
   }
 };
 
 // f.template run<Instance>() for instance (halo, spec, dtype, compute);
-// `bad` for arguments no instance takes. The generic instance serves both
-// compute dtypes (Program::bf16).
+// `bad` for arguments no instance takes.
 template <class T, int H, class M, class F>
 int by_spec(int spec, const F& f) {
   switch (spec) {
@@ -387,7 +496,7 @@ int by_spec(int spec, const F& f) {
     case SPEC_MEHR:
       return f.template run<Spec<T, H, SPEC_MEHR, M>>();
     default:
-      return f.template run<Generic<T, H>>();
+      return f.template run<Generic<T, H, M>>();
   }
 }
 
@@ -498,7 +607,7 @@ int heat3d_direct_registers(int halo, int spec, int dtype, int compute) {
 // chain, 2 the 27pt chain (prog's (src, row, dk) must be that chain's), 3
 // the Mehrstellen route (prog holds three terms whose weights are a, b and
 // d); dtype: 0 float, 1 bf16 storage; compute: 0 float, 1 bf16 (prog's
-// weights already in that dtype; prog->bf16 is set from it). u and out
+// weights already in that dtype; prog->bf16 is not read). u and out
 // are (nx, ny, nz); bc is the Dirichlet value already rounded to the
 // storage type. Returns a cudaError_t (0 on success); 1000 for bad
 // arguments.
@@ -510,12 +619,11 @@ int heat3d_direct_launch(int halo, int spec, int dtype, int compute,
       prog->n < 1 || prog->n > MAX_TERMS ||
       (spec == SPEC_7PT && !matches<SPEC_7PT>(*prog)) ||
       (spec == SPEC_27PT && !matches<SPEC_27PT>(*prog)) ||
-      (spec == SPEC_MEHR && prog->n != 3)) {
+      (spec == SPEC_MEHR && prog->n != 3) ||
+      (spec == SPEC_GENERIC && !foldable(*prog))) {
     return 1000;
   }
-  Program p = *prog;
-  p.bf16 = compute == 1;
-  const Launch f{u, out, nx, ny, nz, xchunk, periodic, bc, &p,
+  const Launch f{u, out, nx, ny, nz, xchunk, periodic, bc, prog,
                  static_cast<cudaStream_t>(stream)};
   return with_instance(halo, spec, dtype, compute, 1000, f);
 }

@@ -16,17 +16,17 @@ each entry of the stream kernels' table (``stencil_stream.CHAINS``, which
 the build passes to ``nvcc`` for both sources), a compile-time instance of
 the Mehrstellen q-ring route (:data:`MEHRSTELLEN`: the JAX kernels' route
 under ``HEAT3D_MEHRSTELLEN`` for taps that decompose as
-``a*delta + b*S + d*F``, the 27pt set), and a generic instance that
-interprets any other program; :func:`direct_instance` picks one. A launch
-error raises: no launch falls back to another instance.
+``a*delta + b*S + d*F``, the 27pt set), and a generic instance that runs
+any other program of 1 to 27 terms, folded into shared-memory offsets at
+launch; :func:`direct_instance` picks one. A launch error raises: no
+launch falls back to another instance.
 
 Every instance runs in either compute dtype (``compute_dtype``, the JAX
 kernels' ``compute_dtype``): float32, or bf16, where each field value read
 and each multiply and add is rounded to bf16 (``csrc/stencil_common.cuh``:
-the compile-time instances take the rounding as a policy, ``Bf16Math``,
-an instance of their own; the generic one as a flag of its program). The
-weights are :func:`stencil_eager.compute_weight`'s, as in the plain
-version.
+every instance takes the rounding as a policy, ``Bf16Math``, an instance
+of its own). The weights are :func:`stencil_eager.compute_weight`'s, as in
+the plain version.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, so a run
 can show that it went through the kernel, the launches that took the
@@ -72,11 +72,11 @@ MEHRSTELLEN_KERNEL_OPS = 19
 # the storage dtype's code in the kernels' interface; the compute dtype's
 # code (F32Math / Bf16Math of csrc/stencil_common.cuh) is the same
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# Blocks a launch of the generic instance aims for: with the tile count
-# below this, x is cut into chunks (each costs 2*halo extra plane reads) so
-# the card has several waves of blocks to schedule. The compile-time
-# instances aim for _WAVES waves of the blocks the card holds at once
-# (``wave_xchunk``).
+# Blocks a launch of the stream kernels' generic instance aims for
+# (``_xchunk``): with the tile count below this, x is cut into chunks (each
+# costs 2*halo extra plane reads) so the card has several waves of blocks
+# to schedule. Every direct instance aims for _WAVES waves of the blocks
+# the card holds at once (``wave_xchunk``).
 _TARGET_BLOCKS = 4096
 _WAVES = 16
 _MIN_XCHUNK = 32
@@ -275,7 +275,8 @@ def storage_bc(bc_value: float, dtype: torch.dtype) -> float:
 
 
 def _xchunk(shape, ty: int, tz: int) -> int:
-    """x-chunk length of a launch over (nx, ny, nz) with (ty, tz) tiles."""
+    """x-chunk length of a launch of the stream kernels' generic instance
+    over (nx, ny, nz) with (ty, tz) tiles."""
     nx, ny, nz = shape
     tiles = -(-ny // ty) * -(-nz // tz)
     chunks = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-nx // _MIN_XCHUNK)))
@@ -284,7 +285,7 @@ def _xchunk(shape, ty: int, tz: int) -> int:
 
 def wave_xchunk(nx: int, tiles: int, resident: int, waves: int = _WAVES,
                 min_chunk: int = _MIN_XCHUNK) -> int:
-    """x-chunk length of a compile-time launch over ``nx`` planes and
+    """x-chunk length of a direct launch over ``nx`` planes and
     ``tiles`` (y, z) tiles: x is cut into chunks (each costs 2*halo extra
     plane reads) until the launch holds ``waves`` waves of ``resident``
     blocks (the blocks the card holds at once), with chunks no shorter than
@@ -346,13 +347,10 @@ def instance_resources(halo: int, instance: int, dtype: torch.dtype,
 @functools.lru_cache(maxsize=256)
 def _launch_xchunk(shape, halo: int, inst: int, device: int, dtype: torch.dtype,
                    compute_dtype: torch.dtype = torch.float32) -> int:
-    """The x-chunk of a launch over ``shape``: :func:`wave_xchunk` for a
-    compile-time instance, from its resident blocks on ``device``; the
-    generic instance keeps the first design's rule (``_xchunk``)."""
+    """The x-chunk of a launch of instance ``inst`` over ``shape``:
+    :func:`wave_xchunk` from its resident blocks on ``device``."""
     lib = _lib()
     ty, tz = lib.heat3d_direct_tile_y(halo, inst), lib.heat3d_direct_tile_z(halo, inst)
-    if inst == 0:
-        return _xchunk(shape, ty, tz)
     with torch.cuda.device(device):
         per_sm = lib.heat3d_direct_blocks_per_sm(halo, inst, _DTYPE_CODES[dtype],
                                                  compute_code(compute_dtype))
@@ -458,7 +456,8 @@ def launch_instance(
 ) -> torch.Tensor:
     """:func:`apply_taps_direct` (halo 1) or :func:`apply_taps_direct2`
     (halo 2) on a named kernel instance, for measurements: the generic
-    instance (0) takes any chain, a compile-time one only its own, the
+    instance (0) takes any chain of 1 to 27 terms, a compile-time one only
+    its own, the
     Mehrstellen one (:data:`MEHRSTELLEN`) only taps that decompose (else
     the launch raises); ``xchunk`` forces the x-chunk length. CUDA tensors
     only; counted on the wrapper as usual."""

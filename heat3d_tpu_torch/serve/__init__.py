@@ -1,7 +1,7 @@
-"""Batched scenario engine: the ensemble axis and the synchronous
-solver-as-a-service front end.
+"""Batched scenario engine: the ensemble axis, the synchronous
+solver-as-a-service front end and the always-on async engine.
 
-Port of ``heat3d_tpu.serve``, part one:
+Port of ``heat3d_tpu.serve``:
 
 - :mod:`heat3d_tpu_torch.serve.scenario` / :mod:`heat3d_tpu_torch.serve.ensemble`:
   a ``ScenarioBatch`` (per-member initial condition, boundary value,
@@ -15,9 +15,11 @@ Port of ``heat3d_tpu.serve``, part one:
   streams per-member results back with ledger spans and queue metrics;
   :mod:`heat3d_tpu_torch.serve.bench`, the ensemble throughput row.
 
-Not ported yet (part two): the always-on async engine
-(``heat3d_tpu.serve.engine``), its executable cache (``serve/aot.py``) and
-the load generator (``serve/loadgen.py``).
+- :mod:`heat3d_tpu_torch.serve.engine` (``serve --async``): the always-on
+  engine, bucket workers on CUDA streams of their own, requeue on a
+  backend loss; :mod:`heat3d_tpu_torch.serve.aot`, its warm-up (one eager
+  pass a key, remembered in the process); :mod:`heat3d_tpu_torch.serve.loadgen`
+  (``serve --loadgen``), the open-loop soak with SLO and burn monitoring.
 """
 
 from heat3d_tpu_torch.serve.scenario import Scenario, ScenarioBatch  # noqa: F401

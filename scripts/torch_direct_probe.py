@@ -25,6 +25,20 @@ builds only the direct source and runs only the 27pt parts (the
 Mehrstellen checks, and both instances' 1024^3 times and sweep): the probe
 of a variant of the Mehrstellen instance.
 
+    python3 scripts/torch_direct_probe.py --generic
+
+builds only the direct source, prints the generic instance's registers,
+spills, shared memory and blocks per SM (fp32/bf16 storage x both compute
+policies), holds it forced on each program of ``GENERIC_PROGRAMS`` (the
+7pt and 27pt chains, both factoring knobs, advection-diffusion vx=2, a zero
+centre, an x-asymmetric 27pt set, a random 27-term set) at the ragged
+shapes with forced x-chunks, fp32/bf16 storage x fp32/bf16 compute x
+Dirichlet 0/0.3/periodic, and on the special-value field, bitwise; then
+times it at 1024^3 (Dirichlet bc 0) on the 7pt, advection, 27pt and
+random programs beside the compile-time instance of the same call where
+the chain has one, each launch held bitwise: the probe of a change to the
+generic instance.
+
     python3 scripts/torch_direct_probe.py \\
         --variants '[["base", []], ["v1", ["-DNAME=1"]]]' [--all] [--sass]
 
@@ -36,8 +50,12 @@ instances' registers and spills, and times at 1024^3 (27pt, Dirichlet bc
 adds the 27pt chain in bf16 compute and the 7pt direct2 in fp32 and bf16
 compute; ``--sass`` adds the opcode
 histogram of the Mehrstellen two-update instance's main loop (the longest
-backward branch of ``cuobjdump -sass``: what a step issues). One JSON line
-per variant; compare variants only within one call.
+backward branch of ``cuobjdump -sass``: what a step issues); ``--generic``
+times instead the generic instance forced on the 7pt chain and the
+advection program at halo 1 and 2 beside the 7pt chain instance (fp32,
+each launch checked bitwise), with the generic instances' registers and
+spills, and ``--sass`` then reads the generic two-update instance. One
+JSON line per variant; compare variants only within one call.
 """
 
 import collections
@@ -208,8 +226,15 @@ def loop_histogram(so: str, fragment: str) -> dict:
     return {}
 
 
-def variants(spec, every: bool, sass: bool) -> int:
-    """The ``--variants`` probe (see the module docstring)."""
+# direct_generic<float, 2, F32Math>, by its mangled name
+GENERIC2_F32 = "direct_genericIfLi2ENS_7F32Math"
+
+
+def variants(spec, every: bool, sass: bool, gen: bool = False) -> int:
+    """The ``--variants`` probe (see the module docstring); ``gen``: the
+    generic instance forced on the 7pt chain and the advection program at
+    halo 1 and 2 (fp32) beside the 7pt chain instance, and the SASS of its
+    two-update instance."""
     n = 1024
     u = torch.rand((n, n, n), device="cuda")
     out = torch.empty_like(u)
@@ -221,6 +246,11 @@ def variants(spec, every: bool, sass: bool) -> int:
         cases += [("chain27_2_bf16c", "0", torch.bfloat16, "27pt"),
                   ("d2_7pt_f32", "0", torch.float32, "7pt"),
                   ("d2_7pt_bf16c", "0", torch.bfloat16, "7pt")]
+    if gen:
+        progs = generic_programs()
+        cases = [(f"generic{h}_{name}", h, progs[name][1]) for h in (1, 2)
+                 for name in ("7pt", "advection")]
+        cases += [(f"chain{h}_7pt", h, None) for h in (1, 2)]
     bad = 0
     for name, extra in spec:
         _build.source_flags = (lambda nm, e=tuple(extra):
@@ -233,7 +263,17 @@ def variants(spec, every: bool, sass: bool) -> int:
         row = {"flags": extra, "build_s": time.perf_counter() - t0,
                "ptxas": {k[-60:]: v for k, v in _build.ptxas_report("stencil_direct").items()
                          if "Li2ELi3E" in k}}
-        for key, knob, cd, kind in cases:
+        if gen:
+            row["ptxas"] = {k[-70:]: v for k, v in _build.ptxas_report("stencil_direct").items()
+                            if "direct_generic" in k}
+            for key, halo, taps in cases:
+                code = ss.GENERIC if taps is not None else 1
+                taps = taps if taps is not None else taps_of("7pt", n)
+                ms = min(time_fn(lambda: sd.launch_instance(halo, code, u, taps, out=out),
+                                 warmup=2, iters=10)) * 1e3
+                same = torch.equal(out, PLAIN[halo](u, taps, False, 0.0))
+                row[key] = {"ms": ms, "bitwise": same}
+        for key, knob, cd, kind in ([] if gen else cases):
             os.environ["HEAT3D_MEHRSTELLEN"] = knob
             taps = taps_of(kind, n)
             ms = min(time_fn(lambda: sd.apply_taps_direct2(u, taps, out=out, compute_dtype=cd),
@@ -242,10 +282,97 @@ def variants(spec, every: bool, sass: bool) -> int:
             bad += not same
             row[key] = {"ms": ms, "bitwise": same}
         if sass:
-            row["sass"] = loop_histogram(str(_build._target("stencil_direct")), MEHR2_F32)
+            row["sass"] = loop_histogram(str(_build._target("stencil_direct")),
+                                         GENERIC2_F32 if gen else MEHR2_F32)
         say(**{name: row})
     _build.source_flags = base_flags
     os.environ.pop("HEAT3D_MEHRSTELLEN", None)
+    return 1 if bad else 0
+
+
+def generic_programs() -> dict:
+    """(knobs, taps) of each program the ``--generic`` probe forces on the
+    generic instance."""
+    from heat3d_tpu_torch import eqn
+    from heat3d_tpu_torch.core.config import MeshConfig, SolverConfig, StencilConfig
+
+    adv = eqn.solver_taps(SolverConfig(
+        grid=GridConfig.cube(16), stencil=StencilConfig(kind="7pt"),
+        mesh=MeshConfig(shape=(1, 1, 1)), equation="advection-diffusion",
+        eq_params=(("vx", 2.0),)))
+    zc = taps_of("7pt")
+    zc[1, 1, 1] = 0.0
+    asym = taps_of("27pt")
+    asym[0, 0, 0] *= 1.5
+    asym[2, 1, 0] *= 0.7
+    return {"7pt": ({}, taps_of("7pt")), "27pt": ({}, taps_of("27pt")),
+            "f7": ({"HEAT3D_FACTOR_7PT": "1"}, taps_of("7pt")),
+            "fy0": ({"HEAT3D_FACTOR_Y": "0"}, taps_of("27pt")),
+            "advection": ({}, adv), "zero-centre": ({}, zc), "asym27": ({}, asym),
+            "random27": ({}, np.random.default_rng(4).uniform(-0.1, 0.1, (3, 3, 3)))}
+
+
+GENERIC_PROGRAMS = ("7pt", "27pt", "f7", "fy0", "advection", "zero-centre", "asym27",
+                    "random27")
+PLAIN = {1: sd.apply_taps_direct_ref, 2: sd.apply_taps_direct2_ref}
+
+
+def generic(ms) -> int:
+    """The ``--generic`` probe (see the module docstring)."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import _special_field
+
+    say(build_seconds=_build.build_all(["stencil_direct"]))
+    say(ptxas={k: v for k, v in _build.ptxas_report("stencil_direct").items()
+               if "direct_generic" in k})
+    cds = (torch.float32, torch.bfloat16)
+    say(generic_instances={f"h{h}_{str(d)[6:]}_c{str(c)[6:]}":
+                           sd.instance_resources(h, ss.GENERIC, d, c)
+                           for h in (1, 2) for d in cds for c in cds})
+    progs = generic_programs()
+    bad, n = [], 0
+    for name in GENERIC_PROGRAMS:
+        knobs, taps = progs[name]
+        os.environ.update(knobs)
+        fields = [(shape, np.random.default_rng(8).standard_normal(shape).astype(np.float32),
+                   (None, 3, 1)) for shape in SHAPES]
+        fields.append(((24, 33, 70), _special_field((24, 33, 70), 5), (None,)))
+        for shape, base, chunks in fields:
+            for dtype in cds:
+                u = torch.from_numpy(base).cuda().to(dtype)
+                for cd in cds:
+                    for periodic, bcv in ((False, 0.0), (False, 0.3), (True, 0.0)):
+                        for halo in (1, 2):
+                            want = PLAIN[halo](u, taps, periodic, bcv, cd)
+                            for chunk in chunks:
+                                got = sd.launch_instance(halo, ss.GENERIC, u, taps, periodic,
+                                                         bcv, xchunk=chunk, compute_dtype=cd)
+                                torch.cuda.synchronize()
+                                n += 1
+                                if not torch.equal(got, want):
+                                    bad.append([name, list(shape), str(dtype), str(cd),
+                                                periodic, bcv, halo, chunk])
+        for key in knobs:
+            del os.environ[key]
+        say(program=name, terms=len(sd.emission_program(taps)), cases=n, mismatches=bad[:20])
+    size, times = 1024, {}
+    u = torch.rand((size,) * 3, device="cuda")
+    out = torch.empty_like(u)
+    for name in ("7pt", "advection", "27pt", "random27"):
+        taps = progs[name][1]
+        code = sd.direct_instance(taps)
+        for halo in (1, 2):
+            for cd in cds:
+                key = f"direct{halo}_{name}_c{str(cd)[6:]}"
+                times[key] = {"generic_ms": ms(lambda: sd.launch_instance(
+                    halo, ss.GENERIC, u, taps, out=out, compute_dtype=cd))}
+                if not torch.equal(out, PLAIN[halo](u, taps, False, 0.0, cd)):
+                    bad.append(["1024^3 generic", key])
+                if code != ss.GENERIC:
+                    times[key]["chain_ms"] = ms(lambda: sd.launch_instance(
+                        halo, code, u, taps, out=out, compute_dtype=cd))
+    say(generic_ms_1024=times, mismatches=bad, cases=n,
+        device=torch.cuda.get_device_name(0))
     return 1 if bad else 0
 
 
@@ -259,9 +386,11 @@ def main() -> int:
     say(nvidia_smi=subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip())
+    if "--generic" in args and "--variants" not in args:
+        return generic(lambda fn: min(time_fn(fn, warmup=2, iters=10)) * 1e3)
     if "--variants" in args:
         return variants(json.loads(args[args.index("--variants") + 1]), "--all" in args,
-                        "--sass" in args)
+                        "--sass" in args, "--generic" in args)
     say(build_seconds=_build.build_all(["stencil_direct"] if only
                                        else ["stencil_direct", "stencil_stream"]))
     say(ptxas={k: v for k, v in _build.ptxas_report("stencil_direct").items()})

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from heat3d_tpu.core import stencils as ref_stencils
-from heat3d_tpu_torch.core.config import GridConfig
+from heat3d_tpu_torch.core.config import GridConfig, SolverConfig, StencilConfig
 from heat3d_tpu_torch.core.stencils import STENCILS, stencil_taps
 from heat3d_tpu_torch.ops import _build
 from heat3d_tpu_torch.ops import stencil_direct as sd
@@ -82,13 +82,30 @@ def test_direct_instance_is_specialised_exactly_for_table_chains(monkeypatch, ki
 
 @pytest.mark.parametrize("taps_case,want", [
     ("anisotropic-7pt", 1), ("advection", 1), ("zero-centre-7pt", 0),
-    ("asymmetric-27pt", 0), ("random", 0),
+    ("asymmetric-27pt", 0), ("random", 0), ("advection-vx2", 0), ("heat-7pt-dt-h2-6alpha", 0),
 ])
 def test_direct_instance_for_other_taps(taps_case, want):
     """The sequence, not the weights, chooses: anisotropic or x-asymmetric
     7pt weights keep the 7pt instance; a zero centre, a 27pt set without
-    its reflection symmetries and random taps are generic."""
-    if taps_case == "anisotropic-7pt":
+    its reflection symmetries and random taps are generic. So are two
+    settings users reach: the registry's advection-diffusion at vx = 2
+    alpha / h (its x+1 tap vanishes: six terms) and heat 7pt at the
+    stability limit dt = h^2 / (6 alpha) (its centre tap vanishes)."""
+    if taps_case == "advection-vx2":
+        from heat3d_tpu_torch import eqn
+
+        g = GridConfig(shape=(16, 16, 16))
+        assert 2 * g.alpha / g.spacing[0] == 2.0
+        taps = eqn.solver_taps(SolverConfig(grid=g, stencil=StencilConfig(kind="7pt"),
+                                            equation="advection-diffusion",
+                                            eq_params=(("vx", 2.0),)))
+        assert taps[2, 1, 1] == 0.0 and len(sd.emission_program(taps)) == 6
+    elif taps_case == "heat-7pt-dt-h2-6alpha":
+        g0 = GridConfig(shape=(16, 16, 16))
+        g = GridConfig(shape=(16, 16, 16), dt=g0.spacing[0] ** 2 / (6 * g0.alpha))
+        taps = stencil_taps(STENCILS["7pt"], g.alpha, g.effective_dt(), g.spacing)
+        assert taps[1, 1, 1] == 0.0 and len(sd.emission_program(taps)) == 6
+    elif taps_case == "anisotropic-7pt":
         taps = _taps("7pt", spacing=(1.0, 2.0, 0.5))
     elif taps_case == "advection":
         taps = _taps("7pt")

@@ -264,8 +264,9 @@ def test_a_refused_device_is_not_certified(tmp_path, monkeypatch):
 # _fused): compile-time instances and the interpreted generic kernels
 _PTXAS = {
     "stencil_direct": {
-        "_ZN50_GLOBAL__N__35b249fd_17_stencil_direct_cu_cbfb79c915direct1_genericIfEEvPKT_"
-        "PS1_iiiiif7Program": {"registers": 40, "spill_stores": 0, "spill_loads": 0},
+        "_ZN50_GLOBAL__N__35b249fd_17_stencil_direct_cu_cbfb79c914direct_genericIfLi1ENS_"
+        "7F32MathEEEvPKT_PS3_iiiiif11GenericArgs": {"registers": 40, "spill_stores": 0,
+                                                   "spill_loads": 0},
         "_ZN50_GLOBAL__N__35b249fd_17_stencil_direct_cu_cbfb79c913direct_kernelIfLi2ELi3E"
         "8Bf16MathEEvPKT_PS3_iiiii7Program": {"registers": 80, "spill_stores": 4,
                                              "spill_loads": 4},
@@ -290,6 +291,8 @@ def test_resources_reads_spills_of_every_instance(monkeypatch):
 
     monkeypatch.setattr(_build, "ptxas_report", lambda lib: _PTXAS.get(lib, {}))
     assert resources._spills("direct", 1, 0, "float32", False)["registers"] == 40
+    assert resources._spills("direct", 1, 0, "float32", True) is None
+    assert resources._spills("direct", 2, 0, "float32", False) is None
     assert resources._spills("direct", 2, 3, "float32", True)["spill_stores"] == 4
     assert resources._spills("direct", 2, 3, "float32", False) is None
     assert resources._spills("stream", 3, 0, "float32", False)["spill_loads"] == 8

@@ -71,16 +71,72 @@ def test_kernel_equals_plain_version(cuda, shape, kind, dtype):
             assert torch.equal(chunked, want), (kernel.__name__, periodic, bcv, "xchunk 3")
 
 
+def _generic_programs():
+    """Programs of no ``CHAINS`` entry: the registry's advection-diffusion
+    at vx=2 (six terms, no x+1 tap: the solver's generic instance), a
+    random 27-term set (x-1 and x+1 read away from the cell) and heat 7pt
+    with a zero centre."""
+    from heat3d_tpu_torch import eqn
+
+    g = GridConfig.cube(8)
+    adv = eqn.solver_taps(SolverConfig(grid=g, stencil=StencilConfig(kind="7pt"),
+                                       equation="advection-diffusion",
+                                       eq_params=(("vx", 2.0),)))
+    zc = _taps("7pt")
+    zc[1, 1, 1] = 0.0
+    return {"advection": adv, "random27": np.random.default_rng(6).uniform(-0.1, 0.1, (3, 3, 3)),
+            "zero-centre": zc}
+
+
+def _same(got, want) -> bool:
+    """``torch.equal``, NaN in the same cells counting as equal (a random
+    program's mixed signs meet infinities of both signs)."""
+    nan = want.isnan()
+    return torch.equal(got.isnan(), nan) and torch.equal(got.masked_fill(nan, 0),
+                                                         want.masked_fill(nan, 0))
+
+
 @pytest.mark.parametrize("knobs", [{"HEAT3D_FACTOR_7PT": "1"}, {"HEAT3D_FACTOR_Y": "0"},
-                                   {"HEAT3D_FACTOR_7PT": "1", "HEAT3D_FACTOR_Y": "0"}],
-                         ids=["f7", "fy0", "both"])
+                                   {"HEAT3D_FACTOR_7PT": "1", "HEAT3D_FACTOR_Y": "0"}, {}],
+                         ids=["f7", "fy0", "both", "programs"])
 def test_direct_generic_instance_equals_plain_version(cuda, monkeypatch, knobs):
     """Under the factoring knobs the direct kernels take the generic
-    (interpreted) instance exactly where the emission program is no
-    ``CHAINS`` entry, counted apart, and stay bitwise; the generic instance
-    forced on the default 7pt chain is bitwise too."""
+    instance exactly where the emission program is no ``CHAINS`` entry,
+    counted apart, and stay bitwise in fp32 and bf16 compute; the generic
+    instance forced on the default 7pt chain is bitwise too. Without a knob
+    ("programs"): the generic instance (forced, and as the wrapper picks
+    it) on the advection-diffusion vx=2 program, a random 27-term one and
+    a zero-centre 7pt one, fp32/bf16 storage x fp32/bf16 compute x
+    Dirichlet 0/0.3/periodic, at ragged shapes (nx below 2H+1, odd nz, y
+    and z no multiple of the 38 x 62 / 28 x 60 tiles), with the x-chunk
+    forced to 3 planes, and on the special-value field (subnormals,
+    signed zeros, infinities)."""
     for key, value in knobs.items():
         monkeypatch.setenv(key, value)
+    computes = (torch.float32, torch.bfloat16)
+    if not knobs:
+        progs = _generic_programs()
+        shapes = [(1, 1, 1), (2, 3, 5), (4, 45, 130), (5, 77, 125), (40, 70, 65)]
+        for name, taps in progs.items():
+            assert sd.direct_instance(taps) == ss.GENERIC, name
+            for shape in shapes + [(24, 33, 70)]:
+                base = (_special_field(shape, 15) if shape == (24, 33, 70) else
+                        np.random.default_rng(4).standard_normal(shape).astype(np.float32))
+                for dtype, cd in itertools.product((torch.float32, torch.bfloat16), computes):
+                    u = torch.from_numpy(base).to(cuda).to(dtype)
+                    for periodic, bcv in ((False, 0.0), (False, 0.3), (True, 0.0)):
+                        for halo, (kernel, plain) in enumerate(PAIRS, start=1):
+                            want = plain(u, taps, periodic, bcv, cd)
+                            sd.reset_launch_counts()
+                            got = kernel(u, taps, periodic, bcv, compute_dtype=cd)
+                            chunked = sd.launch_instance(halo, ss.GENERIC, u, taps, periodic,
+                                                         bcv, xchunk=3, compute_dtype=cd)
+                            torch.cuda.synchronize()
+                            what = (name, shape, dtype, cd, periodic, bcv, halo)
+                            assert _same(got, want), what
+                            assert _same(chunked, want), what + ("xchunk 3",)
+                            assert sd.generic_launch_counts()[kernel.__name__] == 2
+        return
     shape = (9, 45, 131)
     base = np.random.default_rng(4).standard_normal(shape).astype(np.float32)
     for dtype in (torch.float32, torch.bfloat16):
@@ -90,11 +146,11 @@ def test_direct_generic_instance_equals_plain_version(cuda, monkeypatch, knobs):
             generic = sd.direct_instance(taps) == ss.GENERIC
             sd.reset_launch_counts()
             for periodic, bcv in ((False, 0.0), (False, 0.3), (True, 0.0)):
-                for kernel, plain in PAIRS:
-                    got = kernel(u, taps, periodic, bcv)
+                for (kernel, plain), cd in itertools.product(PAIRS, computes):
+                    got = kernel(u, taps, periodic, bcv, compute_dtype=cd)
                     torch.cuda.synchronize()
-                    assert torch.equal(got, plain(u, taps, periodic, bcv)), \
-                        (kernel.__name__, kind, periodic, bcv)
+                    assert torch.equal(got, plain(u, taps, periodic, bcv, cd)), \
+                        (kernel.__name__, kind, periodic, bcv, cd)
             launches = sd.launch_counts()
             assert sd.generic_launch_counts() == (launches if generic else
                                                   {n: 0 for n in launches})
@@ -102,10 +158,10 @@ def test_direct_generic_instance_equals_plain_version(cuda, monkeypatch, knobs):
     monkeypatch.delenv("HEAT3D_FACTOR_Y", raising=False)
     taps = _taps("7pt")
     u = torch.from_numpy(base).to(cuda)
-    for halo, (_, plain) in enumerate(PAIRS, start=1):
-        got = sd.launch_instance(halo, ss.GENERIC, u, taps, False, 0.3)
+    for (halo, (_, plain)), cd in itertools.product(enumerate(PAIRS, start=1), computes):
+        got = sd.launch_instance(halo, ss.GENERIC, u, taps, False, 0.3, compute_dtype=cd)
         torch.cuda.synchronize()
-        assert torch.equal(got, plain(u, taps, False, 0.3))
+        assert torch.equal(got, plain(u, taps, False, 0.3, cd))
 
 
 def test_direct_instances_fit_and_raise_without_fallback(cuda):
@@ -115,10 +171,11 @@ def test_direct_instances_fit_and_raise_without_fallback(cuda):
     a bf16 field must start on a 4-byte boundary."""
     for halo in (1, 2):
         for code in (ss.GENERIC, *ss.CHAINS):
-            for dtype in (torch.float32, torch.bfloat16):
-                r = sd.instance_resources(halo, code, dtype)
-                assert r["blocks_per_sm"] >= (4 if code != ss.GENERIC else 1), \
-                    (halo, code, dtype, r)
+            for dtype, cd in itertools.product((torch.float32, torch.bfloat16), repeat=2):
+                r = sd.instance_resources(halo, code, dtype, cd)
+                # the generic instance: four blocks at halo 1, three at 2
+                want = 4 if code != ss.GENERIC else 5 - halo
+                assert r["blocks_per_sm"] >= want, (halo, code, dtype, cd, r)
     u = torch.rand((8, 8, 8), device=cuda)
     sd.reset_launch_counts()
     with pytest.raises(RuntimeError, match="bad arguments"):

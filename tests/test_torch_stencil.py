@@ -19,15 +19,30 @@ import torch
 import heat3d_tpu.ops.stencil_pallas_direct as ref_direct
 from heat3d_tpu_torch.core.config import BoundaryCondition
 from heat3d_tpu_torch.ops import stencil_direct as sd
+from heat3d_tpu_torch.ops import stencil_stream as ss
 from heat3d_tpu_torch.ops.stencil_eager import apply_taps_padded, pad_local, residual_sumsq
-from torch_port_checks import BCS, DTYPES, _check_pair, _taps
+from torch_port_checks import BCS, DTYPES, GENERIC_KINDS, _check_pair, _taps, generic_chain
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: d[0])
-@pytest.mark.parametrize("kind", ["7pt", "27pt"])
+@pytest.mark.parametrize("kind", ["7pt", "27pt", *GENERIC_KINDS])
 @pytest.mark.parametrize("shape", [(8, 8, 8), (6, 16, 24), (5, 8, 130)])
-def test_direct_matches_pallas_interpret(shape, kind, dtype):
-    _check_pair(sd.apply_taps_direct, ref_direct.apply_taps_direct, shape, kind, dtype, 1, 1)
+def test_direct_matches_pallas_interpret(shape, kind, dtype, monkeypatch):
+    """The 7pt and 27pt chains through apply_taps_direct; each program of
+    ``GENERIC_KINDS`` (the card's generic instance: the direct wrapper
+    picks it for them) through both apply_taps_direct and
+    apply_taps_direct2, against the JAX kernels, which trace the chain of
+    the same taps under the same knobs."""
+    if kind in ("7pt", "27pt"):
+        _check_pair(sd.apply_taps_direct, ref_direct.apply_taps_direct, shape, kind, dtype, 1, 1)
+        return
+    knobs, taps = generic_chain(kind, shape)
+    for key, value in knobs.items():
+        monkeypatch.setenv(key, value)
+    assert sd.direct_instance(taps) == ss.GENERIC
+    for kernel, ref_kernel, updates in ((sd.apply_taps_direct, ref_direct.apply_taps_direct, 1),
+                                        (sd.apply_taps_direct2, ref_direct.apply_taps_direct2, 2)):
+        _check_pair(kernel, ref_kernel, shape, kind, dtype, 1, updates, taps=taps)
 
 
 def test_out_buffer_and_plain_versions():

@@ -88,9 +88,47 @@ def on_mesh(fn, cfg, *args):
                      out_specs=spec, check_vma=False)(*args)
 
 
-def _check_pair(kernel, ref_kernel, shape, kind, dtype, seed, updates):
+# Tap programs that no compile-time instance holds (the port's direct
+# kernels run them on their generic instance): the registry's
+# advection-diffusion at vx = 2 alpha / h (no x+1 tap: six terms), heat 7pt
+# at dt = h^2 / (6 alpha) (a zero centre), a 27pt set without its x and y
+# symmetries (27 terms, x-1 and x+1 read away from the cell), and the
+# 7pt / 27pt sets under the factoring knobs HEAT3D_FACTOR_7PT=1 and
+# HEAT3D_FACTOR_Y=0.
+GENERIC_KINDS = ("advection", "zero-centre-7pt", "asym-27pt", "factor-7pt", "no-factor-y")
+
+
+def generic_chain(kind, shape):
+    """(knobs, taps) of the generic program ``kind`` on a ``shape`` grid:
+    the environment the chain needs and its taps (the JAX package's)."""
+    from heat3d_tpu import eqn
+    from heat3d_tpu.core import config as rc
+
+    g = GridConfig(shape=shape)
+    if kind == "advection":
+        cfg = rc.SolverConfig(grid=rc.GridConfig(shape=shape),
+                              stencil=rc.StencilConfig(kind="7pt"),
+                              mesh=rc.MeshConfig(shape=(1, 1, 1)),
+                              equation="advection-diffusion", eq_params=(("vx", 2.0),))
+        return {}, eqn.solver_taps(cfg)
+    if kind == "zero-centre-7pt":
+        h = g.spacing[0]
+        return {}, stencil_taps(STENCILS["7pt"], g.alpha, h * h / (6 * g.alpha), g.spacing)
+    if kind == "asym-27pt":
+        taps = _taps("27pt", shape)
+        taps[0, 0, 0] *= 1.5
+        taps[2, 1, 0] *= 0.7
+        return {}, taps
+    if kind == "factor-7pt":
+        return {"HEAT3D_FACTOR_7PT": "1"}, _taps("7pt", shape)
+    if kind == "no-factor-y":
+        return {"HEAT3D_FACTOR_Y": "0"}, _taps("27pt", shape)
+    raise ValueError(kind)
+
+
+def _check_pair(kernel, ref_kernel, shape, kind, dtype, seed, updates, taps=None):
     storage, tdtype, jdtype = dtype
-    taps = _taps(kind, shape)
+    taps = _taps(kind, shape) if taps is None else taps
     ju, tu = _field(shape, seed, jdtype)
     tu = tu.to(tdtype)
     for periodic, bcv in BCS:
