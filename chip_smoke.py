@@ -16,8 +16,10 @@ non-zero without one. Phases, each printing its own lines:
    q-ring instance) and fused instance's (the one- and two-update
    kernels' 7pt, 27pt and generic instances) shared memory, registers,
    spills and resident blocks per SM, each compile-time instance and the
-   direct kernels' generic sweep (``direct_generic<T,H,M>``) in fp32 and in
-   bf16 compute (the ``Bf16Math`` policy; keys end ``_bf16c``);
+   generic sweeps (``direct_generic<T,H,M>``, ``stream_generic<T,K,M>``)
+   in fp32 and in bf16 compute (the ``Bf16Math`` policy; keys end
+   ``_bf16c``); the stream generic sweep must hold two fp32 blocks an SM
+   at every k and spill nothing;
 3. hold each kernel against its plain PyTorch version on the card, bitwise,
    for 7pt/27pt x Dirichlet (bc 0 and 0.3)/periodic x fp32/bf16 storage at
    ragged shapes, 128^3 (the golden phase's grid) and 256^3: the direct
@@ -27,7 +29,12 @@ non-zero without one. Phases, each printing its own lines:
    and a forced 3-plane x-chunk; every stencil kernel's generic instance at
    128^3 under the factoring knobs (``HEAT3D_FACTOR_7PT=1``,
    ``HEAT3D_FACTOR_Y=0``, both; the fused kernels too, over (4,1,1)),
-   each launch on the instance ``stream_instance`` names; also
+   each launch on the instance ``stream_instance`` names; the stream
+   kernels' generic instance forced at k = 1..4 on the advection-diffusion
+   vx=2, zero-centre, asymmetric 27pt and random 27-term programs at ragged
+   interiors and on the special-value field, three x-chunks, both storages
+   and compute policies, three boundary settings and three domain-edge
+   masks (``_compare_stream_generic``); also
    the streamk plain version against k
    direct kernel launches, and the exchange-path solve of k steps against
    the direct-path solve, both bitwise;
@@ -86,9 +93,11 @@ non-zero without one. Phases, each printing its own lines:
    periodic, 27pt and bf16 storage: the full-width phase's settings), the
    halo exchange's time at each width, and the library call's time
    (F.conv3d, no TF32) over the same input as the tb=1 and the stream
-   kernel, held to them within a stated rounding bound; the direct kernels'
-   generic instance forced on the 7pt chain and on the advection-diffusion
-   vx=2 program beside them (each launch bitwise, with its bound), and
+   kernel, held to them within a stated rounding bound; the direct and
+   stream kernels' generic instances forced on the 7pt chain and on the
+   advection-diffusion vx=2 program beside them (each launch bitwise, with
+   its bound; ``stream_times`` prints the stream ones at k = 1..4 with
+   their resources and ``generic_over_compiled``), and
    direct1/direct2 in their 27pt fp32 and 7pt bf16 instances
    at 1024^3 with registers, spills and blocks per SM; the stream kernel
    and streamk K=4 in their 27pt fp32 and 7pt bf16 instances at 1024^3
@@ -145,8 +154,8 @@ non-zero without one. Phases, each printing its own lines:
 11. ``families``, after the main path, the explicit equation families at
    1024^3 fp32 (``_FAMILY_ROWS``: ``aniso-diffusion`` tb 2 and 1,
    ``advection-diffusion`` vx=2 tb 1 on (1,1,1) and faces-direct on (2,2,2)
-   and tb 2 on (1,1,1), ``reaction-diffusion`` rate 0.5 27pt tb 2 and 7pt
-   tb 4): each row's kernel on a random field (the (2,2,2) row: on each
+   and tb 2 and 4 on (1,1,1), ``reaction-diffusion`` rate 0.5 27pt tb 2
+   and 7pt tb 4): each row's kernel on a random field (the (2,2,2) row: on each
    shard) held bitwise to its plain version for the three boundary
    settings, the (2,2,2) advection step (kernel and the shells at
    asymmetric taps) held bitwise to the (1,1,1) step; then, with the launch
@@ -518,9 +527,19 @@ def _direct_ptxas() -> dict:
 
 
 def _stream_ptxas() -> dict:
-    """Registers and spills (bytes) of each compile-time stream instance,
-    keyed ``k<k>_<chain>_<dtype>`` (+ ``BF16C``)."""
-    return _ptxas("stencil_stream", "stream_kernel", "k")
+    """Registers and spills (bytes) of each stream instance, keyed
+    ``k<k>_<instance>_<dtype>`` (+ ``BF16C``): the compile-time ones by
+    chain, the generic sweep ``stream_generic<T,K,M>`` as ``generic``."""
+    import re
+
+    from heat3d_tpu_torch.ops import _build
+
+    out = _ptxas("stencil_stream", "stream_kernel", "k")
+    for entry, r in _build.ptxas_report("stencil_stream").items():
+        m = re.search(r"stream_genericI(f|13__nv_bfloat16)Li(\d)E", entry)
+        if m:
+            out[f"k{m.group(2)}_generic_{_DTYPE_NAMES[m.group(1)]}{_compute_tag(entry)}"] = r
+    return out
 
 
 def _fused_ptxas() -> dict:
@@ -542,8 +561,8 @@ def _fused_ptxas() -> dict:
 
 def _computes(code: int, generic_policies: bool = False):
     """(compute dtype, key suffix) of the instances of ``code``: both
-    policies for a compile-time instance and for the direct kernels'
-    generic one (``generic_policies``); the stream and fused generic
+    policies for a compile-time instance and for the direct and stream
+    kernels' generic ones (``generic_policies``); the fused generic
     instances serve both compute dtypes with one kernel, reported once."""
     import torch
 
@@ -574,17 +593,23 @@ def phase_build() -> dict:
         print(_build.build_log(name).strip(), flush=True)
     spills = ("registers", "spill_stores", "spill_loads")
     ptxas = _stream_ptxas()
-    _check(len(ptxas) == 32, f"compiler report of the stream instances: {sorted(ptxas)}")
+    _check(len(ptxas) == 48, f"compiler report of the stream instances: {sorted(ptxas)}")
     resources = {}
     for k in (1, *ss.STREAMK_DEPTHS):
         for code in (ss.GENERIC, *ss.CHAINS):
             for dtype in (torch.float32, torch.bfloat16):
-                for cd, tag in _computes(code):
+                for cd, tag in _computes(code, generic_policies=True):
                     key = f"k{k}_{_instance_name(code)}_{str(dtype)[6:]}{tag}"
                     resources[key] = {**ss.instance_resources(k, code, dtype, cd),
                                       **{f: ptxas.get(key, {}).get(f) for f in spills[1:]}}
                     _check(resources[key]["blocks_per_sm"] > 0,
                            f"stream instance {key} fits no SM: {resources[key]}")
+                    # the generic sweep's budget: two fp32 blocks an SM at
+                    # every depth, no spills
+                    _check(code != ss.GENERIC or (
+                        (dtype != torch.float32 or resources[key]["blocks_per_sm"] >= 2)
+                        and resources[key]["spill_stores"] == 0),
+                        f"generic stream instance {key} over its budget: {resources[key]}")
     _say("build", stream_instances=resources)
     ptxas = _direct_ptxas()
     direct = {}
@@ -742,6 +767,7 @@ def phase_compare(worst: dict) -> None:
         torch.cuda.empty_cache()
     direct = _compare_direct(worst)
     generic = _compare_generic(worst)
+    stream_generic = _compare_stream_generic(worst)
     solves = 0
     for k in (1, 2, 3, 4):
         for kind in ("7pt", "27pt"):
@@ -756,7 +782,8 @@ def phase_compare(worst: dict) -> None:
                     solves += 1
     _say("compare", cases=n, bitwise=True, max_abs_err=worst,
          streamk_plain_vs_direct_launches=chained, exchange_vs_direct_solves=solves,
-         direct_instances=direct, generic_instance=generic, launches=ops.launch_counts())
+         direct_instances=direct, generic_instance=generic,
+         stream_generic_cases=stream_generic, launches=ops.launch_counts())
 
 
 # the direct kernels' ragged shapes: nx below 2H+1, odd nz, y and z no
@@ -911,6 +938,86 @@ def _compare_generic(worst: dict) -> dict:
                                f"{name} {tag}: generic launches {took}, instance "
                                f"{_instance_name(code)}")
                 del u, us
+    return cases
+
+
+# the stream kernels' generic battery: interiors below 2k+1, odd nz, y and z
+# no multiple of the tiles (38 x 62 at k = 1 .. 24 x 56 at k = 4), several
+# tiles each way; Dirichlet edge masks of the whole domain, an interior
+# shard and a mixed one
+_STREAM_GENERIC_SHAPES = ((2, 3, 5), (5, 77, 125), (33, 17, 129))
+_STREAM_EDGES = ((True,) * 6, (False,) * 6, (True, False, False, True, True, False))
+
+
+def _stream_generic_programs() -> dict:
+    """Programs of no ``CHAINS`` entry outside the factoring knobs: the
+    registry's advection-diffusion at vx=2 (six terms, no x+1 tap), heat 7pt
+    with a zero centre, a 27pt set without its x and y symmetries and a
+    random 27-term set (x-1 and x+1 read away from the cell)."""
+    import numpy as np
+
+    zc, asym = _taps("7pt"), _taps("27pt")
+    zc[1, 1, 1] = 0.0
+    asym[0, 0, 0] *= 1.5
+    asym[2, 1, 0] *= 0.7
+    return {"advection": _advection_taps(8), "zero-centre": zc, "asym27": asym,
+            "random27": np.random.default_rng(4).uniform(-0.1, 0.1, (3, 3, 3))}
+
+
+def _hold_nan(worst: dict, name: str, got, want, what: str) -> None:
+    """``_hold`` with NaN in the same cells of both counting as equal (a
+    random program's mixed signs meet infinities of both signs)."""
+    import torch
+
+    torch.cuda.synchronize()
+    nan = want.isnan()
+    _check(torch.equal(got.isnan(), nan), f"{name} != plain {what}: NaN in other cells")
+    _hold(worst, name, got.masked_fill(nan, 0), want.masked_fill(nan, 0), what)
+
+
+def _compare_stream_generic(worst: dict) -> int:
+    """The stream kernel and streamk k = 2..4 on the generic instance,
+    forced (``ss.launch_instance(k, 0, ...)``) on each program of
+    ``_stream_generic_programs``: random padded blocks of
+    ``_STREAM_GENERIC_SHAPES`` and the special-value field, the wrapper's
+    x-chunk and chunks of 3 and 1 planes, fp32/bf16 storage x fp32/bf16
+    compute x Dirichlet bc 0 and 0.3 under ``_STREAM_EDGES`` and periodic,
+    each bitwise against its plain version and counted on the generic
+    instance. Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    from heat3d_tpu_torch.ops import stencil_stream as ss
+
+    rng = np.random.default_rng(16)
+    dtypes = (torch.float32, torch.bfloat16)
+    cases = 0
+    for prog, taps in _stream_generic_programs().items():
+        _check(ss.stream_instance(taps) == ss.GENERIC, f"{prog} is a CHAINS program")
+        for k in (1, *ss.STREAMK_DEPTHS):
+            name = "apply_taps_stream" if k == 1 else "apply_taps_streamk"
+            pads = [tuple(m + 2 * k for m in shape) for shape in _STREAM_GENERIC_SHAPES]
+            fields = [rng.standard_normal(p).astype(np.float32) for p in pads]
+            fields.append(_special_field((24 + 2 * k, 33 + 2 * k, 70 + 2 * k), 5))
+            for base, dtype, cd in itertools.product(fields, dtypes, dtypes):
+                up = torch.from_numpy(base).cuda().to(dtype)
+                for periodic, bcv in _BCS:
+                    for edges in _STREAM_EDGES if k > 1 and not periodic else _STREAM_EDGES[:1]:
+                        want = _kernel_pair(name, k, edges, cd)[1](up, taps, periodic, bcv)
+                        for chunk in (None, 3, 1):
+                            before = _generic_counts()[name]
+                            got = ss.launch_instance(k, ss.GENERIC, up, taps, periodic, bcv,
+                                                     edges=edges, xchunk=chunk,
+                                                     compute_dtype=cd)
+                            _hold_nan(worst, name, got, want,
+                                      f"generic {prog} k={k} {tuple(base.shape)} {dtype} "
+                                      f"compute {cd} periodic={periodic} bc={bcv} "
+                                      f"edges={edges} chunk={chunk}")
+                            _check(_generic_counts()[name] == before + 1,
+                                   f"{name} {prog}: not counted on the generic instance")
+                            cases += 1
+                del up
+    torch.cuda.empty_cache()
     return cases
 
 
@@ -1499,6 +1606,8 @@ def phase_kernel_times(bw: float, worst: dict, resources: dict) -> dict:
                 direct_out = out.clone()
             elif name == "apply_taps_stream":
                 up1, stream_out = x, out.clone()
+            gen = (_stream_generic_ms(worst, name, k, x, taps, out, bw)
+                   if name.startswith("apply_taps_stream") else {})
             del x
             for kind, dtype, periodic, bcv in (
                 ("7pt", torch.float32, False, 0.3), ("7pt", torch.float32, True, 0.0),
@@ -1516,6 +1625,8 @@ def phase_kernel_times(bw: float, worst: dict, resources: dict) -> dict:
                              "bound_by": by, "library_ms": None}
             if name.startswith("apply_taps_stream"):
                 times[n][key]["blocks_per_sm"] = resources[f"k{k}_7pt_float32"]["blocks_per_sm"]
+                times[n][key].update(gen)
+                times[n][key]["generic_resources"] = resources[f"k{k}_generic_float32"]
             else:
                 times[n][key].update(_direct_generic_ms(worst, name, k, u, taps, out, bw))
                 times[n][key].update(resources[f"h{k}_7pt_float32"])
@@ -1560,8 +1671,15 @@ def phase_kernel_times(bw: float, worst: dict, resources: dict) -> dict:
         "streamk_k2_over_direct2": t["apply_taps_streamk_k2"]["ms"] / d2,
         "streamk_k4_over_direct2": t["apply_taps_streamk_k4"]["ms"] / d2,
     }
+    streams = [name if k == 1 else f"{name}_k{k}" for name, k in _cases()[2:]]
     _say("stream_times", grid=[1024] * 3, variants=variants, ratios_7pt_float32=ratios,
          direct_ms={"apply_taps_direct": d1, "apply_taps_direct2": d2},
+         generic={key: {f: t[key][f] for f in ("generic_ms", "generic_bound_ms",
+                                                "generic_advection_ms", "generic_resources")}
+                  for key in streams},
+         generic_over_compiled={key: t[key]["generic_ms"] / t[key]["ms"] for key in streams},
+         generic_advection_over_compiled={key: t[key]["generic_advection_ms"] / t[key]["ms"]
+                                          for key in streams},
          max_abs_err={n: worst[n] for n in ("apply_taps_stream", "apply_taps_streamk")})
     t["apply_taps_streamk"] = t[f"apply_taps_streamk_k{_STREAMK_HEADLINE}"]
     return t
@@ -1590,6 +1708,26 @@ def _direct_generic_ms(worst: dict, name: str, halo: int, u, taps, out, bw: floa
         _hold(worst, name, out, plain(u, t, False, 0.0),
               f"{key} instance at {tuple(u.shape)} {u.dtype}")
         b_ms, _ = kernel_bound(name, n, halo, u.element_size(), flops_per_update(t), bw)
+        res.update({f"{key}_ms": ms, f"{key}_bound_ms": b_ms})
+    return res
+
+
+def _stream_generic_ms(worst: dict, name: str, k: int, x, taps, out, bw: float) -> dict:
+    """The generic stream instance forced (``ss.launch_instance(k, 0,
+    ...)``) on ``taps``' chain and on the advection-diffusion vx=2 program
+    (``_advection_taps``, which the solver runs on it) over the padded
+    block ``x``: ms per launch beside its bound, the last launch of each
+    held bitwise to the plain version. ``out`` is overwritten."""
+    from heat3d_tpu_torch.ops import stencil_stream as ss
+
+    n = out.shape[0]
+    _, plain = _kernel_pair(name, k)
+    res = {}
+    for key, t in (("generic", taps), ("generic_advection", _advection_taps(n))):
+        ms = _time_ms(lambda: ss.launch_instance(k, ss.GENERIC, x, t, out=out), iters=10)
+        _hold(worst, name, out, plain(x, t, False, 0.0),
+              f"{key} instance k={k} at {tuple(out.shape)} {x.dtype}")
+        b_ms, _ = kernel_bound(name, n, k, x.element_size(), flops_per_update(t), bw)
         res.update({f"{key}_ms": ms, f"{key}_bound_ms": b_ms})
     return res
 
@@ -3576,6 +3714,7 @@ _FAMILY_ROWS = (
     ("advection-diffusion", (("vx", 2.0),), "7pt", 1, (1, 1, 1), "apply_taps_direct"),
     ("advection-diffusion", (("vx", 2.0),), "7pt", 1, _MESH, "apply_taps_direct"),
     ("advection-diffusion", (("vx", 2.0),), "7pt", 2, (1, 1, 1), "apply_taps_direct2"),
+    ("advection-diffusion", (("vx", 2.0),), "7pt", 4, (1, 1, 1), "apply_taps_streamk"),
     ("reaction-diffusion", (("rate", 0.5),), "27pt", 2, (1, 1, 1), "apply_taps_direct2"),
     ("reaction-diffusion", (("rate", 0.5),), "7pt", 4, (1, 1, 1), "apply_taps_streamk"),
 )

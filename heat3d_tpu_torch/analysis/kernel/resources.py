@@ -42,7 +42,7 @@ def _generic_pattern(family: str, depth: int) -> str:
     if family == "direct":
         return rf"direct_genericI{_T}Li{depth}E"
     if family == "stream":
-        return rf"stream1_genericI{_T}E" if depth == 1 else rf"streamk_genericI{_T}Li{depth}E"
+        return rf"stream_genericI{_T}Li{depth}E"
     return rf"fused_kernelI{_T}Li{depth}E"
 
 
@@ -64,8 +64,8 @@ def _code(case) -> int:
 
 def _spills(family: str, depth: int, code: int, dtype: str, bf16c: bool) -> Optional[dict]:
     """Registers and spill bytes of one instance from the compiler's
-    report (the stream and fused generic instances serve both compute
-    dtypes; the direct one has an instance of each policy)."""
+    report (the fused generic instances serve both compute dtypes; the
+    direct and stream ones have an instance of each policy)."""
     from heat3d_tpu_torch.ops import _build
 
     lib, kernel = _TEMPLATES[family]
@@ -73,7 +73,7 @@ def _spills(family: str, depth: int, code: int, dtype: str, bf16c: bool) -> Opti
         if code == 0:
             m = re.search(_generic_pattern(family, depth), entry)
             if (m and _DTYPE_MANGLED[m.group(1)] == dtype
-                    and (family != "direct" or ("Bf16Math" in entry) == bf16c)):
+                    and (family == "fused" or ("Bf16Math" in entry) == bf16c)):
                 return r
             continue
         m = re.search(kernel + rf"I{_T}Li(\d)ELi(\d)E", entry)

@@ -59,7 +59,7 @@ __host__ __device__ constexpr int tap(int i, int f) {
 template <int S>
 __host__ __device__ constexpr bool uses_xsum() {
   if constexpr (S == SPEC_MEHR || S == SPEC_GENERIC) {
-    // the generic sweep keeps an x-sum slot of its own (stencil_direct.cu)
+    // the generic sweeps read the program's x-sums on their own
     return false;
   } else {
     for (int i = 0; i < chain_len<S>(); ++i) {
@@ -151,11 +151,12 @@ __host__ __device__ constexpr int smem_with(int slots) {
 // fp32 K=4 27pt keeps three. The QR route reads plane i only and keeps
 // five planes in flight (24 KB fp32; six slots measured 4% faster than
 // four, eight no faster: scripts/torch_direct_probe.py, PERF.md section 6).
-// The generic direct sweep copies plane i into a float ring as it lands
-// and refills its one slot with plane i+1 at once (stencil_direct.cu):
-// two or three slots cost its two-update instance a block an SM and ran
-// 35% slower (scripts/torch_direct_probe.py --generic --variants, PERF.md
-// section 6).
+// The generic sweeps copy plane i into a float ring as it lands and
+// refill their one slot with plane i+1 at once (stencil_direct.cu; the
+// stream sweep in bf16 storage and at K = 1, its fp32 planes at K >= 2
+// landing in the ring itself, stencil_stream.cu): two or three slots cost
+// the direct two-update instance a block an SM and ran 35% slower
+// (scripts/torch_direct_probe.py --generic --variants, PERF.md section 6).
 template <class T, int K, int S>
 __host__ __device__ constexpr int in_slots() {
   if (S == SPEC_GENERIC) return 1;
@@ -319,6 +320,50 @@ cudaError_t set_smem_once(std::atomic<unsigned long long>& done, F* kernel,
                              bytes);
   if (err == cudaSuccess) done.fetch_or(bit);
   return err;
+}
+
+// A program as the generic sweeps run it (fold, at launch): term i reads
+// source s[i] (0..2: plane x-1, x, x+1 of its level; 3: the sum of planes
+// x-1 and x+1) at the cell's position in a ring slot, the element o[i]
+// away, and with y[i] also the one 2 fw further on (the rows y-1 and y+1
+// of a row sum); w[i] is its weight in the compute dtype. The direct sweep
+// (stencil_direct.cu) keeps each x-sum plane in a ring slot of its own,
+// the stream sweep (stencil_stream.cu) forms the sum at the term.
+struct GenericArgs {
+  int n;
+  int xsum;  // some term reads the x-sum plane
+  int s[MAX_TERMS];
+  int o[MAX_TERMS];
+  int y[MAX_TERMS];
+  float w[MAX_TERMS];
+};
+
+// The terms of a program are ones the sweeps can fold.
+inline bool foldable(const Program& p) {
+  for (int i = 0; i < p.n; ++i) {
+    const Term t = p.t[i];
+    if (t.src < 0 || t.src > 3 || t.row < 0 || t.row > 3 || t.dk < -1 ||
+        t.dk > 1) {
+      return false;
+    }
+  }
+  return true;
+}
+
+// Each term (src, row, dk) of p as a source and an offset in a ring slot
+// of row stride fw.
+inline GenericArgs fold(const Program& p, int fw) {
+  GenericArgs a{};
+  a.n = p.n;
+  for (int i = 0; i < p.n; ++i) {
+    const Term t = p.t[i];
+    a.s[i] = t.src;
+    a.y[i] = t.row == 3;
+    a.o[i] = (t.row == 3 ? -1 : t.row - 1) * fw + t.dk;
+    a.w[i] = t.w;
+    a.xsum |= t.src == 3;
+  }
+  return a;
 }
 
 // The program's (src, row, dk) sequence is chain S's.

@@ -1,10 +1,10 @@
 // Shared pieces of the port's stencil kernels: the tap-chain emission
 // program, its evaluator, the storage <-> float conversions and the (y, z)
 // tile geometry of the interpreted kernels. The program evaluator runs in
-// the generic instances of stencil_stream.cu (chains outside the CHAINS
-// table) and in stencil_fused.cu; the compile-time instances unroll the
-// chain instead (stencil_chain.cuh), and the direct kernels' generic
-// instance folds the program at launch (stencil_direct.cu).
+// the fused kernels' generic instance (stencil_fused.cu: chains outside
+// the CHAINS table); the compile-time instances unroll the chain instead
+// (stencil_chain.cuh), and the direct and stream kernels' generic
+// instances fold the program at launch (stencil_chain.cuh GenericArgs).
 //
 // Arithmetic contract: the update is evaluated from an emission program
 // (the wrapper records core.stencils.accumulate_taps into at most 27
@@ -43,8 +43,8 @@ struct Term {
 
 struct Program {
   int n;
-  int bf16;  // 1: bf16 compute (the stream and fused libraries set it from
-             // the compute code)
+  int bf16;  // 1: bf16 compute (the fused library sets it from the compute
+             // code)
   Term t[MAX_TERMS];
 };
 

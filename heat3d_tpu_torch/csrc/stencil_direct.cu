@@ -208,48 +208,6 @@ __global__ void __launch_bounds__(SNT, (Bounds<T, H, S>::min_blocks))
 // ---------------------------------------------------------------------------
 // The generic instance: any emission program, folded at launch.
 
-// A program as the generic sweep runs it (fold): term i reads, at the
-// cell's position in slot (q + 3 + s[i]) & 3 of its level's ring (the
-// slot of plane q - 1 + s for s = 0..2, of the x-sum plane for s = 3),
-// the element o[i] away, and with y[i] also the one 2 FW further on (the
-// rows y-1 and y+1 of a row sum); w[i] is its weight in the compute dtype.
-struct GenericArgs {
-  int n;
-  int xsum;  // some term reads the x-sum plane
-  int s[MAX_TERMS];
-  int o[MAX_TERMS];
-  int y[MAX_TERMS];
-  float w[MAX_TERMS];
-};
-
-// The terms of a program are ones the sweep can fold.
-bool foldable(const Program& p) {
-  for (int i = 0; i < p.n; ++i) {
-    const Term t = p.t[i];
-    if (t.src < 0 || t.src > 3 || t.row < 0 || t.row > 3 || t.dk < -1 ||
-        t.dk > 1) {
-      return false;
-    }
-  }
-  return true;
-}
-
-// Each term (src, row, dk) of p as a slot shift and an offset in a ring
-// slot of row stride fw.
-GenericArgs fold(const Program& p, int fw) {
-  GenericArgs a{};
-  a.n = p.n;
-  for (int i = 0; i < p.n; ++i) {
-    const Term t = p.t[i];
-    a.s[i] = t.src;
-    a.y[i] = t.row == 3;
-    a.o[i] = (t.row == 3 ? -1 : t.row - 1) * fw + t.dk;
-    a.w[i] = t.w;
-    a.xsum |= t.src == 3;
-  }
-  return a;
-}
-
 // The sweep of the generic instance: the chains' block (Direct: geometry,
 // masks, loader, views) with every level's planes in shared memory. Each
 // level has a float ring of four slots: its plane m in slot m & 3, and

@@ -21,18 +21,28 @@
 //     argument. The wrapper picks S by comparing emission_program(taps)
 //     with that table. M is the arithmetic policy (stencil_common.cuh):
 //     F32Math, or Bf16Math for bf16 compute;
-//   * stream1_generic / streamk_generic<T, K>: any other chain (other taps,
-//     HEAT3D_FACTOR_7PT=1, HEAT3D_FACTOR_Y=0), interpreted per cell from
-//     the Program in shared memory (stencil_common.cuh), over 3-slot float
-//     rings of framed planes; the compute dtype is Program::bf16.
+//   * stream_generic<T, K, M>: any other chain of 1 to 27 terms (other taps,
+//     advection's unequal x pair, a zero centre, HEAT3D_FACTOR_7PT=1,
+//     HEAT3D_FACTOR_Y=0), on the same block (Stream: geometry, masks,
+//     loader, views). Such a chain may read the planes x-1 and x+1 away
+//     from the cell, so every level keeps its planes in a float ring of
+//     three slots in shared memory; the host folds each term (src, row, dk)
+//     into a source and an offset (stencil_chain.cuh GenericArgs, a kernel
+//     argument): a term is one or two shared loads at immediate offsets
+//     (four for a row sum of the x-sum, which the term forms from its two
+//     planes), __fmul_rn and __fadd_rn for each of the thread's positions,
+//     in a loop unrolled to 27 terms with a branch on the term count that
+//     is uniform across the launch; M is a template policy. It replaces the
+//     first design's interpreted kernels (stream1_generic, streamk_generic:
+//     a per-cell walk of the Program over synchronously loaded rings).
 //
 // Bound: device-memory bytes. A launch reads the width-K padded field once
 // and writes the interior once; the K updates cost 13 (7pt) to 33 (27pt,
 // factored) flops per cell each, plus the recompute of the shrinking ghost
 // rings: at 1024^3 the bytes take 2.57-2.59 ms on an H100 SXM, the raw
-// trapezoid's flops 0.2-0.8 ms. The generic instances are bound by their
-// instruction stream (per cell and term: a Term read from shared memory,
-// two branches, index arithmetic). Design of stream_kernel against that:
+// trapezoid's flops 0.2-0.8 ms. The generic instance is bound by the
+// latency of its shared loads and barriers (PERF.md section 6, PR 22's
+// direct sweep and this one). Design of stream_kernel against the bound:
 //   * the chain is unrolled at compile time: a term is one or two shared
 //     loads at immediate offsets, __fmul_rn and __fadd_rn. Each x-plane
 //     sum (pm + pp) is computed once per cell position and each y-row sum
@@ -66,13 +76,22 @@
 // section 6), ms per launch at 1024^3 fp32 7pt against the bytes bound:
 // K = 1 5.07 / 2.57, K = 2 4.80 / 2.58, K = 3 7.10 / 2.59, K = 4 11.15 /
 // 2.59 (27pt K = 4 22.26; 7pt bf16 K = 4 14.37 / 1.30). The previous
-// design, now the generic instance, took 9.87, 21.06, 35.46 and 58.42.
-// Still above the bound by 2x (K = 1) to 4.3x (K = 4): a deeper prefetch
-// moved little, so barriers and instruction throughput, not load latency,
-// are the suspects. bf16 compute (chip_smoke.py compute_bf16_times, fp32
-// storage, the fp32-compute instance of the same call in brackets): K = 1
-// 6.91 [4.96], K = 2 11.79 [4.63], K = 3 17.16 [6.99], K = 4 24.70
-// [11.10], same registers and blocks per SM.
+// design took 9.87, 21.06, 35.46 and 58.42. The generic instance forced
+// on the 7pt chain (scripts/torch_stream_probe.py --generic, same card):
+// K = 1 4.0-4.2 (four blocks an SM), K = 2 8.6-8.7 (four), K = 3 15.1-15.3
+// (three), K = 4 26.4-26.6 (two); the first design's kernels of the same
+// card 9.97, 21.39, 36.79 and 60.57. Each level's chain costs about 3.5 ms
+// a plane at four blocks an SM and more at two; with the input slot (fp32
+// at three and two blocks an SM) K = 2 and 3 took 9.3 and 18.2, with 24-row
+// frames (four and three blocks) K = 3 and 4 took 17.2 and 28.3, and fp32
+// planes landing in level 0's ring right after stage 1 instead of before
+// the output stage 21.7 and 48.1 (PERF.md section 6). The compile-time
+// instances are still above the bound by 2x (K = 1) to 4.3x (K = 4): a
+// deeper prefetch moved little, so barriers and instruction throughput,
+// not load latency, are the suspects. bf16 compute (chip_smoke.py
+// compute_bf16_times, fp32 storage, the fp32-compute instance of the same
+// call in brackets): K = 1 6.91 [4.96], K = 2 11.79 [4.63], K = 3 17.16
+// [6.99], K = 4 24.70 [11.10], same registers and blocks per SM.
 //
 // Semantics: before a stage other than the last passes its plane on, the
 // plane is rounded through the storage type and, under Dirichlet, every
@@ -386,147 +405,263 @@ __global__ void __launch_bounds__(SNT, MIN_BLOCKS)
 }
 
 // ---------------------------------------------------------------------------
-// Generic instances: the interpreted emission program (stencil_common.cuh)
-// over 3-slot float rings, (TY, TZ) tiles of stencil_common.cuh.
+// The generic instance: any emission program, folded at launch.
 
-// Floats of one plane framed by r cells.
-__host__ __device__ constexpr int plane_floats(int r) {
-  return (TY + 2 * r) * (TZ + 2 * r);
-}
+// The sweep of the generic instance: the chains' block (Stream: geometry,
+// masks, loader, views) with every level's planes in shared memory. Level
+// L (0 the input, 1..K-1 the intermediates) has a float ring of three
+// slots, its plane m in slot m % 3. Step i lands input plane i; stage j =
+// 1..K-1 then writes level j's plane i - j (rounded through T and, under
+// Dirichlet, pinned to bc beyond the domain faces of `edges`) from level
+// j-1's planes i-j-1 .. i-j+1, a barrier after each; stage K writes output
+// plane i - K from level K-1's. A plane's slot is rewritten three steps
+// later, after the barrier that opens the step, so three slots a level
+// suffice: a term that reads the x-sum plane adds its two planes at the
+// term (the same operands in the same order as the plain version's cached
+// sum), and no level keeps a fourth slot for it. An fp32 plane at K >= 2
+// lands by cp.async straight in level 0's ring (DIRECT; rounded there in
+// place under bf16 compute): plane i + 1 is started into the slot of plane
+// i - 2 (which stage 1 has read) once stages 1..K-1 are done, and lands
+// while stage K runs and the next step waits; the sweep keeps no input
+// slot and makes no copy, so fp32 holds four blocks an SM at K = 2 and
+// three at K = 3 (three and two with the input slot). Started right after
+// stage 1 instead, the load slowed each later stage that ends in a
+// barrier (K = 3 and 4 ran 1.1x and 1.8x slower). Otherwise (bf16 rows
+// come as element pairs at a per-row shift; at K = 1 stage 1 is the
+// output) a plane lands in the one input slot, is copied into level 0's
+// ring as M reads a T and its slot refilled with the next plane at once.
 
-// Floats of shared memory before the ring of frame r, the rings laid out
-// as r = K (the input), K-1, ..., 1; ring_offset(K, 0) is their total.
-__host__ __device__ constexpr int ring_offset(int K, int r) {
-  return r >= K ? 0 : 3 * plane_floats(r + 1) + ring_offset(K, r + 1);
-}
-
-// Load padded plane p, rows y0.. and columns z0.. of it, into an (FY, FZ)
-// float slot. Cells past the padded extent (ragged edge tiles) read 0:
-// they feed no cell that is written out.
-template <class T, int FY, int FZ>
-__device__ void load_padded(float* dst, const T* __restrict__ up, int p,
-                            int y0, int z0, int pny, int pnz) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const T* plane = up + (int64_t)p * pny * pnz;
-  for (int idx = tid; idx < FY * FZ; idx += NTHREADS) {
-    const int a = idx / FZ;
-    const int b = idx - a * FZ;
-    const int gy = y0 + a;
-    const int gz = z0 + b;
-    dst[idx] = (gy < pny && gz < pnz) ? to_f(plane[(int64_t)gy * pnz + gz])
-                                      : 0.0f;
-  }
-}
-
-template <class T>
-__global__ void __launch_bounds__(NTHREADS)
-    stream1_generic(const T* __restrict__ up, T* __restrict__ out, int nx,
-                    int ny, int nz, int xchunk, Program prog) {
-  constexpr int FZ = TZ + 2;
-  constexpr int PS = (TY + 2) * FZ;
-  __shared__ float ring[3 * PS];
-  __shared__ Program sp;
-  copy_program(&sp, prog);
-  const int z0 = blockIdx.x * TZ;
-  const int y0 = blockIdx.y * TY;
-  const int xs = blockIdx.z * xchunk;
-  const int xe = min(nx, xs + xchunk);
-  // padded planes xs .. xe+1: slot i%3 holds plane xs+i; output plane
-  // xs+i-2 is emitted from padded planes xs+i-2 .. xs+i
-  for (int i = 0; i < xe - xs + 2; ++i) {
-    load_padded<T, TY + 2, FZ>(ring + (i % 3) * PS, up, xs + i, y0, z0,
-                               ny + 2, nz + 2);
-    __syncthreads();
-    if (i >= 2) {
-      const float* pm = ring + ((i - 2) % 3) * PS;
-      const float* p0 = ring + ((i - 1) % 3) * PS;
-      const float* pp = ring + (i % 3) * PS;
-      const int64_t ox = xs + i - 2;
-      for (int ty = threadIdx.y; ty < TY; ty += BY) {
-        const int gy = y0 + ty;
-        const int gz = z0 + threadIdx.x;
-        if (gy < ny && gz < nz) {
-          const float r =
-              apply_program(sp, pm, p0, pp, ty + 1, threadIdx.x + 1, FZ);
-          out[(ox * ny + gy) * nz + gz] = from_f<T>(r);
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
+// The generic instance's fp32 planes land straight in level 0's ring at
+// K >= 2 (else in the input slot, copied).
 template <class T, int K>
-__global__ void __launch_bounds__(NTHREADS)
-    streamk_generic(const T* __restrict__ up, T* __restrict__ out, int nx,
-                    int ny, int nz, int xchunk, int periodic, float bc,
-                    int edges, Program prog) {
-  extern __shared__ float smem[];
-  __shared__ Program sp;
-  copy_program(&sp, prog);
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int z0 = blockIdx.x * TZ;
-  const int y0 = blockIdx.y * TY;
-  const int xs = blockIdx.z * xchunk;
-  const int nc = min(nx, xs + xchunk) - xs;
-  // Chunk-relative padded x: q = 0 is padded plane xs (global x xs-K).
-  // Step i loads input plane q = i into slot i%3 of the input ring; stage
-  // j then emits its plane q = i-j into slot q%3 of its ring from stage
-  // j-1's planes q-1, q, q+1, once those exist (i >= 2j). Stage K's plane
-  // q is output plane xs+q-K.
-  for (int i = 0; i < nc + 2 * K; ++i) {
-    load_padded<T, TY + 2 * K, TZ + 2 * K>(smem + (i % 3) * plane_floats(K),
-                                           up, xs + i, y0, z0, ny + 2 * K,
-                                           nz + 2 * K);
-    __syncthreads();
+__host__ __device__ constexpr bool lands_direct() {
+  return sizeof(T) == 4 && K >= 2;
+}
+
+template <class T, int K, class M>
+struct StreamSweep : Stream<T, K, SPEC_GENERIC, M> {
+  using B = Stream<T, K, SPEC_GENERIC, M>;
+  using G = typename B::G;
+  static constexpr int MB = B::MB, P = B::P, FW = B::FW;
+  static constexpr int PS = B::FH * FW;  // floats of a ring slot
+  static constexpr bool DIRECT = lands_direct<T, K>();
+
+  float* rings;  // K rings of three slots
+
+  // Offset of the thread's position p from its first one in a slot.
+  __host__ __device__ static constexpr int pos(int p) {
+    return SBY * (p / MB) * FW + SBZ * (p % MB);
+  }
+
+  // The slot of level L's plane m.
+  __device__ __forceinline__ float* slot0(int L, int m) const {
+    return rings + (3 * L + m % 3) * PS;
+  }
+
+  // The thread's first position in the slot of level L's plane m.
+  __device__ __forceinline__ float* slot(int L, int m) const {
+    return slot0(L, m) + this->tid_base(FW);
+  }
+  // Term i of a cell: w v, the first term not added to 0.
+  __device__ __forceinline__ static void term(float& acc, int i, float w,
+                                              float v) {
+    const float m = M::mul(w, v);
+    acc = i == 0 ? m : M::add(acc, m);
+  }
+
+  // acc: the chain of level L's plane q at the thread's positions.
+  __device__ __forceinline__ void eval(int L, int q, const GenericArgs& a,
+                                       float (&acc)[P]) const {
+    const float* pm = slot(L, q - 1);
+    const float* p0 = slot(L, q);
+    const float* pp = slot(L, q + 1);
 #pragma unroll
-    for (int j = 1; j <= K; ++j) {
-      if (i < 2 * j) break;  // uniform across the block
-      const int r = K - j;   // frame of stage j's planes
-      const int q = i - j;
-      const float* src = smem + ring_offset(K, r + 1);
-      const int sps = plane_floats(r + 1);
-      const float* pm = src + ((q - 1) % 3) * sps;
-      const float* p0 = src + (q % 3) * sps;
-      const float* pp = src + ((q + 1) % 3) * sps;
-      const int sfz = TZ + 2 * (r + 1);
-      if (j < K) {
-        const int fz = TZ + 2 * r;
-        const int cells = (TY + 2 * r) * fz;
-        float* dst = smem + ring_offset(K, r) + (q % 3) * plane_floats(r);
-        const int gx = xs + q - K;
-        const bool x_out = (gx < 0 && (edges & 1)) || (gx >= nx && (edges & 2));
-        for (int idx = tid; idx < cells; idx += NTHREADS) {
-          const int a = idx / fz;
-          const int b = idx - a * fz;
-          const int gy = y0 - r + a;
-          const int gz = z0 - r + b;
-          float v;
-          if (!periodic &&
-              (x_out || (gy < 0 && (edges & 4)) || (gy >= ny && (edges & 8)) ||
-               (gz < 0 && (edges & 16)) || (gz >= nz && (edges & 32)))) {
-            v = bc;
+    for (int i = 0; i < MAX_TERMS; ++i) {
+      if (i < a.n) {  // uniform across the launch
+        const int s = a.s[i];
+        const float* t = (s == 1 ? p0 : s == 2 ? pp : pm) + a.o[i];
+        constexpr int Y = 2 * FW;
+        if (s == 3) {  // the x-sum: planes x-1 and x+1
+          const float* u = pp + a.o[i];
+          if (a.y[i]) {
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+              const int o = pos(p);
+              term(acc[p], i, a.w[i],
+                   M::add(M::add(t[o], u[o]), M::add(t[o + Y], u[o + Y])));
+            }
           } else {
-            v = to_f(from_f<T>(
-                apply_program(sp, pm, p0, pp, a + 1, b + 1, sfz)));
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+              term(acc[p], i, a.w[i], M::add(t[pos(p)], u[pos(p)]));
+            }
           }
-          dst[idx] = v;
-        }
-      } else {
-        const int64_t ox = xs + q - K;
-        for (int ty = threadIdx.y; ty < TY; ty += BY) {
-          const int gy = y0 + ty;
-          const int gz = z0 + threadIdx.x;
-          if (gy < ny && gz < nz) {
-            const float v =
-                apply_program(sp, pm, p0, pp, ty + 1, threadIdx.x + 1, sfz);
-            out[(ox * ny + gy) * nz + gz] = from_f<T>(v);
+        } else if (a.y[i]) {
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            term(acc[p], i, a.w[i], M::add(t[pos(p)], t[pos(p) + Y]));
           }
+        } else {
+#pragma unroll
+          for (int p = 0; p < P; ++p) term(acc[p], i, a.w[i], t[pos(p)]);
         }
       }
-      __syncthreads();
     }
   }
+
+  // Input plane i from its slot into level 0's ring.
+  __device__ __forceinline__ void land(int i) const {
+    const auto cur = this->in_view(i);
+    float* d = slot(0, i);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      d[pos(p)] = M::template read<T>(cur.at(p / MB, p % MB, 0, 0));
+    }
+  }
+
+  // Stage j < K: level j's plane q into its ring.
+  __device__ __forceinline__ void level(int j, int q,
+                                        const GenericArgs& a) const {
+    float acc[P];
+    eval(j - 1, q, a, acc);
+    const int gx = this->xs0 + q - K;  // block index of the plane
+    const bool x_out =
+        !this->periodic && ((gx < 0 && (this->edges & 1)) ||
+                            (gx >= this->nx && (this->edges & 2)));
+    float* d = slot(j, q);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const bool pin = x_out || ((this->rowpin >> (p / MB)) & 1) ||
+                       ((this->colpin >> (p % MB)) & 1);
+      d[pos(p)] = pin ? this->bc : to_f(from_f<T>(acc[p]));
+    }
+  }
+
+  // Stage K: output plane q at the thread's positions of the tile.
+  __device__ __forceinline__ void emit(int q, const GenericArgs& a) const {
+    float acc[P];
+    eval(K - 1, q, a, acc);
+    const int gx = this->xs0 + q - K;
+    const int64_t o0 =
+        ((int64_t)gx * this->ny + this->y0 + (int)threadIdx.y - K) * this->nz +
+        this->z0 + (int)threadIdx.x - K;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int l = p / MB, m = p % MB;
+      if (((this->rowout >> l) & 1) && ((this->colout >> m) & 1)) {
+        this->out[o0 + (SBY * l * this->nz + SBZ * m)] = from_f<T>(acc[p]);
+      }
+    }
+  }
+
+  // Start input plane i (if any) into level 0's ring or the input slot.
+  __device__ __forceinline__ void fetch(int i, int n_in) {
+    if (i < n_in) {
+      load_plane<T, K>(DIRECT ? reinterpret_cast<T*>(slot0(0, i))
+                              : this->in_slot,
+                       this->up, (int64_t)(this->xs0 + i) * this->plane,
+                       this->y0, this->z0, this->py, this->pz);
+    }
+    cp_async_commit();
+  }
+
+  // Stages 1..K-1 at step i (those with work: i >= 2 j).
+  __device__ __forceinline__ void levels(int i, const GenericArgs& a) {
+#pragma unroll 1
+    for (int j = 1; j < K && i >= 2 * j; ++j) {  // uniform
+      level(j, i - j, a);
+      __syncthreads();  // level j's plane i - j out
+    }
+  }
+
+  // Output planes [xs0, xs0 + xchunk) of the interior.
+  __device__ __forceinline__ void run(int xchunk, const GenericArgs& a) {
+    const int nc = min(this->nx, this->xs0 + xchunk) - this->xs0;
+    const int n_in = nc + 2 * K;
+    this->init_masks();
+    fetch(0, n_in);
+    for (int i = 0; i < n_in; ++i) {
+      cp_async_wait<0>();
+      // DIRECT under bf16 compute: the thread's own positions, in place
+      if constexpr (DIRECT) {
+        round_landed<T, M, G>(reinterpret_cast<T*>(slot0(0, i)));
+      }
+      __syncthreads();  // plane i landed; the slots step i writes are read
+      if constexpr (DIRECT) {
+        levels(i, a);
+        fetch(i + 1, n_in);  // into the slot of plane i - 2, which stage 1 read
+      } else {
+        land(i);
+        // an fp32 thread copies and reads its own positions of the input
+        // slot; bf16 pairs are other threads' positions
+        if constexpr (sizeof(T) == 4) fetch(i + 1, n_in);
+        __syncthreads();  // level 0's plane i out
+        if constexpr (sizeof(T) != 4) fetch(i + 1, n_in);
+        levels(i, a);
+      }
+      if (i >= 2 * K) emit(i - K, a);  // uniform
+    }
+  }
+};
+
+// Bytes of shared memory before the generic instance's rings: the input
+// slot, or where planes land in level 0's ring a row and a column that
+// the positions outside level 0's planes read.
+template <class T, int K>
+__host__ __device__ constexpr int generic_front() {
+  using G = Geom<K>;
+  return lands_direct<T, K>()
+             ? (G::FW + 4) * (int)sizeof(float)
+             : G::FH * in_stride<T, K>() * (int)sizeof(T);
+}
+
+// Dynamic shared memory of the generic instance (T, K): the front, the K
+// rings, and a row and a column beyond the last ring that the positions
+// outside a level's planes read.
+template <class T, int K>
+__host__ __device__ constexpr int generic_smem() {
+  using G = Geom<K>;
+  return generic_front<T, K>() +
+         (3 * K * G::FH * G::FW + G::FW + 4) * (int)sizeof(float);
+}
+
+// Launch bounds: as many blocks an SM as the shared memory holds (an H100
+// SM's 228 KB, 1 KB of it reserved for each block), at most four (64
+// registers): fp32 four at K = 1 and 2, three (80) at K = 3, two (128) at
+// K = 4.
+template <class T, int K>
+__host__ __device__ constexpr int generic_min_blocks() {
+  return 233472 / (generic_smem<T, K>() + 1024) < 4
+             ? 233472 / (generic_smem<T, K>() + 1024)
+             : 4;
+}
+
+template <class T, int K, class M>
+__global__ void __launch_bounds__(SNT, (generic_min_blocks<T, K>()))
+    stream_generic(const T* __restrict__ up, T* __restrict__ out, int nx,
+                   int ny, int nz, int xchunk, int periodic, float bc,
+                   int edges, GenericArgs a) {
+  using G = Geom<K>;
+  using W = StreamSweep<T, K, M>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  W st;
+  st.up = up;
+  st.out = out;
+  st.in_slot = reinterpret_cast<T*>(smem_raw);
+  st.rings = reinterpret_cast<float*>(smem_raw + generic_front<T, K>());
+  st.nx = nx;
+  st.ny = ny;
+  st.nz = nz;
+  st.xs0 = blockIdx.z * xchunk;
+  st.y0 = blockIdx.y * G::TY;
+  st.z0 = blockIdx.x * G::TZ;
+  st.py = ny + 2 * K;
+  st.pz = nz + 2 * K;
+  st.plane = (int64_t)st.py * st.pz;
+  st.periodic = periodic;
+  st.edges = edges;
+  st.bc = M::template read<T>(bc);
+  st.run(xchunk, a);
 }
 
 // ---------------------------------------------------------------------------
@@ -557,47 +692,30 @@ struct Spec {
   }
 };
 
-template <class T, int K>
+template <class T, int K, class M>
 struct Generic {
-  static constexpr int bytes = K == 1 ? 0 : ring_offset(K, 0) * (int)sizeof(float);
-  static constexpr int ty = TY;
-  static constexpr int tz = TZ;
-  static dim3 block() { return dim3(BZ, BY); }
-  static void* fn() {
-    if constexpr (K == 1) {
-      return (void*)stream1_generic<T>;
-    } else {
-      return (void*)streamk_generic<T, K>;
-    }
-  }
+  static constexpr int bytes = generic_smem<T, K>();
+  static constexpr int ty = Geom<K>::TY;
+  static constexpr int tz = Geom<K>::TZ;
+  static dim3 block() { return dim3(SBZ, SBY); }
+  static void* fn() { return (void*)stream_generic<T, K, M>; }
   static cudaError_t prepare() {
-    if constexpr (K == 1) {
-      return cudaSuccess;
-    } else {
-      static std::atomic<unsigned long long> done{0};
-      return set_smem_once(done, streamk_generic<T, K>, bytes);
-    }
+    static std::atomic<unsigned long long> done{0};
+    return set_smem_once(done, stream_generic<T, K, M>, bytes);
   }
   static cudaError_t launch(dim3 grid, const void* up, void* out, int nx,
                             int ny, int nz, int xchunk, int periodic,
                             float bc, int edges, const Program& prog,
                             cudaStream_t stream) {
-    if constexpr (K == 1) {
-      stream1_generic<T><<<grid, block(), 0, stream>>>(
-          static_cast<const T*>(up), static_cast<T*>(out), nx, ny, nz,
-          xchunk, prog);
-    } else {
-      streamk_generic<T, K><<<grid, block(), bytes, stream>>>(
-          static_cast<const T*>(up), static_cast<T*>(out), nx, ny, nz,
-          xchunk, periodic, bc, edges, prog);
-    }
+    stream_generic<T, K, M><<<grid, block(), bytes, stream>>>(
+        static_cast<const T*>(up), static_cast<T*>(out), nx, ny, nz, xchunk,
+        periodic, bc, edges, fold(prog, Geom<K>::FW));
     return cudaGetLastError();
   }
 };
 
 // f.template run<Instance>() for instance (k, spec, dtype, compute); `bad`
-// for arguments no instance takes. The generic instances serve both
-// compute dtypes (Program::bf16).
+// for arguments no instance takes.
 template <class T, int K, class M, class F>
 int by_spec(int spec, const F& f) {
   switch (spec) {
@@ -606,7 +724,7 @@ int by_spec(int spec, const F& f) {
     case SPEC_27PT:
       return f.template run<Spec<T, K, SPEC_27PT, M>>();
     default:
-      return f.template run<Generic<T, K>>();
+      return f.template run<Generic<T, K, M>>();
   }
 }
 
@@ -723,14 +841,15 @@ int heat3d_stream_registers(int k, int spec, int dtype, int compute) {
   return with_instance(k, spec, dtype, compute, -1, Registers{});
 }
 
-// k: 1 (one update) or 2..4 (fused updates); spec: 0 generic, 1 the 7pt
-// chain, 2 the 27pt chain (prog's (src, row, dk) must be that chain's);
-// dtype: 0 float, 1 bf16 storage; compute: 0 float, 1 bf16 (prog's
-// weights already in that dtype; prog->bf16 is set from it). up is the
-// (nx+2k, ny+2k, nz+2k) padded field, out the (nx, ny, nz) interior;
-// periodic, bc and the domain-face mask edges (bit 0 x_lo .. bit 5 z_hi;
-// 63 for a whole-domain block) are read for k >= 2 only. Returns a
-// cudaError_t (0 on success); 1000 for bad arguments.
+// k: 1 (one update) or 2..4 (fused updates); spec: 0 generic (any
+// program of 1 to 27 terms), 1 the 7pt chain, 2 the 27pt chain (prog's
+// (src, row, dk) must be that chain's); dtype: 0 float, 1 bf16 storage;
+// compute: 0 float, 1 bf16 (prog's weights already in that dtype;
+// prog->bf16 is not read). up is the (nx+2k, ny+2k, nz+2k) padded field,
+// out the (nx, ny, nz) interior; periodic, bc and the domain-face mask
+// edges (bit 0 x_lo .. bit 5 z_hi; 63 for a whole-domain block) are read
+// for k >= 2 only. Returns a cudaError_t (0 on success); 1000 for bad
+// arguments.
 int heat3d_stream_launch(int k, int spec, int dtype, int compute,
                          const void* up, void* out, int nx, int ny, int nz,
                          int xchunk, int periodic, float bc, int edges,
@@ -738,12 +857,11 @@ int heat3d_stream_launch(int k, int spec, int dtype, int compute,
   if (nx < 1 || ny < 1 || nz < 1 || xchunk < 1 || prog == nullptr ||
       prog->n < 1 || prog->n > MAX_TERMS ||
       (spec == SPEC_7PT && !matches<SPEC_7PT>(*prog)) ||
-      (spec == SPEC_27PT && !matches<SPEC_27PT>(*prog))) {
+      (spec == SPEC_27PT && !matches<SPEC_27PT>(*prog)) ||
+      (spec == SPEC_GENERIC && !foldable(*prog))) {
     return 1000;
   }
-  Program p = *prog;
-  p.bf16 = compute == 1;
-  const Launch f{up, out, nx, ny, nz, xchunk, periodic, bc, edges, &p,
+  const Launch f{up, out, nx, ny, nz, xchunk, periodic, bc, edges, prog,
                  static_cast<cudaStream_t>(stream)};
   return with_instance(k, spec, dtype, compute, 1000, f);
 }

@@ -72,11 +72,12 @@ MEHRSTELLEN_KERNEL_OPS = 19
 # the storage dtype's code in the kernels' interface; the compute dtype's
 # code (F32Math / Bf16Math of csrc/stencil_common.cuh) is the same
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# Blocks a launch of the stream kernels' generic instance aims for
+# Blocks a launch of the stream kernels' compile-time instances aims for
 # (``_xchunk``): with the tile count below this, x is cut into chunks (each
 # costs 2*halo extra plane reads) so the card has several waves of blocks
-# to schedule. Every direct instance aims for _WAVES waves of the blocks
-# the card holds at once (``wave_xchunk``).
+# to schedule. Every direct instance and the stream kernels' generic one
+# aim for _WAVES waves of the blocks the card holds at once
+# (``wave_xchunk``).
 _TARGET_BLOCKS = 4096
 _WAVES = 16
 _MIN_XCHUNK = 32
@@ -275,8 +276,8 @@ def storage_bc(bc_value: float, dtype: torch.dtype) -> float:
 
 
 def _xchunk(shape, ty: int, tz: int) -> int:
-    """x-chunk length of a launch of the stream kernels' generic instance
-    over (nx, ny, nz) with (ty, tz) tiles."""
+    """x-chunk length of a launch of the stream kernels' compile-time
+    instances over (nx, ny, nz) with (ty, tz) tiles."""
     nx, ny, nz = shape
     tiles = -(-ny // ty) * -(-nz // tz)
     chunks = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-nx // _MIN_XCHUNK)))

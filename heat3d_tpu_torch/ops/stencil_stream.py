@@ -27,14 +27,15 @@ versions bitwise. The tap chain is ``stencil_direct``'s emission program.
 
 The kernel source has an instance with the chain fixed at compile time for
 each entry of :data:`CHAINS` (the build passes the table to ``nvcc``), and
-a generic instance that interprets any other program;
-:func:`stream_instance` picks one by comparing the emission program's
-``(src, row, dk)`` sequence with the table.
+a generic instance that runs any other program of 1 to 27 terms, folded
+into shared-memory offsets at launch; :func:`stream_instance` picks one by
+comparing the emission program's ``(src, row, dk)`` sequence with the
+table, and :func:`launch_instance` forces one for a measurement. A launch
+error raises: no launch falls back to another instance.
 
 Every instance runs in either compute dtype (``compute_dtype``: float32,
 or bf16 with each field read and each multiply and add rounded to bf16),
-as ``stencil_direct``'s: a compile-time instance of its own for each
-``CHAINS`` entry, the generic one by a flag of its program.
+as ``stencil_direct``'s: an instance of its own for each policy.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``
 (``apply_taps_stream2`` counts as ``apply_taps_streamk``, whose kernel it
@@ -68,6 +69,7 @@ from heat3d_tpu_torch.ops.stencil_direct import (
     compute_code,
     emission_program,
     storage_bc,
+    wave_xchunk,
 )
 from heat3d_tpu_torch.ops.stencil_eager import apply_taps_padded, pin_outside
 
@@ -78,7 +80,7 @@ STREAMK_DEPTHS = (2, 3, 4)
 # 0/1/2 plane x-1/x/x+1, 3 their sum; row 0/1/2 y-1/y/y+1, 3 the sum of
 # y-1 and y+1), keyed by the instance's code in the kernel's interface.
 # The build passes each to nvcc (``nvcc_defines``); code 0 is the generic
-# instance, which interprets any program.
+# instance, which runs any program.
 CHAINS = {
     # the 7pt stencil's plain lexicographic chain
     1: ("7pt", ((0, 1, 0), (1, 0, 0), (1, 1, -1), (1, 1, 0), (1, 1, 1),
@@ -198,6 +200,28 @@ def instance_resources(k: int, instance: int, dtype: torch.dtype,
             "blocks_per_sm": lib.heat3d_stream_blocks_per_sm(k, instance, *code)}
 
 
+@functools.lru_cache(maxsize=256)
+def _launch_xchunk(shape, k: int, inst: int, device: int, dtype: torch.dtype,
+                   compute_dtype: torch.dtype = torch.float32) -> int:
+    """The x-chunk of a launch of instance ``inst`` at depth k over the
+    interior ``shape``: for the generic instance :func:`wave_xchunk` from
+    its resident blocks on ``device`` (at 1024^3 fp32 k = 1 it ran 11% faster
+    than ``_xchunk``'s, the same at k = 2..4: ``scripts/torch_stream_probe.py
+    --generic``, PERF.md section 6), else ``_xchunk``."""
+    lib = _lib()
+    ty, tz = lib.heat3d_stream_tile_y(k, inst), lib.heat3d_stream_tile_z(k, inst)
+    if inst != GENERIC:
+        return _xchunk(shape, ty, tz)
+    with torch.cuda.device(device):
+        per_sm = lib.heat3d_stream_blocks_per_sm(k, inst, _DTYPE_CODES[dtype],
+                                                 compute_code(compute_dtype))
+    if per_sm < 1:
+        raise RuntimeError(f"stream instance (k={k}, {inst}, {dtype}, compute "
+                           f"{compute_dtype}) fits no SM")
+    resident = per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+    return wave_xchunk(shape[0], -(-shape[1] // ty) * -(-shape[2] // tz), resident)
+
+
 def _interior(up: torch.Tensor, k: int):
     if up.dim() != 3:
         raise ValueError(f"padded field must be 3-D, got shape {tuple(up.shape)}")
@@ -209,10 +233,16 @@ def _interior(up: torch.Tensor, k: int):
     return shape
 
 
-def _launch(wrapper, k, up, taps, periodic, bc_value, out,
-            edges=ALL_EDGES, compute_dtype=torch.float32) -> torch.Tensor:
-    """Launch instance ``stream_instance(taps)`` at depth k in
-    ``compute_dtype`` and count it on ``wrapper``."""
+def _launch(wrapper, k, up, taps, periodic, bc_value, out, edges=ALL_EDGES,
+            compute_dtype=torch.float32, instance=None, xchunk=None) -> torch.Tensor:
+    """Launch ``instance`` (default ``stream_instance(taps)``) at depth k
+    in ``compute_dtype`` with x-chunks of ``xchunk`` planes (default
+    ``_launch_xchunk``) and count it on ``wrapper``."""
+    if instance is not None and instance not in (GENERIC, *CHAINS):
+        raise ValueError(f"no stream kernel instance {instance} (generic {GENERIC}, "
+                         f"chains {sorted(CHAINS)})")
+    if xchunk is not None and xchunk < 1:
+        raise ValueError(f"xchunk must be >= 1, got {xchunk}")
     if up.device.type != "cuda":
         raise ValueError(f"no kernel for device {up.device}")
     shape = _interior(up, k)
@@ -223,10 +253,10 @@ def _launch(wrapper, k, up, taps, periodic, bc_value, out,
     lib = _lib()
     ccode = compute_code(compute_dtype)
     prog = chain_program(taps, compute_dtype)
-    inst = stream_instance(taps)
+    inst = stream_instance(taps) if instance is None else instance
     bc = storage_bc(bc_value, up.dtype)
-    xchunk = _xchunk(shape, lib.heat3d_stream_tile_y(k, inst),
-                     lib.heat3d_stream_tile_z(k, inst))
+    if xchunk is None:
+        xchunk = _launch_xchunk(shape, k, inst, up.device.index, up.dtype, compute_dtype)
     with torch.cuda.device(up.device):
         stream = torch.cuda.current_stream(up.device).cuda_stream
         err = lib.heat3d_stream_launch(
@@ -305,6 +335,33 @@ def apply_taps_stream2(
     :func:`apply_taps_streamk` (counterpart of ``apply_taps_pallas_stream2``)."""
     return apply_taps_streamk(up2, taps, 2, periodic, bc_value, out=out,
                               compute_dtype=compute_dtype)
+
+
+def launch_instance(
+    k: int,
+    instance: int,
+    up: torch.Tensor,
+    taps: np.ndarray,
+    periodic: bool = False,
+    bc_value: float = 0.0,
+    out: Optional[torch.Tensor] = None,
+    edges=ALL_EDGES,
+    xchunk: Optional[int] = None,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """:func:`apply_taps_stream` (k = 1) or :func:`apply_taps_streamk`
+    (k = 2..4) on a named kernel instance, for measurements: the generic
+    instance (:data:`GENERIC`) takes any chain of 1 to 27 terms, a
+    compile-time one (a :data:`CHAINS` code) only its own (else the launch
+    raises); ``xchunk`` forces the x-chunk length. CUDA tensors only;
+    counted on the wrapper as usual."""
+    if k != 1 and k not in STREAMK_DEPTHS:
+        raise ValueError(f"stream kernels take k in (1, *{STREAMK_DEPTHS}), got {k}")
+    taps = check_taps(taps)
+    edge_bits(edges)
+    wrapper = apply_taps_stream if k == 1 else apply_taps_streamk
+    return _launch(wrapper, k, up, taps, periodic, bc_value, out, edges, compute_dtype,
+                   instance, xchunk)
 
 
 KERNELS = (apply_taps_stream, apply_taps_streamk)

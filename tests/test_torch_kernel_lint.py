@@ -261,7 +261,7 @@ def test_a_refused_device_is_not_certified(tmp_path, monkeypatch):
 
 
 # entry names of a real build's compiler report (stencil_direct, _stream,
-# _fused): compile-time instances and the interpreted generic kernels
+# _fused): compile-time instances and the generic kernels
 _PTXAS = {
     "stencil_direct": {
         "_ZN50_GLOBAL__N__35b249fd_17_stencil_direct_cu_cbfb79c914direct_genericIfLi1ENS_"
@@ -272,8 +272,9 @@ _PTXAS = {
                                              "spill_loads": 4},
     },
     "stencil_stream": {
-        "_ZN50_GLOBAL__N__4d7c09ca_17_stencil_stream_cu_dd3a37df15streamk_genericIfLi3EEEvPKT_"
-        "PS1_iiiiifi7Program": {"registers": 32, "spill_stores": 8, "spill_loads": 8},
+        "_ZN50_GLOBAL__N__4d7c09ca_17_stencil_stream_cu_dd3a37df14stream_genericIfLi3ENS_"
+        "7F32MathEEEvPKT_PS3_iiiiifii11GenericArgs": {"registers": 32, "spill_stores": 8,
+                                                     "spill_loads": 8},
     },
     "stencil_fused": {
         "_ZN49_GLOBAL__N__6c7342df_16_stencil_fused_cu_3e2fcd3f12fused_kernelIfLi2EEEv9"
@@ -296,6 +297,7 @@ def test_resources_reads_spills_of_every_instance(monkeypatch):
     assert resources._spills("direct", 2, 3, "float32", True)["spill_stores"] == 4
     assert resources._spills("direct", 2, 3, "float32", False) is None
     assert resources._spills("stream", 3, 0, "float32", False)["spill_loads"] == 8
+    assert resources._spills("stream", 3, 0, "float32", True) is None
     assert resources._spills("stream", 2, 0, "float32", False) is None
     assert resources._spills("fused", 2, 0, "float32", True)["registers"] == 64
 

@@ -373,17 +373,88 @@ def test_stream_launch_counts_and_out_checks(cuda):
 def test_stream_instances_fit_and_check_alignment(cuda):
     """Every instance fits an SM; the specialised streamk K=4 instances keep
     four blocks of 256 threads on one (the design's register and shared
-    memory budget). A bf16 padded field must start on a 4-byte boundary
-    (its rows are copied as element pairs)."""
+    memory budget), the generic instance two at every k in fp32, in both
+    compute policies. A compile-time instance given another chain refuses
+    the launch and the wrapper raises (no fallback to another instance). A
+    bf16 padded field must start on a 4-byte boundary (its rows are copied
+    as element pairs)."""
     for k in (1, *ss.STREAMK_DEPTHS):
         for code in (ss.GENERIC, *ss.CHAINS):
-            for dtype in (torch.float32, torch.bfloat16):
-                r = ss.instance_resources(k, code, dtype)
-                assert r["blocks_per_sm"] >= (4 if code != ss.GENERIC and k == 4 else 1), \
-                    (k, code, dtype, r)
+            for dtype, cd in itertools.product((torch.float32, torch.bfloat16), repeat=2):
+                r = ss.instance_resources(k, code, dtype, cd)
+                want = (4 if code != ss.GENERIC and k == 4 else
+                        2 if code == ss.GENERIC and dtype == torch.float32 else 1)
+                assert r["blocks_per_sm"] >= want, (k, code, dtype, cd, r)
+    up = torch.rand((10, 10, 10), device=cuda)
+    ss.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="bad arguments"):
+        ss.launch_instance(1, 2, up, _taps("7pt"))
+    with pytest.raises(RuntimeError, match="bad arguments"):
+        ss.launch_instance(2, 1, up, _taps("27pt"))
+    assert ss.launch_counts() == {"apply_taps_stream": 0, "apply_taps_streamk": 0}
     flat = torch.zeros(10**3 + 1, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="4-byte boundary"):
         ss.apply_taps_stream(flat[1:].view(10, 10, 10), _taps("7pt"))
+
+
+# Dirichlet domain-edge masks of the stream generic cases: the whole domain,
+# an interior shard's and a mixed one
+_EDGE_MASKS = ((True,) * 6, (False,) * 6, (True, False, False, True, True, False))
+
+
+@pytest.mark.parametrize("program", ["7pt", "27pt", "f7", "fy0", "advection", "random27",
+                                     "zero-centre", "asym27"])
+def test_stream_generic_instance_equals_plain_version(cuda, monkeypatch, program):
+    """The stream kernels' generic instance forced
+    (``ss.launch_instance(k, 0, ...)``) at k = 1..4 on the 7pt and 27pt
+    chains, both factoring knobs' programs (``HEAT3D_FACTOR_7PT=1``,
+    ``HEAT3D_FACTOR_Y=0``: also as the wrapper picks it), the
+    advection-diffusion vx=2, random 27-term, zero-centre and asymmetric
+    27pt programs: random padded blocks of ragged interiors (extents below
+    2k+1, odd nz, y and z no multiple of the 38 x 62 .. 24 x 56 tiles) with
+    the wrapper's x-chunk and chunks of 3 and 1 planes, and the
+    special-value field, fp32/bf16 storage x fp32/bf16 compute x Dirichlet
+    0/0.3 under three edge masks and periodic, bitwise; every launch
+    counted on the generic instance."""
+    knobs = {"f7": {"HEAT3D_FACTOR_7PT": "1"}, "fy0": {"HEAT3D_FACTOR_Y": "0"}}
+    for key, value in knobs.get(program, {}).items():
+        monkeypatch.setenv(key, value)
+    progs = _generic_programs()
+    asym = _taps("27pt")
+    asym[0, 0, 0] *= 1.5
+    asym[2, 1, 0] *= 0.7
+    progs["asym27"] = asym
+    taps = progs.get(program, _taps("27pt" if program in ("27pt", "fy0") else "7pt"))
+    if program not in ("7pt", "27pt"):
+        assert ss.stream_instance(taps) == ss.GENERIC
+    rng = np.random.default_rng(17)
+    computes = (torch.float32, torch.bfloat16)
+    for k in (1, *ss.STREAMK_DEPTHS):
+        wrapper = ss.apply_taps_stream if k == 1 else ss.apply_taps_streamk
+        fields = [rng.standard_normal(tuple(m + 2 * k for m in shape)).astype(np.float32)
+                  for shape in ((1, 1, 1), (2, 3, 5), (5, 77, 125), (33, 17, 129))]
+        fields.append(_special_field((24 + 2 * k, 33 + 2 * k, 70 + 2 * k), 5))
+        for base, dtype, cd in itertools.product(fields, computes, computes):
+            up = torch.from_numpy(base).to(cuda).to(dtype)
+            for periodic, bcv in ((False, 0.0), (False, 0.3), (True, 0.0)):
+                for edges in _EDGE_MASKS if k > 1 and not periodic else _EDGE_MASKS[:1]:
+                    want = (apply_taps_padded(up, taps, compute_dtype=cd) if k == 1 else
+                            ss.apply_taps_streamk_ref(up, taps, k, periodic, bcv, edges, cd))
+                    ss.reset_launch_counts()
+                    for chunk in (None, 3, 1):
+                        got = ss.launch_instance(k, ss.GENERIC, up, taps, periodic, bcv,
+                                                 edges=edges, xchunk=chunk, compute_dtype=cd)
+                        torch.cuda.synchronize()
+                        assert _same(got, want), (program, k, tuple(up.shape), dtype, cd,
+                                                  periodic, bcv, edges, chunk)
+                    if program in knobs:
+                        got = (ss.apply_taps_stream(up, taps, compute_dtype=cd) if k == 1 else
+                               ss.apply_taps_streamk(up, taps, k, periodic, bcv, edges=edges,
+                                                     compute_dtype=cd))
+                        torch.cuda.synchronize()
+                        assert _same(got, want), (program, k, "as the wrapper picks it")
+                    n = 3 + (program in knobs)
+                    assert ss.generic_launch_counts()[wrapper.__name__] == n
 
 
 def _card_mesh(cuda, shape, local):

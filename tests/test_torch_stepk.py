@@ -31,10 +31,12 @@ from test_torch_solver import SHAPE, _configs, _golden, _pair
 from torch_port_checks import (
     BCS,
     DTYPES,
+    GENERIC_KINDS,
     _as_np,
     _field,
     _taps,
     assert_close_per_update,
+    generic_chain,
     on_mesh,
     ref_config,
 )
@@ -50,6 +52,39 @@ def test_streamk_matches_pallas_interpret(k, kind, dtype):
     ju, tu = _field(shape, 30 + k, jdtype)
     for periodic, bcv in BCS:
         cfg = ref_config(shape, kind, periodic, bcv, tb=k)
+        want = on_mesh(
+            lambda x: apply_taps_pallas_streamk(
+                ref_exchange(x, cfg, width=k), taps, k, cfg.mesh.axis_names,
+                periodic=periodic, bc_value=bcv, interpret=True),
+            cfg, ju)
+        bc = (config.BoundaryCondition.PERIODIC if periodic
+              else config.BoundaryCondition.DIRICHLET)
+        got = ss.apply_taps_streamk(exchange_halo(tu.to(tdtype), bc, bcv, k),
+                                    taps, k, periodic, bcv)
+        assert got.dtype == tdtype and tuple(got.shape) == shape
+        assert_close_per_update(
+            _as_np(got), np.asarray(want.astype(jnp.float32)), storage, k,
+            err_msg=f"k={k} {kind} {storage} periodic={periodic} bc={bcv}")
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: d[0])
+@pytest.mark.parametrize("kind", GENERIC_KINDS)
+@pytest.mark.parametrize("k", [3, 4])
+def test_streamk_generic_programs_match_pallas_interpret(k, kind, dtype, monkeypatch):
+    """Each ``GENERIC_KINDS`` program (the card's generic instance:
+    ``stream_instance`` picks it) through apply_taps_streamk at k = 3 and 4
+    (k = 2: tests/test_torch_stream.py) against the JAX
+    apply_taps_pallas_streamk in interpret mode, which traces the chain of
+    the same taps under the same knobs, for each of ``BCS``."""
+    storage, tdtype, jdtype = dtype
+    shape = (4, 5, 7)
+    knobs, taps = generic_chain(kind, shape)
+    for key, value in knobs.items():
+        monkeypatch.setenv(key, value)
+    assert ss.stream_instance(taps) == ss.GENERIC
+    ju, tu = _field(shape, 40 + k, jdtype)
+    for periodic, bcv in BCS:
+        cfg = ref_config(shape, "7pt", periodic, bcv, tb=k)
         want = on_mesh(
             lambda x: apply_taps_pallas_streamk(
                 ref_exchange(x, cfg, width=k), taps, k, cfg.mesh.axis_names,

@@ -28,10 +28,12 @@ from heat3d_tpu_torch.parallel.halo import exchange_halo
 from torch_port_checks import (
     BCS,
     DTYPES,
+    GENERIC_KINDS,
     _as_np,
     _field,
     _taps,
     assert_close_per_update,
+    generic_chain,
     on_mesh,
     ref_config,
 )
@@ -116,18 +118,66 @@ def test_stream2_matches_pallas_interpret(kind, dtype):
             err_msg=f"{kind} {storage} periodic={periodic} bc={bcv}")
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: d[0])
+@pytest.mark.parametrize("kind", GENERIC_KINDS)
+def test_stream_generic_programs_match_pallas_interpret(kind, dtype, monkeypatch):
+    """Each ``GENERIC_KINDS`` program (the card's generic instance:
+    ``stream_instance`` picks it) through apply_taps_stream and its
+    two-update form apply_taps_stream2, on the width-1 / width-2 exchange
+    of the same field under each of ``BCS``, against the JAX
+    apply_taps_pallas_stream / apply_taps_pallas_stream2 in interpret mode,
+    which trace the chain of the same taps under the same knobs (the
+    streamk depths 3 and 4: tests/test_torch_stepk.py)."""
+    storage, tdtype, jdtype = dtype
+    shape = (5, 6, 9)
+    knobs, taps = generic_chain(kind, shape)
+    for key, value in knobs.items():
+        monkeypatch.setenv(key, value)
+    assert ss.stream_instance(taps) == ss.GENERIC
+    ju, tu = _field(shape, 17, jdtype)
+    for periodic, bcv in BCS:
+        cfg = ref_config(shape, "7pt", periodic, bcv, tb=2)
+        what = f"{kind} {storage} periodic={periodic} bc={bcv}"
+        jup = jnp.asarray(np.asarray(on_mesh(lambda x: ref_exchange(x, cfg, width=1), cfg, ju)))
+        want = ref_pallas.apply_taps_pallas_stream(jup, taps, compute_dtype=jnp.float32,
+                                                   out_dtype=jdtype, interpret=True)
+        got = ss.apply_taps_stream(exchange_halo(tu.to(tdtype), _bc(periodic), bcv, 1), taps)
+        assert got.dtype == tdtype and tuple(got.shape) == shape
+        assert_close_per_update(_as_np(got), np.asarray(want.astype(jnp.float32)), storage,
+                                1, err_msg=f"stream {what}")
+        want = on_mesh(
+            lambda x: ref_pallas.apply_taps_pallas_stream2(
+                ref_exchange(x, cfg, width=2), taps, cfg.mesh.axis_names,
+                periodic=periodic, bc_value=bcv, interpret=True),
+            cfg, ju)
+        got = ss.apply_taps_stream2(exchange_halo(tu.to(tdtype), _bc(periodic), bcv, 2), taps,
+                                    periodic, bcv)
+        assert got.dtype == tdtype
+        assert_close_per_update(_as_np(got), np.asarray(want.astype(jnp.float32)), storage,
+                                2, err_msg=f"stream2 {what}")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("kind", ["7pt", "27pt"])
 @pytest.mark.parametrize("k", [2, 3, 4])
 def test_streamk_plain_equals_k_direct_updates_bitwise(k, kind, dtype):
     """The streamk plain version over a width-k exchange is k plain direct
     updates, bitwise: ring cells hold what the unfused sequence sees.
-    Shapes include an extent of exactly max(3, k)."""
+    Shapes include an extent of exactly max(3, k). Also for the centre
+    shard of a 3 x 1 x 3 split of the field (an interior shard: its
+    edge mask keeps the x and z domain faces off, and its ring cells there
+    are the neighbours' genuine values): its block of the width-k exchange
+    of the whole field through streamk equals its part of the k direct
+    updates."""
     for shape in ((max(3, k), 6, 9), (7, max(3, k), 5)):
         taps = _taps(kind, shape)
         u = torch.from_numpy(
             np.random.default_rng(k).standard_normal(shape).astype(np.float32)
         ).to(dtype)
+        whole = torch.from_numpy(np.random.default_rng(k + 10).standard_normal(
+            (3 * shape[0], shape[1], 3 * shape[2])).astype(np.float32)).to(dtype)
+        x0, z0 = shape[0], shape[2]
+        edges = (False, False, True, True, False, False)
         for periodic, bcv in BCS:
             want = u
             for _ in range(k):
@@ -135,6 +185,14 @@ def test_streamk_plain_equals_k_direct_updates_bitwise(k, kind, dtype):
             upk = exchange_halo(u, _bc(periodic), bcv, k)
             got = ss.apply_taps_streamk(upk, taps, k, periodic, bcv)
             assert torch.equal(got, want), (shape, periodic, bcv)
+            want = whole
+            for _ in range(k):
+                want = sd.apply_taps_direct_ref(want, taps, periodic, bcv)
+            block = exchange_halo(whole, _bc(periodic), bcv, k)[
+                x0:2 * x0 + 2 * k, :, z0:2 * z0 + 2 * k].contiguous()
+            got = ss.apply_taps_streamk(block, taps, k, periodic, bcv, edges=edges)
+            assert torch.equal(got, want[x0:2 * x0, :, z0:2 * z0]), (shape, periodic, bcv,
+                                                                   "centre shard")
 
 
 def test_streamk_wrapper_checks_and_cpu_counts():

@@ -132,3 +132,27 @@ def test_cpu_path_counts_no_launch_cells_or_generic():
         ss.apply_taps_streamk(up, taps, 2, False, 0.3)
     zero = {"apply_taps_stream": 0, "apply_taps_streamk": 0}
     assert ss.launch_counts() == ss.generic_launch_counts() == ss.cell_counts() == zero
+
+
+def test_launch_instance_checks_on_cpu():
+    """``launch_instance`` forces a kernel instance for a measurement on the
+    card: a CPU tensor raises (no plain-version fallback), and so do an
+    instance code with no kernel, a depth outside 1..4 and an x-chunk below
+    one plane; nothing is counted."""
+    ss.reset_launch_counts()
+    taps = _taps("7pt")
+    up = torch.zeros((8, 8, 8))
+    for k in (1, 2, 4):
+        with pytest.raises(ValueError, match="no kernel for device cpu"):
+            ss.launch_instance(k, ss.GENERIC, up, taps)
+    with pytest.raises(ValueError, match="no stream kernel instance 3"):
+        ss.launch_instance(2, 3, up, taps)
+    with pytest.raises(ValueError, match="no stream kernel instance -1"):
+        ss.launch_instance(1, -1, up, taps)
+    with pytest.raises(ValueError, match="k in"):
+        ss.launch_instance(5, ss.GENERIC, up, taps)
+    with pytest.raises(ValueError, match="xchunk must be >= 1"):
+        ss.launch_instance(3, ss.GENERIC, up, taps, xchunk=0)
+    with pytest.raises(ValueError, match="edges must be 6 flags"):
+        ss.launch_instance(2, ss.GENERIC, up, taps, edges=(True,) * 5)
+    assert ss.launch_counts() == {"apply_taps_stream": 0, "apply_taps_streamk": 0}
