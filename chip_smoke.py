@@ -153,11 +153,13 @@ non-zero without one. Phases, each printing its own lines:
 
 11. ``families``, after the main path, the explicit equation families at
    1024^3 fp32 (``_FAMILY_ROWS``: ``aniso-diffusion`` tb 2 and 1,
-   ``advection-diffusion`` vx=2 tb 1 on (1,1,1) and faces-direct on (2,2,2)
-   and tb 2 and 4 on (1,1,1), ``reaction-diffusion`` rate 0.5 27pt tb 2
-   and 7pt tb 4): each row's kernel on a random field (the (2,2,2) row: on each
-   shard) held bitwise to its plain version for the three boundary
-   settings, the (2,2,2) advection step (kernel and the shells at
+   ``advection-diffusion`` vx=2 tb 1 on (1,1,1) and faces-direct on (2,2,2),
+   tb 2 and 4 on (1,1,1) and tb 2 on (8,1,1) ``--halo dma --overlap``
+   (``fused-dma2``: the fused generic instance), ``reaction-diffusion``
+   rate 0.5 27pt tb 2 and 7pt tb 4): each row's kernel on a random field
+   (the sharded rows: on each shard; the fused row: one launch over the
+   shards, Dirichlet 0.3 and periodic) held bitwise to its plain version
+   for the three boundary settings, the (2,2,2) advection step (kernel and the shells at
    asymmetric taps) held bitwise to the (1,1,1) step; then, with the launch
    counts zeroed, each row through ``bench_throughput`` (Gcell/s, ms per
    superstep beside its bound, the instance its launches took: a family
@@ -543,40 +545,36 @@ def _stream_ptxas() -> dict:
 
 
 def _fused_ptxas() -> dict:
-    """Registers and spills (bytes) of each fused kernel instance, from the
-    compiler's report, keyed ``h<halo>_<instance>_<dtype>`` (the
-    compile-time instances by chain, + ``BF16C`` in bf16 compute; the
-    interpreted kernels, one for both compute dtypes, as ``generic``)."""
+    """Registers and spills (bytes) of each fused instance, keyed
+    ``h<halo>_<instance>_<dtype>`` (+ ``BF16C``): the compile-time ones by
+    chain, the generic sweep ``fused_generic<T,H,M>`` as ``generic``."""
     import re
 
     from heat3d_tpu_torch.ops import _build
 
     out = _ptxas("stencil_fused", "fused_chain_kernel", "h")
     for entry, r in _build.ptxas_report("stencil_fused").items():
-        m = re.search(r"fused_kernelI(f|13__nv_bfloat16)Li(\d)E", entry)
+        m = re.search(r"fused_genericI(f|13__nv_bfloat16)Li(\d)E", entry)
         if m:
-            out[f"h{m.group(2)}_generic_{_DTYPE_NAMES[m.group(1)]}"] = r
+            out[f"h{m.group(2)}_generic_{_DTYPE_NAMES[m.group(1)]}{_compute_tag(entry)}"] = r
     return out
 
 
-def _computes(code: int, generic_policies: bool = False):
-    """(compute dtype, key suffix) of the instances of ``code``: both
-    policies for a compile-time instance and for the direct and stream
-    kernels' generic ones (``generic_policies``); the fused generic
-    instances serve both compute dtypes with one kernel, reported once."""
+def _computes():
+    """(compute dtype, key suffix) of the two instances, one a policy, that
+    every instance code of every kernel has."""
     import torch
 
-    from heat3d_tpu_torch.ops.stencil_stream import GENERIC
-
-    both = ((torch.float32, ""), (torch.bfloat16, BF16C))
-    return both if code != GENERIC or generic_policies else both[:1]
+    return ((torch.float32, ""), (torch.bfloat16, BF16C))
 
 
 def phase_build() -> dict:
     """Build every source; print the compiler's report and each source's
     build seconds, each stream, direct and fused instance's shared memory,
-    registers, spills and resident blocks per SM (fp32 and bf16 compute).
-    Returns those, keyed ``k<k>_<instance>_<dtype>`` (stream),
+    registers, spills and resident blocks per SM (fp32 and bf16 compute);
+    fails where a generic stream instance holds under two fp32 blocks an
+    SM or spills, or a generic fused one under three or spills. Returns
+    those, keyed ``k<k>_<instance>_<dtype>`` (stream),
     ``h<halo>_<instance>_<dtype>`` (direct) and
     ``fused_h<halo>_<instance>_<dtype>``, + ``BF16C`` for a bf16-compute
     instance."""
@@ -598,7 +596,7 @@ def phase_build() -> dict:
     for k in (1, *ss.STREAMK_DEPTHS):
         for code in (ss.GENERIC, *ss.CHAINS):
             for dtype in (torch.float32, torch.bfloat16):
-                for cd, tag in _computes(code, generic_policies=True):
+                for cd, tag in _computes():
                     key = f"k{k}_{_instance_name(code)}_{str(dtype)[6:]}{tag}"
                     resources[key] = {**ss.instance_resources(k, code, dtype, cd),
                                       **{f: ptxas.get(key, {}).get(f) for f in spills[1:]}}
@@ -616,7 +614,7 @@ def phase_build() -> dict:
     for h in (1, 2):
         for code in (ss.GENERIC, *ss.CHAINS, sd.MEHRSTELLEN):
             for dtype in (torch.float32, torch.bfloat16):
-                for cd, tag in _computes(code, generic_policies=True):
+                for cd, tag in _computes():
                     key = f"h{h}_{_instance_name(code)}_{str(dtype)[6:]}{tag}"
                     direct[key] = {**sd.instance_resources(h, code, dtype, cd),
                                    **{f: ptxas.get(key, {}).get(f) for f in spills[1:]}}
@@ -630,13 +628,20 @@ def phase_build() -> dict:
     for h in (1, 2):
         for code in (ss.GENERIC, *ss.CHAINS):
             for dtype in (torch.float32, torch.bfloat16):
-                for cd, tag in _computes(code):
+                for cd, tag in _computes():
                     key = f"h{h}_{_instance_name(code)}_{str(dtype)[6:]}{tag}"
                     fused[key] = {**fd.instance_resources(h, code, dtype, cd),
                                   **{f: ptxas.get(key, {}).get(f) for f in spills[1:]}}
                     _check(fused[key]["blocks_per_sm"] > 0,
                            f"fused instance {key} fits no SM: {fused[key]}")
-    _check(len(ptxas) == 20, f"compiler report of the fused instances: {sorted(ptxas)}")
+                    # the generic sweep's budget: three fp32 blocks an SM
+                    # (cooperative residency: every block of the grid), no
+                    # spills
+                    _check(code != ss.GENERIC or (
+                        (dtype != torch.float32 or fused[key]["blocks_per_sm"] >= 3)
+                        and fused[key]["spill_stores"] == 0),
+                        f"generic fused instance {key} over its budget: {fused[key]}")
+    _check(len(ptxas) == 24, f"compiler report of the fused instances: {sorted(ptxas)}")
     _say("build", fused_instances=fused)
     resources.update({f"fused_{k}": v for k, v in fused.items()})
     return resources
@@ -2204,6 +2209,67 @@ def _hold_fused(worst, name, got, want, what):
         _hold(worst, name, g, w, what)
 
 
+# the fused kernels' generic battery: (mesh, global field, send ranges a
+# face): the x-slab of the main path cut to 64 x 40 x 70, (4,1,1) with
+# three ranges, the 3D route's (2,2,2) (one update) and the ragged, odd
+# ny*nz (8,77,125) over (2,1,1) (bf16 planes, the landed ones too, start
+# on either parity)
+_FUSED_GENERIC_MESHES = (((8, 1, 1), (64, 40, 70), 1), ((4, 1, 1), (16, 20, 70), 3),
+                         ((2, 2, 2), (12, 20, 70), 1), ((2, 1, 1), (8, 77, 125), 3))
+# the programs it forces on the generic instance (``_stream_generic_programs``)
+_FUSED_GENERIC_PROGRAMS = ("advection", "asym27")
+
+
+def _compare_fused_generic(worst: dict, cd) -> int:
+    """The fused kernels (``_fused_names`` of each mesh) on the generic
+    instance, forced (``fd.launch_instance(0, ...)``) on each program of
+    ``_FUSED_GENERIC_PROGRAMS`` over ``_FUSED_GENERIC_MESHES`` (fp32/bf16
+    storage) and over (8,1,1) on ``_special_field`` (fp32 storage), in
+    compute dtype ``cd``, Dirichlet 0.3 and periodic: each launch bitwise
+    against its plain version (NaN in the same cells) and counted on the
+    generic instance. Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    from heat3d_tpu_torch.ops import stencil_dma_fused as fd
+    from heat3d_tpu_torch.parallel.plan import partition_bounds
+
+    progs = _stream_generic_programs()
+    fields = [(mesh_shape, parts, np.random.default_rng(23).standard_normal(shape)
+               .astype(np.float32), dtype)
+              for mesh_shape, shape, parts in _FUSED_GENERIC_MESHES
+              for dtype in (torch.float32, torch.bfloat16)]
+    fields.append(((8, 1, 1), 1, _special_field((64, 40, 70), 15), torch.float32))
+    n = 0
+    for mesh_shape, parts, base, dtype in fields:
+        local = tuple(g // p for g, p in zip(base.shape, mesh_shape))
+        mesh = _card_mesh(mesh_shape, local)
+        us = _split(torch.from_numpy(base).cuda().to(dtype), mesh)
+        bounds = partition_bounds(local[1], parts) if parts > 1 else None
+        for prog, (periodic, bcv) in itertools.product(_FUSED_GENERIC_PROGRAMS,
+                                                       ((False, 0.3), (True, 0.0))):
+            taps = progs[prog]
+            for name in _fused_names(mesh_shape, local[0]):
+                _, plain = _fused_pair(name, cd=cd)
+                state = fd.FusedState(mesh, _FUSED[name][0], dtype, periodic, bounds)
+                before = _generic_counts()[name]
+                got = fd.launch_instance(0, us, taps, mesh, state, periodic, bcv,
+                                         wrapper=_fused_wrapper(name), compute_dtype=cd)
+                want = plain(us, taps, mesh, None, periodic, bcv)
+                fd.raise_if_timed_out()
+                for g, w in zip(got, want):
+                    _hold_nan(worst, name, g, w,
+                              f"generic {prog} on {mesh_shape} {tuple(base.shape)} {dtype} "
+                              f"compute {cd} periodic={periodic} ranges {state.bounds}")
+                _check(_generic_counts()[name] == before + 1,
+                       f"{name} {prog}: not counted on the generic instance")
+                n += 1
+                del got, want, state
+        del us
+    torch.cuda.empty_cache()
+    return n
+
+
 def _fused_burst(worst, mesh, name, base_us, periodic, bcv, n=50):
     """``n`` launches of fused kernel ``name`` in a row on one state, each
     shard's new input made and its output copied out on the shard's own
@@ -2262,9 +2328,10 @@ def phase_compare_fused(worst: dict) -> None:
     shapes (1024^3 over (8,1,1), (4,1,1) and (2,2,2), the landed ghosts
     too); (8,77,125) over (2,1,1), a ragged, odd ny*nz (bf16 planes, landed
     ones too, start on either parity) with sends whole and in two and
-    three ranges, the same settings; 50 launches in a row; the overlap
-    routes' 128^3 solves against the
-    (1,1,1) solve; and at 1024^3 against the (1,1,1) solve: the (8,1,1)
+    three ranges, the same settings; 50 launches in a row; the generic
+    instance forced on the generic programs (``_compare_fused_generic``);
+    the overlap routes' 128^3 solves against the (1,1,1) solve; and at
+    1024^3 against the (1,1,1) solve: the (8,1,1)
     tb=2 run whose tb=1 state is built mid-run on busy streams, the (2,2,2)
     3D fused route and the (2,2,2) overlap split."""
     import numpy as np
@@ -2345,6 +2412,7 @@ def phase_compare_fused(worst: dict) -> None:
     bursts = (_fused_burst(worst, mesh, "apply_step_fused_dma", base_us, False, 0.3)
               + _fused_burst(worst, mesh, "apply_superstep_fused_rdma", base_us, True, 0.0))
     del base_us
+    generic = _compare_fused_generic(worst, torch.float32)
 
     # 1024^3, 11 steps, against the (1,1,1) solve: (8,1,1) tb=2 builds the
     # tb=1 state of the remainder step while the supersteps still run on the
@@ -2393,7 +2461,8 @@ def phase_compare_fused(worst: dict) -> None:
                f"{kind} {storage} periodic={periodic}: max err "
                f"{float(np.abs(got - want).max())}")
         solves.append([list(mesh_shape), knobs, tb, no_direct, kind, storage, periodic])
-    _say("compare_fused", cases=cases, ghost_cases=ghosts, launches_in_a_row=bursts,
+    _say("compare_fused", cases=cases, ghost_cases=ghosts, generic_cases=generic,
+         launches_in_a_row=bursts,
          mid_run_state=True, overlap_vs_single_solves=solves,
          full_width_vs_single_solves=full_solves, bitwise=True,
          max_abs_err={k: worst[k] for k in _FUSED}, launches=ops.launch_counts(),
@@ -2443,7 +2512,9 @@ def phase_compare_bf16(worst: dict) -> None:
     instance on the default chain) at 128^3, fused over (4,1,1) too; the
     fused one- and two-update kernels over (8,1,1), the RDMA ones over
     (4,1,1) with the plan's sub-blocks (floor 0 and the default), and
-    (8,77,125) over (2,1,1) in one and three send ranges; the Mehrstellen
+    (8,77,125) over (2,1,1) in one and three send ranges; the fused
+    generic instance forced on the generic programs
+    (``_compare_fused_generic``); the Mehrstellen
     instances at the two-update instance's ragged shapes (``_QR_SHAPES``);
     and every instance on a field of subnormals, signed zeros, infinities
     and overflowing values (``_compare_bf16_special``)."""
@@ -2458,7 +2529,7 @@ def phase_compare_bf16(worst: dict) -> None:
     t0 = time.perf_counter()
     bf = torch.bfloat16
     cases = {"direct_ragged": 0, "kernels": 0, "mehrstellen": 0, "generic": 0, "fused": 0,
-             "special_values": 0}
+             "fused_generic": 0, "special_values": 0}
     for shape in _QR_SHAPES:
         base = np.random.default_rng(17).standard_normal(shape).astype(np.float32)
         for dtype in (torch.float32, torch.bfloat16):
@@ -2602,6 +2673,7 @@ def phase_compare_bf16(worst: dict) -> None:
             cases["fused"] += 1
     del base, us
     torch.cuda.empty_cache()
+    cases["fused_generic"] = _compare_fused_generic(worst, bf)
     _say("compare_bf16", cases=cases, bitwise=True, max_abs_err=worst,
          compute_bf16_launches=_bf16_counts(), seconds=time.perf_counter() - t0)
 
@@ -2692,8 +2764,11 @@ def phase_fused_times(bw: float, worst: dict, resources: dict) -> dict:
     and written once; with the instance's registers, spills and resident
     blocks per SM. Each kernel runs on its compile-time 7pt instance (also
     at 1 to 12 interior x-chunks a shard, ``ms_by_xchunks``) and, timed in
-    the same call, on the generic instance forced (the first design); the
-    DMA kernels also over (2,1,1) (``ms_on_2x1x1``: two 512-plane shards,
+    the same call, on the generic instance forced on the 7pt chain and on
+    the advection-diffusion vx=2 program (``generic_ms``,
+    ``generic_advection_ms``), which must stay within 1.6x (one update) /
+    2.0x (two) of the compile-time instance; the DMA kernels also over
+    (2,1,1) (``ms_on_2x1x1``: two 512-plane shards,
     little skin and push). Each timed launch is held bitwise to its plain
     version. The one-update kernels' result over all shards is one update
     of the 1024^3 field: their library call is one cuDNN convolution (TF32
@@ -2725,7 +2800,7 @@ def phase_fused_times(bw: float, worst: dict, resources: dict) -> dict:
         want = plain(us, taps, mesh, None, False, 0.0)
         inst = fd.fused_instance(k, taps)
 
-        def go(instance=None, dst=outs, xchunk=None):
+        def go(instance=None, dst=outs, xchunk=None, taps=taps):
             mesh.fork()
             if instance is None:
                 kern(us, taps, mesh, state, False, 0.0, outs=dst)
@@ -2744,7 +2819,7 @@ def phase_fused_times(bw: float, worst: dict, resources: dict) -> dict:
                        "send_ranges": [list(b) for b in state.bounds],
                        "instance": _instance_name(inst),
                        "kernel": (f"fused_chain_kernel<float,{k},{_instance_name(inst)}>"
-                                  if inst else f"fused_kernel<float,{k}>"),
+                                  if inst else f"fused_generic<float,{k},F32Math>"),
                        "xchunk": fd._launch_xchunk(k, inst, tuple(mesh.local_shape),
                                                    len(mesh), 0, torch.float32),
                        **{f: res[f] for f in ("blocks_per_sm", "registers", "spill_stores",
@@ -2759,18 +2834,30 @@ def phase_fused_times(bw: float, worst: dict, resources: dict) -> dict:
                         f"{c} x-chunks at {n}^3 on {mesh_shape}")
         times[name]["ms_by_xchunks"] = sweep
         del swept
+        # the generic instance forced on the 7pt chain and on the
+        # advection-diffusion vx=2 program, each last launch held bitwise
         outs_generic = [torch.empty_like(u) for u in us]
-        generic_ms = _time_ms(lambda: go(0, outs_generic), iters=10)
-        _hold_fused(worst, name, outs_generic, want,
-                    f"generic instance at {n}^3 on {mesh_shape}")
         gres = resources[f"fused_h{k}_generic_float32"]
         times[name]["generic"] = {
-            "ms": generic_ms, "xchunk": fd._launch_xchunk(k, 0, tuple(mesh.local_shape),
-                                                          len(mesh), 0, torch.float32),
+            "kernel": f"fused_generic<float,{k},F32Math>",
+            "xchunk": fd._launch_xchunk(k, 0, tuple(mesh.local_shape), len(mesh), 0,
+                                        torch.float32),
             **{f: gres[f] for f in ("blocks_per_sm", "registers", "spill_stores",
                                     "spill_loads")}}
-        _check(ms < generic_ms, f"{name}: compile-time instance {ms} ms, generic "
-                                f"{generic_ms} ms at {n}^3 on {mesh_shape}")
+        for key, t in (("generic", taps), ("generic_advection", _advection_taps(n))):
+            gms = _time_ms(lambda: go(0, outs_generic, taps=t), iters=10)
+            _hold_fused(worst, name, outs_generic,
+                        want if t is taps else plain(us, t, mesh, None, False, 0.0),
+                        f"{key} instance at {n}^3 on {mesh_shape}")
+            times[name][f"{key}_ms"] = gms
+            times[name][f"{key}_bound_ms"] = fused_bound(n, mesh_shape, k, 4,
+                                                         flops_per_update(t), bw)[0]
+        # the generic sweep within 1.6x (one update) / 2.0x (two) of the
+        # compile-time instance: the first design ran 2.3x / 3.7x
+        limit = 1.6 if k == 1 else 2.0
+        _check(times[name]["generic_ms"] <= limit * ms,
+               f"{name}: generic instance {times[name]['generic_ms']} ms over {limit} x "
+               f"the compile-time instance's {ms} ms at {n}^3 on {mesh_shape}")
         del outs_generic
         if k == 1:
             torch.backends.cudnn.allow_tf32 = False
@@ -3707,21 +3794,26 @@ def phase_main_path(bw: float) -> dict:
 
 
 # the families phase's rows at 1024^3 fp32, every shard on cuda:0: (equation,
-# eq_params, stencil, time_blocking, mesh, the kernel the route launches)
+# eq_params, stencil, time_blocking, mesh, the kernel the route launches,
+# the solver's route knobs)
+_OVERLAP_DMA = (("halo", "dma"), ("overlap", True))
 _FAMILY_ROWS = (
-    ("aniso-diffusion", (), "7pt", 2, (1, 1, 1), "apply_taps_direct2"),
-    ("aniso-diffusion", (), "7pt", 1, (1, 1, 1), "apply_taps_direct"),
-    ("advection-diffusion", (("vx", 2.0),), "7pt", 1, (1, 1, 1), "apply_taps_direct"),
-    ("advection-diffusion", (("vx", 2.0),), "7pt", 1, _MESH, "apply_taps_direct"),
-    ("advection-diffusion", (("vx", 2.0),), "7pt", 2, (1, 1, 1), "apply_taps_direct2"),
-    ("advection-diffusion", (("vx", 2.0),), "7pt", 4, (1, 1, 1), "apply_taps_streamk"),
-    ("reaction-diffusion", (("rate", 0.5),), "27pt", 2, (1, 1, 1), "apply_taps_direct2"),
-    ("reaction-diffusion", (("rate", 0.5),), "7pt", 4, (1, 1, 1), "apply_taps_streamk"),
+    ("aniso-diffusion", (), "7pt", 2, (1, 1, 1), "apply_taps_direct2", ()),
+    ("aniso-diffusion", (), "7pt", 1, (1, 1, 1), "apply_taps_direct", ()),
+    ("advection-diffusion", (("vx", 2.0),), "7pt", 1, (1, 1, 1), "apply_taps_direct", ()),
+    ("advection-diffusion", (("vx", 2.0),), "7pt", 1, _MESH, "apply_taps_direct", ()),
+    ("advection-diffusion", (("vx", 2.0),), "7pt", 2, (1, 1, 1), "apply_taps_direct2", ()),
+    ("advection-diffusion", (("vx", 2.0),), "7pt", 4, (1, 1, 1), "apply_taps_streamk", ()),
+    ("advection-diffusion", (("vx", 2.0),), "7pt", 2, (8, 1, 1), "apply_superstep_fused_dma",
+     _OVERLAP_DMA),
+    ("reaction-diffusion", (("rate", 0.5),), "27pt", 2, (1, 1, 1), "apply_taps_direct2", ()),
+    ("reaction-diffusion", (("rate", 0.5),), "7pt", 4, (1, 1, 1), "apply_taps_streamk", ()),
 )
 _FAMILY_KERNELS = ("apply_taps_direct", "apply_taps_direct2", "apply_taps_streamk")
 
 
-def _family_cfg(n, equation, params, kind, tb, mesh=(1, 1, 1), periodic=False, bcv=0.0):
+def _family_cfg(n, equation, params, kind, tb, mesh=(1, 1, 1), periodic=False, bcv=0.0,
+                knobs=()):
     from heat3d_tpu_torch.core.config import (
         GridConfig, MeshConfig, SolverConfig, StencilConfig,
     )
@@ -3729,7 +3821,15 @@ def _family_cfg(n, equation, params, kind, tb, mesh=(1, 1, 1), periodic=False, b
     return SolverConfig(grid=GridConfig.cube(n),
                         stencil=StencilConfig(kind=kind, bc=_bc(periodic), bc_value=bcv),
                         mesh=MeshConfig(shape=mesh), time_blocking=tb, equation=equation,
-                        eq_params=params)
+                        eq_params=params, **dict(knobs))
+
+
+def _knob_argv(knobs) -> list:
+    """The command line's flags of the solver's route knobs."""
+    argv = []
+    for name, value in knobs:
+        argv += [f"--{name.replace('_', '-')}"] + ([] if value is True else [str(value)])
+    return argv
 
 
 def _eq_argv(equation, params):
@@ -3760,8 +3860,11 @@ def _hold_families(worst: dict, n: int) -> int:
 
     cases = 0
     u = _device_random((n, n, n), 12)
-    for equation, params, kind, tb, mesh, name in _FAMILY_ROWS:
+    for equation, params, kind, tb, mesh, name, _ in _FAMILY_ROWS:
         taps = eqn.solver_taps(_family_cfg(n, equation, params, kind, tb))
+        if name in _FUSED:
+            cases += _hold_family_fused(worst, name, u, taps, mesh)
+            continue
         blocks = [u] if mesh == (1, 1, 1) else _split(u, _card_mesh(mesh, (n // 2,) * 3))
         for periodic, bcv in _BCS:
             for i, x in enumerate(blocks):
@@ -3795,6 +3898,30 @@ def _hold_families(worst: dict, n: int) -> int:
     return cases
 
 
+def _hold_family_fused(worst: dict, name: str, u, taps, mesh_shape) -> int:
+    """Fused kernel ``name`` (the family row's) over ``u`` split on
+    ``mesh_shape``, one launch over every shard for Dirichlet 0.3 and
+    periodic, bitwise against its plain version, each launch counted on the
+    generic instance where ``stream_instance`` names it. Returns the number
+    of cases."""
+    from heat3d_tpu_torch.ops import stencil_stream as ss
+
+    mesh = _card_mesh(mesh_shape, tuple(g // p for g, p in zip(u.shape, mesh_shape)))
+    us = _split(u, mesh)
+    kern, plain = _fused_pair(name)
+    generic = ss.stream_instance(taps) == ss.GENERIC
+    for periodic, bcv in ((False, 0.3), (True, 0.0)):
+        state = _fused_state(mesh, name, u.dtype, periodic)
+        before = _generic_counts()[name]
+        got = kern(us, taps, mesh, state, periodic, bcv)
+        _hold_fused(worst, name, got, plain(us, taps, mesh, None, periodic, bcv),
+                    f"family row on {mesh_shape} periodic={periodic} bc={bcv}")
+        _check(_generic_counts()[name] - before == generic,
+               f"{name} family row: generic launches {_generic_counts()[name] - before}")
+        del got, state
+    return 2
+
+
 def phase_families(bw: float, worst: dict, n: int = 1024, golden_n: int = 128) -> dict:
     """The explicit equation families at full width through the kernels:
     ``_hold_families``, then with the launch counts zeroed each row of
@@ -3811,8 +3938,8 @@ def phase_families(bw: float, worst: dict, n: int = 1024, golden_n: int = 128) -
     t0 = time.perf_counter()
     cases = _hold_families(worst, n)
     ops.reset_launch_counts()
-    for equation, params, kind, tb, mesh, name in _FAMILY_ROWS:
-        cfg = _family_cfg(n, equation, params, kind, tb, mesh)
+    for equation, params, kind, tb, mesh, name, knobs in _FAMILY_ROWS:
+        cfg = _family_cfg(n, equation, params, kind, tb, mesh, knobs=knobs)
         taps = eqn.solver_taps(cfg)
         code = ss.stream_instance(taps)
         before = _generic_counts()[name]
@@ -3827,7 +3954,7 @@ def phase_families(bw: float, worst: dict, n: int = 1024, golden_n: int = 128) -
             passes = "exchange" if route == "streamk" else None
         else:
             b_ms, by, _ = sharded_superstep_bound(route, n, mesh, tb, 4, flops, bw)
-            passes = "faces"
+            passes = "fused" if route.startswith("fused") else "faces"
         _check(launches > 0 and generic == (launches if code == ss.GENERIC else 0),
                f"{equation} {kind} tb={tb}: {launches} {name} launches, {generic} generic "
                f"(instance {_instance_name(code)}): {row}")
@@ -3843,11 +3970,11 @@ def phase_families(bw: float, worst: dict, n: int = 1024, golden_n: int = 128) -
         _BENCH_ROWS.append(dict(row))
         del row
         torch.cuda.empty_cache()
-    for equation, params, kind, tb, mesh, name in _FAMILY_ROWS:
+    for equation, params, kind, tb, mesh, name, knobs in _FAMILY_ROWS:
         _golden_cli(["--grid", str(golden_n), "--steps", "20", "--stencil", kind,
                      "--time-blocking",
                      str(tb), *_eq_argv(equation, params), "--mesh", *map(str, mesh),
-                     "--device", "cuda:0"],
+                     *_knob_argv(knobs), "--device", "cuda:0"],
                     name, equation=equation, eq_params=dict(params), stencil=kind,
                     mesh=list(mesh), time_blocking=tb, gate=1e-5)
     launches = ops.launch_counts()

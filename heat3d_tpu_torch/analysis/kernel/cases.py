@@ -9,7 +9,8 @@ and 2 (rows 1–2; the Mehrstellen instances 1m/2m under
 kernels over (4,1,1) with the partitioned plan's send ranges (rows 11–12):
 7pt and 27pt, each compile-time instance also in bf16 compute, bf16
 storage, and the generic instance forced as ``chip_smoke.py`` forces it
-(``HEAT3D_FACTOR_7PT=1``; the direct kernels' also in bf16 compute). Extents are odd (37×41×43 a shard), so every
+(``HEAT3D_FACTOR_7PT=1``; the direct and fused kernels' also in bf16
+compute). Extents are odd (37×41×43 a shard), so every
 kernel runs its tails. ``judged_cases("full")`` is the same kernels at the
 main path's shapes: 1024³ on one shard, (2,2,2) of 512³, (8,1,1) of
 128×1024².
@@ -97,12 +98,12 @@ _GENERIC = (("HEAT3D_FACTOR_7PT", "1"),)
 _MEHR = (("HEAT3D_MEHRSTELLEN", "1"),)
 
 
-def _variants(mehrstellen: bool = False):
+def _variants(mehrstellen: bool = False, generic_bf16c: bool = False):
     """(tag, stencil, storage, compute, env, periodic) of one kernel's
     instances: each chain in fp32 and bf16 compute, bf16 storage, the
-    generic instance forced; the direct kernels' Mehrstellen pair and their
-    generic instance in bf16 compute (an instance of its own, as the
-    chains'; ``mehrstellen``)."""
+    generic instance forced; the direct kernels' Mehrstellen pair
+    (``mehrstellen``), and the generic instance in bf16 compute (an
+    instance of its own, as the chains'; ``generic_bf16c``)."""
     out = [("7pt", "7pt", "float32", "float32", (), False),
            ("27pt", "27pt", "float32", "float32", (), True),
            ("7pt-bf16c", "7pt", "float32", "bfloat16", (), False),
@@ -111,8 +112,9 @@ def _variants(mehrstellen: bool = False):
            ("generic", "7pt", "float32", "float32", _GENERIC, False)]
     if mehrstellen:
         out += [("mehr", "27pt", "float32", "float32", _MEHR, False),
-                ("mehr-bf16c", "27pt", "float32", "bfloat16", _MEHR, True),
-                ("generic-bf16c", "7pt", "float32", "bfloat16", _GENERIC, True)]
+                ("mehr-bf16c", "27pt", "float32", "bfloat16", _MEHR, True)]
+    if generic_bf16c:
+        out.append(("generic-bf16c", "7pt", "float32", "bfloat16", _GENERIC, True))
     return out
 
 
@@ -126,7 +128,7 @@ def judged_cases(scale: str = "small") -> List[Case]:
         raise ValueError(f"unknown scale {scale!r} (small, full)")
     cases: List[Case] = []
     for h, (wrapper, row) in _DIRECT.items():
-        for tag, st, sto, comp, env, per in _variants(mehrstellen=True):
+        for tag, st, sto, comp, env, per in _variants(mehrstellen=True, generic_bf16c=True):
             row_h = row + ("m" if env == _MEHR else "")
             cases.append(Case(f"direct{h}-{tag}", row_h, wrapper, "direct", h, st, sto, comp,
                               env=env, periodic=per))
@@ -144,7 +146,7 @@ def judged_cases(scale: str = "small") -> List[Case]:
         for h in (1, 2):
             wrapper, row = _FUSED[(rdma, h)]
             name = "fused-rdma" if rdma else "fused-dma"
-            for tag, st, sto, comp, env, per in _variants():
+            for tag, st, sto, comp, env, per in _variants(generic_bf16c=True):
                 cases.append(Case(f"{name}{h}-{''.join(map(str, mesh))}-{tag}", row, wrapper,
                                   "fused", h, st, sto, comp, mesh, env=env, periodic=per,
                                   rdma=rdma))

@@ -37,13 +37,10 @@ _T = r"(f|13__nv_bfloat16)"
 
 
 def _generic_pattern(family: str, depth: int) -> str:
-    """The mangled-name pattern of a family's generic kernel at ``depth``;
-    its storage type is the first group."""
-    if family == "direct":
-        return rf"direct_genericI{_T}Li{depth}E"
-    if family == "stream":
-        return rf"stream_genericI{_T}Li{depth}E"
-    return rf"fused_kernelI{_T}Li{depth}E"
+    """The mangled-name pattern of a family's generic kernel at ``depth``
+    (``direct_generic``, ``stream_generic``, ``fused_generic``); its
+    storage type is the first group."""
+    return rf"{family}_genericI{_T}Li{depth}E"
 
 
 def _code(case) -> int:
@@ -64,16 +61,14 @@ def _code(case) -> int:
 
 def _spills(family: str, depth: int, code: int, dtype: str, bf16c: bool) -> Optional[dict]:
     """Registers and spill bytes of one instance from the compiler's
-    report (the fused generic instances serve both compute dtypes; the
-    direct and stream ones have an instance of each policy)."""
+    report (every instance, generic ones too, has one of each policy)."""
     from heat3d_tpu_torch.ops import _build
 
     lib, kernel = _TEMPLATES[family]
     for entry, r in _build.ptxas_report(lib).items():
         if code == 0:
             m = re.search(_generic_pattern(family, depth), entry)
-            if (m and _DTYPE_MANGLED[m.group(1)] == dtype
-                    and (family == "fused" or ("Bf16Math" in entry) == bf16c)):
+            if m and _DTYPE_MANGLED[m.group(1)] == dtype and ("Bf16Math" in entry) == bf16c:
                 return r
             continue
         m = re.search(kernel + rf"I{_T}Li(\d)ELi(\d)E", entry)

@@ -1,10 +1,8 @@
 // Shared pieces of the port's stencil kernels: the tap-chain emission
-// program, its evaluator, the storage <-> float conversions and the (y, z)
-// tile geometry of the interpreted kernels. The program evaluator runs in
-// the fused kernels' generic instance (stencil_fused.cu: chains outside
-// the CHAINS table); the compile-time instances unroll the chain instead
-// (stencil_chain.cuh), and the direct and stream kernels' generic
-// instances fold the program at launch (stencil_chain.cuh GenericArgs).
+// program, the storage <-> float conversions and the arithmetic policies.
+// The compile-time instances unroll the chain (stencil_chain.cuh); the
+// generic instances of the direct, stream and fused kernels fold the
+// program at launch (stencil_chain.cuh GenericArgs).
 //
 // Arithmetic contract: the update is evaluated from an emission program
 // (the wrapper records core.stencils.accumulate_taps into at most 27
@@ -16,10 +14,8 @@
 // bf16 compute every field value is rounded to bf16 before it is used and
 // every multiply and add is rounded to bf16, round to nearest even, as
 // eager PyTorch rounds each bf16 operation; the values stay in float
-// registers and shared memory, where bf16 values are exact. The
-// compile-time instances take the rounding as a policy (F32Math,
-// Bf16Math); the interpreted evaluator picks the policy per cell from
-// Program::bf16.
+// registers and shared memory, where bf16 values are exact. Every instance
+// takes the rounding as a template policy (F32Math, Bf16Math).
 
 #pragma once
 
@@ -43,18 +39,10 @@ struct Term {
 
 struct Program {
   int n;
-  int bf16;  // 1: bf16 compute (the fused library sets it from the compute
-             // code)
   Term t[MAX_TERMS];
 };
 
 namespace {
-
-constexpr int TY = 16;       // tile rows (y)
-constexpr int TZ = 64;       // tile columns (z, contiguous)
-constexpr int BZ = 64;       // blockDim.x
-constexpr int BY = 4;        // blockDim.y
-constexpr int NTHREADS = BZ * BY;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -72,7 +60,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// Arithmetic policies of the compile-time instances: the rounded add and
+// Arithmetic policies of the instances: the rounded add and
 // multiply of the compute dtype, and a value of storage type T (a field
 // value, or bc) as the update reads it. (Never an fma: a multiply and its
 // add are two roundings.)
@@ -162,69 +150,5 @@ struct Bf16Math {
 #endif
   }
 };
-
-// Source plane value at frame offset o, read as policy M reads a float
-// field value (the interpreted kernels' planes are float copies).
-template <class M>
-__device__ __forceinline__ float src_at(int src, const float* pm,
-                                        const float* p0, const float* pp,
-                                        int o) {
-  switch (src) {
-    case 0:
-      return M::template read<float>(pm[o]);
-    case 1:
-      return M::template read<float>(p0[o]);
-    case 2:
-      return M::template read<float>(pp[o]);
-    default:
-      return M::add(M::template read<float>(pm[o]),
-                    M::template read<float>(pp[o]));
-  }
-}
-
-template <class M>
-__device__ __forceinline__ float eval_program(const Program& p,
-                                              const float* pm,
-                                              const float* p0,
-                                              const float* pp, int cy, int cz,
-                                              int stride) {
-  float acc = 0.0f;
-  for (int i = 0; i < p.n; ++i) {
-    const Term t = p.t[i];
-    const int z = cz + t.dk;
-    float v;
-    if (t.row == 3) {
-      v = M::add(src_at<M>(t.src, pm, p0, pp, (cy - 1) * stride + z),
-                 src_at<M>(t.src, pm, p0, pp, (cy + 1) * stride + z));
-    } else {
-      v = src_at<M>(t.src, pm, p0, pp, (cy + t.row - 1) * stride + z);
-    }
-    const float m = M::mul(t.w, v);
-    acc = i == 0 ? m : M::add(acc, m);
-  }
-  return acc;
-}
-
-// The update of the cell at frame (cy, cz) of planes (pm, p0, pp), in the
-// program's compute dtype (one branch a cell, uniform across the launch).
-__device__ __forceinline__ float apply_program(const Program& p,
-                                               const float* pm,
-                                               const float* p0,
-                                               const float* pp, int cy,
-                                               int cz, int stride) {
-  return p.bf16 ? eval_program<Bf16Math>(p, pm, p0, pp, cy, cz, stride)
-                : eval_program<F32Math>(p, pm, p0, pp, cy, cz, stride);
-}
-
-__device__ __forceinline__ void copy_program(Program* dst,
-                                             const Program& src) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  constexpr int WORDS = sizeof(Program) / sizeof(int);
-  static_assert(WORDS <= NTHREADS, "program copy needs one word a thread");
-  if (tid < WORDS) {
-    reinterpret_cast<int*>(dst)[tid] =
-        reinterpret_cast<const int*>(&src)[tid];
-  }
-}
 
 }  // namespace

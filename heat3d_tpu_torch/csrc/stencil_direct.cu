@@ -43,31 +43,32 @@
 //     with the weights in both halves: one add.rn.bf16x2 / mul.rn.bf16x2
 //     and one shared load for two cells, per-half pins, the two halves
 //     stored apart (50 KB shared, four blocks an SM);
-//   * direct_generic<T, H, M>: any other chain (other taps, advection's
-//     unequal x pair, a zero centre, HEAT3D_FACTOR_7PT=1, HEAT3D_FACTOR_Y=0),
-//     of 1 to 27 terms, on the same block (Direct: geometry, masks, the
-//     loader that builds the ghosts). Such a chain may read the planes x-1
-//     and x+1 away from the cell, so every level keeps its planes in a
-//     float ring of four slots in shared memory (plane m in slot m & 3, the
-//     x-sum of plane q in slot (q + 2) & 3); an input plane lands by
-//     cp.async in one input slot and is copied into level 0's ring as M
-//     reads a T, its slot refilled at once. The host folds each term
-//     (src, row, dk) into a slot shift and an offset (GenericArgs, a
-//     kernel argument): a term is an add and a mask on the constant bank,
-//     then one or two shared loads at immediate offsets, __fmul_rn and
-//     __fadd_rn for each of the thread's positions, in a loop unrolled to
-//     27 terms with a branch on the term count that is uniform across the
-//     launch; no switch on src, no division, the compute dtype a template
-//     policy. Two barriers a plane at H = 1, three at H = 2. It replaces the
-//     first design's interpreted kernels (a per-cell program walk over
-//     synchronously loaded rings; 10.217 / 20.371 ms). Measured (PERF.md
-//     section 6, 1024^3 fp32, the 7pt chain forced): 4.40-4.72 ms at H = 1
-//     (four blocks an SM; the 7pt chain instance 5.14-5.24 in the same calls),
-//     9.52-9.79 at H = 2 (three blocks an SM). At H = 2 each level's chain
-//     costs about 3 ms over a 2.6 ms skeleton of loads, copies and barriers,
-//     about what a chain costs a frame position at H = 1
-//     (scripts/torch_direct_probe.py --generic --variants with switches since
-//     removed: without level 1's chain 5.53, without the output's 6.02,
+//   * direct_generic<T, H, M>: any other chain (other taps, advection's unequal
+//     x pair, a zero centre, HEAT3D_FACTOR_7PT=1, HEAT3D_FACTOR_Y=0), of 1 to
+//     27 terms, on the same block (Direct: geometry, masks, the loader that
+//     builds the ghosts), by the generic sweep of stencil_direct.cuh
+//     (GenericSweep, over the field's planes; the fused kernels' generic
+//     instance runs it over their plane sources). Such a chain may read the
+//     planes x-1 and x+1 away from the cell, so every level keeps its planes in
+//     a float ring of four slots in shared memory (plane m in slot m & 3, the
+//     x-sum of plane q in slot (q + 2) & 3); an input plane lands by cp.async
+//     in one input slot and is copied into level 0's ring as M reads a T, its
+//     slot refilled at once. The host folds each term (src, row, dk) into a
+//     slot shift and an offset (GenericArgs, a kernel argument): a term is an
+//     add and a mask on the constant bank, then one or two shared loads at
+//     immediate offsets, __fmul_rn and __fadd_rn for each of the thread's
+//     positions, in a loop unrolled to 27 terms with a branch on the term count
+//     that is uniform across the launch; no switch on src, no division, the
+//     compute dtype a template policy. Two barriers a plane at H = 1, three at
+//     H = 2. It replaces the first design's interpreted kernels (a per-cell
+//     program walk over synchronously loaded rings; 10.217 / 20.371 ms).
+//     Measured (PERF.md section 6, 1024^3 fp32, the 7pt chain forced):
+//     4.40-4.72 ms at H = 1 (four blocks an SM; the 7pt chain instance
+//     5.14-5.24 in the same calls), 9.52-9.79 at H = 2 (three blocks an SM). At
+//     H = 2 each level's chain costs about 3 ms over a 2.6 ms skeleton of
+//     loads, copies and barriers, about what a chain costs a frame position at
+//     H = 1 (scripts/torch_direct_probe.py --generic --variants with switches
+//     since removed: without level 1's chain 5.53, without the output's 6.02,
 //     without both 2.63): it runs at under half the issue and shared-memory
 //     rates, and four blocks an SM (a 24-row frame), a 40-row frame at two
 //     blocks, two or three input slots, the next term's loads issued before
@@ -206,182 +207,19 @@ __global__ void __launch_bounds__(SNT, (Bounds<T, H, S>::min_blocks))
 }
 
 // ---------------------------------------------------------------------------
-// The generic instance: any emission program, folded at launch.
-
-// The sweep of the generic instance: the chains' block (Direct: geometry,
-// masks, loader, views) with every level's planes in shared memory. Each
-// level has a float ring of four slots: its plane m in slot m & 3, and
-// the x-sum of plane q (planes q-1 and q+1) in slot (q + 2) & 3, the one
-// the next plane overwrites. An input plane lands in the one input slot,
-// is copied into level 0's ring as M reads a T (rounded there under bf16
-// compute of an fp32 field) and its slot refilled with the next plane at
-// once; at H = 2 level 1's planes, rounded through T and pinned to bc
-// outside a Dirichlet domain, go to level 1's ring. Each thread forms the
-// x-sums at its own positions from the planes it wrote itself.
-template <class T, int H, class M>
-struct GenericSweep : Direct<T, H, SPEC_GENERIC, M, FieldPlanes<T>> {
-  using B = Direct<T, H, SPEC_GENERIC, M, FieldPlanes<T>>;
-  static constexpr int LA = B::LA, MB = B::MB, P = B::P, FW = B::FW;
-  static constexpr int PS = B::FH * FW;  // floats of a ring slot
-
-  float* rings;  // H rings of four slots
-
-  // Offset of the thread's position p from its first one in a slot.
-  __host__ __device__ static constexpr int pos(int p) {
-    return SBY * (p / MB) * FW + SBZ * (p % MB);
-  }
-
-  // The thread's first position in slot k & 3 of level L's ring.
-  __device__ __forceinline__ float* slot(int L, int k) const {
-    return rings + (4 * L + (k & 3)) * PS + this->tid_base(FW);
-  }
-
-  // acc: the chain of level L's plane q at the thread's positions.
-  __device__ __forceinline__ void eval(int L, int q, const GenericArgs& a,
-                                       float (&acc)[P]) const {
-    const float* lb = rings + 4 * L * PS + this->tid_base(FW);
-    const int qr = q + 3;
-#pragma unroll
-    for (int i = 0; i < MAX_TERMS; ++i) {
-      if (i < a.n) {  // uniform across the launch
-        const float* t = lb + ((qr + a.s[i]) & 3) * PS + a.o[i];
-        if (a.y[i]) {
-#pragma unroll
-          for (int p = 0; p < P; ++p) {
-            term(acc[p], i, a.w[i], M::add(t[pos(p)], t[pos(p) + 2 * FW]));
-          }
-        } else {
-#pragma unroll
-          for (int p = 0; p < P; ++p) term(acc[p], i, a.w[i], t[pos(p)]);
-        }
-      }
-    }
-  }
-
-  // Term i of a cell: w v, the first term not added to 0.
-  __device__ __forceinline__ static void term(float& acc, int i, float w,
-                                              float v) {
-    const float m = M::mul(w, v);
-    acc = i == 0 ? m : M::add(acc, m);
-  }
-
-  // Store value v of plane m at position p of level L's slot m & 3 and,
-  // when `xs`, the x-sum of plane m - 1 (planes m - 2 and m) in slot
-  // (m + 1) & 3; the thread wrote plane m - 2 there itself.
-  __device__ __forceinline__ void put(int L, int m, int p, float v,
-                                      bool xs) const {
-    slot(L, m)[pos(p)] = v;
-    if (xs) slot(L, m + 1)[pos(p)] = M::add(slot(L, m - 2)[pos(p)], v);
-  }
-
-  // Input plane i from its slot into level 0's ring.
-  __device__ __forceinline__ void land(int i, const GenericArgs& a) const {
-    const auto cur = this->in_view(i);
-    const bool xs = a.xsum && i >= 2;
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      put(0, i, p, M::template read<T>(cur.at(p / MB, p % MB, 0, 0)), xs);
-    }
-  }
-
-  // H = 2, step i: level 1's plane m = i - 1 into its ring.
-  __device__ __forceinline__ void level1(int i, const GenericArgs& a) const {
-    const int m = i - 1;
-    float acc[P];
-    eval(0, m, a, acc);
-    const bool x_out = this->src.is_bc(this->plane_x(m));
-    const bool xs = a.xsum && i >= 4;
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const bool in = ((this->rowin >> (p / MB)) & 1) &&
-                      ((this->colin >> (p % MB)) & 1);
-      const bool pin = !this->periodic && (x_out || !in);
-      put(1, m, p, pin ? this->bc : to_f(from_f<T>(acc[p])), xs);
-    }
-  }
-
-  // Output plane q of level L at the thread's positions of the tile.
-  __device__ __forceinline__ void emit(int L, int q,
-                                       const GenericArgs& a) const {
-    float acc[P];
-    eval(L, q, a, acc);
-    const int64_t row0 = (int64_t)this->plane_x(q) * this->ny + this->y0 +
-                         (int)threadIdx.y - H;
-    const int64_t o0 = row0 * this->nz + this->z0 + (int)threadIdx.x - H;
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const int l = p / MB, m = p % MB;
-      if (((this->rowout >> l) & 1) && ((this->colout >> m) & 1)) {
-        this->out[o0 + (SBY * l * this->nz + SBZ * m)] = from_f<T>(acc[p]);
-      }
-    }
-  }
-
-  // Start input plane i + 1 (if any) into the input slot.
-  __device__ __forceinline__ void next(int i, int n_in) {
-    if (i + 1 < n_in) this->load_plane(i + 1);
-    cp_async_commit();
-  }
-
-  // Output planes [xs0, xe). Step i lands input plane i; level 1's plane
-  // i - 1 (H = 2) and the output plane i - H follow.
-  __device__ __forceinline__ void run(int xe, const GenericArgs& a) {
-    const int n_in = xe - this->xs0 + 2 * H;
-    this->init_masks();
-    this->load_plane(0);
-    cp_async_commit();
-    for (int i = 0; i < n_in; ++i) {
-      cp_async_wait<0>();
-      __syncthreads();  // plane i landed; the slots step i writes are read
-      land(i, a);
-      // an fp32 thread copies and reads its own positions of the input
-      // slot; bf16 pairs are other threads' positions
-      if constexpr (sizeof(T) == 4) next(i, n_in);
-      __syncthreads();  // level 0's planes and x-sum out
-      if constexpr (sizeof(T) != 4) next(i, n_in);
-      if constexpr (H == 1) {
-        if (i >= 2) emit(0, i - 1, a);
-      } else {
-        if (i >= 2) {  // uniform
-          level1(i, a);
-          __syncthreads();  // level 1's planes and x-sum out
-        }
-        if (i >= 4) emit(1, i - 2, a);
-      }
-    }
-  }
-};
-
-// Dynamic shared memory of the generic instance (T, H): the input slot,
-// the H rings, and a row and a column beyond the last ring that the
-// positions outside a level's planes read (the input slot lies before the
-// first ring).
-template <class T, int H>
-__host__ __device__ constexpr int generic_smem() {
-  using G = Geom<H>;
-  return G::FH * in_stride<T, H>() * (int)sizeof(T) +
-         (4 * H * G::FH * G::FW + G::FW + 4) * (int)sizeof(float);
-}
-
-// Launch bounds: four blocks an SM (64 registers) at H = 1, three (80)
-// at H = 2, as many as the shared memory holds.
-template <int H>
-__host__ __device__ constexpr int generic_min_blocks() {
-  return H == 1 ? 4 : 3;
-}
+// The generic instance: any emission program, folded at launch, by the
+// generic sweep (stencil_direct.cuh) over the field's planes.
 
 template <class T, int H, class M>
 __global__ void __launch_bounds__(SNT, (generic_min_blocks<H>()))
     direct_generic(const T* __restrict__ u, T* __restrict__ out, int nx, int ny,
                    int nz, int xchunk, int periodic, float bc, GenericArgs a) {
   using G = Geom<H>;
-  using D = GenericSweep<T, H, M>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  D st;
+  GenericSweep<T, H, M, FieldPlanes<T>> st;
   st.src = FieldPlanes<T>{u, (int64_t)ny * nz, nx, periodic};
   st.out = out;
-  st.in_slot = reinterpret_cast<T*>(smem_raw);
-  st.rings = reinterpret_cast<float*>(st.in_slot + G::FH * D::SWI);
+  st.place(smem_raw);
   st.ny = ny;
   st.nz = nz;
   st.xs0 = blockIdx.z * xchunk;
@@ -565,10 +403,9 @@ int heat3d_direct_registers(int halo, int spec, int dtype, int compute) {
 // chain, 2 the 27pt chain (prog's (src, row, dk) must be that chain's), 3
 // the Mehrstellen route (prog holds three terms whose weights are a, b and
 // d); dtype: 0 float, 1 bf16 storage; compute: 0 float, 1 bf16 (prog's
-// weights already in that dtype; prog->bf16 is not read). u and out
-// are (nx, ny, nz); bc is the Dirichlet value already rounded to the
-// storage type. Returns a cudaError_t (0 on success); 1000 for bad
-// arguments.
+// weights already in that dtype). u and out are (nx, ny, nz); bc is the
+// Dirichlet value already rounded to the storage type. Returns a
+// cudaError_t (0 on success); 1000 for bad arguments.
 int heat3d_direct_launch(int halo, int spec, int dtype, int compute,
                          const void* u, void* out, int nx, int ny, int nz,
                          int xchunk, int periodic, float bc,

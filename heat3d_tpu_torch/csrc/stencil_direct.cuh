@@ -294,6 +294,36 @@ struct Direct {
     return landed ? load_cg(p) : *p;
   }
 
+  // fp32: landed plane `plane` into `slot` at the thread's positions,
+  // every load issued before the first store (a store to the slot may
+  // alias a later load for all the compiler knows, which would keep the
+  // loads one at a time).
+  __device__ __forceinline__ void load_landed(T* slot, const T* plane,
+                                              T b) const {
+    const int zb = z0 - H;
+    T v[LA][MB];
+#pragma unroll
+    for (int l = 0; l < LA; ++l) {
+      const bool in = (rowin >> l) & 1;
+      const int gy = y0 - H + threadIdx.y + SBY * l;
+      const T* row = plane + (int64_t)(in ? gy : wrap(gy, ny)) * nz;
+#pragma unroll
+      for (int m = 0; m < MB; ++m) {
+        const int c = zb + threadIdx.x + SBZ * m;
+        v[l][m] = !in && !periodic                  ? b
+                  : zfull || ((colin >> m) & 1) ? load_cg(row + c)
+                                                : ghost_z(row, c, b, true);
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < LA; ++l) {
+#pragma unroll
+      for (int m = 0; m < MB; ++m) {
+        slot[(threadIdx.y + SBY * l) * SWI + threadIdx.x + SBZ * m] = v[l][m];
+      }
+    }
+  }
+
   // Start the copies of input plane q into its slot; the ghost cells are
   // stored by the threads themselves. A landed plane (written during the
   // launch by another block or GPU) is loaded synchronously through L2.
@@ -310,6 +340,12 @@ struct Direct {
       return;
     }
     const bool landed = Src::kLands && src.landed(gx);
+    if constexpr (sizeof(T) == 4) {
+      if (landed) {
+        load_landed(slot, plane, b);
+        return;
+      }
+    }
     const int zb = z0 - H;
     const int bp = SHIFT ? parity0(gx) : 0;
 #pragma unroll
@@ -328,13 +364,9 @@ struct Direct {
         for (int m = 0; m < MB; ++m) {
           const int c = threadIdx.x + SBZ * m;
           if (zfull || ((colin >> m) & 1)) {
-            if (landed) {
-              dst[c] = load_cg(row + zb + c);
-            } else {
-              cp_async4(dst + c, row + zb + c, 4);
-            }
+            cp_async4(dst + c, row + zb + c, 4);
           } else {
-            dst[c] = ghost_z(row, zb + c, b, landed);
+            dst[c] = ghost_z(row, zb + c, b, false);
           }
         }
       } else {
@@ -818,5 +850,184 @@ struct Direct {
     }
   }
 };
+
+// ---------------------------------------------------------------------------
+// The generic sweep: any emission program, folded at launch (GenericArgs),
+// over any plane source: direct_generic<T, H, M> (stencil_direct.cu) runs
+// it over the field's planes, fused_generic<T, H, M> (stencil_fused.cu)
+// over the field's planes in its interior tiles and the shard's planes in
+// its skin tiles.
+//
+// The chains' block (Direct: geometry, masks, loader, views) with every
+// level's planes in shared memory. Each level has a float ring of four
+// slots: its plane m in slot m & 3, and the x-sum of plane q (planes q-1
+// and q+1) in slot (q + 2) & 3, the one the next plane overwrites. An
+// input plane lands in the one input slot, is copied into level 0's ring
+// as M reads a T (rounded there under bf16 compute of an fp32 field) and
+// its slot refilled with the next plane at once; at H = 2 level 1's
+// planes, rounded through T and pinned to bc outside a Dirichlet domain
+// (the x pin where the source has a bc plane), go to level 1's ring. Each
+// thread forms the x-sums at its own positions from the planes it wrote
+// itself.
+template <class T, int H, class M, class Src>
+struct GenericSweep : Direct<T, H, SPEC_GENERIC, M, Src> {
+  using B = Direct<T, H, SPEC_GENERIC, M, Src>;
+  static constexpr int LA = B::LA, MB = B::MB, P = B::P, FW = B::FW;
+  static constexpr int PS = B::FH * FW;  // floats of a ring slot
+
+  float* rings;  // H rings of four slots
+
+  // The input slot and the rings in the block's dynamic shared memory
+  // (generic_smem).
+  __device__ __forceinline__ void place(unsigned char* smem) {
+    this->in_slot = reinterpret_cast<T*>(smem);
+    rings = reinterpret_cast<float*>(this->in_slot + B::FH * B::SWI);
+  }
+
+  // Offset of the thread's position p from its first one in a slot.
+  __host__ __device__ static constexpr int pos(int p) {
+    return SBY * (p / MB) * FW + SBZ * (p % MB);
+  }
+
+  // The thread's first position in slot k & 3 of level L's ring.
+  __device__ __forceinline__ float* slot(int L, int k) const {
+    return rings + (4 * L + (k & 3)) * PS + this->tid_base(FW);
+  }
+
+  // acc: the chain of level L's plane q at the thread's positions.
+  __device__ __forceinline__ void eval(int L, int q, const GenericArgs& a,
+                                       float (&acc)[P]) const {
+    const float* lb = rings + 4 * L * PS + this->tid_base(FW);
+    const int qr = q + 3;
+#pragma unroll
+    for (int i = 0; i < MAX_TERMS; ++i) {
+      if (i < a.n) {  // uniform across the launch
+        const float* t = lb + ((qr + a.s[i]) & 3) * PS + a.o[i];
+        if (a.y[i]) {
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            term(acc[p], i, a.w[i], M::add(t[pos(p)], t[pos(p) + 2 * FW]));
+          }
+        } else {
+#pragma unroll
+          for (int p = 0; p < P; ++p) term(acc[p], i, a.w[i], t[pos(p)]);
+        }
+      }
+    }
+  }
+
+  // Term i of a cell: w v, the first term not added to 0.
+  __device__ __forceinline__ static void term(float& acc, int i, float w,
+                                              float v) {
+    const float m = M::mul(w, v);
+    acc = i == 0 ? m : M::add(acc, m);
+  }
+
+  // Store value v of plane m at position p of level L's slot m & 3 and,
+  // when `xs`, the x-sum of plane m - 1 (planes m - 2 and m) in slot
+  // (m + 1) & 3; the thread wrote plane m - 2 there itself.
+  __device__ __forceinline__ void put(int L, int m, int p, float v,
+                                      bool xs) const {
+    slot(L, m)[pos(p)] = v;
+    if (xs) slot(L, m + 1)[pos(p)] = M::add(slot(L, m - 2)[pos(p)], v);
+  }
+
+  // Input plane i from its slot into level 0's ring.
+  __device__ __forceinline__ void land(int i, const GenericArgs& a) const {
+    const auto cur = this->in_view(i);
+    const bool xs = a.xsum && i >= 2;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      put(0, i, p, M::template read<T>(cur.at(p / MB, p % MB, 0, 0)), xs);
+    }
+  }
+
+  // H = 2, step i: level 1's plane m = i - 1 into its ring.
+  __device__ __forceinline__ void level1(int i, const GenericArgs& a) const {
+    const int m = i - 1;
+    float acc[P];
+    eval(0, m, a, acc);
+    const bool x_out = this->src.is_bc(this->plane_x(m));
+    const bool xs = a.xsum && i >= 4;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const bool in = ((this->rowin >> (p / MB)) & 1) &&
+                      ((this->colin >> (p % MB)) & 1);
+      const bool pin = !this->periodic && (x_out || !in);
+      put(1, m, p, pin ? this->bc : to_f(from_f<T>(acc[p])), xs);
+    }
+  }
+
+  // Output plane q of level L at the thread's positions of the tile.
+  __device__ __forceinline__ void emit(int L, int q,
+                                       const GenericArgs& a) const {
+    float acc[P];
+    eval(L, q, a, acc);
+    const int64_t row0 = (int64_t)this->plane_x(q) * this->ny + this->y0 +
+                         (int)threadIdx.y - H;
+    const int64_t o0 = row0 * this->nz + this->z0 + (int)threadIdx.x - H;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int l = p / MB, m = p % MB;
+      if (((this->rowout >> l) & 1) && ((this->colout >> m) & 1)) {
+        this->out[o0 + (SBY * l * this->nz + SBZ * m)] = from_f<T>(acc[p]);
+      }
+    }
+  }
+
+  // Start input plane i + 1 (if any) into the input slot.
+  __device__ __forceinline__ void next(int i, int n_in) {
+    if (i + 1 < n_in) this->load_plane(i + 1);
+    cp_async_commit();
+  }
+
+  // Output planes [xs0, xe). Step i lands input plane i; level 1's plane
+  // i - 1 (H = 2) and the output plane i - H follow.
+  __device__ __forceinline__ void run(int xe, const GenericArgs& a) {
+    const int n_in = xe - this->xs0 + 2 * H;
+    this->init_masks();
+    this->load_plane(0);
+    cp_async_commit();
+    for (int i = 0; i < n_in; ++i) {
+      cp_async_wait<0>();
+      __syncthreads();  // plane i landed; the slots step i writes are read
+      land(i, a);
+      // an fp32 thread copies and reads its own positions of the input
+      // slot, whatever the plane (a cp.async, a landed plane's synchronous
+      // load, a ghost or a bc row: load_plane, fill_row); bf16 pairs are
+      // other threads' positions
+      if constexpr (sizeof(T) == 4) next(i, n_in);
+      __syncthreads();  // level 0's planes and x-sum out
+      if constexpr (sizeof(T) != 4) next(i, n_in);
+      if constexpr (H == 1) {
+        if (i >= 2) emit(0, i - 1, a);
+      } else {
+        if (i >= 2) {  // uniform
+          level1(i, a);
+          __syncthreads();  // level 1's planes and x-sum out
+        }
+        if (i >= 4) emit(1, i - 2, a);
+      }
+    }
+  }
+};
+
+// Dynamic shared memory of the generic instance (T, H): the input slot,
+// the H rings, and a row and a column beyond the last ring that the
+// positions outside a level's planes read (the input slot lies before the
+// first ring).
+template <class T, int H>
+__host__ __device__ constexpr int generic_smem() {
+  using G = Geom<H>;
+  return G::FH * in_stride<T, H>() * (int)sizeof(T) +
+         (4 * H * G::FH * G::FW + G::FW + 4) * (int)sizeof(float);
+}
+
+// Launch bounds: four blocks an SM (64 registers) at H = 1, three (80)
+// at H = 2, as many as the shared memory holds.
+template <int H>
+__host__ __device__ constexpr int generic_min_blocks() {
+  return H == 1 ? 4 : 3;
+}
 
 }  // namespace

@@ -11,9 +11,8 @@
 //     sweeps with the sends split per ExchangePlan sub-block, _planned_rdma)
 // -> fused_chain_kernel<T, H, S, M> (H = 1 or 2 updates, the chain S fixed
 // at compile time, the arithmetic policy M of stencil_common.cuh: F32Math
-// or Bf16Math) and fused_kernel<T, H> (any other chain: the generic
-// instance, the first design, its compute dtype Program::bf16), each
-// driven by a table of send ranges (one
+// or Bf16Math) and fused_generic<T, H, M> (any other chain: the generic
+// instance), each driven by a table of send ranges (one
 // y-range per face for the DMA rows, the plan's ranges for the RDMA rows),
 // with one flag word per (receiver, side, range).
 //
@@ -65,27 +64,44 @@
 // (y1 - y0) * nz elements, one a plane, pushed as 16-byte vectors where the
 // source and destination share their alignment (copy_rows.cuh).
 //
-// fused_kernel<T, H> is the first design: the tap program interpreted
-// per cell from shared memory (stencil_common.cuh) over a 3-slot float ring
-// of ghost-framed (16, 64) tiles loaded synchronously, element by element.
-// The halo-2 kernel keeps a second ring of intermediate planes, rounded
-// through the storage type, pinned to bc in the y/z ring (Dirichlet) and at
-// the x domain faces, exactly as two plain steps see them.
+// fused_generic<T, H, M> (any chain outside the table: other taps,
+// advection's unequal x pair, a zero centre, the factoring knobs) walks
+// the same tiles with the generic sweep of the direct kernels
+// (GenericSweep, stencil_direct.cuh) over the same two plane sources: the
+// program folded at launch into slot shifts and offsets (GenericArgs, a
+// kernel argument), every level's planes in four-slot float rings in
+// shared memory, the one input slot refilled as soon as its plane is
+// copied into level 0's ring, the policy M a template parameter. At H = 2
+// level 1 is pinned to bc where the source has a bc plane (a Dirichlet x
+// domain face) and, under Dirichlet, outside the y/z domain. It replaces
+// the first design (fused_kernel<T, H>: the program interpreted per cell
+// from shared memory over a three-slot ring of (16, 64) tiles loaded one
+// element at a time, the compute dtype switched per cell; 13.203 / 25.231
+// ms, PERF.md section 6 rows 9-10).
 //
 // Arithmetic contract: the emission program of stencil_common.cuh, in the
-// order of the unrolled chain or of the interpreter, so each kernel equals
-// its plain version (ops.stencil_dma_fused.reference_fused_*) bitwise.
+// order of the unrolled chain or of the folded program, so each kernel
+// equals its plain version (ops.stencil_dma_fused.reference_fused_*)
+// bitwise.
 //
 // Measured (chip_smoke.py fused_times, "NVIDIA H100 80GB HBM3, 700.00 W"),
 // 1024^3 fp32 7pt in one launch over all shards, over (8,1,1) / (4,1,1):
 // fused_chain_kernel at H = 1 5.69 / 5.55 ms (78 registers, no spills;
 // bytes bound 2.60 / 2.58), at H = 2 6.86 / 6.30 (80 registers, 12 bytes
-// of spills; bound 2.63 / 2.59), both at 3 blocks/SM; the generic
-// fused_kernel<T,1> 12.82 / 12.61 and fused_kernel<T,2> 25.33 / 24.91 in
-// the same call; PERF.md section 6 rows 9-12. In bf16 compute
-// (compute_bf16_times, fp32 storage, 7pt, the fp32-compute instance of the
-// same call in brackets): H = 1 7.93 [5.70] / 7.71 [5.50], H = 2 14.82
-// [6.55] / 14.37 [6.14], 3 blocks/SM, 80 registers.
+// of spills; bound 2.63 / 2.59), both at 3 blocks/SM. fused_generic<T,H,M>
+// forced on the 7pt chain (scripts/torch_fused_probe.py --times against the
+// parent's checkout, one call, PERF.md section 6 rows 9-12): H = 1
+// 5.86-6.13 / 5.68-5.72 ms, H = 2 12.30-12.36 / 11.53-11.70 (the first
+// design 13.11-13.17 / 12.84-13.02 and 25.57-25.59 / 24.75-24.77 in the
+// same call), 3 blocks/SM, 80 registers, no spills. Its two-update skin
+// tiles (six planes swept for two) take 2.3 ms of the 12.8 over (8,1,1),
+// its pushes 0.3 (the probe on copies without them), the skin's landed
+// planes 0.6 of it while their loads went one at a time (now each
+// thread's loads go before its stores: ~0.2 ms less); the skin tiles
+// spread among the interior ones, or the interior tiles on the shard's
+// plane source, ran no faster. In bf16 compute (compute_bf16_times, fp32
+// storage, 7pt, PERF.md section 6): the chain instances at H = 1 5.68 /
+// 5.49, at H = 2 7.24 / 6.81.
 //
 // Launches go on the caller's stream, allocate nothing, and return
 // cudaGetLastError() (or the launch's own error).
@@ -148,7 +164,7 @@ namespace {
 // tiles took 6.93 and 6.85 (chip_smoke.py fused_times on copies with this
 // constant edited, one call, "NVIDIA H100 80GB HBM3, 700.00 W"); the
 // one-update launch did not move.
-constexpr int PUSH_CHUNK = NTHREADS * 128;
+constexpr int PUSH_CHUNK = SNT * 128;
 
 template <class T>
 struct Bits;
@@ -160,307 +176,6 @@ template <>
 struct Bits<__nv_bfloat16> {
   typedef uint16_t type;
 };
-
-// Loads of one plane element: the shard's own planes are read-only for the
-// launch (the read-only path); a landing-buffer plane was written during it
-// by another block or another GPU, so it is read bypassing L1.
-__device__ __forceinline__ float load_own(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_own(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(
-      __ldg(reinterpret_cast<const unsigned short*>(p))));
-}
-__device__ __forceinline__ float load_landed(const float* p) {
-  return __ldcg(p);
-}
-__device__ __forceinline__ float load_landed(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(
-      __ldcg(reinterpret_cast<const unsigned short*>(p))));
-}
-
-__device__ __forceinline__ int wrapi(int i, int n) {
-  int r = i % n;
-  return r < 0 ? r + n : r;
-}
-
-template <class T, int F, bool LANDED>
-__device__ __forceinline__ void fill_plane(float* dst, const T* src, int y0,
-                                           int z0, int ny, int nz,
-                                           bool periodic, float bc) {
-  constexpr int FY = TY + 2 * F;
-  constexpr int FZ = TZ + 2 * F;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int idx = tid; idx < FY * FZ; idx += NTHREADS) {
-    const int a = idx / FZ;
-    const int b = idx - a * FZ;
-    int gy = y0 - F + a;
-    int gz = z0 - F + b;
-    float v = bc;
-    if (periodic) {
-      gy = wrapi(gy, ny);
-      gz = wrapi(gz, nz);
-    }
-    if (gy >= 0 && gy < ny && gz >= 0 && gz < nz) {
-      const T* p = src + (int64_t)gy * nz + gz;
-      v = LANDED ? load_landed(p) : load_own(p);
-    }
-    dst[idx] = v;
-  }
-}
-
-// Load plane `src` (a (ny, nz) plane, or null: all bc) into a (TY+2F,
-// TZ+2F) slot, the y/z frame a domain boundary (wrap or bc).
-template <class T, int F>
-__device__ __forceinline__ void load_src_plane(float* dst, const T* src,
-                                               bool landing, int y0, int z0,
-                                               int ny, int nz, bool periodic,
-                                               float bc) {
-  if (src == nullptr) {
-    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-    for (int idx = tid; idx < (TY + 2 * F) * (TZ + 2 * F); idx += NTHREADS) {
-      dst[idx] = bc;
-    }
-  } else if (landing) {
-    fill_plane<T, F, true>(dst, src, y0, z0, ny, nz, periodic, bc);
-  } else {
-    fill_plane<T, F, false>(dst, src, y0, z0, ny, nz, periodic, bc);
-  }
-}
-
-// The plane of virtual x index gx of local shard `li`: its own plane, a
-// landing plane, or null (bc at a Dirichlet x domain face).
-template <class T, int H>
-__device__ __forceinline__ const T* plane_of(const FusedArgs& a,
-                                             const FusedShard& sh, int li,
-                                             int gx, bool* landing) {
-  const int64_t plane = (int64_t)a.ny * a.nz;
-  *landing = false;
-  if (gx >= 0 && gx < a.nx) {
-    return static_cast<const T*>(a.u[li]) + gx * plane;
-  }
-  if (gx < 0) {
-    if (!sh.wait_lo) return nullptr;
-    *landing = true;
-    return static_cast<const T*>(sh.glo) + (gx + H) * plane;
-  }
-  if (!sh.wait_hi) return nullptr;
-  *landing = true;
-  return static_cast<const T*>(sh.ghi) + (gx - a.nx) * plane;
-}
-
-// Output planes [xs, xe) of tile (y0, z0) of shard li: one update.
-template <class T>
-__device__ __forceinline__ void march1(const FusedArgs& a,
-                                       const FusedShard& sh, int li,
-                                       const Program& sp, float* ring,
-                                       int y0, int z0, int xs, int xe) {
-  constexpr int FZ = TZ + 2;
-  constexpr int PS = (TY + 2) * FZ;
-  const bool periodic = a.periodic != 0;
-  T* __restrict__ out = static_cast<T*>(a.out[li]);
-  for (int i = 0; i < xe - xs + 2; ++i) {
-    bool landing;
-    const T* src = plane_of<T, 1>(a, sh, li, xs - 1 + i, &landing);
-    load_src_plane<T, 1>(ring + (i % 3) * PS, src, landing, y0, z0, a.ny,
-                         a.nz, periodic, a.bc);
-    __syncthreads();
-    if (i >= 2) {
-      const float* pm = ring + ((i - 2) % 3) * PS;
-      const float* p0 = ring + ((i - 1) % 3) * PS;
-      const float* pp = ring + (i % 3) * PS;
-      const int64_t ox = xs + i - 2;
-      for (int ty = threadIdx.y; ty < TY; ty += BY) {
-        const int gy = y0 + ty;
-        const int gz = z0 + threadIdx.x;
-        if (gy < a.ny && gz < a.nz) {
-          const float r =
-              apply_program(sp, pm, p0, pp, ty + 1, threadIdx.x + 1, FZ);
-          out[(ox * a.ny + gy) * a.nz + gz] = from_f<T>(r);
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Output planes [xs, xe) of tile (y0, z0) of shard li: two fused updates.
-template <class T>
-__device__ __forceinline__ void march2(const FusedArgs& a,
-                                       const FusedShard& sh, int li,
-                                       const Program& sp, float* ring_a,
-                                       float* ring_b, int y0, int z0, int xs,
-                                       int xe) {
-  constexpr int FAZ = TZ + 4;
-  constexpr int PA = (TY + 4) * FAZ;
-  constexpr int FBZ = TZ + 2;
-  constexpr int PB = (TY + 2) * FBZ;
-  const bool periodic = a.periodic != 0;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  T* __restrict__ out = static_cast<T*>(a.out[li]);
-  // slot i%3 of ring_a holds input plane xs-2+i; from i >= 2 the mid plane
-  // xs-3+i goes to slot (i-2)%3 of ring_b; from i >= 4 output plane xs+i-4
-  for (int i = 0; i < xe - xs + 4; ++i) {
-    bool landing;
-    const T* src = plane_of<T, 2>(a, sh, li, xs - 2 + i, &landing);
-    load_src_plane<T, 2>(ring_a + (i % 3) * PA, src, landing, y0, z0, a.ny,
-                         a.nz, periodic, a.bc);
-    __syncthreads();
-    if (i >= 2) {
-      const float* pm = ring_a + ((i - 2) % 3) * PA;
-      const float* p0 = ring_a + ((i - 1) % 3) * PA;
-      const float* pp = ring_a + (i % 3) * PA;
-      float* dst = ring_b + ((i - 2) % 3) * PB;
-      const int gm = xs - 3 + i;
-      // the intermediate's x ghost plane at a Dirichlet domain face
-      const bool x_ghost =
-          (gm < 0 && !sh.wait_lo) || (gm >= a.nx && !sh.wait_hi);
-      for (int idx = tid; idx < PB; idx += NTHREADS) {
-        const int r = idx / FBZ;
-        const int c = idx - r * FBZ;
-        const int gy = y0 - 1 + r;
-        const int gz = z0 - 1 + c;
-        float v;
-        if (!periodic &&
-            (x_ghost || gy < 0 || gy >= a.ny || gz < 0 || gz >= a.nz)) {
-          v = a.bc;
-        } else {
-          v = to_f(from_f<T>(
-              apply_program(sp, pm, p0, pp, r + 1, c + 1, FAZ)));
-        }
-        dst[idx] = v;
-      }
-    }
-    __syncthreads();
-    if (i >= 4) {
-      const float* pm = ring_b + ((i - 4) % 3) * PB;
-      const float* p0 = ring_b + ((i - 3) % 3) * PB;
-      const float* pp = ring_b + ((i - 2) % 3) * PB;
-      const int64_t ox = xs + i - 4;
-      for (int ty = threadIdx.y; ty < TY; ty += BY) {
-        const int gy = y0 + ty;
-        const int gz = z0 + threadIdx.x;
-        if (gy < a.ny && gz < a.nz) {
-          const float r =
-              apply_program(sp, pm, p0, pp, ty + 1, threadIdx.x + 1, FBZ);
-          out[(ox * a.ny + gy) * a.nz + gz] = from_f<T>(r);
-        }
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// Push tile t: its chunk of one send, then the arrival; the last arrival of
-// the send publishes the epoch into the receiver's flag word.
-template <class T, int H>
-__device__ void push_tile(const FusedArgs& a, int t) {
-  typedef typename Bits<T>::type B;
-  int s = 0;
-  while (s + 1 < a.nsends && a.sends[s + 1].tile0 <= t) ++s;
-  const FusedSend snd = a.sends[s];
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int ry = snd.y1 - snd.y0;
-  const int64_t n = (int64_t)H * ry * a.nz;
-  const int64_t plane = (int64_t)a.ny * a.nz;
-  const int64_t lo = (int64_t)(t - snd.tile0) * PUSH_CHUNK;
-  const int64_t hi = lo + PUSH_CHUNK < n ? lo + PUSH_CHUNK : n;
-  B* dst = static_cast<B*>(snd.dst);
-  const B* src = static_cast<const B*>(a.u[snd.shard]);
-  for (int64_t i = lo + tid; i < hi; i += NTHREADS) {
-    const int c = (int)(i % a.nz);
-    const int64_t r = i / a.nz;
-    const int yy = snd.y0 + (int)(r % ry);
-    const int q = (int)(r / ry);
-    const int64_t row = (int64_t)yy * a.nz + c;
-    dst[q * plane + row] = src[(snd.x0 + q) * plane + row];
-  }
-  // arrival: this block's stores are visible system-wide before it counts
-  __threadfence_system();
-  __syncthreads();
-  if (tid == 0) {
-    if (atomicAdd(snd.counter, 1u) == (unsigned int)snd.ntiles - 1u) {
-      atomicExch(snd.counter, 0u);  // the next launch starts at 0
-      __threadfence_system();
-      store_release_sys(snd.flag, a.epoch);
-    }
-  }
-  __syncthreads();
-}
-
-template <class T, int H>
-__global__ void __launch_bounds__(NTHREADS)
-    fused_kernel(FusedArgs a, unsigned int* err) {
-  constexpr int RING = H == 1 ? 3 * (TY + 2) * (TZ + 2)
-                              : 3 * (TY + 4) * (TZ + 4);
-  constexpr int RING_B = H == 1 ? 1 : 3 * (TY + 2) * (TZ + 2);
-  __shared__ float ring[RING];
-  __shared__ float ring_b[RING_B];
-  __shared__ Program sp;
-  copy_program(&sp, a.prog);
-  __syncthreads();
-  const int G = gridDim.x;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-
-  // 1. pushes
-  for (int t = blockIdx.x; t < a.push_tiles; t += G) push_tile<T, H>(a, t);
-
-  const int nyt = (a.ny + TY - 1) / TY;
-  const int nzt = (a.nz + TZ - 1) / TZ;
-  const int yz = nyt * nzt;
-
-  // 2. interior: output planes [H, nx-H), local data only
-  const int inner = a.nx - 2 * H;
-  const int nchunks = inner > 0 ? (inner + a.xchunk - 1) / a.xchunk : 0;
-  const int interior_tiles = a.nlocal * nchunks * yz;
-  for (int t = blockIdx.x; t < interior_tiles; t += G) {
-    const int li = t / (nchunks * yz);
-    const int rest = t - li * nchunks * yz;
-    const int ch = rest / yz;
-    const int tyz = rest - ch * yz;
-    const int y0 = (tyz / nzt) * TY;
-    const int z0 = (tyz % nzt) * TZ;
-    const int xs = H + ch * a.xchunk;
-    const int xe = min(a.nx - H, xs + a.xchunk);
-    const FusedShard sh = a.shards[li];
-    if constexpr (H == 1) {
-      march1<T>(a, sh, li, sp, ring, y0, z0, xs, xe);
-    } else {
-      march2<T>(a, sh, li, sp, ring, ring_b, y0, z0, xs, xe);
-    }
-  }
-
-  // 3. skin: output planes [0, H) and [nx-H, nx), after the waits
-  const int skin_tiles = a.nlocal * 2 * yz;
-  for (int t = blockIdx.x; t < skin_tiles; t += G) {
-    const int li = t / (2 * yz);
-    const int rest = t - li * 2 * yz;
-    const int side = rest / yz;
-    const int tyz = rest - side * yz;
-    const int y0 = (tyz / nzt) * TY;
-    const int z0 = (tyz % nzt) * TZ;
-    const FusedShard sh = a.shards[li];
-    if (tid == 0 && (side == 0 ? sh.wait_lo : sh.wait_hi)) {
-      const unsigned long long t0 = globaltimer_ns();
-      const unsigned int code = 1u + 2u * (unsigned int)sh.rank + side;
-      for (int p = 0; p < sh.nparts; ++p) {
-        spin_until(sh.flags + side * MAX_PARTS + p, a.epoch, t0,
-                   a.timeout_ns, code, err);
-      }
-      __threadfence();
-    }
-    __syncthreads();
-    const int xs = side == 0 ? 0 : a.nx - H;
-    if constexpr (H == 1) {
-      march1<T>(a, sh, li, sp, ring, y0, z0, xs, xs + 1);
-    } else {
-      march2<T>(a, sh, li, sp, ring, ring_b, y0, z0, xs, xs + 2);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The compile-time instances: fused_chain_kernel<T, H, S, M>, the sweep of
-// direct_kernel<T, H, S, M> (stencil_direct.cuh) over the shard's planes,
-// the landing buffers and bc.
 
 // The input planes of a skin tile's shard for H updates: its own
 // (0 <= gx < nx), the landed ghost planes -H..-1 and nx..nx+H-1 (the
@@ -500,7 +215,9 @@ struct ShardPlanes {
 // (they meet when the range is the whole face), laid end to end as the
 // host counts the send's tiles (ceil(H * (y1 - y0) * nz / PUSH_CHUNK));
 // each run's part of the chunk is copied as vectors where the source and
-// destination allow. Then the arrival, as in push_tile.
+// destination allow. Then the arrival: every block fences at system scope
+// and counts; the last one of the send resets the counter, fences again
+// and publishes the epoch into the receiver's flag word.
 template <class T, int H>
 __device__ void push_flat(const FusedArgs& a, int t) {
   typedef typename Bits<T>::type B;
@@ -537,7 +254,8 @@ __device__ void push_flat(const FusedArgs& a, int t) {
   }
 }
 
-// Launch bounds: three blocks an SM, so a thread may hold 85 registers.
+// Launch bounds of the compile-time instances: three blocks an SM, so a
+// thread may hold 85 registers.
 // One update: at four (64) the tile loops spill (chip probe: 3 blocks/SM, no
 // spills, ran faster than 4 or 5 with spills). Two updates, 7pt fp32 at
 // 1024^3 over (8,1,1) / (4,1,1) (chip_smoke.py fused_times on copies with
@@ -548,7 +266,8 @@ __device__ void push_flat(const FusedArgs& a, int t) {
 // call (8.66 / 7.68 against 7.79 / 7.44).
 constexpr int CHAIN_MIN_BLOCKS = 3;
 
-// A sweep's block state over the launch's geometry, its slots in `smem`.
+// A compile-time instance's sweep state over the launch's geometry, its
+// slots in `smem`.
 template <class T, int H, int S, class M, class Src>
 __device__ __forceinline__ void init_sweep(Direct<T, H, S, M, Src>& st,
                                            unsigned char* smem,
@@ -563,29 +282,41 @@ __device__ __forceinline__ void init_sweep(Direct<T, H, S, M, Src>& st,
   st.bc = M::template read<T>(a.bc);
 }
 
-template <class T, int H, int S, class M>
-__global__ void __launch_bounds__(SNT, CHAIN_MIN_BLOCKS)
-    fused_chain_kernel(FusedArgs a, Weights w, unsigned int* err) {
-  static_assert(centre_x_only<S>(),
-                "chain reads x-1/x+1 planes off the cell: generic instance");
+// The generic sweep's state over the launch's geometry.
+template <class T, int H, class M, class Src>
+__device__ __forceinline__ void init_sweep(GenericSweep<T, H, M, Src>& st,
+                                           unsigned char* smem,
+                                           const FusedArgs& a) {
+  st.place(smem);
+  st.ny = a.ny;
+  st.nz = a.nz;
+  st.periodic = a.periodic;
+  st.bc = M::template read<T>(a.bc);
+}
+
+// The tiles of a launch after its pushes, swept with arguments w by the
+// sweep state In (over the field's planes) or Skin (the shard's):
+//   2. interior: output planes [H, nx-H). Their input planes are the
+//      shard's own, so the field's plane source serves (no wrap, nothing
+//      landed: the sweep of the direct kernels);
+//   3. skin: output planes [0, H) and [nx-H, nx) over the shard's planes,
+//      after the waits on the flags of the side.
+// A block runs many tiles: each starts after a barrier (the previous
+// tile has read its slots), and a skin tile's waits end before its first
+// landed plane is loaded.
+template <class T, int H, class In, class Skin, class W>
+__device__ __forceinline__ void sweep_tiles(const FusedArgs& a,
+                                            unsigned char* smem, const W& w,
+                                            unsigned int* err) {
   using G = Geom<H>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int NB = gridDim.x;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-
-  // 1. pushes
-  for (int t = blockIdx.x; t < a.push_tiles; t += NB) push_flat<T, H>(a, t);
-
   const int64_t plane = (int64_t)a.ny * a.nz;
   const int nzt = (a.nz + G::TZ - 1) / G::TZ;
   const int yz = ((a.ny + G::TY - 1) / G::TY) * nzt;
-
-  // 2. interior: output planes [H, nx-H). Their input planes are the
-  // shard's own, so the field's plane source serves (no wrap, nothing
-  // landed: the sweep state of direct_kernel).
   {
-    Direct<T, H, S, M, FieldPlanes<T>> st;
-    init_sweep(st, smem_raw, a);
+    In st;
+    init_sweep(st, smem, a);
     const int inner = a.nx - 2 * H;
     const int nchunks = inner > 0 ? (inner + a.xchunk - 1) / a.xchunk : 0;
     const int interior_tiles = a.nlocal * nchunks * yz;
@@ -603,10 +334,8 @@ __global__ void __launch_bounds__(SNT, CHAIN_MIN_BLOCKS)
       st.run(min(a.nx - H, st.xs0 + a.xchunk), w);
     }
   }
-
-  // 3. skin: output planes [0, H) and [nx-H, nx), after the waits
-  Direct<T, H, S, M, ShardPlanes<T, H>> st;
-  init_sweep(st, smem_raw, a);
+  Skin st;
+  init_sweep(st, smem, a);
   const int skin_tiles = a.nlocal * 2 * yz;
   for (int t = blockIdx.x; t < skin_tiles; t += NB) {
     const int li = t / (2 * yz);
@@ -637,6 +366,43 @@ __global__ void __launch_bounds__(SNT, CHAIN_MIN_BLOCKS)
   }
 }
 
+template <class T, int H, int S, class M>
+__global__ void __launch_bounds__(SNT, CHAIN_MIN_BLOCKS)
+    fused_chain_kernel(FusedArgs a, Weights w, unsigned int* err) {
+  static_assert(centre_x_only<S>(),
+                "chain reads x-1/x+1 planes off the cell: generic instance");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // 1. pushes
+  for (int t = blockIdx.x; t < a.push_tiles; t += gridDim.x) {
+    push_flat<T, H>(a, t);
+  }
+  sweep_tiles<T, H, Direct<T, H, S, M, FieldPlanes<T>>,
+              Direct<T, H, S, M, ShardPlanes<T, H>>>(a, smem_raw, w, err);
+}
+
+// Launch bounds of the generic instance: three blocks an SM at both
+// depths (80 registers, no spills). At four (64 registers, the direct
+// generic instance's bound at H = 1) the one-update instance spilled 4
+// bytes (8 under Bf16Math) and ran 6.29 / 5.73 ms over (8,1,1) / (4,1,1)
+// against 5.83 / 5.45 at three; two at H = 2 (102-110 registers) ran 17.21
+// / 16.17 against 12.80 / 12.13 (scripts/torch_fused_probe.py --variants,
+// 1024^3 fp32 7pt, one call, "NVIDIA H100 80GB HBM3, 700.00 W").
+constexpr int GENERIC_MIN_BLOCKS = 3;
+
+// The generic instance: any emission program, folded at launch into
+// GenericArgs, by the generic sweep (stencil_direct.cuh).
+template <class T, int H, class M>
+__global__ void __launch_bounds__(SNT, GENERIC_MIN_BLOCKS)
+    fused_generic(FusedArgs a, GenericArgs g, unsigned int* err) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // 1. pushes
+  for (int t = blockIdx.x; t < a.push_tiles; t += gridDim.x) {
+    push_flat<T, H>(a, t);
+  }
+  sweep_tiles<T, H, GenericSweep<T, H, M, FieldPlanes<T>>,
+              GenericSweep<T, H, M, ShardPlanes<T, H>>>(a, smem_raw, g, err);
+}
+
 // Grid and launch of one instance: the cooperative grid is the resident
 // blocks (occupancy x SMs), or fewer when there are fewer tiles.
 int cooperative_grid(const void* fn, int threads, int smem, long long want,
@@ -659,6 +425,31 @@ int cooperative_grid(const void* fn, int threads, int smem, long long want,
   return 0;
 }
 
+// One cooperative launch of kernel fn (H updates, `bytes` of dynamic
+// shared memory) with kernel arguments `params`: a block a tile of its
+// largest list, at most the resident blocks.
+template <int H>
+int launch_cooperative(const void* fn, int bytes, const FusedArgs& a,
+                       void** params, cudaStream_t stream) {
+  using G = Geom<H>;
+  const long long yz = (long long)((a.ny + G::TY - 1) / G::TY) *
+                       ((a.nz + G::TZ - 1) / G::TZ);
+  const int inner = a.nx - 2 * H;
+  const int nchunks = inner > 0 ? (inner + a.xchunk - 1) / a.xchunk : 0;
+  long long want = a.push_tiles;
+  if ((long long)a.nlocal * nchunks * yz > want) {
+    want = (long long)a.nlocal * nchunks * yz;
+  }
+  if ((long long)a.nlocal * 2 * yz > want) want = (long long)a.nlocal * 2 * yz;
+  int grid = 0;
+  const int res = cooperative_grid(fn, SNT, bytes, want, &grid);
+  if (res != 0) return res;
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      fn, dim3(grid), dim3(SBZ, SBY), params, bytes, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The compile-time instance of H updates of chain S under policy M.
 template <class T, int H, int S, class M>
 struct Chain {
@@ -671,85 +462,50 @@ struct Chain {
     return set_smem_once(done, fused_chain_kernel<T, H, S, M>, bytes);
   }
   static int launch(const FusedArgs& a, cudaStream_t stream) {
-    cudaError_t err = prepare();
+    const cudaError_t err = prepare();
     if (err != cudaSuccess) return static_cast<int>(err);
-    using G = Geom<H>;
-    const long long yz = (long long)((a.ny + G::TY - 1) / G::TY) *
-                         ((a.nz + G::TZ - 1) / G::TZ);
-    const int inner = a.nx - 2 * H;
-    const int nchunks = inner > 0 ? (inner + a.xchunk - 1) / a.xchunk : 0;
-    long long want = a.push_tiles;
-    if ((long long)a.nlocal * nchunks * yz > want) {
-      want = (long long)a.nlocal * nchunks * yz;
-    }
-    if ((long long)a.nlocal * 2 * yz > want) want = (long long)a.nlocal * 2 * yz;
-    int grid = 0;
-    const int res = cooperative_grid(fn(), SNT, bytes, want, &grid);
-    if (res != 0) return res;
     FusedArgs args = a;
     Weights w;
     for (int i = 0; i < MAX_TERMS; ++i) w.w[i] = i < a.prog.n ? a.prog.t[i].w : 0.f;
     unsigned int* e = g_err_dev;
     void* params[] = {&args, &w, &e};
-    err = cudaLaunchCooperativeKernel(fn(), dim3(grid), dim3(SBZ, SBY), params,
-                                      bytes, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(cudaGetLastError());
+    return launch_cooperative<H>(fn(), bytes, a, params, stream);
   }
 };
 
-// The interpreted kernel of H updates (the generic instance at H = 1).
-template <class T, int H>
-int launch_interpreted(const FusedArgs& a, cudaStream_t stream) {
-  const int nyt = (a.ny + TY - 1) / TY;
-  const int nzt = (a.nz + TZ - 1) / TZ;
-  const int inner = a.nx - 2 * H;
-  const int nchunks = inner > 0 ? (inner + a.xchunk - 1) / a.xchunk : 0;
-  long long want = a.push_tiles;
-  const long long interior = (long long)a.nlocal * nchunks * nyt * nzt;
-  const long long skin = (long long)a.nlocal * 2 * nyt * nzt;
-  if (interior > want) want = interior;
-  if (skin > want) want = skin;
-  int grid = 0;
-  const int res = cooperative_grid(
-      reinterpret_cast<const void*>(fused_kernel<T, H>), NTHREADS, 0, want,
-      &grid);
-  if (res != 0) return res;
-  FusedArgs args = a;
-  unsigned int* e = g_err_dev;
-  void* params[] = {&args, &e};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(fused_kernel<T, H>), dim3(grid),
-      dim3(BZ, BY), params, 0, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The interpreted kernel as an instance.
-template <class T, int H>
-struct Interpreted {
-  static constexpr int bytes = 0;
+// The generic instance of H updates under policy M.
+template <class T, int H, class M>
+struct Generic {
+  static constexpr int bytes = generic_smem<T, H>();
   static const void* fn() {
-    return reinterpret_cast<const void*>(fused_kernel<T, H>);
+    return reinterpret_cast<const void*>(fused_generic<T, H, M>);
   }
-  static cudaError_t prepare() { return cudaSuccess; }
+  static cudaError_t prepare() {
+    static std::atomic<unsigned long long> done{0};
+    return set_smem_once(done, fused_generic<T, H, M>, bytes);
+  }
   static int launch(const FusedArgs& a, cudaStream_t stream) {
-    return launch_interpreted<T, H>(a, stream);
+    const cudaError_t err = prepare();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    FusedArgs args = a;
+    GenericArgs g = fold(a.prog, Geom<H>::FW);
+    unsigned int* e = g_err_dev;
+    void* params[] = {&args, &g, &e};
+    return launch_cooperative<H>(fn(), bytes, a, params, stream);
   }
 };
 
-// f.template run<Instance, threads>() for instance (halo, spec, dtype,
-// compute): spec 0 the interpreted kernel (both compute dtypes:
-// Program::bf16), 1 / 2 the compile-time 7pt / 27pt chain.
+// f.template run<Instance>() for instance (halo, spec, dtype, compute):
+// spec 0 the generic instance, 1 / 2 the compile-time 7pt / 27pt chain.
 template <class T, int H, class M, class F>
 int by_spec(int spec, const F& f) {
   switch (spec) {
     case SPEC_7PT:
-      return f.template run<Chain<T, H, SPEC_7PT, M>>(SNT);
+      return f.template run<Chain<T, H, SPEC_7PT, M>>();
     case SPEC_27PT:
-      return f.template run<Chain<T, H, SPEC_27PT, M>>(SNT);
+      return f.template run<Chain<T, H, SPEC_27PT, M>>();
     default:
-      return f.template run<Interpreted<T, H>>(NTHREADS);
+      return f.template run<Generic<T, H, M>>();
   }
 }
 
@@ -775,11 +531,11 @@ int with_instance(int halo, int spec, int dtype, int compute, const F& f) {
 struct BlocksPerSm {
   int bad = -1;
   template <class I>
-  int run(int threads) const {
+  int run() const {
     if (I::prepare() != cudaSuccess) return -1;
     int n = 0;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-               &n, I::fn(), threads, I::bytes) == cudaSuccess
+               &n, I::fn(), SNT, I::bytes) == cudaSuccess
                ? n
                : -1;
   }
@@ -787,7 +543,7 @@ struct BlocksPerSm {
 struct Registers {
   int bad = -1;
   template <class I>
-  int run(int) const {
+  int run() const {
     cudaFuncAttributes attr;
     return cudaFuncGetAttributes(&attr, I::fn()) == cudaSuccess
                ? attr.numRegs
@@ -797,14 +553,14 @@ struct Registers {
 struct SmemBytes {
   int bad = -1;
   template <class I>
-  int run(int) const { return I::bytes; }
+  int run() const { return I::bytes; }
 };
 struct Launch {
   int bad = 1000;
   const FusedArgs* a;
   cudaStream_t stream;
   template <class I>
-  int run(int) const { return I::launch(*a, stream); }
+  int run() const { return I::launch(*a, stream); }
 };
 
 }  // namespace
@@ -820,8 +576,9 @@ unsigned int heat3d_fused_error() { return read_error_word(); }
 // Resident blocks per SM of instance (halo, spec, dtype, compute) (the
 // cooperative grid is this times the SM count), registers a thread and
 // dynamic shared memory of one block; -1 on an error or for no such
-// instance. spec: 0 the interpreted kernel, 1 / 2 the compile-time 7pt /
-// 27pt chain.
+// instance. spec: 0 the generic instance, 1 / 2 the compile-time 7pt /
+// 27pt chain; compute: 0 F32Math, 1 Bf16Math (each instance has one of
+// each policy).
 int heat3d_fused_blocks_per_sm(int halo, int spec, int dtype, int compute) {
   return with_instance(halo, spec, dtype, compute, BlocksPerSm{});
 }
@@ -833,25 +590,24 @@ int heat3d_fused_smem_bytes(int halo, int spec, int dtype, int compute) {
 }
 
 // Constants the wrapper lays its tables out by, and the (y, z) tile of an
-// instance (spec 0: the interpreted kernel's; else the chain's of `halo`
-// updates).
+// instance of `halo` updates (Geom<halo>'s, every spec).
 int heat3d_fused_max_local() { return MAX_LOCAL; }
 int heat3d_fused_max_parts() { return MAX_PARTS; }
 int heat3d_fused_push_chunk() { return PUSH_CHUNK; }
-int heat3d_fused_tile_y(int halo, int spec) {
-  return spec == SPEC_GENERIC ? TY : halo == 1 ? Geom<1>::TY : Geom<2>::TY;
+int heat3d_fused_tile_y(int halo, int) {
+  return halo == 1 ? Geom<1>::TY : Geom<2>::TY;
 }
-int heat3d_fused_tile_z(int halo, int spec) {
-  return spec == SPEC_GENERIC ? TZ : halo == 1 ? Geom<1>::TZ : Geom<2>::TZ;
+int heat3d_fused_tile_z(int halo, int) {
+  return halo == 1 ? Geom<1>::TZ : Geom<2>::TZ;
 }
 int heat3d_fused_args_bytes() { return (int)sizeof(FusedArgs); }
 int heat3d_fused_shard_bytes() { return (int)sizeof(FusedShard); }
 int heat3d_fused_send_bytes() { return (int)sizeof(FusedSend); }
 
 // halo: 1 or 2 updates; spec as above (a chain's program must be that
-// chain: prog's (src, row, dk)); dtype: 0 float, 1 bf16 storage; compute:
-// 0 float, 1 bf16 (the program's weights already in that dtype; prog.bf16
-// is set from it). Returns a cudaError_t (0 on success); 1000 for bad
+// chain: prog's (src, row, dk); the generic instance's, terms it can
+// fold); dtype: 0 float, 1 bf16 storage; compute: 0 float, 1 bf16 (the
+// program's weights already in that dtype). Returns a cudaError_t (0 on success); 1000 for bad
 // arguments, 1002 when the device cannot launch cooperatively, 1003 when
 // no block fits an SM.
 int heat3d_fused_launch(int halo, int spec, int dtype, int compute,
@@ -863,13 +619,12 @@ int heat3d_fused_launch(int halo, int spec, int dtype, int compute,
       a->xchunk < 1 || a->nsends < 0 || a->push_tiles < 0 ||
       a->shards == nullptr || a->prog.n < 1 || a->prog.n > MAX_TERMS ||
       (spec == SPEC_7PT && !matches<SPEC_7PT>(a->prog)) ||
-      (spec == SPEC_27PT && !matches<SPEC_27PT>(a->prog))) {
+      (spec == SPEC_27PT && !matches<SPEC_27PT>(a->prog)) ||
+      (spec == SPEC_GENERIC && !foldable(a->prog))) {
     return 1000;
   }
-  FusedArgs args = *a;
-  args.prog.bf16 = compute == 1;
   Launch f;
-  f.a = &args;
+  f.a = a;
   f.stream = static_cast<cudaStream_t>(stream);
   return with_instance(halo, spec, dtype, compute, f);
 }

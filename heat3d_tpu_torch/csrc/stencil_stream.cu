@@ -844,12 +844,11 @@ int heat3d_stream_registers(int k, int spec, int dtype, int compute) {
 // k: 1 (one update) or 2..4 (fused updates); spec: 0 generic (any
 // program of 1 to 27 terms), 1 the 7pt chain, 2 the 27pt chain (prog's
 // (src, row, dk) must be that chain's); dtype: 0 float, 1 bf16 storage;
-// compute: 0 float, 1 bf16 (prog's weights already in that dtype;
-// prog->bf16 is not read). up is the (nx+2k, ny+2k, nz+2k) padded field,
-// out the (nx, ny, nz) interior; periodic, bc and the domain-face mask
-// edges (bit 0 x_lo .. bit 5 z_hi; 63 for a whole-domain block) are read
-// for k >= 2 only. Returns a cudaError_t (0 on success); 1000 for bad
-// arguments.
+// compute: 0 float, 1 bf16 (prog's weights already in that dtype). up is
+// the (nx+2k, ny+2k, nz+2k) padded field, out the (nx, ny, nz) interior;
+// periodic, bc and the domain-face mask edges (bit 0 x_lo .. bit 5 z_hi;
+// 63 for a whole-domain block) are read for k >= 2 only. Returns a
+// cudaError_t (0 on success); 1000 for bad arguments.
 int heat3d_stream_launch(int k, int spec, int dtype, int compute,
                          const void* up, void* out, int nx, int ny, int nz,
                          int xchunk, int periodic, float bc, int edges,

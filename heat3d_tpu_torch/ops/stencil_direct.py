@@ -93,8 +93,7 @@ class _Term(ctypes.Structure):
 
 
 class _Program(ctypes.Structure):
-    # bf16: set by the library from the launch's compute code
-    _fields_ = [("n", ctypes.c_int), ("bf16", ctypes.c_int), ("t", _Term * 27)]
+    _fields_ = [("n", ctypes.c_int), ("t", _Term * 27)]
 
 
 def compute_code(compute_dtype: torch.dtype) -> int:

@@ -31,12 +31,13 @@ limit, and the port's gates accept every shape the rules above allow.
 
 Each kernel (one update or two) has an instance with the chain fixed at
 compile time for each entry of the stream kernels' table
-(``stencil_stream.CHAINS``: ``fused_chain_kernel<T, H, S>``, the direct
+(``stencil_stream.CHAINS``: ``fused_chain_kernel<T, H, S, M>``, the direct
 kernel's sweep over the shard's planes and the landing buffers) and a
-generic instance that interprets any other program (``fused_kernel<T, H>``,
-the first design); ``stencil_stream.stream_instance`` picks one, as for
-the direct and stream kernels, and :func:`launch_instance` forces one for
-a measurement. A launch error raises: no launch falls back to another
+generic instance for any other program (``fused_generic<T, H, M>``, the
+direct kernels' generic sweep over the same planes, the program folded at
+launch); ``stencil_stream.stream_instance`` picks one, as for the direct
+and stream kernels, and :func:`launch_instance` forces one for a
+measurement. A launch error raises: no launch falls back to another
 instance.
 
 The landing buffers, flag words, arrival counters, device tables and epoch
@@ -58,9 +59,9 @@ ghosts through the same wire and words (:func:`ring_ghosts`).
 
 Each instance runs in either compute dtype (``compute_dtype``: float32,
 or bf16 with each field read and each multiply and add rounded to bf16),
-as ``stencil_direct``'s: the compile-time instances have one of their own
-(``fused_chain_kernel<T, H, S, Bf16Math>``), the generic one takes a flag
-of its program.
+as ``stencil_direct``'s: every instance has one of its own
+(``fused_chain_kernel<T, H, S, Bf16Math>``, ``fused_generic<T, H,
+Bf16Math>``).
 
 ``<wrapper>.launches`` counts launches (one per device and call),
 ``<wrapper>.cells`` their output cells, ``<wrapper>.generic_launches``
@@ -96,13 +97,8 @@ from heat3d_tpu_torch.ops.stencil_stream import GENERIC, stream_instance
 _LIB = "stencil_fused"
 # a wait that has not seen its neighbours' pushes after this long traps
 TIMEOUT_NS = 2_000_000_000
-# the generic instance: interior tiles a launch aims for (x is cut into
-# chunks below that)
-_TARGET_TILES = 4096
-_MIN_XCHUNK = 16
-# the compile-time instances: waves of resident blocks the interior tiles
-# aim for, by halo, with chunks no shorter than _MIN_CHAIN_XCHUNK planes
-# (``wave_xchunk``)
+# waves of resident blocks the interior tiles aim for, by halo, with chunks
+# no shorter than _MIN_CHAIN_XCHUNK planes (``wave_xchunk``)
 _WAVES = {1: 48, 2: 24}
 _MIN_CHAIN_XCHUNK = 16
 _ERRORS = {1000: "bad arguments", 1002: "no cooperative launch on this device",
@@ -205,7 +201,7 @@ def instance_resources(halo: int, instance: int, dtype: torch.dtype,
     count), registers a thread and dynamic shared memory (bytes) of one
     instance of the fused kernel of ``halo`` updates (storage ``dtype``,
     ``compute_dtype``) on the current CUDA device: ``instance`` 0 the
-    interpreted kernel, else a compile-time chain. CUDA hosts only."""
+    generic instance, else a compile-time chain. CUDA hosts only."""
     lib = _lib()
     code = (_DTYPE_CODES[dtype], compute_code(compute_dtype))
     return {"blocks_per_sm": lib.heat3d_fused_blocks_per_sm(halo, instance, *code),
@@ -585,16 +581,7 @@ def _check(us, outs, mesh, state: FusedState):
                                      "reads neighbours, so it cannot update in place")
 
 
-def _xchunk(inner: int, tiles_yz: int) -> int:
-    """Interior x-chunk length of the interpreted kernels: enough interior
-    tiles to fill the card."""
-    if inner < 1:
-        return 1
-    chunks = max(1, min(-(-_TARGET_TILES // max(1, tiles_yz)), -(-inner // _MIN_XCHUNK)))
-    return -(-inner // chunks)
-
-
-# interior x-chunk length of a compile-time instance over ``inner`` planes
+# interior x-chunk length of an instance over ``inner`` planes
 # and ``tiles_yz`` (y, z) tiles over all shards of the launch: the direct
 # kernels' rule at the fused kernels' floor and their waves (``waves=``,
 # ``_WAVES`` of the halo; the grid's blocks take the tiles in a fixed
@@ -606,14 +593,11 @@ wave_xchunk = functools.partial(_direct_wave_xchunk, min_chunk=_MIN_CHAIN_XCHUNK
 def _launch_xchunk(halo: int, instance: int, local_shape, nlocal: int, device: int,
                    dtype: torch.dtype, compute_dtype: torch.dtype = torch.float32) -> int:
     """The interior x-chunk of a launch: :func:`wave_xchunk` from the
-    compile-time instance's resident blocks on ``device``; the interpreted
-    kernels keep the first design's rule (``_xchunk``)."""
+    instance's resident blocks on ``device``."""
     lib = _lib()
     nx, ny, nz = local_shape
     tiles_yz = nlocal * -(-ny // lib.heat3d_fused_tile_y(halo, instance)) * \
         -(-nz // lib.heat3d_fused_tile_z(halo, instance))
-    if instance == GENERIC:
-        return _xchunk(nx - 2 * halo, tiles_yz)
     with torch.cuda.device(device):
         per_sm = lib.heat3d_fused_blocks_per_sm(halo, instance, _DTYPE_CODES[dtype],
                                                 compute_code(compute_dtype))

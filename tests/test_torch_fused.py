@@ -10,9 +10,12 @@ CPU mesh) and writes every case into one ``.npz``:
   of 4 devices at 16^3 (as tests/multidevice_checks.py runs them):
   ``apply_step_fused_dma`` with ``return_ghosts`` and
   ``apply_superstep_fused_dma`` for 7pt/27pt x Dirichlet 1.5/periodic x
-  float32/bf16 storage, ``apply_step_fused_rdma`` /
-  ``apply_superstep_fused_rdma`` with monolithic and partitioned plans
-  (floor 0, so the sub-blocks are real). The port's plain versions
+  float32/bf16 storage and for two programs of no ``CHAINS`` entry (the
+  fused generic instance's: advection-diffusion vx=2 and an asymmetric
+  27pt set, ``torch_port_checks.GENERIC_KINDS``) x Dirichlet 1.5/periodic
+  in float32, ``apply_step_fused_rdma`` / ``apply_superstep_fused_rdma``
+  with monolithic and partitioned plans (floor 0, so the sub-blocks are
+  real), advection partitioned too. The port's plain versions
   (``reference_fused_step`` / ``_superstep``) are held to them within
   ``torch_port_checks.assert_close_per_update``; the landed ghost planes,
   bc substituted at the Dirichlet x domain faces, byte for byte;
@@ -52,17 +55,21 @@ from heat3d_tpu_torch.ops import stencil_fused_rdma as fr
 from heat3d_tpu_torch.parallel import plan as port_plan
 from heat3d_tpu_torch.parallel import step, topology
 from heat3d_tpu_torch.parallel.plan import ExchangePlan, FacesPlan
-from torch_port_checks import assert_close_per_update
+from torch_port_checks import assert_close_per_update, generic_chain
 
 GRID = (16, 16, 16)
 RING = (4, 1, 1)
 STORAGE = ("float32", "bfloat16")
+# programs of no CHAINS entry: the fused generic instance's
+GENERIC = ("advection", "asym-27pt")
 # (stencil, periodic, bc value, storage) of the kernel cases of rows 9-10
 KCASES = [(k, p, 0.0 if p else 1.5, s) for k in ("7pt", "27pt") for p in (False, True)
-          for s in STORAGE]
+          for s in STORAGE] + [(k, p, 0.0 if p else 1.5, "float32") for k in GENERIC
+                               for p in (False, True)]
 # (row kernel, plan mode, stencil, periodic, storage) of rows 11-12
 RCASES = [(tb, mode, k, p, s) for tb in (1, 2) for mode, k, p, s in (
-    ("partitioned", "27pt", False, "float32"), ("monolithic", "7pt", True, "bfloat16"))]
+    ("partitioned", "27pt", False, "float32"), ("monolithic", "7pt", True, "bfloat16"),
+    ("partitioned", "advection", False, "float32"))]
 # the JAX solver's cases: mesh, knobs, env, steps
 SOLVES = {
     "dma_overlap1": dict(mesh=RING, kw=dict(overlap=True, halo="dma"), steps=5,
@@ -102,8 +109,12 @@ def _base(shape=GRID, seed=7):
 
 
 def _taps(m, kind):
+    """The taps of stencil ``kind`` on the grid, or of a generic program
+    (``GENERIC``: the JAX package's taps, which both sides take)."""
     from heat3d_tpu_torch.core.stencils import STENCILS, stencil_taps
 
+    if kind in GENERIC:
+        return generic_chain(kind, GRID)[1]
     g = m.GridConfig(shape=GRID)
     return stencil_taps(STENCILS[kind], g.alpha, g.effective_dt(), g.spacing)
 
@@ -249,6 +260,8 @@ def test_fused_dma_plain_versions_equal_pallas_kernels(jax_ref, kind, periodic, 
     mesh, us = _ring_shards(storage)
     taps = _taps(config, kind)
     key = _kkey(kind, periodic, storage)
+    # a program of no CHAINS entry takes the generic instance on the card
+    assert (fd.fused_instance(1, taps) == fd.fused_instance(2, taps) == 0) == (kind in GENERIC)
     outs, ghosts = fd.apply_step_fused_dma(us, taps, mesh, None, periodic, bcv,
                                            return_ghosts=True)
     assert_close_per_update(_stack(outs), jax_ref["k9_" + key], storage, 1, err_msg=key)
@@ -663,14 +676,15 @@ def test_fused_build_takes_the_chain_table(monkeypatch):
     assert _build._target("stencil_fused") == before
 
 
-# the (y, z) output tile of the compile-time instances by halo: Geom<H> of
+# the (y, z) output tile of every instance by halo: Geom<H> of
 # csrc/stencil_chain.cuh (a 40 x 64 or 32 x 64 frame less 2H a side)
 _CHAIN_TILE = {1: (38, 62), 2: (28, 60)}
 
 
 def _kernel_tiles(local_shape, nlocal: int, xchunk: int, halo: int = 1):
     """The tiles of the kernels of ``halo`` updates as
-    ``fused_chain_kernel<T, H, S>`` (and ``fused_kernel<T, H>``) walk them:
+    ``fused_chain_kernel<T, H, S, M>`` and ``fused_generic<T, H, M>`` walk
+    them (``sweep_tiles``):
     ``interior``, (local shard, first output plane, end plane) per x-chunk
     of the planes [H, nx - H), and ``skin``, the planes [0, H) and
     [nx - H, nx) per shard; each also covers every (y, z) tile of its
@@ -697,7 +711,7 @@ _TILE_LOCALS = {1: [(2, 40, 70), (3, 9, 66), (16, 20, 70), (128, 1024, 1024),
 @pytest.mark.parametrize("nlocal,resident", [(1, 1), (4, 528), (8, 528), (2, 660)])
 def test_fused_tiles_cover_each_plane_once(halo, local, nlocal, resident):
     """The tiles of the kernel of ``halo`` updates at the x-chunk the host
-    computes for a compile-time instance: every output plane of every shard
+    computes for an instance: every output plane of every shard
     is in exactly one tile; an interior tile's input planes [x0 - H,
     x1 + H) lie inside the shard (no x ghost, so it never waits), a skin
     tile's include an x ghost plane."""

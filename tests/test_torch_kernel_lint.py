@@ -277,8 +277,9 @@ _PTXAS = {
                                                      "spill_loads": 8},
     },
     "stencil_fused": {
-        "_ZN49_GLOBAL__N__6c7342df_16_stencil_fused_cu_3e2fcd3f12fused_kernelIfLi2EEEv9"
-        "FusedArgsPj": {"registers": 64, "spill_stores": 0, "spill_loads": 0},
+        "_ZN49_GLOBAL__N__6c7342df_16_stencil_fused_cu_3e2fcd3f13fused_genericIfLi2ENS_"
+        "8Bf16MathEEEv9FusedArgs11GenericArgsPj": {"registers": 64, "spill_stores": 0,
+                                                  "spill_loads": 0},
     },
 }
 
@@ -300,6 +301,7 @@ def test_resources_reads_spills_of_every_instance(monkeypatch):
     assert resources._spills("stream", 3, 0, "float32", True) is None
     assert resources._spills("stream", 2, 0, "float32", False) is None
     assert resources._spills("fused", 2, 0, "float32", True)["registers"] == 64
+    assert resources._spills("fused", 2, 0, "float32", False) is None
 
 
 def test_float_zeros_from_makes_only_float_buffers():

@@ -684,6 +684,10 @@ def test_fused_compile_time_and_generic_instances_equal(cuda, halo, mesh_shape, 
     from heat3d_tpu_torch.ops import stencil_dma_fused as fd
     from heat3d_tpu_torch.parallel.plan import partition_bounds
 
+    # the generic instance keeps three fp32 blocks an SM in both policies
+    for cd in (torch.float32, torch.bfloat16):
+        r = fd.instance_resources(halo, ss.GENERIC, torch.float32, cd)
+        assert r["blocks_per_sm"] >= 3, (halo, cd, r)
     local = tuple(g // p for g, p in zip(shape, mesh_shape))
     mesh = _card_mesh(cuda, mesh_shape, local)
     u = torch.from_numpy(np.random.default_rng(14).standard_normal(shape).astype(np.float32))
@@ -707,6 +711,65 @@ def test_fused_compile_time_and_generic_instances_equal(cuda, halo, mesh_shape, 
                 assert took == (instance == 0)
                 for g, w in zip(got, want):
                     assert torch.equal(g, w), (kind, periodic, instance)
+
+
+# (mesh, global field, send ranges a face) of the fused generic cases: an
+# x-slab, (4,1,1) with three ranges, the 3D route's (2,2,2) (one update)
+# and a ragged, odd ny*nz (bf16 planes, the landed ones too, start on
+# either parity)
+_FUSED_GENERIC_MESHES = (((8, 1, 1), (64, 40, 70), 1), ((4, 1, 1), (16, 20, 70), 3),
+                         ((2, 2, 2), (12, 20, 70), 1), ((2, 1, 1), (8, 77, 125), 1))
+
+
+@pytest.mark.parametrize("program", ["advection", "zero-centre", "asym27", "random27"])
+def test_fused_generic_instance_equals_plain_version(cuda, program):
+    """The fused kernels' generic instance forced
+    (``fd.launch_instance(0, ...)``), as the wrappers pick it, on the
+    advection-diffusion vx=2, zero-centre 7pt, asymmetric 27pt and random
+    27-term programs: one and two updates (DMA and RDMA wrappers; one
+    update only on the 3D mesh) over ``_FUSED_GENERIC_MESHES``, fp32/bf16
+    storage x fp32/bf16 compute x Dirichlet 0.3/periodic, and over (8,1,1)
+    on the special-value field; bitwise, NaN in the same cells, every
+    launch counted on the generic instance."""
+    from heat3d_tpu_torch.ops import stencil_dma_fused as fd
+    from heat3d_tpu_torch.ops import stencil_fused_rdma as fr
+    from heat3d_tpu_torch.parallel.plan import partition_bounds
+
+    progs = _generic_programs()
+    asym = _taps("27pt")
+    asym[0, 0, 0] *= 1.5
+    asym[2, 1, 0] *= 0.7
+    progs["asym27"] = asym
+    taps = progs[program]
+    assert fd.fused_instance(1, taps) == fd.fused_instance(2, taps) == ss.GENERIC
+    computes = (torch.float32, torch.bfloat16)
+    fields = [(m, parts, np.random.default_rng(24).standard_normal(shape).astype(np.float32),
+               dtype) for m, shape, parts in _FUSED_GENERIC_MESHES for dtype in computes]
+    fields.append(((8, 1, 1), 1, _special_field((64, 40, 70), 15), torch.float32))
+    for mesh_shape, parts, base, dtype in fields:
+        local = tuple(g // p for g, p in zip(base.shape, mesh_shape))
+        mesh = _card_mesh(cuda, mesh_shape, local)
+        us = _split(torch.from_numpy(base).to(cuda).to(dtype), mesh)
+        slab = mesh_shape[1] == mesh_shape[2] == 1
+        for halo, cd, (periodic, bcv) in itertools.product(
+                (1, 2) if slab else (1,), computes, ((False, 0.3), (True, 0.0))):
+            want = (fd.reference_fused_step if halo == 1 else fd.reference_fused_superstep)(
+                us, taps, mesh, periodic, bcv, compute_dtype=cd)
+            bounds = partition_bounds(local[1], parts) if parts > 1 else None
+            for wrapper in (fd.KERNELS[halo - 1], fr.KERNELS[halo - 1])[:1 + slab]:
+                state = fd.FusedState(mesh, halo, dtype, periodic, bounds)
+                before = wrapper.generic_launches
+                forced = fd.launch_instance(ss.GENERIC, us, taps, mesh, state, periodic, bcv,
+                                            wrapper=wrapper, compute_dtype=cd)
+                forced = [g.clone() for g in forced]
+                picked = wrapper(us, taps, mesh, state, periodic, bcv, compute_dtype=cd)
+                torch.cuda.synchronize()
+                fd.raise_if_timed_out()
+                what = (program, mesh_shape, dtype, cd, halo, periodic, bounds)
+                for f, g, w in zip(forced, picked, want):
+                    assert _same(f, w), what
+                    assert _same(g, w), what + ("as the wrapper picks it",)
+                assert wrapper.generic_launches == before + 2, what
 
 
 @pytest.mark.parametrize("halo", [1, 2])
@@ -749,12 +812,26 @@ def test_fused_launches_in_a_row_see_fresh_landed_planes(cuda, halo):
 
 
 def test_fused_launch_checks(cuda):
+    """Every fused instance fits an SM, the generic one three fp32 blocks in
+    both policies; a compile-time instance given another chain refuses the
+    launch and the wrapper raises (no fallback to another instance); the
+    wrappers check their arguments."""
     from heat3d_tpu_torch.ops import stencil_dma_fused as fd
 
+    for halo in (1, 2):
+        for code in (ss.GENERIC, *ss.CHAINS):
+            for dtype, cd in itertools.product((torch.float32, torch.bfloat16), repeat=2):
+                r = fd.instance_resources(halo, code, dtype, cd)
+                want = 3 if code == ss.GENERIC and dtype == torch.float32 else 1
+                assert r["blocks_per_sm"] >= want, (halo, code, dtype, cd, r)
     mesh = _card_mesh(cuda, (2, 1, 1), (4, 8, 8))
     state = fd.FusedState(mesh, 1, torch.float32, False)
     us = [torch.rand((4, 8, 8), device=cuda) for _ in range(2)]
     taps = _taps("7pt")
+    fd.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="bad arguments"):
+        fd.launch_instance(2, us, taps, mesh, state)
+    assert fd.launch_counts()["apply_step_fused_dma"] == 0
     with pytest.raises(ValueError, match="overlaps"):
         fd.apply_step_fused_dma(us, taps, mesh, state, outs=[us[1], torch.empty_like(us[0])])
     with pytest.raises(ValueError, match="want"):
