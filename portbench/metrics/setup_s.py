@@ -1,0 +1,1 @@
+from portbench.readers import setup_s as read  # noqa: F401
